@@ -1,0 +1,74 @@
+"""Model configuration dataclasses (the port's own copy of the JAX package's
+``configs/base.py``: ``BlockDesc`` and ``ModelConfig``)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockDesc:
+    """One block inside the repeating layer group.
+
+    kind: "attn" | "hymba" | "mamba" | "mlstm" | "slstm" | "xattn"
+    window: sliding-attention window; 0 = full.  May be overridden
+      per-repeat via ``window_per_repeat``.
+    moe: this block's FFN is the MoE (vs dense SwiGLU).  d_ff == 0 => no FFN.
+    """
+
+    kind: str = "attn"
+    window: int = 0
+    window_per_repeat: Optional[tuple] = None
+    moe: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 => d_model // n_heads
+    group: tuple = (BlockDesc(),)
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    pos_embed: str = "rope"  # rope | sinusoidal | none
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 1
+    n_vision_tokens: int = 0
+    d_vision: int = 0
+    embed_inputs: bool = True
+    ffn_kind: str = "swiglu"  # swiglu | gelu
+    embed_scale: float = 1.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    scan_layers: bool = True
+    remat: bool = True
+
+    def __post_init__(self):
+        gsize = len(self.group)
+        if self.n_layers % gsize:
+            raise ValueError(f"{self.name}: n_layers {self.n_layers} is not a "
+                             f"multiple of the group size {gsize}")
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def n_repeats(self) -> int:
+        return self.n_layers // len(self.group)

@@ -1,0 +1,377 @@
+"""Autospeculative Decoding — paper Algorithm 1, for a batch of chains.
+
+Each round of every chain makes
+
+  1. one model call at the chain's position a (the *proposal* call),
+  2. a theta-step elementwise rollout of proposal means and samples with the
+     pre-drawn noises xi (no model calls),
+  3. ONE batched model call over all theta proposal points of all chains
+     (the parallel verification call),
+  4. the verifier (Alg 2 / GRS Alg 3), a windowed commit of the accepted
+     prefix and the reflected first rejection, and the advance a <- j+1.
+
+The (u_i, xi_i) streams are drawn once per chain (``u_buf``, ``xi_buf``,
+indexed by absolute step) and reused across rounds, the filtration the
+exactness proof relies on.  Only this buffer noise mode is ported.
+
+The JAX package writes one chain and ``vmap``s it; here every state tensor
+carries the batch of chains on its leading axis, and the ``while_loop`` is a
+Python loop that runs until every chain has a >= K.  A round leaves a
+finished chain's state, counters included, exactly as it was.
+
+``eager_head`` ("ASD+"): the verification call also evaluates the model at
+the last live proposal point; after a fully accepted round that evaluation
+is the next round's proposal call.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.controller import StaticTheta, ThetaController
+from repro_torch.core.grs import bcast_right
+from repro_torch.core.schedules import Schedule
+from repro_torch.core.verifier import leading_true_count
+from repro_torch.device import resolve_device
+from repro_torch.kernels.grs.ops import grs
+
+ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+_STATIC = StaticTheta()
+
+
+@dataclasses.dataclass
+class ASDResult:
+    sample: torch.Tensor  # (*batch, *event) final sample y_K
+    trajectory: torch.Tensor  # (*batch, K+1, *event), or the final window
+    rounds: torch.Tensor  # (*batch,) speculation rounds (paper's R)
+    head_calls: torch.Tensor  # (*batch,) proposal calls actually made
+    model_evals: torch.Tensor  # (*batch,) model evaluations (all slots)
+    accepts: torch.Tensor  # (*batch,) accepted speculations
+    proposals: torch.Tensor  # (*batch,) verified slots
+
+    def parallel_depth(self):
+        """Sequential model-call depth: rounds + proposal calls."""
+        return self.rounds + self.head_calls
+
+    def algorithmic_speedup(self, K: int):
+        return K / self.parallel_depth()
+
+    def accept_rate(self):
+        return self.accepts / torch.clamp(self.proposals, min=1)
+
+
+@dataclasses.dataclass
+class ASDChainState:
+    """Resumable state of a batch of B chains (leading axis B everywhere).
+
+    ``y`` is the committed chain: the padded (B, K+theta+1, *event)
+    trajectory when keep_trajectory, else the live (B, theta+1, *event)
+    window whose slot 0 is position ``a``.
+    """
+
+    y: torch.Tensor
+    a: torch.Tensor  # (B,) int64 current position
+    v_cache: torch.Tensor  # (B, *event) cached g(t_a, y_a) for eager_head
+    v_valid: torch.Tensor  # (B,) bool
+    rounds: torch.Tensor  # (B,) int64 counters ...
+    head_calls: torch.Tensor
+    model_evals: torch.Tensor
+    accepts: torch.Tensor
+    proposals: torch.Tensor
+    theta_live: torch.Tensor  # (B,) current speculation window (<= theta_max)
+    ctrl: torch.Tensor  # (B, n) controller state
+    u_buf: torch.Tensor  # (B, K+theta+1)
+    xi_buf: torch.Tensor  # (B, K+theta+1, *event)
+
+
+# the fields a round may change (the noise buffers never change)
+_ROUND_FIELDS = ("y", "a", "v_cache", "v_valid", "rounds", "head_calls",
+                 "model_evals", "accepts", "proposals", "theta_live", "ctrl")
+
+
+def _clamp_theta(theta: int, K: int) -> int:
+    return int(min(theta, K))
+
+
+def init_chain_state(schedule: Schedule, y0: torch.Tensor, theta: int,
+                     keep_trajectory: bool = True,
+                     controller: ThetaController = _STATIC,
+                     generator: Optional[torch.Generator] = None,
+                     u_buf: Optional[torch.Tensor] = None,
+                     xi_buf: Optional[torch.Tensor] = None) -> ASDChainState:
+    """Fresh chains y0 (B, *event) at position 0 with their absolute-step
+    randomness fixed: ``u_buf`` (B, K+theta+1) and ``xi_buf`` (B, K+theta+1,
+    *event) are taken as given, or drawn from ``generator``.  ``theta`` is
+    the static cap theta_max that shapes the buffers."""
+    K = schedule.K
+    theta = _clamp_theta(theta, K)
+    B, ev = y0.shape[0], tuple(y0.shape[1:])
+    dev = y0.device
+    n = K + theta + 1
+    if u_buf is None:
+        u_buf = torch.rand((B, n), generator=generator, device=dev)
+    if xi_buf is None:
+        xi_buf = torch.randn((B, n) + ev, generator=generator, dtype=y0.dtype,
+                             device=dev)
+    u_buf, xi_buf = u_buf.to(dev), xi_buf.to(dev, y0.dtype)
+    if tuple(u_buf.shape) != (B, n) or tuple(xi_buf.shape) != (B, n) + ev:
+        raise ValueError(f"u_buf {tuple(u_buf.shape)} / xi_buf "
+                         f"{tuple(xi_buf.shape)}: expected {(B, n)} / {(B, n) + ev}")
+    y = torch.zeros((B, n if keep_trajectory else theta + 1) + ev,
+                    dtype=y0.dtype, device=dev)
+    y[:, 0] = y0
+    ctrl, theta_live = controller.init(theta, B, dev)
+    zero = torch.zeros((B,), dtype=torch.int64, device=dev)
+    return ASDChainState(
+        y=y, a=zero, v_cache=torch.zeros_like(y0),
+        v_valid=torch.zeros((B,), dtype=torch.bool, device=dev),
+        rounds=zero, head_calls=zero, model_evals=zero, accepts=zero,
+        proposals=zero, theta_live=theta_live.to(torch.int64), ctrl=ctrl,
+        u_buf=u_buf, xi_buf=xi_buf)
+
+
+def chain_done(st: ASDChainState, K: int) -> torch.Tensor:
+    return st.a >= K
+
+
+def chain_sample(st: ASDChainState, K: int, keep_trajectory: bool = True):
+    """The final samples of finished chains (either trajectory mode)."""
+    return st.y[:, K] if keep_trajectory else st.y[:, 0]
+
+
+@dataclasses.dataclass
+class RoundPlan:
+    """What one round computes before the verification call: the proposal
+    call's output, the theta-step rollout, and the schedule and noise
+    windows it used (all per chain, leading axis B)."""
+
+    a: torch.Tensor  # (B,) position entering the round
+    theta_live: torch.Tensor  # (B,) clipped live window
+    n_valid: torch.Tensor  # (B,) live verification points min(theta_live, K-a)
+    v_a: torch.Tensor  # (B, *event) proposal-call output g(t_a, y_a)
+    new_head: torch.Tensor  # (B,) 1 if the proposal call was actually made
+    y_prev: torch.Tensor  # (B, theta, *event) verification inputs y_{a+j}
+    y_props: torch.Tensor  # (B, theta, *event) proposal samples
+    m_hats: torch.Tensor  # (B, theta, *event) proposal means
+    t_w1: torch.Tensor  # (B, theta+1) model times t_a .. t_{a+theta}
+    u_w: torch.Tensor  # (B, theta) verifier uniforms
+    xi_w: torch.Tensor  # (B, theta, *event) step noises
+    A_w: torch.Tensor  # (B, theta)
+    B_w: torch.Tensor  # (B, theta)
+    sig_w: torch.Tensor  # (B, theta)
+
+
+def _offsets(start: torch.Tensor, length: int) -> torch.Tensor:
+    return start[:, None] + torch.arange(length, device=start.device)
+
+
+def _window(arr: torch.Tensor, start: torch.Tensor, length: int):
+    """arr (B, N, ...) -> (B, length, ...) rows start[b] .. start[b]+length-1."""
+    rows = torch.arange(arr.shape[0], device=arr.device)[:, None]
+    return arr[rows, _offsets(start, length)]
+
+
+def plan_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
+               theta: int, eager_head: bool = False,
+               keep_trajectory: bool = True) -> RoundPlan:
+    """Phase 1 of a round (Alg 1 lines 6-9): the proposal call (possibly
+    served from the eager cache) and the theta-step rollout."""
+    K = schedule.K
+    theta = _clamp_theta(theta, K)
+    sched = schedule.pad(theta + 1)
+    B = st.a.shape[0]
+    ev_ndim = st.v_cache.ndim - 1
+    theta_live = torch.clamp(st.theta_live, 1, theta)
+    a = st.a
+    rows = torch.arange(B, device=a.device)
+    y_a = st.y[rows, a] if keep_trajectory else st.y[:, 0]
+    t_a = sched.t_model[a]
+
+    if eager_head:
+        v_a = torch.where(bcast_right(st.v_valid, ev_ndim + 1), st.v_cache,
+                          model_fn(t_a, y_a))
+        new_head = (~st.v_valid).to(torch.int64)
+    else:
+        v_a = model_fn(t_a, y_a)
+        new_head = torch.ones_like(a)
+
+    idx = _offsets(a, theta)
+    A_w, B_w, sig_w = sched.A[idx], sched.B[idx], sched.sigma[idx]
+    t_w1 = sched.t_model[_offsets(a, theta + 1)]
+    u_w, xi_w = _window(st.u_buf, a, theta), _window(st.xi_buf, a, theta)
+
+    y_i = y_a
+    m_hats, y_props = [], []
+    for j in range(theta):
+        m_hat = (bcast_right(A_w[:, j], ev_ndim + 1) * y_i
+                 + bcast_right(B_w[:, j], ev_ndim + 1) * v_a)
+        y_i = m_hat + bcast_right(sig_w[:, j], ev_ndim + 1) * xi_w[:, j]
+        m_hats.append(m_hat)
+        y_props.append(y_i)
+    m_hats, y_props = torch.stack(m_hats, 1), torch.stack(y_props, 1)
+    y_prev = torch.cat([y_a[:, None], y_props[:, :-1]], dim=1)
+    return RoundPlan(
+        a=a, theta_live=theta_live, n_valid=torch.minimum(theta_live, K - a),
+        v_a=v_a, new_head=new_head, y_prev=y_prev, y_props=y_props,
+        m_hats=m_hats, t_w1=t_w1, u_w=u_w, xi_w=xi_w, A_w=A_w, B_w=B_w,
+        sig_w=sig_w)
+
+
+def commit_round(schedule: Schedule, st: ASDChainState, plan: RoundPlan,
+                 z: torch.Tensor, acc: torch.Tensor, theta_r: torch.Tensor,
+                 g_head: Optional[torch.Tensor], theta: int,
+                 eager_head: bool = False, keep_trajectory: bool = True,
+                 controller: ThetaController = _STATIC) -> ASDChainState:
+    """Phase 3 (Alg 1 lines 12-13): commit the accepted prefix and the
+    reflected first rejection, update the counters and the window.  Only
+    slots < min(theta_r, K - a) of ``z``/``acc`` are read.  Finished chains
+    come back unchanged."""
+    K = schedule.K
+    theta = _clamp_theta(theta, K)
+    ev_ndim = st.v_cache.ndim - 1
+    B = st.a.shape[0]
+    a = plan.a
+    dev = a.device
+
+    n_valid = torch.minimum(theta_r, K - a)
+    slot = torch.arange(theta, device=dev)[None, :]
+    acc = acc & (slot < n_valid[:, None])
+    lead = leading_true_count(acc, dim=1).to(torch.int64)
+    rejected = lead < n_valid
+    advance = lead + rejected.to(torch.int64)
+
+    old = _window(st.y, a + 1, theta) if keep_trajectory else st.y[:, 1:]
+    mask = bcast_right(slot < advance[:, None], ev_ndim + 2)
+    committed = torch.where(mask, z, old)
+    rows = torch.arange(B, device=dev)[:, None]
+    if keep_trajectory:
+        y_new = st.y.clone()
+        y_new[rows, _offsets(a + 1, theta)] = committed
+    else:
+        # shift the live window so slot 0 becomes position a + advance
+        buf2 = torch.cat([st.y[:, :1], committed, torch.zeros_like(committed)],
+                         dim=1)
+        y_new = buf2[rows, _offsets(advance, theta + 1)]
+
+    full_accept = (~rejected) & (n_valid == theta_r) & (n_valid > 0)
+    ctrl_new, theta_next = controller.update(st.ctrl, theta_r, lead, n_valid,
+                                             rejected, theta)
+    new = dict(
+        y=y_new,
+        a=a + advance,
+        v_cache=g_head if eager_head else st.v_cache,
+        v_valid=full_accept if eager_head else torch.zeros_like(st.v_valid),
+        rounds=st.rounds + 1,
+        head_calls=st.head_calls + plan.new_head,
+        model_evals=st.model_evals + plan.new_head + n_valid + int(eager_head),
+        accepts=st.accepts + lead,
+        proposals=st.proposals + n_valid,
+        theta_live=torch.clamp(theta_next.to(torch.int64), 1, theta),
+        ctrl=ctrl_new,
+    )
+    live = a < K
+    for name in _ROUND_FIELDS:
+        old_v = getattr(st, name)
+        new[name] = torch.where(bcast_right(live, old_v.ndim), new[name], old_v)
+    return dataclasses.replace(st, **new)
+
+
+def asd_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
+              theta: int, eager_head: bool = False,
+              keep_trajectory: bool = True,
+              controller: ThetaController = _STATIC) -> ASDChainState:
+    """One speculation round of every chain: propose, roll theta steps,
+    verify all chains' points in ONE model call, GRS, commit.
+
+    ``theta`` is the static cap: the round always rolls and verifies
+    theta-shaped windows, and ``st.theta_live`` masks how many slots count.
+    The GRS step goes through ``repro_torch.kernels.grs`` (the CUDA kernel
+    on the card).  Identity on finished chains."""
+    K = schedule.K
+    theta = _clamp_theta(theta, K)
+    plan = plan_round(model_fn, schedule, st, theta, eager_head, keep_trajectory)
+    B = st.a.shape[0]
+    ev = tuple(st.v_cache.shape[1:])
+    ev_ndim = len(ev)
+    t_w = plan.t_w1[:, :theta]
+    y_prev = plan.y_prev
+
+    if eager_head:
+        # the head point sits at the END of the live window: on a full accept
+        # the chain lands on y_props[theta_live - 1]
+        rows = torch.arange(B, device=st.a.device)
+        y_head = plan.y_props[rows, plan.theta_live - 1]
+        pts = torch.cat([y_prev, y_head[:, None]], dim=1)
+        ts = torch.cat([t_w, plan.t_w1[rows, plan.theta_live][:, None]], dim=1)
+        g_all = model_fn(ts.reshape(-1), pts.reshape((B * (theta + 1),) + ev))
+        g_all = g_all.reshape((B, theta + 1) + ev)
+        g_par, g_head = g_all[:, :-1], g_all[:, -1]
+    else:
+        g_par = model_fn(t_w.reshape(-1), y_prev.reshape((B * theta,) + ev))
+        g_par = g_par.reshape((B, theta) + ev)
+        g_head = None
+    m_tgt = (bcast_right(plan.A_w, ev_ndim + 2) * y_prev
+             + bcast_right(plan.B_w, ev_ndim + 2) * g_par)
+
+    z, acc = grs(plan.u_w, plan.xi_w, plan.m_hats, m_tgt, plan.sig_w,
+                 event_ndim=ev_ndim)
+    return commit_round(schedule, st, plan, z, acc, plan.theta_live, g_head,
+                        theta, eager_head, keep_trajectory, controller)
+
+
+def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
+                       theta: int, eager_head: bool = False,
+                       keep_trajectory: bool = True,
+                       controller: ThetaController = _STATIC,
+                       generator: Optional[torch.Generator] = None,
+                       u_buf: Optional[torch.Tensor] = None,
+                       xi_buf: Optional[torch.Tensor] = None,
+                       device=None) -> ASDResult:
+    """ASD on independent chains y0 (B, *event), stepped together.
+
+    Each round makes one proposal call over the B chains and one
+    verification call over their B * theta points; the loop runs until the
+    slowest chain finishes, and finished chains stay frozen.  ``u_buf`` /
+    ``xi_buf`` inject each chain's noise (see ``init_chain_state``); else it
+    is drawn from ``generator``.  ``theta >= K`` gives ASD-infinity.
+
+    ``model_fn(t: f32[m], y: f32[m, *event]) -> f32[m, *event]`` must accept
+    any leading batch size m.  Runs on ``device`` (None means "cuda").
+    """
+    dev = resolve_device(device)
+    K = schedule.K
+    theta = _clamp_theta(theta, K)
+    schedule = schedule.to(dev)
+    st = init_chain_state(schedule, y0.to(dev), theta, keep_trajectory,
+                          controller, generator, u_buf, xi_buf)
+    while not bool(chain_done(st, K).all()):
+        st = asd_round(model_fn, schedule, st, theta, eager_head,
+                       keep_trajectory, controller)
+    return ASDResult(
+        sample=chain_sample(st, K, keep_trajectory),
+        trajectory=st.y[:, : K + 1] if keep_trajectory else st.y,
+        rounds=st.rounds, head_calls=st.head_calls,
+        model_evals=st.model_evals, accepts=st.accepts,
+        proposals=st.proposals)
+
+
+def asd_sample(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
+               theta: int, eager_head: bool = False,
+               keep_trajectory: bool = True,
+               controller: ThetaController = _STATIC,
+               generator: Optional[torch.Generator] = None,
+               u_buf: Optional[torch.Tensor] = None,
+               xi_buf: Optional[torch.Tensor] = None,
+               device=None) -> ASDResult:
+    """ASD for one chain y0 (*event); ``u_buf`` (K+theta+1,) and ``xi_buf``
+    (K+theta+1, *event) inject its noise.  Results have no batch axis."""
+    res = asd_sample_batched(
+        model_fn, schedule, y0[None], theta, eager_head, keep_trajectory,
+        controller, generator, None if u_buf is None else u_buf[None],
+        None if xi_buf is None else xi_buf[None], device)
+    return ASDResult(**{f.name: getattr(res, f.name)[0]
+                        for f in dataclasses.fields(ASDResult)})

@@ -1,0 +1,109 @@
+"""Diffusion denoiser head: a backbone run non-causally as a DDPM mean
+oracle.  The model predicts x0_hat = E[x0 | y_t], the ``g`` that ASD
+consumes (paper Remark 2 / Eq. 4).
+
+Params are a plain dict of tensors in the JAX package's tree layout (see
+``repro_torch.weights``).  Tensor, sequence and expert parallelism are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.decoder import decoder_fwd
+from repro_torch.nn.layers import rmsnorm_apply, sinusoidal_embed
+
+# leaves that enter a product in the compute dtype (everything else -- the
+# time MLP and the norm scales -- is used in float32)
+_COMPUTE_LEAVES = frozenset(
+    {"in_proj", "cond_proj", "out_proj", "wq", "wk", "wv", "wo", "bq", "bk",
+     "bv", "w_gate", "w_up", "w_down"})
+
+
+@dataclasses.dataclass(frozen=True)
+class DenoiserConfig:
+    backbone: ModelConfig
+    seq_len: int  # number of data tokens (action steps / latent patches)
+    d_data: int  # channels per token
+    d_cond: int = 0  # conditioning vector dim (diffusion-policy observations)
+    time_log: bool = False  # log-transform t before embedding (SL time)
+    time_dim: int = 256
+
+
+def compute_dtype(dc: DenoiserConfig) -> torch.dtype:
+    return getattr(torch, dc.backbone.compute_dtype)
+
+
+def compute_params(params, dc: DenoiserConfig):
+    """The params with every product weight cast once to the compute dtype.
+    ``denoiser_fwd`` casts each use to that dtype anyway, so the result is
+    the same; casting once saves a pass over the weights per call."""
+    cdt = compute_dtype(dc)
+
+    def cast(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: cast(v, k) for k, v in tree.items()}
+        return tree.to(cdt) if name in _COMPUTE_LEAVES else tree
+
+    return cast(params)
+
+
+def denoiser_fwd(params, t, y, dc: DenoiserConfig, cond=None, attn_impl=None):
+    """t: (B,) noise level / step; y: (B, L, d_data) -> x0_hat (B, L, d_data)
+    float32.  cond: optional (B, d_cond).  ``attn_impl``: "flash" (default;
+    the CUDA kernel on the card, its plain version on the CPU) or "naive"."""
+    cfg = dc.backbone
+    cdt = compute_dtype(dc)
+    tf = t.float()
+    if dc.time_log:
+        tf = torch.log1p(torch.clamp(tf, min=0.0))
+    temb = sinusoidal_embed(tf * 100.0, dc.time_dim)
+    temb = torch.tanh(temb @ params["t_mlp1"].float())
+    temb = temb @ params["t_mlp2"].float()  # (B, d_model)
+
+    x = y.to(cdt) @ params["in_proj"].to(cdt)
+    pos = torch.arange(dc.seq_len, device=y.device)
+    x = x + sinusoidal_embed(pos, cfg.d_model).to(cdt)
+    x = x + temb[:, None, :].to(cdt)
+    if cond is not None:
+        x = x + (cond.to(cdt) @ params["cond_proj"].to(cdt))[..., None, :]
+    ctx = dict(causal=False, impl=attn_impl or "flash")
+    x = decoder_fwd(params["decoder"], x, cfg, ctx)
+    x = rmsnorm_apply(params["final_norm"], x)
+    return (x @ params["out_proj"].to(cdt)).float()
+
+
+def _bcast_cond(cond, m):
+    return None if cond is None else cond.expand((m,) + tuple(cond.shape[-1:]))
+
+
+def make_sl_model_fn(params, dc: DenoiserConfig, cond=None, attn_impl=None):
+    """ASD / sequential-sampler oracle for the SL parametrization: the net
+    sees y / sqrt(t^2 + t) and returns E[x0 | y_t]."""
+    cp = compute_params(params, dc)
+
+    def model_fn(t, y):
+        t32 = torch.clamp(t.float(), min=1e-6)
+        scale = torch.sqrt(t32**2 + t32)
+        y_in = y / scale.reshape(tuple(t.shape) + (1,) * (y.ndim - t.ndim))
+        return denoiser_fwd(cp, t32, y_in, dc, cond=_bcast_cond(cond, y.shape[0]),
+                            attn_impl=attn_impl)
+
+    return model_fn
+
+
+def make_ddpm_model_fn(params, dc: DenoiserConfig, cond=None, attn_impl=None):
+    """x0-predicting oracle in the DDPM parametrization (t = step index)."""
+    cp = compute_params(params, dc)
+
+    def model_fn(t, y):
+        return denoiser_fwd(cp, t.float(), y, dc,
+                            cond=_bcast_cond(cond, y.shape[0]),
+                            attn_impl=attn_impl)
+
+    return model_fn
+

@@ -1,0 +1,114 @@
+"""Denoiser weights in the JAX package's tree layout, as torch tensors.
+
+The tree (leaves float32):
+
+    in_proj (d_data, d)          t_mlp1 (time_dim, d)      t_mlp2 (d, d)
+    decoder.g0.attn_norm.scale (n, d)
+    decoder.g0.attn.{wq, wk, wv} (n, d, heads, hd)    .wo (n, heads, hd, d)
+    decoder.g0.ffn_norm.scale (n, d)
+    decoder.g0.ffn.{w_gate, w_up} (n, d, d_ff)        .w_down (n, d_ff, d)
+    final_norm.scale (d,)        out_proj (d, d_data)     [cond_proj (d_cond, d)]
+
+with n the layer count (the stacked ``layers`` axis).  ``from_jax_params``
+converts the JAX package's unboxed params (as numpy arrays) and needs no
+JAX; ``init_denoiser_params`` makes the same tree from a numpy seed.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.diffusion import DenoiserConfig
+
+
+def param_shapes(dc: DenoiserConfig) -> dict:
+    """The tree of leaf shapes for ``dc`` (dense attn blocks only)."""
+    cfg = dc.backbone
+    d, h, kv, hd, n = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim, cfg.n_repeats)
+    decoder = {}
+    for gi, desc in enumerate(cfg.group):
+        if desc.kind != "attn" or desc.moe:
+            raise NotImplementedError(f"block {desc} is not ported yet")
+        block = {
+            "attn_norm": {"scale": (n, d)},
+            "attn": {"wq": (n, d, h, hd), "wk": (n, d, kv, hd),
+                     "wv": (n, d, kv, hd), "wo": (n, h, hd, d)},
+        }
+        if cfg.qkv_bias:
+            block["attn"].update(bq=(n, h, hd), bk=(n, kv, hd), bv=(n, kv, hd))
+        if cfg.d_ff:
+            if cfg.ffn_kind != "swiglu":
+                raise NotImplementedError(f"ffn {cfg.ffn_kind!r} is not ported yet")
+            block["ffn_norm"] = {"scale": (n, d)}
+            block["ffn"] = {"w_gate": (n, d, cfg.d_ff), "w_up": (n, d, cfg.d_ff),
+                            "w_down": (n, cfg.d_ff, d)}
+        decoder[f"g{gi}"] = block
+    shapes = {
+        "in_proj": (dc.d_data, d),
+        "t_mlp1": (dc.time_dim, d),
+        "t_mlp2": (d, d),
+        "decoder": decoder,
+        "final_norm": {"scale": (d,)},
+        "out_proj": (d, dc.d_data),
+    }
+    if dc.d_cond:
+        shapes["cond_proj"] = (dc.d_cond, d)
+    return shapes
+
+
+def _convert(tree, shapes, path, dev):
+    if isinstance(shapes, dict):
+        if not isinstance(tree, dict) or set(tree) != set(shapes):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"params at {path or '<root>'}: expected keys "
+                             f"{sorted(shapes)}, got {got}")
+        return {k: _convert(tree[k], shapes[k], f"{path}.{k}".lstrip("."), dev)
+                for k in shapes}
+    arr = np.asarray(tree)
+    if arr.shape != tuple(shapes):
+        raise ValueError(f"params at {path}: expected shape {shapes}, got {arr.shape}")
+    return torch.from_numpy(np.array(arr, dtype=np.float32, order="C")).to(dev)
+
+
+def from_jax_params(tree, dc: DenoiserConfig, device=None):
+    """The JAX package's unboxed denoiser params (nested dicts of numpy
+    arrays) as the port's params: float32 tensors on ``device`` (None means
+    "cuda").  Keys and shapes are checked against ``dc``."""
+    return _convert(tree, param_shapes(dc), "", resolve_device(device))
+
+
+def init_denoiser_params(dc: DenoiserConfig, seed: int, out_scale: float = 1e-2,
+                         device=None):
+    """Random params from ``numpy.random.default_rng(seed)``.
+
+    Product weights are lecun-normal over all but their last axis, as in
+    the JAX package.  Unlike its init, ``out_proj`` and the norm scales are
+    nonzero (normal * ``out_scale`` / sqrt(d) and normal * 0.1):
+    a zero ``out_proj`` makes the denoiser output 0 everywhere, so every
+    speculation would be accepted and the reject path never run.
+    """
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    d = dc.backbone.d_model
+
+    def make(shapes, name, stacked):
+        if isinstance(shapes, dict):
+            return {k: make(v, k, stacked or k == "decoder")
+                    for k, v in shapes.items()}
+        a = rng.standard_normal(shapes, dtype=np.float32)
+        if name == "scale":
+            a *= 0.1
+        elif name == "out_proj":
+            a *= out_scale / math.sqrt(d)
+        elif name in ("bq", "bk", "bv"):
+            a *= 0.0
+        else:  # the fan-in leaves out a stacked leading layers axis
+            a *= 1.0 / math.sqrt(math.prod(shapes[int(stacked):-1]))
+        return torch.from_numpy(a).to(dev)
+
+    return make(param_shapes(dc), None, False)
