@@ -9,10 +9,11 @@ Phases, each printing one JSON line and raising on any failure:
   1. device   the card (nvidia-smi's name and power limit, on a line of its
               own), torch and CUDA versions; TF32 is switched off.
   2. build    nvcc builds the kernels from ``src/repro_torch/csrc``.
-  3. grs / flash_attention
+  3. grs / flash_attention / pack / fused_round
               each kernel against its plain PyTorch version on the card, at
               the main path's shape and at edge shapes: max abs error,
-              kernel / plain / library times (median of CUDA-event timings)
+              kernel / plain / library times (CUDA events around calls
+              launched back to back, and device time under torch.profiler)
               and the card's bound for the same work.
   4. denoiser the full-width ``paper-pixel-dit`` denoiser (random weights
               from a seed): one forward through the flash kernel against
@@ -23,8 +24,18 @@ Phases, each printing one JSON line and raising on any failure:
      reference
               the same sampler on a small denoiser, on the card and on the
               CPU with the same noise: counters equal, samples close.
-  5. kernels  one JSON line with every ported kernel's numbers.
-  6. the last line: {"ok": true, "device": {...}}.
+  5. serve    ``ContinuousASDEngine`` on the same denoiser, packed
+              execution (6 requests on 4 slots, theta 8, K 64, budget 16,
+              4 rounds a superstep), once with round_impl "packed" and once
+              "fused" on the same per-request noise: launch counts of every
+              kernel per round, equal counters and samples in the two runs;
+              then one superstep of each round_impl profiled and one run
+              with host syncs made errors.
+     serve_reference
+              the same engine on a small denoiser, on the card and on the
+              CPU with the same noise, in both round_impls.
+  6. kernels  one JSON line with every ported kernel's numbers.
+  7. the last line: {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, where there is no CUDA device or
 no ``src/repro_torch`` beside it.  No JAX is imported.
@@ -33,11 +44,14 @@ no ``src/repro_torch`` beside it.  No JAX is imported.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
@@ -50,6 +64,9 @@ HBM_BYTES_PER_S = 3.35e12
 K, THETA, CHAINS = 64, 8, 4
 SEED = 0
 OUT_SCALE = 1e-2  # out_proj = normal * OUT_SCALE / sqrt(d_model)
+# the serve cell (pixel-dit-serve): slots, budget (half the covering 32),
+# rounds per superstep, requests
+SLOTS, BUDGET, RPS, REQUESTS = 4, 16, 4, 6
 
 
 def emit(phase: str, **fields) -> None:
@@ -61,22 +78,47 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` CUDA-event timings."""
+    """Milliseconds per call of ``fn``: ``reps`` calls launched back to back
+    between two CUDA events, after ``warmup`` calls.  Where a call's device
+    work is shorter than the host's time to launch it (a kernel of a few
+    microseconds behind a Python wrapper), this measures the launch rate;
+    ``device_ms`` gives the card's own time."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 10):
+    """Device milliseconds per call of ``fn``: the summed time of the
+    kernels that ``reps`` warm calls ran, under torch.profiler, so host gaps
+    between launches do not count.  None where the profiler recorded no
+    device time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    _, kernels = _profiled(torch, lambda: [fn() for _ in range(reps)])
+    return sum(ms for _, ms, _ in kernels) / reps if kernels else None
+
+
+def kernel_times(kernel, plain, library=None, reps: int = 20) -> dict:
+    """ms / device_ms of the kernel's wrapper, its plain version and the
+    library call (None where there is none), each on the same inputs."""
+    out = {}
+    for prefix, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        out[prefix + "ms"] = None if fn is None else cuda_ms(fn, reps)
+        out[prefix + "device_ms"] = None if fn is None else device_ms(fn, reps)
+    return out
 
 
 def bound_ms(nbytes: float, ops: float, peak: float):
@@ -131,17 +173,15 @@ def check_grs(torch, dev):
         edges[name] = compare(inputs(r, d, len(name), zero))[0]
     main = inputs(R, D, 1, zero_rows=False)
     err, accepted = compare(main)
-    ms = cuda_ms(lambda: grs(*main), reps=20)
-    plain_ms = cuda_ms(lambda: grs_plain(*main), reps=20)
+    times = kernel_times(lambda: grs(*main), lambda: grs_plain(*main))
     bms, by = bound_ms(4.0 * R * D * 4 + 3 * R * 4, 10.0 * R * D, PEAK_F32)
     emit("grs", shape=[R, D], max_abs_err=err, accepted_rows=accepted,
          edge_max_abs_err=edges, tolerance="z atol 1e-5; accept bits equal "
          "except rows within 1e-5 of the threshold",
-         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+         **times, bound_ms=bms, bound_by=by)
     return dict(name="grs", route="cuda", source="src/repro_torch/csrc/grs.cu",
                 replaces="src/repro/kernels/grs/kernel.py:27", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=None)
+                **times, bound_ms=bms, bound_by=by)
 
 
 def check_flash(torch, dev):
@@ -176,22 +216,177 @@ def check_flash(torch, dev):
     B, L, H, hd = CHAINS * THETA, 1024, 16, 64
     q, k, v = inputs(B, L, L, H, hd, 7)
     err = compare(q, k, v, causal=False)
-    ms = cuda_ms(lambda: flash_mha(q, k, v, causal=False), reps=5)
-    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=False), reps=5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt), reps=5)
+    times = kernel_times(lambda: flash_mha(q, k, v, causal=False),
+                         lambda: attention_plain(q, k, v, causal=False),
+                         lambda: sdpa(qt, kt, vt), reps=5)
     bms, by = bound_ms(4.0 * B * L * H * hd * 2, 4.0 * B * H * L * L * hd, PEAK_BF16)
     emit("flash_attention", shape=[B, L, H, hd], dtype="bfloat16", max_abs_err=err,
-         edge_max_abs_err=edges, tolerance="atol 2e-2 (bf16 output)", ms=ms,
-         plain_ms=plain_ms, library_ms=library_ms, library="scaled_dot_product_attention",
-         bound_ms=bms, bound_by=by,
-         tflops=4.0 * B * H * L * L * hd / ms / 1e9)
+         edge_max_abs_err=edges, tolerance="atol 2e-2 (bf16 output)", **times,
+         library="scaled_dot_product_attention", bound_ms=bms, bound_by=by,
+         tflops=4.0 * B * H * L * L * hd / times["ms"] / 1e9)
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:27",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=library_ms)
+                max_abs_err=err, **times, bound_ms=bms, bound_by=by)
+
+
+def _serve_maps(torch, dev):
+    """The pack maps of a budget-16 round over 4 slots of theta 8 (grants
+    8, 3, 4, 1): the gather rows and the scatter's drop-row map."""
+    from repro_torch.serving.packing import build_pack_maps
+
+    maps = build_pack_maps(torch.tensor([8, 3, 4, 1], device=dev), BUDGET)
+    src_rows = torch.where(maps.valid, maps.slot_id * THETA + maps.step_id, 0)
+    return src_rows, maps.row_id(THETA)
+
+
+def _edge_idx(torch, dev, N, M, seed):
+    """Unique rows for the first M - 2 packed positions, then padding."""
+    g = torch.Generator().manual_seed(seed)
+    live = torch.randperm(N, generator=g)[: max(min(M - 2, N), 1)]
+    pad = M - live.numel()
+    return (torch.cat([live, torch.zeros(pad, dtype=torch.long)]).to(dev),
+            torch.cat([live, N + torch.arange(pad)]).to(dev))
+
+
+_EDGES = {"D=1": (5, 3, ()), "D=5 (scalar path)": (7, 11, (5,)), "D=4097": (9, 4, (4097,)),
+          "rank-3 event": (6, 2, (2, 3, 8)), "M=13": (12, 13, (3, 7))}
+
+
+def check_pack(torch, dev):
+    """B3 gather and B4 scatter against their plain versions: equal bits."""
+    from repro_torch.kernels.pack.ops import (gather_rows, gather_rows_plain, scatter_rows,
+                                              scatter_rows_plain)
+
+    def compare(src, vals, gidx, sidx, N):
+        out, tbl = gather_rows(src, gidx), scatter_rows(vals, sidx, N)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, gather_rows_plain(src, gidx))
+                and torch.equal(tbl, scatter_rows_plain(vals, sidx, N))):
+            fail(f"pack: kernel and plain version differ at {tuple(src.shape)}")
+        dropped = scatter_rows(vals, torch.full_like(sidx, N), N)
+        if dropped.any():
+            fail("pack: a scatter with every row dropped left a nonzero row")
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for name, (N, M, ev) in _EDGES.items():
+        gidx, sidx = _edge_idx(torch, dev, N, M, len(name))
+        compare(torch.randn((N,) + ev, generator=g, device=dev),
+                torch.randn((M,) + ev, generator=g, device=dev), gidx, sidx, N)
+    N, D = SLOTS * THETA, 1024 * 192
+    src = torch.randn(N, D, generator=g, device=dev)
+    vals = torch.randn(BUDGET, D, generator=g, device=dev)
+    gidx, sidx = _serve_maps(torch, dev)
+    compare(src, vals, gidx, sidx, N)
+    lines = []
+    for name, fn, plain, lib, nbytes, replaces in (
+            ("gather_rows", lambda: gather_rows(src, gidx),
+             lambda: gather_rows_plain(src, gidx), lambda: torch.index_select(src, 0, gidx),
+             2.0 * BUDGET * D * 4 + BUDGET * 8, "src/repro/kernels/pack/kernel.py:31"),
+            ("scatter_rows", lambda: scatter_rows(vals, sidx, N),
+             lambda: scatter_rows_plain(vals, sidx, N), None,
+             BUDGET * D * 4.0 + N * D * 4 + BUDGET * 8, "src/repro/kernels/pack/kernel.py:59")):
+        times = kernel_times(fn, plain, lib)
+        bms, by = bound_ms(nbytes, 0.0, PEAK_F32)
+        emit("pack", kernel=name, shape={"table_rows": N, "packed_rows": BUDGET, "D": D},
+             max_abs_err=0.0, edges=sorted(_EDGES), tolerance="equal bits (data movement)",
+             **times, library="index_select" if lib is not None else None, bound_ms=bms,
+             bound_by=by)
+        lines.append(dict(name=name, route="cuda", source="src/repro_torch/csrc/pack.cu",
+                          replaces=replaces, max_abs_err=0.0, **times, bound_ms=bms,
+                          bound_by=by))
+    return lines
+
+
+def check_fused_round(torch, dev):
+    """B5 fused gather (equal bits) and B6 fused verify-commit (z within
+    1e-5, accept bits equal away from the GRS threshold) against their
+    plain versions."""
+    from repro_torch.kernels.superstep.ops import (fused_gather, fused_gather_plain,
+                                                   fused_verify_commit,
+                                                   fused_verify_commit_plain)
+
+    def commit_inputs(M, ev, g):
+        r = lambda: torch.randn((M,) + ev, generator=g, device=dev)  # noqa: E731
+        y, gg, xi = r(), r(), r()
+        A = 1.0 + 0.1 * torch.rand(M, generator=g, device=dev)
+        B = 0.5 * torch.rand(M, generator=g, device=dev)
+        shape = (M,) + (1,) * len(ev)
+        m = A.reshape(shape) * y + B.reshape(shape) * gg
+        mh = m + 0.3 * r() / max(1, math.prod(ev)) ** 0.5
+        sig = 0.2 + 0.3 * torch.rand(M, generator=g, device=dev)
+        u = torch.rand(M, generator=g, device=dev)
+        if M > 2:  # sigma 0 with v != 0 (reject) and with v == 0 (accept)
+            sig[0] = 0.0
+            sig[1], A[1], B[1] = 0.0, 1.0, 0.0
+            mh[1] = y[1]
+        return [y, gg, xi, mh, A, B, u, sig], m
+
+    def compare(tbls, sc, gidx, args, m, sidx, N):
+        got = fused_gather(*tbls, sc, gidx)
+        zk, ak = fused_verify_commit(*args, sidx, N)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, fused_gather_plain(*tbls, sc, gidx))):
+            fail(f"fused_round: fused gather differs from plain at {tuple(tbls[0].shape)}")
+        zp, ap = fused_verify_commit_plain(*args, sidx, N)
+        y, gg, xi, mh, A, B, u, sig = args
+        M = y.shape[0]
+        v = (mh - m).reshape(M, -1).double()
+        vv, vx = (v * v).sum(-1), (v * xi.reshape(M, -1).double()).sum(-1)
+        s = torch.where(sig > 0, sig, torch.ones_like(sig)).double()
+        margin = (torch.log(torch.clamp(u.double(), min=1e-20))
+                  - torch.clamp(-(vx / s + vv / (2 * s * s)), max=0)).abs()
+        near = torch.zeros(N, dtype=torch.bool, device=dev)
+        live = sidx < N
+        near[sidx[live]] = ((margin < 1e-5) & (sig > 0))[live]
+        if not torch.equal(ak[~near], ap[~near]):
+            fail(f"fused_round: accept bits differ away from the threshold at {tuple(y.shape)}")
+        err = (zk - zp).abs().max().item()
+        if not err <= 1e-5:
+            fail(f"fused_round: z max abs error {err} > 1e-5 at {tuple(y.shape)}")
+        return err
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    edges = {}
+    for name, (N, M, ev) in _EDGES.items():
+        gidx, sidx = _edge_idx(torch, dev, N, M, len(name))
+        tbls = [torch.randn((N,) + ev, generator=g, device=dev) for _ in range(3)]
+        args, m = commit_inputs(M, ev, g)
+        edges[name] = compare(tbls, torch.randn(N, 5, generator=g, device=dev), gidx, args,
+                              m, sidx, N)
+    N, D, M, ev = SLOTS * THETA, 1024 * 192, BUDGET, (1024, 192)
+    tbls = [torch.randn((N,) + ev, generator=g, device=dev) for _ in range(3)]
+    sc = torch.randn(N, 5, generator=g, device=dev)
+    gidx, sidx = _serve_maps(torch, dev)
+    args, m = commit_inputs(M, ev, g)
+    err = compare(tbls, sc, gidx, args, m, sidx, N)
+    lines = []
+    for name, fn, plain, nbytes, ops, replaces in (
+            ("fused_gather", lambda: fused_gather(*tbls, sc, gidx),
+             lambda: fused_gather_plain(*tbls, sc, gidx),
+             2.0 * (3 * M * D * 4 + M * 5 * 4) + M * 8, 0.0,
+             "src/repro/kernels/superstep/kernel.py:42"),
+            ("fused_verify_commit", lambda: fused_verify_commit(*args, sidx, N),
+             lambda: fused_verify_commit_plain(*args, sidx, N),
+             4.0 * M * D * 4 + 4 * M * 4 + M * 8 + N * D * 4 + N * 4, 12.0 * M * D,
+             "src/repro/kernels/superstep/kernel.py:84")):
+        times = kernel_times(fn, plain)
+        bms, by = bound_ms(nbytes, ops, PEAK_F32)
+        e = 0.0 if name == "fused_gather" else err
+        emit("fused_round", kernel=name, shape={"table_rows": N, "packed_rows": M, "D": D,
+                                                 "scalars": 5},
+             max_abs_err=e, edge_max_abs_err=edges if name != "fused_gather" else None,
+             edges=sorted(_EDGES),
+             tolerance=("equal bits" if name == "fused_gather" else
+                        "z atol 1e-5; accept bits equal except rows within 1e-5 of the "
+                        "threshold"),
+             **times, bound_ms=bms, bound_by=by)
+        lines.append(dict(name=name, route="cuda", source="src/repro_torch/csrc/superstep.cu",
+                          replaces=replaces, max_abs_err=e, **times, bound_ms=bms,
+                          bound_by=by))
+    return lines
 
 
 # ---------------------------------------------------------------- phase 4
@@ -202,8 +397,6 @@ def run_slice(torch, dev):
     from repro_torch.core.asd import asd_sample_batched
     from repro_torch.core.schedules import sl_geometric
     from repro_torch.core.sequential import sequential_sample_batched
-    from repro_torch.kernels.flash_attention.ops import flash_mha
-    from repro_torch.kernels.grs.ops import grs
     from repro_torch.models.diffusion import make_sl_model_fn
     from repro_torch.weights import init_denoiser_params
 
@@ -244,14 +437,16 @@ def run_slice(torch, dev):
         propose_ms = cuda_ms(lambda: flash_fn(tv[:CHAINS], pts[:CHAINS]), reps=3, warmup=1)
 
         g = torch.Generator(device=dev).manual_seed(SEED + 1)
-        grs.launches = flash_mha.launches = 0
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = asd_sample_batched(flash_fn, sched, y0, THETA, eager_head=False,
                                  generator=g, device=dev)
         torch.cuda.synchronize()
         asd_s = time.perf_counter() - t0
-        launches = {"grs": grs.launches, "flash_attention": flash_mha.launches}
+        launches = {name: fn.launches for name, fn in counters.items()}
 
         g = torch.Generator(device=dev).manual_seed(SEED + 2)
         torch.cuda.synchronize()
@@ -286,22 +481,22 @@ def run_slice(torch, dev):
          samples_per_s_asd=CHAINS / asd_s, samples_per_s_sequential=CHAINS / seq_s)
     emit("where_time_goes", round_wall_ms=asd_s / loop_rounds * 1e3,
          verification_call_ms=verify_ms, proposal_call_ms=propose_ms,
-         note="each call timed alone (CUDA events, median of 3); the kernels' "
-              "own times are in the grs and flash_attention lines")
+         note="each call timed alone (CUDA events around 3 calls back to back); the "
+              "kernels' own times are in the kernel lines")
     profile_round(torch, dev, flash_fn, sched, y0)
-    return launches
+    return launches, flash_fn, sched, dc
 
 
 # device kernels by what they do, matched on their names
 _KERNEL_GROUPS = (("flash_attention", ("flash_fwd",)), ("grs", ("grs_",)),
+                  ("pack", ("gather_rows_kernel", "scatter_rows_kernel")),
+                  ("fused_round", ("fused_gather_kernel", "fvc_")),
                   ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
 
 
 def profile_round(torch, dev, model_fn, sched, y0):
     """One warm ASD round under torch.profiler: device time by kernel group
     and the device's idle share of the round's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.asd import asd_round, init_chain_state
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -309,18 +504,34 @@ def profile_round(torch, dev, model_fn, sched, y0):
         st = init_chain_state(sched.to(dev), y0, THETA, generator=g)
         st = asd_round(model_fn, sched.to(dev), st, THETA)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            asd_round(model_fn, sched.to(dev), st, THETA)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms, kernels = _profiled(torch, lambda: asd_round(model_fn, sched.to(dev), st,
+                                                              THETA))
+    _emit_profile(torch, "profile", wall_ms, kernels,
+                  "one warm round (proposal + verification call, GRS, plan and commit) "
+                  "under torch.profiler; kernels run on one stream")
+
+
+def _profiled(torch, fn):
+    """Wall ms of ``fn`` (ended by a synchronize) under torch.profiler, and
+    the device kernels it ran as (name, ms, count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
+    return wall_ms, kernels
+
+
+def _emit_profile(torch, phase, wall_ms, kernels, note, **extra):
     if not kernels:
-        emit("profile", round_wall_ms=wall_ms, device_ms="not measured",
-             note="the profiler recorded no device time")
+        emit(phase, wall_ms=wall_ms, device_ms="not measured",
+             note="the profiler recorded no device time", **extra)
         return
     busy = sum(ms for _, ms, _ in kernels)
     groups = {name: 0.0 for name, _ in _KERNEL_GROUPS}
@@ -330,11 +541,10 @@ def profile_round(torch, dev, model_fn, sched, y0):
                       if any(m in key for m in marks)), "other")
         groups[group] += ms
     top = sorted(kernels, key=lambda k: -k[1])[:8]
-    emit("profile", round_wall_ms=wall_ms, device_busy_ms=busy,
+    emit(phase, wall_ms=wall_ms, device_busy_ms=busy,
          device_idle_share=max(0.0, 1.0 - busy / wall_ms), device_ms_by_group=groups,
          top_kernels=[{"name": k[:80], "ms": ms, "count": n} for k, ms, n in top],
-         note="one warm round (proposal + verification call, GRS, plan and "
-              "commit) under torch.profiler; kernels run on one stream")
+         note=note, **extra)
 
 
 def _leaves(tree):
@@ -381,6 +591,188 @@ def check_reference(torch, dev):
          accepts=int(cpu.accepts.sum()), proposals=int(cpu.proposals.sum()))
 
 
+# ---------------------------------------------------------------- phase 5
+
+
+def _counters():
+    """Every kernel wrapper, by the name the kernels line gives it."""
+    from repro_torch.kernels.flash_attention.ops import flash_mha
+    from repro_torch.kernels.grs.ops import grs
+    from repro_torch.kernels.pack.ops import gather_rows, scatter_rows
+    from repro_torch.kernels.superstep.ops import fused_gather, fused_verify_commit
+
+    return {"grs": grs, "flash_attention": flash_mha, "gather_rows": gather_rows,
+            "scatter_rows": scatter_rows, "fused_gather": fused_gather,
+            "fused_verify_commit": fused_verify_commit}
+
+
+# launches of each kernel per round of the packed engine, by round_impl
+# (flash: 24 layers x 2 model calls, the proposal and the verification)
+def _per_round(n_layers):
+    return {"packed": {"grs": 1, "gather_rows": 3, "scatter_rows": 1, "fused_gather": 0,
+                       "fused_verify_commit": 0, "flash_attention": 2 * n_layers},
+            "fused": {"grs": 0, "gather_rows": 0, "scatter_rows": 0, "fused_gather": 1,
+                      "fused_verify_commit": 1, "flash_attention": 2 * n_layers}}
+
+
+def _serve_requests(torch, dev, dc, k, theta, n, seed):
+    """n requests with their noise drawn on the card from per-request
+    generators, so every run serves the same chains."""
+    from repro_torch.serving.engine import Request
+
+    reqs = []
+    for rid in range(n):
+        g = torch.Generator(device=dev).manual_seed(seed + rid)
+        reqs.append(Request(
+            rid, u_buf=torch.rand(k + theta + 1, generator=g, device=dev),
+            xi_buf=torch.randn((k + theta + 1, dc.seq_len, dc.d_data), generator=g,
+                               device=dev)))
+    return reqs
+
+
+def run_serve(torch, dev, model_fn, sched, dc):
+    """pixel-dit-serve: ContinuousASDEngine, packed execution, in both
+    round_impls on the same requests."""
+    from repro_torch.core.asd import init_chain_state
+    from repro_torch.serving.engine import ContinuousASDEngine
+    from repro_torch.serving.packing import WaterfillingAllocator, packed_superstep
+
+    counters = _counters()
+    per_round = _per_round(dc.backbone.n_layers)
+    event = (dc.seq_len, dc.d_data)
+    reqs = _serve_requests(torch, dev, dc, K, THETA, REQUESTS, SEED + 100)
+    runs, launches_by_run = {}, {}
+    for impl in ("packed", "fused"):
+        eng = ContinuousASDEngine(model_fn, sched, event, num_slots=SLOTS, theta=THETA,
+                                  execution="packed", round_budget=BUDGET,
+                                  rounds_per_sync=RPS, round_impl=impl, seed=SEED,
+                                  device=dev)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        rounds = eng.stats.rounds_total
+        want = {name: rounds * n for name, n in per_round[impl].items()}
+        if launches != want:
+            fail(f"serve {impl}: launches {launches}, expected {want} for {rounds} rounds")
+        if sorted(out) != list(range(REQUESTS)) or not all(
+                v.shape == event and np.isfinite(v).all() for v in out.values()):
+            fail(f"serve {impl}: samples missing, misshapen or not finite")
+        per_req = {m.rid: m for m in eng.stats.per_request}
+        depth = [per_req[r].rounds + per_req[r].head_calls for r in range(REQUESTS)]
+        emit("serve", round_impl=impl, model=dc.backbone.name, requests=REQUESTS,
+             slots=SLOTS, theta=THETA, K=K, round_budget=BUDGET, rounds_per_sync=RPS,
+             eager_head=True, wall_s=wall, samples_per_s=REQUESTS / wall,
+             supersteps=eng.stats.supersteps, rounds=rounds,
+             round_wall_ms=wall / rounds * 1e3,
+             per_request_rounds=[per_req[r].rounds for r in range(REQUESTS)],
+             per_request_depth=depth,
+             per_request_accept_rate=[per_req[r].accept_rate for r in range(REQUESTS)],
+             accepts=sum(m.accepts for m in per_req.values()),
+             proposals=sum(m.proposals for m in per_req.values()),
+             slot_occupancy=sum(m.rounds for m in per_req.values()) / (rounds * SLOTS),
+             launches=launches)
+        runs[impl] = (out, per_req)
+        launches_by_run[f"serve_{impl}"] = launches
+    (out_p, req_p), (out_f, req_f) = runs["packed"], runs["fused"]
+    for rid in range(REQUESTS):
+        a, b = req_p[rid], req_f[rid]
+        if (a.rounds, a.head_calls, a.accepts, a.proposals) != (
+                b.rounds, b.head_calls, b.accepts, b.proposals):
+            fail(f"serve: request {rid} counters differ between packed and fused")
+    err = max(float(np.abs(out_p[r] - out_f[r]).max()) for r in range(REQUESTS))
+    if err != 0.0:
+        fail(f"serve: packed and fused samples differ by {err} (expected equal bits: "
+             "both rounds run the same GRS row code on the same inputs)")
+    emit("serve_parity", max_abs_err=err, tolerance="equal bits and equal counters",
+         requests=REQUESTS)
+
+    # one superstep of each round_impl with every host sync an error
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    sched_dev = sched.to(dev)
+    for impl in ("packed", "fused"):
+        st = init_chain_state(sched_dev, torch.zeros((SLOTS,) + event, device=dev),
+                              THETA, False, generator=g)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                packed_superstep(model_fn, sched_dev, st, None,
+                                 torch.ones(SLOTS, device=dev), rounds=RPS, theta=THETA,
+                                 budget=BUDGET,
+                                 allocator=WaterfillingAllocator(theta_max=THETA),
+                                 round_impl=impl)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    emit("serve_no_host_sync", rounds=RPS, round_impls=["packed", "fused"],
+         note="one superstep each under torch.cuda.set_sync_debug_mode('error')")
+
+    # one warm superstep of the engine under the profiler, per round_impl
+    for impl in ("packed", "fused"):
+        eng = ContinuousASDEngine(model_fn, sched, event, num_slots=SLOTS, theta=THETA,
+                                  execution="packed", round_budget=BUDGET,
+                                  rounds_per_sync=RPS, round_impl=impl, seed=SEED,
+                                  device=dev)
+        for r in _serve_requests(torch, dev, dc, K, THETA, SLOTS, SEED + 200):
+            eng.submit(r)
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms, kernels = _profiled(torch, eng.step)
+        _emit_profile(torch, "serve_profile", wall_ms, kernels,
+                      f"one warm superstep ({RPS} rounds, harvest included) of the serve "
+                      "cell under torch.profiler", round_impl=impl, rounds=RPS,
+                      round_wall_ms=wall_ms / RPS)
+    return launches_by_run
+
+
+def check_serve_reference(torch, dev):
+    """The engine on a small denoiser, on the card and on the CPU, with the
+    same injected noise, in both round_impls: counters equal, samples
+    within 2e-3, at least one rejection."""
+    from repro_torch.configs.registry import paper_diffusion_policy_smoke
+    from repro_torch.core.schedules import sl_geometric
+    from repro_torch.models.diffusion import make_sl_model_fn
+    from repro_torch.serving.engine import ContinuousASDEngine, Request
+    from repro_torch.weights import init_denoiser_params
+
+    dc = paper_diffusion_policy_smoke()
+    k, theta, slots, n = 16, 4, 3, 5
+    sched = sl_geometric(k, 0.05, 50.0)
+    gen = torch.Generator().manual_seed(SEED)
+    noise = [(torch.rand(k + theta + 1, generator=gen),
+              torch.randn(k + theta + 1, dc.seq_len, dc.d_data, generator=gen))
+             for _ in range(n)]
+    for impl in ("packed", "fused"):
+        out = {}
+        for where in ("cpu", dev):
+            fn = make_sl_model_fn(init_denoiser_params(dc, SEED, out_scale=1.0, device=where),
+                                  dc)
+            eng = ContinuousASDEngine(fn, sched, (dc.seq_len, dc.d_data), num_slots=slots,
+                                      theta=theta, execution="packed", round_budget=5,
+                                      rounds_per_sync=2, round_impl=impl, device=where)
+            samples = eng.serve([Request(i, u_buf=u, xi_buf=xi)
+                                 for i, (u, xi) in enumerate(noise)])
+            out[str(where)] = (samples, {m.rid: (m.rounds, m.head_calls, m.accepts,
+                                                 m.proposals)
+                                         for m in eng.stats.per_request})
+        (s_cpu, c_cpu), (s_card, c_card) = out["cpu"], out[str(dev)]
+        if c_cpu != c_card:
+            fail(f"serve_reference {impl}: counters differ between card and CPU")
+        err = max(float(np.abs(s_card[r] - s_cpu[r]).max()) for r in range(n))
+        accepts = sum(c[2] for c in c_cpu.values())
+        proposals = sum(c[3] for c in c_cpu.values())
+        if not err <= 2e-3 or not accepts < proposals:
+            fail(f"serve_reference {impl}: sample error {err} or no rejection")
+        emit("serve_reference", round_impl=impl, model=dc.backbone.name, K=k, theta=theta,
+             slots=slots, requests=n, round_budget=5, max_abs_err=err, tolerance=2e-3,
+             accepts=accepts, proposals=proposals)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -412,11 +804,18 @@ def main() -> None:
     emit("build", nvcc_seconds="cached" if info["seconds"] is None else info["seconds"],
          load_seconds=time.perf_counter() - t0, library=info["path"])
 
-    kernels = [check_grs(torch, dev), check_flash(torch, dev)]
-    launches = run_slice(torch, dev)
+    kernels = [check_grs(torch, dev), check_flash(torch, dev), *check_pack(torch, dev),
+               *check_fused_round(torch, dev)]
+    asd_launches, flash_fn, sched, dc = run_slice(torch, dev)
     check_reference(torch, dev)
+    by_run = {"asd": asd_launches, **run_serve(torch, dev, flash_fn, sched, dc)}
+    check_serve_reference(torch, dev)
     for kern in kernels:
-        kern["launches"] = launches[kern["name"]]
+        per = {run: counts.get(kern["name"], 0) for run, counts in by_run.items()}
+        if not any(per.values()):
+            fail(f"kernels: {kern['name']} was launched in no main-path run")
+        kern["launches"] = sum(per.values())
+        kern["launches_by_run"] = per
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,11 @@ finished chain's state, counters included, exactly as it was.
 ``eager_head`` ("ASD+"): the verification call also evaluates the model at
 the last live proposal point; after a fully accepted round that evaluation
 is the next round's proposal call.
+
+Conditioning: where the JAX package ``vmap``s one model function per chain
+over its condition vector, the port passes ``conds`` (B, d_cond) and calls
+``model_fn(t, y, cond)`` with the condition rows of every point, so each
+call stays one batched call.
 """
 
 from __future__ import annotations
@@ -169,6 +174,14 @@ def _offsets(start: torch.Tensor, length: int) -> torch.Tensor:
     return start[:, None] + torch.arange(length, device=start.device)
 
 
+def _call(model_fn: ModelFn, t, y, conds, per: int = 1):
+    """One batched model call; with ``conds`` (B, d_cond), each chain's
+    condition row is repeated for its ``per`` consecutive points."""
+    if conds is None:
+        return model_fn(t, y)
+    return model_fn(t, y, conds if per == 1 else conds.repeat_interleave(per, 0))
+
+
 def _window(arr: torch.Tensor, start: torch.Tensor, length: int):
     """arr (B, N, ...) -> (B, length, ...) rows start[b] .. start[b]+length-1."""
     rows = torch.arange(arr.shape[0], device=arr.device)[:, None]
@@ -177,7 +190,7 @@ def _window(arr: torch.Tensor, start: torch.Tensor, length: int):
 
 def plan_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
                theta: int, eager_head: bool = False,
-               keep_trajectory: bool = True) -> RoundPlan:
+               keep_trajectory: bool = True, conds=None) -> RoundPlan:
     """Phase 1 of a round (Alg 1 lines 6-9): the proposal call (possibly
     served from the eager cache) and the theta-step rollout."""
     K = schedule.K
@@ -193,10 +206,10 @@ def plan_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
 
     if eager_head:
         v_a = torch.where(bcast_right(st.v_valid, ev_ndim + 1), st.v_cache,
-                          model_fn(t_a, y_a))
+                          _call(model_fn, t_a, y_a, conds))
         new_head = (~st.v_valid).to(torch.int64)
     else:
-        v_a = model_fn(t_a, y_a)
+        v_a = _call(model_fn, t_a, y_a, conds)
         new_head = torch.ones_like(a)
 
     idx = _offsets(a, theta)
@@ -283,17 +296,21 @@ def commit_round(schedule: Schedule, st: ASDChainState, plan: RoundPlan,
 def asd_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
               theta: int, eager_head: bool = False,
               keep_trajectory: bool = True,
-              controller: ThetaController = _STATIC) -> ASDChainState:
+              controller: ThetaController = _STATIC,
+              conds=None) -> ASDChainState:
     """One speculation round of every chain: propose, roll theta steps,
     verify all chains' points in ONE model call, GRS, commit.
 
     ``theta`` is the static cap: the round always rolls and verifies
     theta-shaped windows, and ``st.theta_live`` masks how many slots count.
     The GRS step goes through ``repro_torch.kernels.grs`` (the CUDA kernel
-    on the card).  Identity on finished chains."""
+    on the card).  ``conds`` (B, d_cond) conditions each chain's calls.
+    Identity on finished chains.  Nothing in a round reads a device value
+    on the host."""
     K = schedule.K
     theta = _clamp_theta(theta, K)
-    plan = plan_round(model_fn, schedule, st, theta, eager_head, keep_trajectory)
+    plan = plan_round(model_fn, schedule, st, theta, eager_head, keep_trajectory,
+                      conds)
     B = st.a.shape[0]
     ev = tuple(st.v_cache.shape[1:])
     ev_ndim = len(ev)
@@ -307,11 +324,13 @@ def asd_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
         y_head = plan.y_props[rows, plan.theta_live - 1]
         pts = torch.cat([y_prev, y_head[:, None]], dim=1)
         ts = torch.cat([t_w, plan.t_w1[rows, plan.theta_live][:, None]], dim=1)
-        g_all = model_fn(ts.reshape(-1), pts.reshape((B * (theta + 1),) + ev))
+        g_all = _call(model_fn, ts.reshape(-1), pts.reshape((B * (theta + 1),) + ev),
+                      conds, theta + 1)
         g_all = g_all.reshape((B, theta + 1) + ev)
         g_par, g_head = g_all[:, :-1], g_all[:, -1]
     else:
-        g_par = model_fn(t_w.reshape(-1), y_prev.reshape((B * theta,) + ev))
+        g_par = _call(model_fn, t_w.reshape(-1), y_prev.reshape((B * theta,) + ev),
+                      conds, theta)
         g_par = g_par.reshape((B, theta) + ev)
         g_head = None
     m_tgt = (bcast_right(plan.A_w, ev_ndim + 2) * y_prev
@@ -321,6 +340,22 @@ def asd_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
                  event_ndim=ev_ndim)
     return commit_round(schedule, st, plan, z, acc, plan.theta_live, g_head,
                         theta, eager_head, keep_trajectory, controller)
+
+
+def asd_superstep(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
+                  theta: int, rounds: int, eager_head: bool = False,
+                  keep_trajectory: bool = True,
+                  controller: ThetaController = _STATIC,
+                  conds=None) -> ASDChainState:
+    """``rounds`` speculation rounds in a row: R calls of ``asd_round``
+    (the JAX package's ``lax.scan``), with no read of a device value on the
+    host between them, so the card runs the R rounds as one queue of
+    launches.  A chain that finishes mid-superstep is frozen by
+    ``commit_round`` for the remaining rounds, counters included."""
+    for _ in range(int(rounds)):
+        st = asd_round(model_fn, schedule, st, theta, eager_head,
+                       keep_trajectory, controller, conds)
+    return st
 
 
 def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernel library at first use.
 
-Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+Every ``csrc/*.cu`` source (which may include the ``csrc/*.cuh`` headers)
+is compiled by its own ``nvcc`` process, all
 started together, for ``sm_90a``; the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build lives
 in ``build/repro_torch/<hash of the sources and flags>/`` at the root of the
@@ -48,7 +49,7 @@ def _sources() -> list[Path]:
 
 def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -83,26 +83,33 @@ def _bcast_cond(cond, m):
 
 def make_sl_model_fn(params, dc: DenoiserConfig, cond=None, attn_impl=None):
     """ASD / sequential-sampler oracle for the SL parametrization: the net
-    sees y / sqrt(t^2 + t) and returns E[x0 | y_t]."""
+    sees y / sqrt(t^2 + t) and returns E[x0 | y_t].
+
+    The weights are cast to the compute dtype once, here.  The returned
+    ``model_fn(t, y, cond=None)`` conditions on its own ``cond`` (m, d_cond)
+    rows where given, else on the ``cond`` it was made with: a server builds
+    one function and conditions each batched call, one row per point."""
     cp = compute_params(params, dc)
 
-    def model_fn(t, y):
+    def model_fn(t, y, cond_rows=None):
         t32 = torch.clamp(t.float(), min=1e-6)
         scale = torch.sqrt(t32**2 + t32)
         y_in = y / scale.reshape(tuple(t.shape) + (1,) * (y.ndim - t.ndim))
-        return denoiser_fwd(cp, t32, y_in, dc, cond=_bcast_cond(cond, y.shape[0]),
+        c = cond if cond_rows is None else cond_rows
+        return denoiser_fwd(cp, t32, y_in, dc, cond=_bcast_cond(c, y.shape[0]),
                             attn_impl=attn_impl)
 
     return model_fn
 
 
 def make_ddpm_model_fn(params, dc: DenoiserConfig, cond=None, attn_impl=None):
-    """x0-predicting oracle in the DDPM parametrization (t = step index)."""
+    """x0-predicting oracle in the DDPM parametrization (t = step index);
+    ``model_fn(t, y, cond=None)`` as in ``make_sl_model_fn``."""
     cp = compute_params(params, dc)
 
-    def model_fn(t, y):
-        return denoiser_fwd(cp, t.float(), y, dc,
-                            cond=_bcast_cond(cond, y.shape[0]),
+    def model_fn(t, y, cond_rows=None):
+        c = cond if cond_rows is None else cond_rows
+        return denoiser_fwd(cp, t.float(), y, dc, cond=_bcast_cond(c, y.shape[0]),
                             attn_impl=attn_impl)
 
     return model_fn

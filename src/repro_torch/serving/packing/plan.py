@@ -1,0 +1,57 @@
+"""Pack maps: the slot / step index maps that flatten ragged live windows
+into one dense budget-shaped batch.
+
+Given integer grants ``g_s`` (verification points slot s packs this round,
+``sum g_s <= budget``), the packed batch lays slots out contiguously:
+
+  packed position p  ->  slot_id[p] = the s with  off_s <= p < off_s + g_s
+                         step_id[p] = p - off_s          (0-based in-window)
+                         valid[p]   = p < sum(g_s)
+
+Padding positions (p >= total) carry slot_id / step_id 0 and valid False:
+the gather re-reads a harmless row for them and the scatter routes them to
+the drop row.  Built on the device from the grants (a searchsorted over
+their prefix sums), with no read on the host.  Single-branch only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class PackedRoundPlan:
+    """Index maps and grants of one packed verification round (int64)."""
+
+    grants: torch.Tensor  # (S,) points packed per slot
+    offsets: torch.Tensor  # (S,) exclusive prefix sums of grants
+    total: torch.Tensor  # () live packed points (<= budget)
+    slot_id: torch.Tensor  # (budget,) packed position -> slot
+    step_id: torch.Tensor  # (budget,) packed position -> in-window step
+    valid: torch.Tensor  # (budget,) bool: the position holds a live point
+
+    def row_id(self, theta: int) -> torch.Tensor:
+        """Row into the flattened (S * theta) window table; padding
+        positions map one past the table (the scatter's drop row)."""
+        rows = self.slot_id * theta + self.step_id
+        return torch.where(self.valid, rows, self.grants.shape[0] * theta)
+
+
+def build_pack_maps(grants: torch.Tensor, budget: int) -> PackedRoundPlan:
+    """grants (S,) with sum <= budget -> ``PackedRoundPlan`` of width
+    ``budget``."""
+    grants = grants.to(torch.int64)
+    csum = torch.cumsum(grants, 0)
+    total = csum[-1]
+    offsets = csum - grants
+    pos = torch.arange(int(budget), device=grants.device)
+    # first slot whose segment end exceeds p; the clip keeps padding in range
+    slot_id = torch.searchsorted(csum, pos, right=True)
+    slot_id = torch.clamp(slot_id, max=grants.shape[0] - 1)
+    valid = pos < total
+    step_id = torch.where(valid, pos - offsets[slot_id], 0)
+    slot_id = torch.where(valid, slot_id, 0)
+    return PackedRoundPlan(grants=grants, offsets=offsets, total=total,
+                           slot_id=slot_id, step_id=step_id, valid=valid)

@@ -1,0 +1,489 @@
+"""Serving worker on one device: the device-side core of the continuous ASD
+engine.
+
+A ``ShardWorker`` owns what one shard of a deployment needs:
+
+  * a slot batch of chains (one ``ASDChainState`` with a leading slot axis)
+    on its device,
+  * the superstep that drives it: ``rounds_per_sync`` rounds launched in a
+    row with no read on the host (``asd_superstep`` unpacked,
+    ``packed_superstep`` packed or fused),
+  * the boundary sync packet (retire flags, counters and samples, read by
+    the host in one transfer per superstep),
+  * its own ``SlotScheduler`` admission queue and ``EngineStats``, and
+  * the budget state (per-slot priority weights, the live-demand EWMA and,
+    with ``round_budget="auto"``, the power-of-two budget tier).
+
+Where the JAX package donates the slot pytree to a cached jitted superstep,
+the port updates the slot tensors in place: admission writes a new chain's
+rows into the slot tensors, and a superstep rebinds the round fields to the
+tensors it produced (the noise buffers, the largest, are never copied).
+PyTorch runs eagerly, so there is no executable cache to keep, and the
+JAX package's ``donate``, ``pipelined``, ``pack_impl`` and ``grs_impl``
+have no counterpart: the device picks the plain versions (CPU) or the
+kernels (CUDA).  Admission runs at the JAX worker's default overcommit
+of 1 (``AdmissionContext``'s default), and the auto budget at its default
+hysteresis.  Not ported yet: ``overcommit`` (with the serve CLI that sets
+it), ``budget_hysteresis``, ``model_mesh``, ``param_specs``,
+``state_sharding``, ``tracer``, ``adopt_programs``, branched speculation
+and counter noise.
+
+Budget auto-tiering (``round_budget="auto"``, packed execution) and auto
+``rounds_per_sync`` follow the JAX worker rule for rule.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.asd import (ASDChainState, asd_superstep, chain_sample,
+                                  init_chain_state)
+from repro_torch.core.controller import StaticTheta, ThetaController
+from repro_torch.core.schedules import Schedule
+from repro_torch.core.sequential import init_y0
+from repro_torch.device import resolve_device
+from repro_torch.serving.metrics import EngineStats, RequestMetrics
+from repro_torch.serving.packing import (WaterfillingAllocator, packed_superstep)
+from repro_torch.serving.scheduler import (AdmissionContext, SchedulingPolicy,
+                                           SlotScheduler)
+
+log = logging.getLogger("repro_torch.serving.worker")
+
+# sync-packet rows: the (9, S) int32 array each superstep leaves beside the
+# new slot state.  With one branch, b_live is 1 and draft_points equals
+# proposals (the JAX commit_round with b_eff = 1); the port fills them so
+# instead of carrying the fields.
+_SYNC_ROWS = ("a", "theta_live", "rounds", "head_calls", "model_evals",
+              "accepts", "proposals", "b_live", "draft_points")
+
+# the power-of-two ladder auto rounds_per_sync picks from
+_AUTO_MAX_R = 16
+
+# auto budget: downshift one rung only once the demand EWMA sits at or below
+# this fraction of the lower rung (the JAX worker's default)
+_BUDGET_HYSTERESIS = 0.75
+
+
+@dataclasses.dataclass
+class Request:
+    """A sampling request.  ``u_buf`` (K+theta+1,) and ``xi_buf``
+    (K+theta+1, *event) inject the chain's noise, the port's counterpart of
+    the JAX ``Request.key``; a request without them draws them on the
+    device from a generator that is a pure function of (worker seed, rid)."""
+
+    rid: int
+    cond: Optional[np.ndarray] = None  # (d_cond,) or None
+    u_buf: Optional[Any] = None  # array or tensor (K+theta+1,)
+    xi_buf: Optional[Any] = None  # array or tensor (K+theta+1, *event)
+    y0: Optional[np.ndarray] = None  # explicit start state (else init_y0)
+    priority: float = 0.0  # Priority policy: higher admits first
+    deadline: Optional[float] = None  # absolute SLO deadline (perf_counter s)
+    expected_accept_rate: Optional[float] = None  # SERR/deadline hint
+
+
+def _pow2_ladder(lo: int, hi: int) -> tuple:
+    """Power-of-two rungs from the smallest power of two >= lo, topped by
+    ``hi`` itself (the covering budget) where the next would overshoot."""
+    tier = 1
+    while tier < lo:
+        tier *= 2
+    ladder = [min(tier, hi)]
+    while ladder[-1] < hi:
+        ladder.append(min(ladder[-1] * 2, hi))
+    return tuple(ladder)
+
+
+def _as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+    return t.to(device, dtype)
+
+
+class ShardWorker:
+    """One shard's slot batch, superstep and admission queue.
+
+    Args:
+      model_fn: ``model_fn(t, y)`` over any leading batch of points, or,
+        when ``d_cond > 0``, ``model_fn(t, y, cond)`` with one (d_cond,)
+        condition row per point.  Built once (``make_sl_model_fn`` casts the
+        weights when it is made), and every model call of a round is one
+        batched call.
+      schedule: the affine step schedule shared by all requests.
+      event_shape: per-chain sample shape.
+      num_slots: chains stepped together.
+      theta: speculation window cap theta_max.
+      controller: per-chain window controller (default StaticTheta).
+      policy: admission policy of the queue (default FCFS).
+      execution: "unpacked" (theta-shaped windows per slot) or "packed"
+        (each round verifies only the live points, at most ``round_budget``).
+      round_budget: packed points per round (>= num_slots; default slots *
+        theta, never binding), or "auto" (a power-of-two tier re-picked at
+        each boundary from the live-demand EWMA, with hysteresis).
+      allocator: ``BudgetAllocator`` (default waterfilling).
+      round_impl: "packed" or "fused" (packed execution only; the budget
+        tier is then data and the pack width is the ladder's top).
+      rounds_per_sync: rounds per superstep R, or "auto".
+      device: where the slot batch lives (None means "cuda").
+    """
+
+    def __init__(self, model_fn: Callable, schedule: Schedule, event_shape: tuple,
+                 num_slots: int = 8, theta: int = 8, d_cond: int = 0,
+                 eager_head: bool = True, keep_trajectory: bool = False,
+                 seed: int = 0, controller: Optional[ThetaController] = None,
+                 policy: Optional[SchedulingPolicy] = None,
+                 execution: str = "unpacked", round_budget=None, allocator=None,
+                 round_impl: str = "packed", rounds_per_sync=1, device=None, shard_id: int = 0):
+        self.device = resolve_device(device)
+        self.schedule = schedule.to(self.device)
+        self.event_shape = tuple(event_shape)
+        self.num_slots = num_slots
+        self.theta = int(min(theta, schedule.K))
+        self.d_cond = d_cond
+        self.eager_head = eager_head
+        self.keep_trajectory = keep_trajectory
+        self.seed = int(seed)
+        self.shard_id = shard_id
+        self.draining = False
+        self.controller = controller if controller is not None else StaticTheta()
+        self._model_fn = model_fn
+        if execution not in ("unpacked", "packed"):
+            raise ValueError(f"unknown execution mode {execution!r}")
+        self.execution = execution
+        if round_impl not in ("packed", "fused"):
+            raise ValueError(f"unknown round_impl {round_impl!r}")
+        if round_impl == "fused" and execution != "packed":
+            raise ValueError('round_impl="fused" requires execution="packed" (the '
+                             "fused kernels run the packed round body)")
+        self.round_impl = round_impl
+        self._budget_ladder = _pow2_ladder(num_slots, num_slots * self.theta)
+        if round_budget == "auto":
+            if execution != "packed":
+                raise ValueError('round_budget="auto" requires execution="packed" '
+                                 "(the unpacked engine has no budget-shaped call)")
+            self._budget_auto = True
+            self.round_budget = self._budget_ladder[-1]  # open at the covering tier
+        else:
+            self._budget_auto = False
+            self.round_budget = (num_slots * self.theta if round_budget is None
+                                 else int(round_budget))
+        if execution == "packed" and self.round_budget < num_slots:
+            raise ValueError(
+                f"round_budget {self.round_budget} < num_slots {num_slots}: every "
+                "live chain needs at least one verification point per round")
+        # the fused round's pack width: the tier granted arrives per
+        # superstep as data
+        self._budget_cap = (self._budget_ladder[-1] if self._budget_auto
+                            else self.round_budget)
+        if rounds_per_sync == "auto":
+            self._auto_rps = True
+            self._rps = 1
+        else:
+            self._auto_rps = False
+            self._rps = int(rounds_per_sync)
+            if self._rps < 1:
+                raise ValueError(f"rounds_per_sync must be >= 1 or 'auto', got "
+                                 f"{rounds_per_sync!r}")
+        self.scheduler = SlotScheduler(num_slots, policy=policy)
+        self.stats = EngineStats(shard=shard_id)
+        self._results: dict[int, np.ndarray] = {}
+        self.dropped_rids: list[int] = []
+        self._accept_ewma = 1.0
+        self._spr_ewma = 0.0
+        self._live_demand = 0
+        self._demand_ewma = 0.0
+        # a fresh chain's opening demand: the controller's initial window
+        self._points_open = int(self.controller.init(self.theta, 1, "cpu")[1][0])
+        if execution == "packed":
+            self.allocator = (allocator if allocator is not None
+                              else WaterfillingAllocator(theta_max=self.theta))
+        else:
+            self.allocator = allocator
+        self._weights = np.ones((num_slots,), np.float32)
+        self._weights_dev = torch.ones((num_slots,), dtype=torch.float32,
+                                       device=self.device)
+
+        # every slot starts as an already finished dummy chain, frozen by
+        # the rounds until a request is admitted over it
+        K, dev = schedule.K, self.device
+        n = K + self.theta + 1
+        self._states = init_chain_state(
+            self.schedule, torch.zeros((num_slots,) + self.event_shape, device=dev),
+            self.theta, keep_trajectory, self.controller,
+            u_buf=torch.zeros((num_slots, n), device=dev),
+            xi_buf=torch.zeros((num_slots, n) + self.event_shape, device=dev))
+        self._states.a.fill_(K)
+        self._conds = (torch.zeros((num_slots, d_cond), device=dev) if d_cond
+                       else None)
+        log.debug("shard %d worker up: slots=%d theta=%d execution=%s budget=%s "
+                  "R=%s policy=%s device=%s", shard_id, num_slots, self.theta,
+                  execution, "auto" if self._budget_auto else self.round_budget,
+                  "auto" if self._auto_rps else self._rps,
+                  self.scheduler.policy.name, dev)
+
+    # -- the superstep -------------------------------------------------------
+
+    def _run_rounds(self, states: ASDChainState, R: int, budget) -> ASDChainState:
+        """R rounds over the slot batch, launched with no host read."""
+        statics = dict(eager_head=self.eager_head,
+                       keep_trajectory=self.keep_trajectory,
+                       controller=self.controller)
+        with torch.no_grad():
+            if self.execution == "packed":
+                fused = self.round_impl == "fused"
+                return packed_superstep(
+                    self._model_fn, self.schedule, states, self._conds,
+                    self._weights_dev, rounds=R, theta=self.theta,
+                    budget=self._budget_cap if fused else budget,
+                    budget_data=budget if fused else None,
+                    allocator=self.allocator, round_impl=self.round_impl, **statics)
+            return asd_superstep(self._model_fn, self.schedule, states, self.theta,
+                                 R, conds=self._conds, **statics)
+
+    def _sync_packet(self, st: ASDChainState):
+        """The (9, S) int32 counters and the (S, *event) samples, copied off
+        the slot tensors; on the card the counters start their copy to the
+        host at once, and an event marks when they are there."""
+        with torch.no_grad():
+            info = torch.stack([st.a, st.theta_live, st.rounds, st.head_calls,
+                                st.model_evals, st.accepts, st.proposals,
+                                torch.ones_like(st.a), st.proposals]).to(torch.int32)
+            samples = chain_sample(st, self.schedule.K, self.keep_trajectory).clone()
+        if self.device.type != "cuda":
+            return info, None, samples
+        host = torch.empty(info.shape, dtype=torch.int32, pin_memory=True)
+        host.copy_(info, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return host, ready, samples
+
+    # -- request lifecycle ---------------------------------------------------
+
+    def _request_generator(self, rid: int) -> torch.Generator:
+        """The generator of a request without injected noise: seeded by a
+        pure function of (worker seed, rid), not of admission order or
+        slot, so the sample such a request gets is pinned by its id."""
+        seed = np.random.SeedSequence(
+            [self.seed & 0xFFFFFFFF, int(rid) & 0xFFFFFFFF]).generate_state(1, np.uint64)
+        return torch.Generator(device=self.device).manual_seed(
+            int(seed[0]) & ((1 << 63) - 1))
+
+    def _new_chain(self, req: Request) -> ASDChainState:
+        """A fresh one-chain state for ``req`` on the device."""
+        g = self._request_generator(req.rid)
+        if req.y0 is not None:
+            y0 = _as_tensor(req.y0, self.device)
+        else:
+            y0 = init_y0(self.schedule, self.event_shape, g, device=self.device)
+        return init_chain_state(
+            self.schedule, y0[None], self.theta, self.keep_trajectory,
+            self.controller, g,
+            None if req.u_buf is None else _as_tensor(req.u_buf, self.device)[None],
+            None if req.xi_buf is None else _as_tensor(req.xi_buf, self.device)[None])
+
+    def _admission_context(self, now: float) -> AdmissionContext:
+        return AdmissionContext(
+            K=self.schedule.K, theta_max=self.theta, accept_rate=self._accept_ewma,
+            seconds_per_round=self._spr_ewma, now=now,
+            round_budget=self.round_budget, live_demand=self._live_demand,
+            theta_open=self._points_open, rounds_per_sync=self._rps)
+
+    @property
+    def load(self) -> float:
+        """Occupancy + queue pressure, in units of full slot batches."""
+        busy = self.num_slots - len(self.scheduler.free_slots())
+        return (busy + self.scheduler.queue_depth) / max(self.num_slots, 1)
+
+    # -- health / drain ------------------------------------------------------
+
+    def begin_drain(self) -> None:
+        """Close the admission gate: in-flight and queued requests finish,
+        new submissions raise."""
+        if not self.draining:
+            self.draining = True
+            self.stats.draining = True
+            log.info("shard %d draining: %d queued, %d active", self.shard_id,
+                     self.scheduler.queue_depth, len(self.scheduler.active_slots()))
+
+    def _refresh_health(self) -> None:
+        s, sched = self.stats, self.scheduler
+        s.queue_depth = sched.queue_depth
+        s.queue_depth_peak = max(s.queue_depth_peak, sched.queue_depth_peak)
+        s.slot_occupancy = ((self.num_slots - len(sched.free_slots()))
+                            / max(self.num_slots, 1))
+        s.admission_pressure = self._admission_context(
+            time.perf_counter()).budget_pressure
+        s.draining = self.draining
+
+    def health(self) -> dict:
+        """This shard's health document; ``saturated`` means more than a
+        full slot batch is queued behind the busy slots."""
+        self._refresh_health()
+        s = self.stats
+        saturated = s.queue_depth > self.num_slots
+        status = ("draining" if self.draining
+                  else "backpressure" if saturated else "ok")
+        return {"status": status, "shard": self.shard_id,
+                "queue_depth": s.queue_depth, "queue_depth_peak": s.queue_depth_peak,
+                "slot_occupancy": s.slot_occupancy,
+                "admission_pressure": s.admission_pressure,
+                "draining": self.draining, "saturated": saturated}
+
+    def healthz(self) -> dict:
+        h = self.health()
+        return {"status": h["status"], "shards": [h]}
+
+    # -- boundaries ----------------------------------------------------------
+
+    def _pick_rounds(self) -> int:
+        """R for the next superstep: fixed, or sized to the accept-rate EWMA
+        (a retiring chain idles its slot for at most ~1/8 of its expected
+        service) and snapped down to the power-of-two ladder."""
+        if not self._auto_rps:
+            return self._rps
+        p = min(max(self._accept_ewma, 0.0), 0.999)
+        adv = (1.0 - p ** self.theta) / max(1.0 - p, 1e-3)
+        target = max(1, int(self.schedule.K / max(adv, 1.0) / 8.0))
+        R = 1
+        while R * 2 <= min(target, _AUTO_MAX_R):
+            R *= 2
+        self._rps = R
+        return R
+
+    def _pick_budget(self) -> Optional[int]:
+        """The budget for the next superstep: fixed, or the auto tier
+        (upshift at once to the covering tier, downshift one rung only once
+        the demand EWMA sits at or below ``_BUDGET_HYSTERESIS`` of it)."""
+        if self.execution != "packed":
+            return None
+        if not self._budget_auto:
+            return self.round_budget
+        demand = max(self._demand_ewma, 1.0)
+        target = next((t for t in self._budget_ladder if t >= demand),
+                      self._budget_ladder[-1])
+        cur = self.round_budget
+        if target > cur:
+            self.round_budget = target
+        elif target < cur and cur > self._budget_ladder[0]:
+            lower = max(t for t in self._budget_ladder if t < cur)
+            if self._demand_ewma <= _BUDGET_HYSTERESIS * lower:
+                self.round_budget = lower
+        if self.round_budget != cur:
+            log.debug("shard %d budget tier %d -> %d (demand ewma %.1f)",
+                      self.shard_id, cur, self.round_budget, self._demand_ewma)
+        return self.round_budget
+
+    def _set_weight(self, slot: int, w: float) -> None:
+        """One-lane update of the allocator weights, on the device too."""
+        if self._weights[slot] != w:
+            self._weights[slot] = w
+            self._weights_dev[slot] = w
+
+    def _observe_round_time(self, dt: float) -> None:
+        self._spr_ewma = dt if self._spr_ewma == 0.0 else 0.7 * self._spr_ewma + 0.3 * dt
+
+    def _collect_admissions(self, now: float):
+        """Run the admission policy and its host bookkeeping; returns the
+        placed [(slot, request)]."""
+        placed = self.scheduler.admit(now, self.stats.rounds_total,
+                                      self._admission_context(now))
+        for entry in self.scheduler.drain_dropped():
+            self.stats.observe_drop()
+            self.dropped_rids.append(entry.request.rid)
+            log.info("shard %d dropped rid=%s at admission (deadline unmeetable)",
+                     self.shard_id, entry.request.rid)
+        for slot, req in placed:
+            self._set_weight(slot, max(1.0 + float(req.priority or 0.0), 0.1))
+            self._live_demand += self._points_open
+            self.stats.requests += 1
+        return placed
+
+    def _admit_pending(self) -> None:
+        """Admit at the boundary: each new chain's rows are written into the
+        slot tensors in place."""
+        for slot, req in self._collect_admissions(time.perf_counter()):
+            new = self._new_chain(req)
+            for f in dataclasses.fields(ASDChainState):
+                getattr(self._states, f.name)[slot] = getattr(new, f.name)[0]
+            if self.d_cond:
+                self._conds[slot] = (0.0 if req.cond is None
+                                     else _as_tensor(req.cond, self.device))
+
+    def _dispatch_superstep(self):
+        """Admit, launch one superstep, and return its pending harvest."""
+        self._admit_pending()
+        R = self._pick_rounds()
+        B = self._pick_budget()
+        t0 = time.perf_counter()
+        self._states = self._run_rounds(self._states, R, B)
+        sync = self._sync_packet(self._states)
+        self.stats.dispatch_s += time.perf_counter() - t0
+        self.stats.rounds_total += R
+        self.stats.supersteps += 1
+        return sync, self.stats.rounds_total, R, t0
+
+    def _harvest(self, pending) -> None:
+        """Read one superstep's sync packet: retire every chain that finished
+        in it, refresh the budget-pressure signal, update the EWMAs.  Slots
+        admitted at or after the packet's round count hold chains the packet
+        does not show yet and are not retired against it."""
+        (info_host, ready, samples_dev), snapshot_rounds, R, t_dispatch = pending
+        t0 = time.perf_counter()
+        if ready is not None:
+            ready.synchronize()
+        t1 = time.perf_counter()
+        self.stats.device_s += t1 - t0
+        info = info_host.numpy()
+        row = {name: info[i] for i, name in enumerate(_SYNC_ROWS)}
+        a, theta_live = row["a"], row["theta_live"]
+        now = time.perf_counter()
+        K = self.schedule.K
+        occupied = np.zeros((self.num_slots,), bool)
+        occupied[self.scheduler.active_slots()] = True
+        live = occupied & (a < K)
+        self._live_demand = int(np.minimum(theta_live[live], (K - a)[live]).sum())
+        if self._live_demand == 0:
+            self._demand_ewma *= 0.5
+        else:
+            self._demand_ewma = (
+                float(self._live_demand) if self._demand_ewma == 0.0
+                else 0.5 * self._demand_ewma + 0.5 * self._live_demand)
+        finished = [slot for slot in self.scheduler.active_slots()
+                    if self.scheduler.slot_info(slot).admit_round < snapshot_rounds
+                    and a[slot] >= K]
+        if finished:
+            samples = samples_dev.cpu().numpy()
+            for slot in finished:
+                sinfo = self.scheduler.retire(slot)
+                self._set_weight(slot, 1.0)
+                self._results[sinfo.request.rid] = samples[slot].copy()
+                deadline = sinfo.request.deadline
+                rm = RequestMetrics(
+                    rid=sinfo.request.rid,
+                    queue_latency=sinfo.admit_time - sinfo.submit_time,
+                    service_time=now - sinfo.admit_time,
+                    rounds=int(row["rounds"][slot]),
+                    head_calls=int(row["head_calls"][slot]),
+                    model_evals=int(row["model_evals"][slot]),
+                    accepts=int(row["accepts"][slot]),
+                    proposals=int(row["proposals"][slot]),
+                    deadline=deadline,
+                    slo_met=None if deadline is None else now <= deadline)
+                self.stats.observe(rm)
+                self._accept_ewma = 0.8 * self._accept_ewma + 0.2 * rm.accept_rate
+        if not self.scheduler.active_slots() and self.scheduler.queue_depth == 0:
+            # fully idle: reset the demand signal so the next admission
+            # re-tiers from its own demand
+            self._live_demand = 0
+            self._demand_ewma = 0.0
+        self.stats.host_sync_s += time.perf_counter() - t1
+        self._refresh_health()
+        self._observe_round_time((time.perf_counter() - t_dispatch) / R)
+
+    def drain_results(self) -> dict:
+        out, self._results = self._results, {}
+        return out

@@ -12,6 +12,8 @@ The tree (leaves float32):
 with n the layer count (the stacked ``layers`` axis).  ``from_jax_params``
 converts the JAX package's unboxed params (as numpy arrays) and needs no
 JAX; ``init_denoiser_params`` makes the same tree from a numpy seed.
+``from_jax_chain_state`` converts a slot batch of the JAX package's chain
+states, so both packages can start from the same states.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core.asd import ASDChainState
 from repro_torch.device import resolve_device
 from repro_torch.models.diffusion import DenoiserConfig
 
@@ -112,3 +115,48 @@ def init_denoiser_params(dc: DenoiserConfig, seed: int, out_scale: float = 1e-2,
         return torch.from_numpy(a).to(dev)
 
     return make(param_shapes(dc), None, False)
+
+
+# the JAX ASDChainState leaves the port carries, with their dtypes; the
+# others (k_u, k_xi: counter-mode keys; b_live, bctrl, draft_points:
+# branched speculation) are dropped
+_STATE_DTYPES = {
+    "y": torch.float32, "a": torch.int64, "v_cache": torch.float32,
+    "v_valid": torch.bool, "rounds": torch.int64, "head_calls": torch.int64,
+    "model_evals": torch.int64, "accepts": torch.int64, "proposals": torch.int64,
+    "theta_live": torch.int64, "ctrl": torch.float32, "u_buf": torch.float32,
+    "xi_buf": torch.float32,
+}
+
+
+def from_jax_chain_state(state, K: int, theta: int, device=None) -> ASDChainState:
+    """A slot batch of the JAX package's ``ASDChainState`` (leaves as numpy
+    arrays with a leading slot axis B, buffer noise mode, one branch) as
+    the port's ``ASDChainState`` on ``device`` (None means "cuda").
+
+    ``k_u``, ``k_xi``, ``bctrl``, ``b_live`` and ``draft_points`` are
+    dropped.  Shapes are checked against K and theta (the clamped cap that
+    shaped the buffers): y (B, K+theta+1 or theta+1, *event), u_buf
+    (B, K+theta+1), xi_buf (B, K+theta+1, *event), ctrl (B, n), the rest
+    (B,)."""
+    dev = resolve_device(device)
+    get = state.get if isinstance(state, dict) else (lambda k: getattr(state, k))
+    arrs = {k: np.asarray(get(k)) for k in _STATE_DTYPES}
+    B = arrs["a"].shape[0] if arrs["a"].ndim == 1 else -1
+    ev = arrs["v_cache"].shape[1:]
+    n = K + theta + 1
+    y_len = arrs["y"].shape[1] if arrs["y"].ndim >= 2 else -1
+    want = {"y": (B, y_len) + ev, "v_cache": (B,) + ev, "u_buf": (B, n),
+            "xi_buf": (B, n) + ev, "ctrl": (B,) + arrs["ctrl"].shape[1:2]}
+    for name in _STATE_DTYPES:
+        shape = want.get(name, (B,))
+        if B < 0 or arrs[name].shape != shape or (
+                name == "ctrl" and arrs[name].ndim != 2):
+            raise ValueError(f"chain state {name}: expected {shape} (B slots, "
+                             f"K={K}, theta={theta}), got {arrs[name].shape}")
+    if y_len not in (n, theta + 1):
+        raise ValueError(f"chain state y: length {y_len} is neither K+theta+1 = {n} "
+                         f"nor theta+1 = {theta + 1}")
+    return ASDChainState(**{
+        k: torch.from_numpy(np.array(arrs[k], order="C")).to(dev, _STATE_DTYPES[k])
+        for k in _STATE_DTYPES})

@@ -15,7 +15,11 @@ from repro_torch.core import schedules as t_sch
 from repro_torch.core.grs import grs as grs_plain
 from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha
 from repro_torch.kernels.grs.ops import grs
+from repro_torch.kernels.pack import ops as pack_ops
+from repro_torch.kernels.superstep import ops as fused_ops
 from repro_torch.models.diffusion import make_sl_model_fn
+from repro_torch.serving.engine import ContinuousASDEngine, Request
+from repro_torch.serving.packing import WaterfillingAllocator, packed_superstep
 from repro_torch.weights import init_denoiser_params
 
 pytestmark = pytest.mark.cuda
@@ -139,3 +143,181 @@ def test_smoke_slice_on_card_matches_cpu(dev):
     torch.testing.assert_close(card.sample.cpu(), cpu.sample, atol=2e-3, rtol=2e-3)
     assert bool((cpu.accepts < cpu.proposals).any())
     assert np.isfinite(card.sample.cpu().numpy()).all()
+
+
+# ---- the packed round's kernels: B3 gather, B4 scatter, B5 fused gather,
+# B6 fused verify-commit (CUDA, csrc/pack.cu and csrc/superstep.cu)
+
+# (table rows N, packed rows M, event shape): the main path's (32 window
+# rows, budget 16, 1024 x 192) and edges: D = 1, D not a multiple of 4
+# (the scalar path), D = 4097, rank-3 events, one packed row
+PACK_SHAPES = [(32, 16, (1024, 192)), (5, 3, ()), (7, 11, (5,)), (9, 4, (4097,)),
+               (6, 1, (2, 3, 8)), (12, 13, (3, 7))]
+
+
+def _pack_idx(N, M, dev, seed, drop=False):
+    """Unique in-range rows for the first M - 2 positions, then padding
+    (row 0 on gather, N and past on scatter)."""
+    g = torch.Generator().manual_seed(seed)
+    live = torch.randperm(N, generator=g)[: max(min(M - 2, N), 1)]
+    pad = M - live.numel()
+    gather = torch.cat([live, torch.zeros(pad, dtype=torch.long)])
+    scatter = torch.cat([live, N + torch.arange(pad)])
+    if drop:
+        scatter = torch.full((M,), N, dtype=torch.long)
+    return gather.to(dev), scatter.to(dev)
+
+
+@pytest.mark.parametrize("N,M,event", PACK_SHAPES)
+def test_pack_kernels_equal_plain(dev, N, M, event):
+    g = torch.Generator(device=dev).manual_seed(N + M)
+    src = torch.randn((N,) + event, generator=g, device=dev)
+    vals = torch.randn((M,) + event, generator=g, device=dev)
+    gidx, sidx = _pack_idx(N, M, dev, N * M)
+    n0, s0 = pack_ops.gather_rows.launches, pack_ops.scatter_rows.launches
+    out = pack_ops.gather_rows(src, gidx)
+    tbl = pack_ops.scatter_rows(vals, sidx, N)
+    torch.cuda.synchronize()
+    assert (pack_ops.gather_rows.launches, pack_ops.scatter_rows.launches) == (n0 + 1, s0 + 1)
+    assert torch.equal(out, pack_ops.gather_rows_plain(src, gidx))
+    assert torch.equal(tbl, pack_ops.scatter_rows_plain(vals, sidx, N))
+    # every row dropped: an all-zero table
+    _, drop = _pack_idx(N, M, dev, 0, drop=True)
+    assert not pack_ops.scatter_rows(vals, drop, N).any()
+
+
+def test_pack_kernels_read_unaligned_views(dev):
+    """A table that starts 4 bytes into its storage takes the scalar path."""
+    base = torch.randn(8 * 64 + 1, device=dev)
+    src = base[1:].view(8, 64)
+    idx = torch.tensor([7, 0, 3], device=dev)
+    assert torch.equal(pack_ops.gather_rows(src, idx), src[idx])
+
+
+def test_pack_kernels_refuse_what_they_do_not_take(dev):
+    src = torch.randn(4, 8, device=dev)
+    with pytest.raises(ValueError):
+        pack_ops.gather_rows_cuda(src.double(), torch.zeros(2, dtype=torch.long, device=dev))
+    with pytest.raises(ValueError):
+        pack_ops.scatter_rows_cuda(src, torch.zeros(4, dtype=torch.int32, device=dev), 4)
+
+
+def _fvc_inputs(M, event, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    y, gg, xi = r(M, *event), r(M, *event), r(M, *event)
+    A = 1.0 + 0.1 * torch.rand(M, generator=g, device=dev)
+    B = 0.5 * torch.rand(M, generator=g, device=dev)
+    shape = (M,) + (1,) * len(event)
+    m = A.reshape(shape) * y + B.reshape(shape) * gg
+    d = max(1, int(np.prod(event)))
+    mh = m + 0.3 * r(M, *event) / d ** 0.5
+    sig = 0.2 + 0.3 * torch.rand(M, generator=g, device=dev)
+    u = torch.rand(M, generator=g, device=dev)
+    if M > 2:
+        sig[0] = 0.0
+        sig[1], A[1], B[1] = 0.0, 1.0, 0.0
+        mh[1] = y[1]
+    return y, gg, xi, mh, A, B, u, sig
+
+
+@pytest.mark.parametrize("N,M,event", PACK_SHAPES)
+def test_fused_kernels_match_plain(dev, N, M, event):
+    g = torch.Generator(device=dev).manual_seed(M)
+    tbls = [torch.randn((N,) + event, generator=g, device=dev) for _ in range(3)]
+    sc = torch.randn(N, 5, generator=g, device=dev)
+    gidx, sidx = _pack_idx(N, M, dev, N + M)
+    k0, c0 = fused_ops.fused_gather.launches, fused_ops.fused_verify_commit.launches
+    got = fused_ops.fused_gather(*tbls, sc, gidx)
+    for a, b in zip(got, fused_ops.fused_gather_plain(*tbls, sc, gidx)):
+        assert torch.equal(a, b)
+    args = _fvc_inputs(M, event, dev, N * M)
+    zk, ak = fused_ops.fused_verify_commit(*args, sidx, N)
+    torch.cuda.synchronize()
+    assert (fused_ops.fused_gather.launches, fused_ops.fused_verify_commit.launches) == (
+        k0 + 1, c0 + 1)
+    zp, ap = fused_ops.fused_verify_commit_plain(*args, sidx, N)
+    torch.testing.assert_close(zk, zp, atol=1e-5, rtol=1e-5)
+    y, gg, xi, mh, A, B, u, sig = args
+    shape = (M,) + (1,) * len(event)
+    m = A.reshape(shape) * y + B.reshape(shape) * gg
+    near_p = _near_threshold(u, xi.reshape(M, -1), mh.reshape(M, -1), m.reshape(M, -1), sig)
+    near = torch.zeros(N, dtype=torch.bool, device=dev)
+    live = sidx < N
+    near[sidx[live]] = near_p[live]
+    assert torch.equal(ak[~near], ap[~near])
+    if M - 2 >= 2:  # packed rows 0 and 1 (the sigma 0 rows) are live
+        assert not ak[sidx[0]] and ak[sidx[1]]
+
+
+def test_fused_verify_commit_gives_the_packed_rounds_bits(dev):
+    """B6 runs B1's row code on m rounded as torch rounds A y + B g: the
+    fused commit equals the torch mean, the GRS kernel and the scatter
+    kernel, bit for bit."""
+    args = _fvc_inputs(16, (1024, 192), dev, 3)
+    y, gg, xi, mh, A, B, u, sig = args
+    _, sidx = _pack_idx(32, 16, dev, 4)
+    zf, af = fused_ops.fused_verify_commit(*args, sidx, 32)
+    m = A[:, None, None] * y + B[:, None, None] * gg
+    z, a = grs(u, xi, mh, m, sig, event_ndim=2)
+    assert torch.equal(zf, pack_ops.scatter_rows(z, sidx, 32))
+    assert torch.equal(af, pack_ops.scatter_rows_plain(a, sidx, 32))
+
+
+@pytest.mark.parametrize("round_impl", ["packed", "fused"])
+def test_packed_superstep_on_card_matches_cpu(dev, round_impl):
+    """The smoke denoiser's packed superstep on the card and on the CPU from
+    the same states: counters equal, states close; the kernels were
+    launched once a round as the round says."""
+    dc = paper_diffusion_policy_smoke()
+    K, theta, S, R, budget = 12, 4, 4, 5, 6
+    sched = t_sch.sl_geometric(K, 0.05, 10.0)
+    gen = torch.Generator().manual_seed(0)
+    y0 = torch.randn(S, dc.seq_len, dc.d_data, generator=gen)
+    u = torch.rand(S, K + theta + 1, generator=gen)
+    xi = torch.randn(S, K + theta + 1, dc.seq_len, dc.d_data, generator=gen)
+    out = {}
+    for where in ("cpu", dev):
+        st = t_asd.init_chain_state(sched.to(where), y0.to(where), theta, False,
+                                    u_buf=u.to(where), xi_buf=xi.to(where))
+        fn = make_sl_model_fn(init_denoiser_params(dc, 0, out_scale=1.0, device=where), dc)
+        before = (pack_ops.gather_rows.launches, pack_ops.scatter_rows.launches,
+                  fused_ops.fused_gather.launches, fused_ops.fused_verify_commit.launches,
+                  grs.launches)
+        with torch.no_grad():
+            out[str(where)] = packed_superstep(
+                fn, sched.to(where), st, None, torch.ones(S, device=where), rounds=R,
+                theta=theta, budget=budget, allocator=WaterfillingAllocator(theta_max=theta),
+                round_impl=round_impl)
+        after = (pack_ops.gather_rows.launches, pack_ops.scatter_rows.launches,
+                 fused_ops.fused_gather.launches, fused_ops.fused_verify_commit.launches,
+                 grs.launches)
+    per_round = (3, 1, 0, 0, 1) if round_impl == "packed" else (0, 0, 1, 1, 0)
+    assert tuple(b - a for a, b in zip(before, after)) == tuple(R * n for n in per_round)
+    cpu, card = out["cpu"], out[str(dev)]
+    for name in ("a", "rounds", "head_calls", "model_evals", "accepts", "proposals",
+                 "theta_live", "v_valid"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), name
+    torch.testing.assert_close(card.y.cpu(), cpu.y, atol=2e-3, rtol=2e-3)
+
+
+def test_packed_and_fused_serving_agree_bit_for_bit_on_card(dev):
+    """The same requests through the packed and the fused engine on the
+    card: the same counters and the same sample bits."""
+    dc = paper_diffusion_policy_smoke()
+    K, theta = 16, 4
+    sched = t_sch.sl_geometric(K, 0.05, 50.0)
+    fn = make_sl_model_fn(init_denoiser_params(dc, 0, out_scale=1.0, device=dev), dc)
+    results = {}
+    for impl in ("packed", "fused"):
+        eng = ContinuousASDEngine(fn, sched, (dc.seq_len, dc.d_data), num_slots=3,
+                                  theta=theta, execution="packed", round_budget=5,
+                                  round_impl=impl, rounds_per_sync=2, seed=3, device=dev)
+        samples = eng.serve([Request(i) for i in range(5)])
+        results[impl] = (samples, {m.rid: (m.rounds, m.accepts, m.proposals)
+                                   for m in eng.stats.per_request})
+    (sp, cp), (sf, cf) = results["packed"], results["fused"]
+    assert cp == cf
+    for rid in sp:
+        assert np.array_equal(sp[rid], sf[rid]), rid
+    assert sum(a for _, a, _ in cp.values()) < sum(p for _, _, p in cp.values())
