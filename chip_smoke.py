@@ -9,12 +9,13 @@ Phases, each printing one JSON line and raising on any failure:
   1. device   the card (nvidia-smi's name and power limit, on a line of its
               own), torch and CUDA versions; TF32 is switched off.
   2. build    nvcc builds the kernels from ``src/repro_torch/csrc``.
-  3. grs / flash_attention / pack / fused_round
+  3. grs / flash_attention / pack / fused_round / ssm_scan
               each kernel against its plain PyTorch version on the card, at
               the main path's shape and at edge shapes: max abs error,
               kernel / plain / library times (CUDA events around calls
               launched back to back, and device time under torch.profiler)
-              and the card's bound for the same work.
+              and the card's bound for the same work.  flash_attention also
+              at the hymba-1.5b shapes (causal, window 1024 and full).
   4. denoiser the full-width ``paper-pixel-dit`` denoiser (random weights
               from a seed): one forward through the flash kernel against
               the same forward through the naive attention.
@@ -34,8 +35,22 @@ Phases, each printing one JSON line and raising on any failure:
      serve_reference
               the same engine on a small denoiser, on the card and on the
               CPU with the same noise, in both round_impls.
-  6. kernels  one JSON line with every ported kernel's numbers.
-  7. the last line: {"ok": true, "device": {...}}.
+  6. hymba    the full-width ``hymba-1.5b`` LM (random weights from a seed):
+              ``lm_prefill`` of 2 prompts of 4096 tokens into caches of
+              4112, 16 greedy ``lm_decode_step`` calls, then ``lm_fwd`` on
+              the 4112 tokens; the launch counts of B7 and B2 in each;
+              decode logits against forward logits; warm times; one
+              profiled prefill, decode step and mamba mixer.
+              Two planted decode faults (window ignored, SSM state one
+              token stale): the gate must see the first.
+     hymba_f32
+              the same full-width run in float32: decode against forward
+              within a tight bound that both planted faults must exceed.
+     hymba_reference
+              the reduced hymba in float32 on the card and on the CPU with
+              the same params: greedy tokens equal, logits close.
+  7. kernels  one JSON line with every ported kernel's numbers.
+  8. the last line: {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, where there is no CUDA device or
 no ``src/repro_torch`` beside it.  No JAX is imported.
@@ -43,6 +58,7 @@ no ``src/repro_torch`` beside it.  No JAX is imported.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -67,6 +83,19 @@ OUT_SCALE = 1e-2  # out_proj = normal * OUT_SCALE / sqrt(d_model)
 # the serve cell (pixel-dit-serve): slots, budget (half the covering 32),
 # rounds per superstep, requests
 SLOTS, BUDGET, RPS, REQUESTS = 4, 16, 4, 6
+# the hymba cell (hymba-prefill): prompts, prompt length, greedy decode steps
+HYMBA_BATCH, HYMBA_PROMPT, HYMBA_DECODE = 2, 4096, 16
+# hymba-1.5b's parameter count (jax.eval_shape of the JAX package's lm_init)
+HYMBA_PARAMS = 1_403_345_600
+# decode logits against forward logits, relative L2, set between the clean
+# run and the planted faults (NVIDIA H100 80GB HBM3, 700 W): bf16, the main
+# path, reads 0.0524 clean and 0.1015 with the window ignored in decode (a
+# one-token-stale SSM state, 0.0539, hides under bf16 rounding); float32
+# (hymba_f32) reads 1.05e-5 clean, 0.0081 stale and 0.085 window ignored
+HYMBA_BF16_GATE, HYMBA_F32_GATE = 0.075, 1e-3
+# the planted faults each gate must see
+HYMBA_BF16_SEES = ("decode ignores the window",)
+HYMBA_F32_SEES = ("decode ignores the window", "SSM state one token stale")
 
 
 def emit(phase: str, **fields) -> None:
@@ -184,6 +213,21 @@ def check_grs(torch, dev):
                 **times, bound_ms=bms, bound_by=by)
 
 
+# B2 and its plain version both compute in float32 and round the output to
+# bf16 once, so an element differs by at most one bf16 ulp (2^-7 of its size)
+# where the two float32 results round apart; 1e-4 more covers float32 sums in
+# other orders near zero.  Rows that average over 1024-4096 keys have |o| of
+# about 0.02-0.04, where a key too many or too few moves o by about 1e-3.
+FLASH_ATOL, FLASH_RTOL = 1e-4, 2.0 ** -7
+FLASH_TOLERANCE = "|kernel - plain| <= 1e-4 + 2^-7 |plain| per element (one bf16 ulp)"
+
+
+def _flash_tolerance_used(ok, op):
+    """max |ok - op| / (atol + rtol |op|) over the elements: <= 1 passes."""
+    op = op.float()
+    return ((ok.float() - op).abs() / (FLASH_ATOL + FLASH_RTOL * op.abs())).max().item()
+
+
 def check_flash(torch, dev):
     from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha
 
@@ -198,11 +242,11 @@ def check_flash(torch, dev):
         ok = flash_mha(q, k, v, **opts)
         torch.cuda.synchronize()
         op = attention_plain(q, k, v, **opts)
-        err = (ok.float() - op.float()).abs().max().item()
-        # one bf16 rounding of the output on each side: 8 mantissa bits
-        if not err <= 2e-2:
-            fail(f"flash: max abs error {err} > 2e-2 at {tuple(q.shape)} {opts}")
-        return err
+        used = _flash_tolerance_used(ok, op)
+        if not used <= 1.0:
+            fail(f"flash: {used} of the tolerance ({FLASH_TOLERANCE}) used at "
+                 f"{tuple(q.shape)} {opts}")
+        return (ok.float() - op.float()).abs().max().item()
 
     edges = {
         "L=16": compare(*inputs(4, 16, 16, 16, 64, 1), causal=False),
@@ -213,6 +257,11 @@ def check_flash(torch, dev):
                               softcap=30.0),
         "dh=72": compare(*inputs(2, 256, 256, 16, 72, 6), causal=False),
     }
+    # hymba-1.5b: 25 heads (KV repeated from 5), ragged last tile of the
+    # L + 16 forward, 64-row tiles skipped outside the 1024 band
+    edges["hymba L=4112 window 1024"] = compare(*inputs(2, 4112, 4112, 25, 64, 8),
+                                                causal=True, window=1024)
+    edges["hymba L=4112 causal"] = compare(*inputs(2, 4112, 4112, 25, 64, 9), causal=True)
     B, L, H, hd = CHAINS * THETA, 1024, 16, 64
     q, k, v = inputs(B, L, L, H, hd, 7)
     err = compare(q, k, v, causal=False)
@@ -223,13 +272,60 @@ def check_flash(torch, dev):
                          lambda: sdpa(qt, kt, vt), reps=5)
     bms, by = bound_ms(4.0 * B * L * H * hd * 2, 4.0 * B * H * L * L * hd, PEAK_BF16)
     emit("flash_attention", shape=[B, L, H, hd], dtype="bfloat16", max_abs_err=err,
-         edge_max_abs_err=edges, tolerance="atol 2e-2 (bf16 output)", **times,
+         edge_max_abs_err=edges, tolerance=FLASH_TOLERANCE, **times,
          library="scaled_dot_product_attention", bound_ms=bms, bound_by=by,
          tflops=4.0 * B * H * L * L * hd / times["ms"] / 1e9)
+    hymba = {}
+    for name, window in (("window 1024", 1024), ("causal", 0)):
+        hymba[name] = _flash_at_hymba_shape(torch, dev, inputs, window)
+        emit("flash_attention_hymba", **hymba[name])
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:27",
-                max_abs_err=err, **times, bound_ms=bms, bound_by=by)
+                max_abs_err=err, **times, bound_ms=bms, bound_by=by, at_hymba_shape=hymba)
+
+
+def _flash_at_hymba_shape(torch, dev, inputs, window):
+    """B2 as the hymba prefill launches it: (2, 4096, 25, 64) bf16, causal,
+    ``window`` 1024 (29 layers) or 0 (3 layers).  Two planted faults show
+    that the tolerance can see a wrong band: the kernel against the plain
+    version with the window one key narrower and one wider (window 1024),
+    or with the first KV tile dropped from the last 64 rows (full causal:
+    the plain version's window L - 64).  The library call is SDPA with the
+    boolean band mask; the bound counts the (q, k) pairs the mask keeps."""
+    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha
+    from repro_torch.nn.attention import attn_mask
+
+    B, L, H, hd = HYMBA_BATCH, HYMBA_PROMPT, 25, 64
+    q, k, v = inputs(B, L, L, H, hd, 10 + window)
+    ok = flash_mha(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    op = attention_plain(q, k, v, causal=True, window=window)
+    used = _flash_tolerance_used(ok, op)
+    err = (ok.float() - op.float()).abs().max().item()
+    faults = ({"window 1023": window - 1, "window 1025": window + 1} if window else
+              {"first KV tile dropped in the last 64 rows": L - 64})
+    planted = {name: _flash_tolerance_used(ok, attention_plain(q, k, v, causal=True,
+                                                               window=w))
+               for name, w in faults.items()}
+    del op
+    if not used <= 1.0 or not all(u > 1.0 for u in planted.values()):
+        fail(f"flash at the hymba shape, window {window}: {used} of the tolerance used, "
+             f"planted faults {planted} (each must exceed 1)")
+    mask = attn_mask(L, L, True, window, dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = kernel_times(lambda: flash_mha(q, k, v, causal=True, window=window),
+                         lambda: attention_plain(q, k, v, causal=True, window=window),
+                         lambda: sdpa(qt, kt, vt, attn_mask=mask), reps=3)
+    pairs = sum(min(i + 1, window or L) for i in range(L))
+    bms, by = bound_ms(4.0 * B * L * H * hd * 2, 4.0 * B * H * pairs * hd, PEAK_BF16)
+    return dict(shape=[B, L, H, hd], dtype="bfloat16", causal=True, window=window,
+                max_abs_err=err, tolerance=FLASH_TOLERANCE, tolerance_used=used,
+                planted_faults_tolerance_used=planted, **times,
+                library="scaled_dot_product_attention with the boolean band mask",
+                bound_ms=bms, bound_by=by, attended_pairs=pairs,
+                tflops=4.0 * B * H * pairs * hd / times["ms"] / 1e9)
 
 
 def _serve_maps(torch, dev):
@@ -389,6 +485,47 @@ def check_fused_round(torch, dev):
     return lines
 
 
+def check_ssm_scan(torch, dev):
+    """B7 against its plain loop.  Equal bits are expected (both round a*h,
+    then add b, in float32); checked at atol 1e-5 + rtol 1e-5."""
+    from repro_torch.kernels.ssm_scan.ops import linear_scan, ssm_scan_plain
+
+    def inputs(B, L, D, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        a = 0.5 + 0.499 * torch.rand(B, L, D, generator=g, device=dev)
+        return a, torch.randn(B, L, D, generator=g, device=dev)
+
+    def compare(a, b):
+        hk = linear_scan(a, b)
+        torch.cuda.synchronize()
+        hp = ssm_scan_plain(a, b)
+        if not (torch.isfinite(hk).all() and torch.allclose(hk, hp, atol=1e-5, rtol=1e-5)):
+            fail(f"ssm_scan: kernel and plain differ beyond atol 1e-5 + rtol 1e-5 at "
+                 f"{tuple(a.shape)}")
+        return (hk - hp).abs().max().item(), bool(torch.equal(hk, hp))
+
+    edges = {name: compare(*inputs(*shape, len(name)))
+             for name, shape in {"L=1": (2, 1, 25600), "L=100 D=70": (1, 100, 70),
+                                 "D=25601 (not a multiple of 4)": (2, 37, 25601),
+                                 "L=17 (ragged unroll tail)": (3, 17, 130),
+                                 "D=1": (2, 50, 1)}.items()}
+    # the hymba prefill's shape: B 2, L 4096, din * N = 1600 * 16
+    B, L, D = HYMBA_BATCH, HYMBA_PROMPT, 1600 * 16
+    a, b = inputs(B, L, D, 1)
+    err, equal = compare(a, b)
+    times = kernel_times(lambda: linear_scan(a, b), lambda: ssm_scan_plain(a, b), reps=3)
+    bms, by = bound_ms(12.0 * B * L * D, 2.0 * B * L * D, PEAK_F32)
+    emit("ssm_scan", shape=[B, L, D], dtype="float32", max_abs_err=err, equal_bits=equal,
+         edge_max_abs_err={k: e for k, (e, _) in edges.items()},
+         edge_equal_bits={k: q for k, (_, q) in edges.items()},
+         tolerance="atol 1e-5 + rtol 1e-5; equal bits expected (no FMA contraction)",
+         **times, library=None, bound_ms=bms, bound_by=by,
+         gb_per_s=12.0 * B * L * D / times["ms"] / 1e6)
+    return dict(name="ssm_scan", route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+                replaces="src/repro/kernels/ssm_scan/kernel.py:27", max_abs_err=err,
+                **times, bound_ms=bms, bound_by=by)
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -491,7 +628,8 @@ def run_slice(torch, dev):
 _KERNEL_GROUPS = (("flash_attention", ("flash_fwd",)), ("grs", ("grs_",)),
                   ("pack", ("gather_rows_kernel", "scatter_rows_kernel")),
                   ("fused_round", ("fused_gather_kernel", "fvc_")),
-                  ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
+                  ("ssm_scan", ("ssm_scan_kernel",)),
+                  ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")))
 
 
 def profile_round(torch, dev, model_fn, sched, y0):
@@ -599,20 +737,23 @@ def _counters():
     from repro_torch.kernels.flash_attention.ops import flash_mha
     from repro_torch.kernels.grs.ops import grs
     from repro_torch.kernels.pack.ops import gather_rows, scatter_rows
+    from repro_torch.kernels.ssm_scan.ops import linear_scan
     from repro_torch.kernels.superstep.ops import fused_gather, fused_verify_commit
 
     return {"grs": grs, "flash_attention": flash_mha, "gather_rows": gather_rows,
             "scatter_rows": scatter_rows, "fused_gather": fused_gather,
-            "fused_verify_commit": fused_verify_commit}
+            "fused_verify_commit": fused_verify_commit, "ssm_scan": linear_scan}
 
 
 # launches of each kernel per round of the packed engine, by round_impl
 # (flash: 24 layers x 2 model calls, the proposal and the verification)
 def _per_round(n_layers):
     return {"packed": {"grs": 1, "gather_rows": 3, "scatter_rows": 1, "fused_gather": 0,
-                       "fused_verify_commit": 0, "flash_attention": 2 * n_layers},
+                       "fused_verify_commit": 0, "flash_attention": 2 * n_layers,
+                       "ssm_scan": 0},
             "fused": {"grs": 0, "gather_rows": 0, "scatter_rows": 0, "fused_gather": 1,
-                      "fused_verify_commit": 1, "flash_attention": 2 * n_layers}}
+                      "fused_verify_commit": 1, "flash_attention": 2 * n_layers,
+                      "ssm_scan": 0}}
 
 
 def _serve_requests(torch, dev, dc, k, theta, n, seed):
@@ -773,6 +914,288 @@ def check_serve_reference(torch, dev):
              accepts=accepts, proposals=proposals)
 
 
+# ---------------------------------------------------------------- phase 6
+
+
+def _zero_counters(torch, counters):
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _launches(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def run_hymba(torch, dev):
+    """hymba-prefill: the full-width hymba-1.5b through lm_prefill, 16
+    greedy lm_decode_step calls and lm_fwd, with the launch counts of each
+    run.  B7 and B2 run once per layer in the prefill and the forward and
+    never in a decode step (its attention and recurrence are plain torch)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import (lm_cache_init, lm_compute_params, lm_decode_step,
+                                       lm_fwd, lm_prefill)
+    from repro_torch.weights import init_lm_params
+
+    cfg = get_config("hymba-1.5b")
+    B, P, T = HYMBA_BATCH, HYMBA_PROMPT, HYMBA_DECODE
+    t0 = time.perf_counter()
+    params = init_lm_params(cfg, SEED, device=dev)
+    n_params = sum(p.numel() for p in _leaves(params))
+    cp = lm_compute_params(params, cfg)
+    del params  # the float32 copies of the cast leaves
+    torch.cuda.synchronize()
+    if n_params != HYMBA_PARAMS:
+        fail(f"hymba: {n_params} params, expected {HYMBA_PARAMS}")
+    emit("hymba_weights", model=cfg.name, params=n_params, seconds=time.perf_counter() - t0,
+         layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+         kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         d_inner=cfg.d_inner, ssm_state=cfg.ssm_state,
+         windows=list(cfg.group[0].window_per_repeat), seed=SEED,
+         compute_dtype=cfg.compute_dtype, kv_cache_dtype="bfloat16")
+
+    counters = _counters()
+    per_layer = {name: 0 for name in counters}
+    per_layer.update(ssm_scan=cfg.n_layers, flash_attention=cfg.n_layers)
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
+    runs, wall = {}, {}
+    with torch.no_grad():
+        caches = lm_cache_init(cp, cfg, B, P + T)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        logits, caches = lm_prefill(cp, prompt, caches, cfg)
+        torch.cuda.synchronize()
+        wall["prefill_s"] = time.perf_counter() - t0
+        runs["hymba_prefill"] = _launches(counters)
+        prefilled = _clone(caches)
+
+        steps, seq = [logits[:, 0].float()], [prompt]
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        for i in range(T):
+            tok = steps[-1].argmax(-1)
+            seq.append(tok[:, None])
+            logits, caches = lm_decode_step(cp, tok, caches, P + i, cfg)
+            steps.append(logits[:, 0].float())
+        torch.cuda.synchronize()
+        wall["decode_s"] = time.perf_counter() - t0
+        runs["hymba_decode"] = _launches(counters)
+
+        seq = torch.cat(seq, dim=1)  # (B, P + T): the prompt and T greedy tokens
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        full = lm_fwd(cp, seq, cfg)
+        torch.cuda.synchronize()
+        wall["forward_s"] = time.perf_counter() - t0
+        runs["hymba_forward"] = _launches(counters)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    for run, want in (("hymba_prefill", per_layer), ("hymba_forward", per_layer),
+                      ("hymba_decode", {name: 0 for name in counters})):
+        if runs[run] != want:
+            fail(f"hymba: {run} launched {runs[run]}, expected {want}")
+    dec = torch.stack(steps, dim=1)  # logits at positions P-1 .. P+T-1
+    ref = full[:, P - 1:].float()
+    finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
+    rel = _rel_l2(dec, ref)
+    agree = (dec.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    with torch.no_grad():
+        planted = _planted_decode_faults(torch, cp, cfg, prompt, seq, prefilled, dec[:, 0],
+                                         ref)
+    del prefilled
+    if not (finite and tuple(full.shape) == (B, P + T, cfg.vocab_size)
+            and rel <= HYMBA_BF16_GATE
+            and all(planted[name] > HYMBA_BF16_GATE for name in HYMBA_BF16_SEES)):
+        fail(f"hymba: finite={finite}, forward {tuple(full.shape)}, decode vs forward "
+             f"relative L2 {rel}, planted faults {planted} (the gate {HYMBA_BF16_GATE} "
+             f"must hold the first and not {HYMBA_BF16_SEES})")
+    emit("hymba", model=cfg.name, batch=B, prompt=P, decode_steps=T, cache_len=P + T,
+         launches=runs, finite=finite, decode_vs_forward_relative_l2=rel,
+         decode_vs_forward_max_abs_err=(dec - ref).abs().max().item(),
+         planted_faults_relative_l2=planted,
+         logits_abs_max=ref.abs().max().item(), greedy_argmax_agreement=agree,
+         tolerance=f"relative L2 {HYMBA_BF16_GATE} over the prefill's and the 16 decode "
+                   "steps' logits: bf16 over 32 layers, and decode rounds elsewhere than "
+                   "the forward (its attention scores and probabilities in bf16, its conv "
+                   "in float32); it sees the window ignored in decode, not a one-token-"
+                   "stale SSM state, which hymba_f32 (the same run in float32) sees",
+         peak_memory_gb=peak_gb, first_call_wall=wall)
+
+    # warm times: CUDA events around calls launched back to back
+    with torch.no_grad():
+        prefill_ms = cuda_ms(lambda: lm_prefill(cp, prompt, caches, cfg), reps=3, warmup=1)
+        tok = seq[:, P]
+        decode_ms = cuda_ms(lambda: lm_decode_step(cp, tok, caches, P, cfg), reps=16)
+        forward_ms = cuda_ms(lambda: lm_fwd(cp, seq, cfg), reps=2, warmup=1)
+        emit("hymba_times", prefill_ms=prefill_ms, prefill_tokens_per_s=B * P / prefill_ms * 1e3,
+             decode_ms_per_step=decode_ms, decode_tokens_per_s=B / decode_ms * 1e3,
+             forward_ms=forward_ms, forward_tokens=B * (P + T),
+             note="warm; a decode step is one token for each of the 2 sequences")
+
+        torch.cuda.synchronize()
+        wall_ms, kernels = _profiled(torch, lambda: lm_prefill(cp, prompt, caches, cfg))
+        _emit_profile(torch, "hymba_profile", wall_ms, kernels,
+                      "one warm lm_prefill (2 x 4096 tokens, 32 layers) under torch.profiler; "
+                      "'other' holds the mamba elementwise kernels, norms, RoPE and casts",
+                      prefill_tokens=B * P)
+        wall_ms, kernels = _profiled(torch, lambda: lm_decode_step(cp, tok, caches, P, cfg))
+        _emit_profile(torch, "hymba_decode_profile", wall_ms, kernels,
+                      "one warm lm_decode_step (2 sequences at position 4096) under "
+                      "torch.profiler", kernel_launches=sum(n for _, _, n in kernels))
+        layer = {k: v[1] for k, v in cp["decoder"]["g0"]["mamba"].items()}
+        h = torch.randn(B, P, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+        from repro_torch.nn.ssm import mamba_fwd
+
+        mamba_fwd(layer, h, cfg)
+        torch.cuda.synchronize()
+        wall_ms, kernels = _profiled(torch, lambda: mamba_fwd(layer, h, cfg))
+        _emit_profile(torch, "hymba_mamba_profile", wall_ms, kernels,
+                      "one mamba mixer (layer 1) at the prefill shape under torch.profiler: "
+                      "'other' is its elementwise kernels (conv, SiLU, softplus, exp, the "
+                      "drive product, the D skip, the gate) and casts; ssm_scan is B7; "
+                      "matmul includes the C readout", scan_elements=B * P * cfg.d_inner
+                      * cfg.ssm_state)
+    return runs
+
+
+def _rel_l2(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _clone(tree):
+    return {k: _clone(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
+
+
+def _planted_decode_faults(torch, params, cfg, prompt, seq, prefilled, first, ref):
+    """Relative L2 of the decode logits against the forward's (the rows of
+    ``ref``: the prefill's last position, then the decode steps) when the
+    decode steps, fed ``seq``'s tokens from the ``prefilled`` caches, carry
+    a planted fault: they ignore the sliding window, or start from the SSM
+    state after P - 1 tokens (the prefill's h[:, -2]).  ``first`` is the
+    prefill's logits row, which neither fault touches."""
+    from repro_torch.models.lm import lm_cache_init, lm_decode_step, lm_prefill
+
+    B, P = prompt.shape
+    T = seq.shape[1] - P
+    desc = cfg.group[0]
+    no_window = dataclasses.replace(
+        cfg, group=(dataclasses.replace(desc, window_per_repeat=(0,) * cfg.n_repeats),))
+    stale = lm_cache_init(params, cfg, B, P, dtype=prefilled["g0"]["kv"]["k"].dtype)
+    _, stale = lm_prefill(params, prompt[:, :P - 1], stale, cfg)
+    stale_state = _clone(prefilled)
+    stale_state["g0"]["ssm"]["ssm"].copy_(stale["g0"]["ssm"]["ssm"])
+    del stale
+    out = {}
+    for name, (caches, step_cfg) in (("decode ignores the window", (_clone(prefilled),
+                                                                      no_window)),
+                                     ("SSM state one token stale", (stale_state, cfg))):
+        rows = [first]
+        for i in range(T):
+            logits, caches = lm_decode_step(params, seq[:, P + i], caches, P + i, step_cfg)
+            rows.append(logits[:, 0].float())
+        out[name] = _rel_l2(torch.stack(rows, dim=1), ref)
+    return out
+
+
+def check_hymba_f32(torch, dev):
+    """The hymba-prefill run again at full width and depth in float32 (float32
+    params, compute and KV cache; B7 and B2 in float32): prefill of the same
+    2 x 4096 prompt, 16 decode steps fed greedy tokens, and the forward over
+    the 4112, decode logits against forward logits within a bound that
+    bf16's rounding would hide faults under; both planted faults must
+    exceed it."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import lm_cache_init, lm_decode_step, lm_fwd, lm_prefill
+    from repro_torch.weights import init_lm_params
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), compute_dtype="float32")
+    B, P, T = HYMBA_BATCH, HYMBA_PROMPT, HYMBA_DECODE
+    params = init_lm_params(cfg, SEED, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
+    with torch.no_grad():
+        caches = lm_cache_init(params, cfg, B, P + T, dtype=torch.float32)
+        logits, caches = lm_prefill(params, prompt, caches, cfg)
+        prefilled = _clone(caches)
+        steps, seq = [logits[:, 0]], [prompt]
+        for i in range(T):
+            tok = steps[-1].argmax(-1)
+            seq.append(tok[:, None])
+            logits, caches = lm_decode_step(params, tok, caches, P + i, cfg)
+            steps.append(logits[:, 0])
+        seq = torch.cat(seq, dim=1)
+        full = lm_fwd(params, seq, cfg)
+        dec, ref = torch.stack(steps, dim=1), full[:, P - 1:]
+        rel = _rel_l2(dec, ref)
+        planted = _planted_decode_faults(torch, params, cfg, prompt, seq, prefilled,
+                                         dec[:, 0], ref)
+    finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
+    if not (finite and rel <= HYMBA_F32_GATE
+            and all(planted[name] > HYMBA_F32_GATE for name in HYMBA_F32_SEES)):
+        fail(f"hymba_f32: finite={finite}, decode vs forward relative L2 {rel}, planted "
+             f"faults {planted} (the gate {HYMBA_F32_GATE} must hold the first and not "
+             "the others)")
+    emit("hymba_f32", model=cfg.name, compute_dtype="float32", kv_cache_dtype="float32",
+         batch=B, prompt=P, decode_steps=T, decode_vs_forward_relative_l2=rel,
+         decode_vs_forward_max_abs_err=(dec - ref).abs().max().item(),
+         planted_faults_relative_l2=planted, tolerance=f"relative L2 {HYMBA_F32_GATE}",
+         logits_abs_max=ref.abs().max().item())
+
+
+def check_hymba_reference(torch, dev):
+    """The reduced hymba (2 layers, d 64, windows (0, 32)) in float32 with
+    the same params on the card (B7, B2) and on the CPU (plain versions):
+    prefill of 48 tokens, 8 greedy decode steps, forward of the 56.  Greedy
+    tokens equal; logits within 2e-4 (float32 sums in other orders; the JAX
+    package's own decode == forward bound)."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import lm_cache_init, lm_decode_step, lm_fwd, lm_prefill
+    from repro_torch.weights import init_lm_params
+
+    cfg = reduced(get_config("hymba-1.5b"))
+    B, P, T = 2, 48, 8
+    params_cpu = init_lm_params(cfg, SEED, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (B, P),
+                           generator=torch.Generator().manual_seed(SEED + 12))
+    counters = _counters()
+    out, launched = {}, {}
+    for where in ("cpu", dev):
+        params = params_cpu if str(where) == "cpu" else _to(params_cpu, where)
+        _zero_counters(torch, counters)
+        with torch.no_grad():
+            caches = lm_cache_init(params, cfg, B, P + T, dtype=torch.float32)
+            logits, caches = lm_prefill(params, prompt.to(where), caches, cfg)
+            steps, toks = [logits[:, 0]], []
+            for i in range(T):
+                toks.append(steps[-1].argmax(-1))
+                logits, caches = lm_decode_step(params, toks[-1], caches, P + i, cfg)
+                steps.append(logits[:, 0])
+            full = lm_fwd(params, torch.cat([prompt.to(where), torch.stack(toks, 1)], 1), cfg)
+        out[str(where)] = (torch.stack(toks, 1).cpu(), torch.stack(steps, 1).cpu(), full.cpu())
+        launched[str(where)] = _launches(counters)
+    (t_cpu, s_cpu, f_cpu), (t_card, s_card, f_card) = out["cpu"], out[str(dev)]
+    if not torch.equal(t_cpu, t_card):
+        fail("hymba_reference: greedy tokens differ between card and CPU")
+    err = max((s_card - s_cpu).abs().max().item(), (f_card - f_cpu).abs().max().item())
+    if not err <= 2e-4:
+        fail(f"hymba_reference: logits differ by {err} > 2e-4")
+    card = launched[str(dev)]
+    if card["ssm_scan"] != 2 * cfg.n_layers or card["flash_attention"] != 2 * cfg.n_layers:
+        fail(f"hymba_reference: card launches {card}")
+    emit("hymba_reference", model=cfg.name, prompt=P, decode_steps=T, max_abs_err=err,
+         tolerance=2e-4, tokens=t_cpu.tolist(), logits_abs_max=f_cpu.abs().max().item(),
+         card_launches={k: v for k, v in card.items() if v})
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -805,11 +1228,15 @@ def main() -> None:
          load_seconds=time.perf_counter() - t0, library=info["path"])
 
     kernels = [check_grs(torch, dev), check_flash(torch, dev), *check_pack(torch, dev),
-               *check_fused_round(torch, dev)]
+               *check_fused_round(torch, dev), check_ssm_scan(torch, dev)]
     asd_launches, flash_fn, sched, dc = run_slice(torch, dev)
     check_reference(torch, dev)
     by_run = {"asd": asd_launches, **run_serve(torch, dev, flash_fn, sched, dc)}
     check_serve_reference(torch, dev)
+    del flash_fn  # the denoiser's weights
+    by_run.update(run_hymba(torch, dev))
+    check_hymba_f32(torch, dev)
+    check_hymba_reference(torch, dev)
     for kern in kernels:
         per = {run: counts.get(kern["name"], 0) for run, counts in by_run.items()}
         if not any(per.values()):

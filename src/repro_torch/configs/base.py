@@ -1,5 +1,5 @@
 """Model configuration dataclasses (the port's own copy of the JAX package's
-``configs/base.py``: ``BlockDesc`` and ``ModelConfig``)."""
+``configs/base.py``: ``BlockDesc``, ``ModelConfig`` and ``reduced``)."""
 
 from __future__ import annotations
 
@@ -72,3 +72,44 @@ class ModelConfig:
     @property
     def n_repeats(self) -> int:
         return self.n_layers // len(self.group)
+
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return max(1, self.ssm_expand) * self.n_heads * self.resolved_head_dim
+
+
+def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """Family-preserving reduced config for CPU tests: at most two repeats of
+    the group, d_model 64, 4 heads of 16, float32 compute, windows capped
+    at 32 (the JAX package's ``reduced``)."""
+    gsize = len(cfg.group)
+    small = dict(
+        n_layers=gsize * min(2, cfg.n_repeats),
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2),
+        head_dim=16,
+        d_ff=0 if cfg.d_ff == 0 else 128,
+        vocab_size=256,
+        n_experts=min(cfg.n_experts, 4),
+        top_k=min(cfg.top_k, 2),
+        capacity_factor=max(cfg.capacity_factor, 4.0),
+        n_vision_tokens=min(cfg.n_vision_tokens, 16),
+        ssm_state=min(cfg.ssm_state, 8) if cfg.ssm_state else 0,
+        compute_dtype="float32",
+        name=cfg.name + "-smoke",
+        scan_layers=cfg.scan_layers,
+        remat=False,
+    )
+    reps = small["n_layers"] // gsize
+    new_group = []
+    for b in cfg.group:
+        wpr = b.window_per_repeat
+        if wpr is not None:
+            wpr = tuple(min(w, 32) if w else 0 for w in wpr[:reps])
+        new_group.append(dataclasses.replace(
+            b, window=min(b.window, 32) if b.window else 0, window_per_repeat=wpr))
+    small["group"] = tuple(new_group)
+    small.update(overrides)
+    return dataclasses.replace(cfg, **small)

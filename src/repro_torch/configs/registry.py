@@ -1,7 +1,9 @@
-"""The paper's own denoiser configs (copied from the JAX package's registry)."""
+"""The paper's own denoiser configs and the ported LM archs (copied from
+the JAX package's registry)."""
 
 from __future__ import annotations
 
+from repro_torch.configs.archs import ARCHS
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.diffusion import DenoiserConfig
 
@@ -50,3 +52,9 @@ def paper_diffusion_policy_smoke(action_dim: int = 4) -> DenoiserConfig:
     )
     return DenoiserConfig(backbone=backbone, seq_len=8, d_data=action_dim)
 
+
+def get_config(name: str) -> ModelConfig:
+    """A ported LM arch by its name, e.g. ``"hymba-1.5b"``."""
+    if name in ARCHS:
+        return ARCHS[name]()
+    raise KeyError(f"unknown or not yet ported arch {name!r}; known: {sorted(ARCHS)}")

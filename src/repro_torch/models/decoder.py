@@ -1,11 +1,15 @@
 """Group-loop decoder: ``n_repeats`` iterations of the layer group
-(cfg.group).  Each group member's params are stacked over repeats with a
-leading ``layers`` axis, as in the JAX package; its ``lax.scan`` over that
-axis is a Python loop here."""
+(cfg.group).  Each group member's params (and caches) are stacked over
+repeats with a leading ``layers`` axis, as in the JAX package; its
+``lax.scan`` over that axis is a Python loop here.  Per-repeat windows
+(``window_per_repeat``, hymba's three full-attention layers) are Python
+ints, so the flash kernel gets a static window in every layer."""
 
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import BlockDesc, ModelConfig
 from repro_torch.models.blocks import BLOCKS
 
 
@@ -15,12 +19,63 @@ def _layer(tree, r: int):
     return tree[r]
 
 
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _windows(cfg: ModelConfig, desc: BlockDesc) -> tuple:
+    if desc.window_per_repeat is None:
+        return (int(desc.window),) * cfg.n_repeats
+    if len(desc.window_per_repeat) != cfg.n_repeats:
+        raise ValueError(f"{cfg.name}: {len(desc.window_per_repeat)} per-repeat windows "
+                         f"for {cfg.n_repeats} repeats")
+    return tuple(int(w) for w in desc.window_per_repeat)
+
+
+def _layers(cfg: ModelConfig, part: str):
+    """(repeat, group key, the block's ``part`` function, desc, window) for
+    every layer in order; raises where a block has no such function."""
+    fns = []
+    for desc in cfg.group:
+        block = BLOCKS.get(desc.kind)
+        fn = getattr(block, part) if block is not None else None
+        if fn is None:
+            raise NotImplementedError(f"block {desc.kind!r} has no ported {part}")
+        fns.append((fn, desc, _windows(cfg, desc)))
+    for r in range(cfg.n_repeats):
+        for gi, (fn, desc, windows) in enumerate(fns):
+            yield r, f"g{gi}", fn, desc, windows[r]
+
+
 def decoder_fwd(params, x, cfg: ModelConfig, ctx):
     """x: (B, L, d_model) -> (B, L, d_model)."""
-    for desc in cfg.group:
-        if desc.kind not in BLOCKS or desc.window_per_repeat is not None:
-            raise NotImplementedError(f"block {desc} is not ported yet")
-    for r in range(cfg.n_repeats):
-        for gi, desc in enumerate(cfg.group):
-            x = BLOCKS[desc.kind](_layer(params[f"g{gi}"], r), x, cfg, desc, ctx)
+    for r, g, fwd, desc, window in _layers(cfg, "fwd"):
+        x = fwd(_layer(params[g], r), x, cfg, desc, ctx, window)
     return x
+
+
+def decoder_cache_init(params, cfg: ModelConfig, batch: int, max_len: int,
+                       dtype=torch.bfloat16):
+    """Every layer's cache, stacked over repeats per group member."""
+    per = {}
+    for r, g, init, desc, _ in _layers(cfg, "cache_init"):
+        per.setdefault(g, []).append(init(_layer(params[g], r), cfg, desc, batch, max_len,
+                                          dtype))
+    return {g: _stack(caches) for g, caches in per.items()}
+
+
+def decoder_prefill(params, x, caches, cfg: ModelConfig, ctx):
+    """Full-sequence forward that fills every cache in place."""
+    for r, g, prefill, desc, window in _layers(cfg, "prefill"):
+        x, _ = prefill(_layer(params[g], r), x, _layer(caches[g], r), cfg, desc, ctx,
+                       window)
+    return x, caches
+
+
+def decoder_step(params, x1, caches, pos: int, cfg: ModelConfig):
+    """Single-token decode through the whole stack, caches updated in place."""
+    for r, g, step, desc, window in _layers(cfg, "step"):
+        x1, _ = step(_layer(params[g], r), x1, _layer(caches[g], r), pos, cfg, desc, window)
+    return x1, caches

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.decoder import decoder_fwd
-from repro_torch.nn.layers import rmsnorm_apply, sinusoidal_embed
+from repro_torch.nn.layers import cast_leaves, rmsnorm_apply, sinusoidal_embed
 
 # leaves that enter a product in the compute dtype (everything else -- the
 # time MLP and the norm scales -- is used in float32)
@@ -42,14 +42,7 @@ def compute_params(params, dc: DenoiserConfig):
     """The params with every product weight cast once to the compute dtype.
     ``denoiser_fwd`` casts each use to that dtype anyway, so the result is
     the same; casting once saves a pass over the weights per call."""
-    cdt = compute_dtype(dc)
-
-    def cast(tree, name=None):
-        if isinstance(tree, dict):
-            return {k: cast(v, k) for k, v in tree.items()}
-        return tree.to(cdt) if name in _COMPUTE_LEAVES else tree
-
-    return cast(params)
+    return cast_leaves(params, _COMPUTE_LEAVES, compute_dtype(dc))
 
 
 def denoiser_fwd(params, t, y, dc: DenoiserConfig, cond=None, attn_impl=None):

@@ -1,12 +1,16 @@
 """Self-attention with the JAX package's weight layout at the boundary:
 ``wq``, ``wk``, ``wv`` are (d, heads, head_dim) and ``wo`` is (heads,
-head_dim, d).
+head_dim, d).  GQA, rotary positions, sliding windows, logit softcap and a
+KV cache of the raw KV heads.
 
-Two cores: ``impl="flash"`` routes to ``repro_torch.kernels.flash_attention``
-(the CUDA kernel on the card, its plain version on the CPU), and
-``impl="naive"`` materializes the (L, S) scores in the compute dtype, as the
-JAX package's ``attn_core_naive`` does.  Tensor and sequence parallelism
-and rotary positions are not ported yet.
+Two cores for the full-sequence forms: ``impl="flash"`` routes to
+``repro_torch.kernels.flash_attention`` (the CUDA kernel on the card, its
+plain version on the CPU), and ``impl="naive"`` materializes the (L, S)
+scores in the compute dtype, as the JAX package's ``attn_core_naive``
+does.  ``attn_prefill`` always takes the flash core (the JAX package takes
+its chunked core there, which computes the same function).  ``attn_step``
+is grouped-query attention against the cache in plain PyTorch.  Tensor and
+sequence parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,12 +21,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_mha
+from repro_torch.nn.layers import apply_rope, softcap
 
 NEG_INF = -1e30
 
 
-def _project_qkv(params, x, cfg: ModelConfig):
-    """x: (B, L, d) -> q, k, v: (B, L, H, hd), KV repeated to all heads."""
+def _repeat_heads(t, reps: int):
+    return torch.repeat_interleave(t, reps, dim=2) if reps > 1 else t
+
+
+def _project_qkv(params, x, cfg: ModelConfig, start: int = 0, repeat_kv: bool = True):
+    """x: (B, L, d) at positions start..start+L-1 -> q (B, L, H, hd), k, v
+    (B, L, H or KV, hd): RoPE where the config has it, KV repeated to all
+    heads unless ``repeat_kv`` is False (the caches keep the raw KV heads)."""
     B, L, d = x.shape
     h, kv = cfg.n_heads, cfg.n_kv_heads
     cdt = x.dtype
@@ -37,10 +48,12 @@ def _project_qkv(params, x, cfg: ModelConfig):
     q = proj(params["wq"], params.get("bq"))
     k = proj(params["wk"], params.get("bk"))
     v = proj(params["wv"], params.get("bv"))
-    reps = h // kv
-    if reps > 1:
-        k = torch.repeat_interleave(k, reps, dim=2)
-        v = torch.repeat_interleave(v, reps, dim=2)
+    if cfg.pos_embed == "rope":
+        positions = torch.arange(start, start + L, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if repeat_kv:
+        k, v = _repeat_heads(k, h // kv), _repeat_heads(v, h // kv)
     return q, k, v
 
 
@@ -56,18 +69,12 @@ def attn_mask(L: int, S: int, causal: bool, window: int, device):
     return m
 
 
-def _softcap(x, cap: float):
-    if not cap:
-        return x
-    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
-
-
 def attn_core_naive(q, k, v, mask, cap: float):
     """q: (B, L, H, hd); k, v: (B, S, H, hd); mask: (L, S) or None."""
     hd = q.shape[-1]
     scores = torch.einsum("blhk,bshk->bhls", q, k) / torch.tensor(
         math.sqrt(hd), dtype=q.dtype)
-    scores = _softcap(scores, cap)
+    scores = softcap(scores, cap)
     if mask is not None:
         scores = torch.where(mask, scores,
                              torch.tensor(NEG_INF, dtype=scores.dtype,
@@ -76,11 +83,16 @@ def attn_core_naive(q, k, v, mask, cap: float):
     return torch.einsum("bhls,bshk->blhk", probs, v)
 
 
+def _out(params, o, dtype):
+    """The output projection of o (B, L, H, hd) -> (B, L, d)."""
+    B, L, H, hd = o.shape
+    return o.reshape(B, L, H * hd) @ params["wo"].reshape(H * hd, -1).to(dtype)
+
+
 def attn_fwd(params, x, cfg: ModelConfig, *, window: int = 0,
              causal: bool = True, impl: str = "flash"):
-    """Full-sequence self-attention: x (B, L, d) -> (B, L, d)."""
-    if cfg.pos_embed == "rope":
-        raise NotImplementedError("rotary positions are not ported yet")
+    """Full-sequence self-attention over positions 0..L-1: x (B, L, d) ->
+    (B, L, d).  ``window`` is a Python int (0 = full)."""
     B, L, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg)
     if impl == "flash":
@@ -92,5 +104,56 @@ def attn_fwd(params, x, cfg: ModelConfig, *, window: int = 0,
         o = attn_core_naive(q, k, v, mask, cfg.attn_softcap)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    H, hd = o.shape[2], o.shape[3]
-    return o.reshape(B, L, H * hd) @ params["wo"].reshape(H * hd, -1).to(x.dtype)
+    return _out(params, o, x.dtype)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                  device=None):
+    """Zero K and V caches (batch, max_len, n_kv_heads, head_dim)."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_prefill(params, x, cache, cfg: ModelConfig, *, window: int = 0):
+    """Causal forward over x (B, L, d) that writes the raw KV heads of
+    positions 0..L-1 into ``cache`` in place.  The core is the flash kernel
+    (causal, ``window``) on KV repeated to all heads.  Returns (out, cache)."""
+    B, L, _ = x.shape
+    q, k_raw, v_raw = _project_qkv(params, x, cfg, repeat_kv=False)
+    cache["k"][:, :L] = k_raw
+    cache["v"][:, :L] = v_raw
+    reps = cfg.n_heads // cfg.n_kv_heads
+    o = flash_mha(q, _repeat_heads(k_raw, reps), _repeat_heads(v_raw, reps), causal=True,
+                  window=window, softcap=cfg.attn_softcap)
+    return _out(params, o, x.dtype), cache
+
+
+def attn_step(params, x1, cache, pos: int, cfg: ModelConfig, *, window: int = 0):
+    """One-token decode at position ``pos``: grouped-query attention
+    against the raw KV-head cache (written in place at ``pos``), keys at or
+    before ``pos`` and, for ``window`` > 0, within the window.  Scores and
+    probabilities are in the compute dtype, the softmax in float32, as in
+    the JAX package.  x1: (B, 1, d).  Returns (out (B, 1, d), cache)."""
+    B = x1.shape[0]
+    S = cache["k"].shape[1]
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    G = cfg.n_heads // kv
+    q, k, v = _project_qkv(params, x1, cfg, pos, repeat_kv=False)
+    cache["k"][:, pos] = k[:, 0]
+    cache["v"][:, pos] = v[:, 0]
+    kv_pos = torch.arange(S, device=x1.device)
+    valid = kv_pos <= pos
+    if window > 0:
+        valid = valid & ((pos - kv_pos) < window)
+    kf = cache["k"].to(q.dtype)
+    vf = cache["v"].to(q.dtype)
+    qg = q[:, 0].reshape(B, kv, G, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qg, kf) / torch.tensor(
+        math.sqrt(hd), dtype=q.dtype)
+    scores = softcap(scores, cfg.attn_softcap)
+    scores = torch.where(valid, scores, torch.tensor(NEG_INF, dtype=scores.dtype,
+                                                     device=scores.device))
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    o = torch.einsum("bkgs,bskh->bkgh", probs, vf).reshape(B, 1, kv * G, hd)
+    return _out(params, o, x1.dtype), cache

@@ -1,4 +1,6 @@
-"""Basic layers: RMSNorm, dense projection, sinusoidal embeddings.
+"""Basic layers: RMSNorm, dense projection, token embedding and its
+transpose, rotary and sinusoidal positions, logit softcap; the cast of a
+params tree to the compute dtype.
 
 Functional, on plain dicts of tensors in the JAX package's layout.
 """
@@ -7,7 +9,19 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+
+def cast_leaves(tree, names, dtype):
+    """The params tree with every leaf whose key is in ``names`` cast to
+    ``dtype`` (the others as they are)."""
+    def cast(t, name=None):
+        if isinstance(t, dict):
+            return {k: cast(v, k) for k, v in t.items()}
+        return t.to(dtype) if name in names else t
+
+    return cast(tree)
 
 
 def rmsnorm_apply(params, x, eps: float = 1e-6):
@@ -37,3 +51,36 @@ def sinusoidal_embed(positions, dim: int, max_period: float = 1e4):
     if dim % 2:
         emb = torch.nn.functional.pad(emb, (0, 1))
     return emb
+
+
+def embedding_apply(params, ids, compute_dtype=torch.bfloat16):
+    """Rows of the (vocab, dim) table, in the compute dtype."""
+    return params["table"][ids].to(compute_dtype)
+
+
+def unembed_apply(params, x):
+    """Logits from a (vocab, dim) table (tied embeddings)."""
+    return x @ params["table"].to(x.dtype).T
+
+
+def rope_freqs(head_dim: int, theta: float = 1e4):
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """Rotary positions in float32, split-halves layout, cast back.
+    x: (..., L, n_heads, head_dim); positions: (..., L) int."""
+    freqs = torch.as_tensor(rope_freqs(x.shape[-1], theta), dtype=torch.float32,
+                            device=x.device)
+    angles = positions[..., None].float() * freqs  # (..., L, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def softcap(x, cap: float):
+    """Gemma-2 style logit soft-capping (``cap`` 0 means none)."""
+    if not cap:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)

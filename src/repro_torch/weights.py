@@ -1,6 +1,7 @@
-"""Denoiser weights in the JAX package's tree layout, as torch tensors.
+"""Denoiser and LM weights in the JAX package's tree layout, as torch
+tensors.
 
-The tree (leaves float32):
+The denoiser tree (leaves float32):
 
     in_proj (d_data, d)          t_mlp1 (time_dim, d)      t_mlp2 (d, d)
     decoder.g0.attn_norm.scale (n, d)
@@ -9,9 +10,20 @@ The tree (leaves float32):
     decoder.g0.ffn.{w_gate, w_up} (n, d, d_ff)        .w_down (n, d_ff, d)
     final_norm.scale (d,)        out_proj (d, d_data)     [cond_proj (d_cond, d)]
 
-with n the layer count (the stacked ``layers`` axis).  ``from_jax_params``
-converts the JAX package's unboxed params (as numpy arrays) and needs no
-JAX; ``init_denoiser_params`` makes the same tree from a numpy seed.
+with n the layer count (the stacked ``layers`` axis).  The LM tree
+(``lm_param_shapes``; hymba blocks) is
+
+    decoder.g0.mix_norm.scale (n, d)    decoder.g0.attn as above
+    decoder.g0.mamba.{in_proj (n, d, 2 din), conv_w (n, ck, din), conv_b,
+        x_proj (n, din, dt_rank + 2 N), dt_proj (n, dt_rank, din), dt_bias,
+        A_log (n, din, N), D, out_proj (n, din, d)}
+    decoder.g0.ffn_norm, decoder.g0.ffn as above
+    embed.table (vocab, d)    head.w (d, vocab)    final_norm.scale (d,)
+
+``from_jax_params`` and ``from_jax_lm_params`` convert the JAX package's
+unboxed params (as numpy arrays) and need no JAX; ``init_denoiser_params``
+(from a numpy seed) and ``init_lm_params`` (from a torch generator on the
+device) make the same trees at random.
 ``from_jax_chain_state`` converts a slot batch of the JAX package's chain
 states, so both packages can start from the same states.
 """
@@ -23,44 +35,73 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.asd import ASDChainState
 from repro_torch.device import resolve_device
 from repro_torch.models.diffusion import DenoiserConfig
 
 
+def _block_shapes(cfg: ModelConfig, desc) -> dict:
+    """Leaf shapes of one group member, stacked over the n repeats."""
+    d, h, kv, hd, n = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim, cfg.n_repeats)
+    if desc.kind not in ("attn", "hymba") or desc.moe:
+        raise NotImplementedError(f"block {desc} is not ported yet")
+    attn = {"wq": (n, d, h, hd), "wk": (n, d, kv, hd), "wv": (n, d, kv, hd),
+            "wo": (n, h, hd, d)}
+    if cfg.qkv_bias:
+        attn.update(bq=(n, h, hd), bk=(n, kv, hd), bv=(n, kv, hd))
+    if desc.kind == "attn":
+        block = {"attn_norm": {"scale": (n, d)}, "attn": attn}
+    else:
+        din, N, ck, dt_rank = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv, max(1, d // 16)
+        block = {"mix_norm": {"scale": (n, d)}, "attn": attn, "mamba": {
+            "in_proj": (n, d, 2 * din), "conv_w": (n, ck, din), "conv_b": (n, din),
+            "x_proj": (n, din, dt_rank + 2 * N), "dt_proj": (n, dt_rank, din),
+            "dt_bias": (n, din), "A_log": (n, din, N), "D": (n, din),
+            "out_proj": (n, din, d)}}
+    if cfg.d_ff:
+        if cfg.ffn_kind != "swiglu":
+            raise NotImplementedError(f"ffn {cfg.ffn_kind!r} is not ported yet")
+        block["ffn_norm"] = {"scale": (n, d)}
+        block["ffn"] = {"w_gate": (n, d, cfg.d_ff), "w_up": (n, d, cfg.d_ff),
+                        "w_down": (n, cfg.d_ff, d)}
+    return block
+
+
+def _decoder_shapes(cfg: ModelConfig) -> dict:
+    return {f"g{gi}": _block_shapes(cfg, desc) for gi, desc in enumerate(cfg.group)}
+
+
 def param_shapes(dc: DenoiserConfig) -> dict:
     """The tree of leaf shapes for ``dc`` (dense attn blocks only)."""
     cfg = dc.backbone
-    d, h, kv, hd, n = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.resolved_head_dim, cfg.n_repeats)
-    decoder = {}
-    for gi, desc in enumerate(cfg.group):
-        if desc.kind != "attn" or desc.moe:
-            raise NotImplementedError(f"block {desc} is not ported yet")
-        block = {
-            "attn_norm": {"scale": (n, d)},
-            "attn": {"wq": (n, d, h, hd), "wk": (n, d, kv, hd),
-                     "wv": (n, d, kv, hd), "wo": (n, h, hd, d)},
-        }
-        if cfg.qkv_bias:
-            block["attn"].update(bq=(n, h, hd), bk=(n, kv, hd), bv=(n, kv, hd))
-        if cfg.d_ff:
-            if cfg.ffn_kind != "swiglu":
-                raise NotImplementedError(f"ffn {cfg.ffn_kind!r} is not ported yet")
-            block["ffn_norm"] = {"scale": (n, d)}
-            block["ffn"] = {"w_gate": (n, d, cfg.d_ff), "w_up": (n, d, cfg.d_ff),
-                            "w_down": (n, cfg.d_ff, d)}
-        decoder[f"g{gi}"] = block
+    d = cfg.d_model
+    if any(desc.kind != "attn" for desc in cfg.group):
+        raise NotImplementedError(f"{cfg.name}: the denoiser takes attn blocks only")
     shapes = {
         "in_proj": (dc.d_data, d),
         "t_mlp1": (dc.time_dim, d),
         "t_mlp2": (d, d),
-        "decoder": decoder,
+        "decoder": _decoder_shapes(cfg),
         "final_norm": {"scale": (d,)},
         "out_proj": (d, dc.d_data),
     }
     if dc.d_cond:
         shapes["cond_proj"] = (dc.d_cond, d)
+    return shapes
+
+
+def lm_param_shapes(cfg: ModelConfig) -> dict:
+    """The tree of leaf shapes of ``repro_torch.models.lm`` for ``cfg``, as
+    the JAX package's ``lm_init`` makes it (token inputs; ``head`` unless
+    the embeddings are tied)."""
+    if not cfg.embed_inputs:
+        raise NotImplementedError(f"{cfg.name}: frame inputs are not ported yet")
+    shapes = {"decoder": _decoder_shapes(cfg), "final_norm": {"scale": (cfg.d_model,)},
+              "embed": {"table": (cfg.vocab_size, cfg.d_model)}}
+    if not cfg.tie_embeddings:
+        shapes["head"] = {"w": (cfg.d_model, cfg.vocab_size)}
     return shapes
 
 
@@ -85,6 +126,30 @@ def from_jax_params(tree, dc: DenoiserConfig, device=None):
     return _convert(tree, param_shapes(dc), "", resolve_device(device))
 
 
+def from_jax_lm_params(tree, cfg: ModelConfig, device=None):
+    """The JAX package's unboxed ``lm_init`` params (nested dicts of numpy
+    arrays) as the port's LM params: float32 tensors on ``device`` (None
+    means "cuda").  Keys and shapes are checked against ``cfg``."""
+    return _convert(tree, lm_param_shapes(cfg), "", resolve_device(device))
+
+
+def _random_tree(shapes, leaf):
+    """The tree of ``shapes`` with each leaf made by ``leaf(name, shape,
+    stacked)``, in the tree's key order."""
+    def make(tree, name, stacked):
+        if isinstance(tree, dict):
+            return {k: make(v, k, stacked or k == "decoder") for k, v in tree.items()}
+        return leaf(name, tree, stacked)
+
+    return make(shapes, None, False)
+
+
+def _fan_in(shape, stacked) -> int:
+    """The fan-in of a lecun-normal leaf: all but the last axis (and not the
+    stacked leading layers axis), as in the JAX package."""
+    return math.prod(shape[int(stacked):-1])
+
+
 def init_denoiser_params(dc: DenoiserConfig, seed: int, out_scale: float = 1e-2,
                          device=None):
     """Random params from ``numpy.random.default_rng(seed)``.
@@ -99,22 +164,54 @@ def init_denoiser_params(dc: DenoiserConfig, seed: int, out_scale: float = 1e-2,
     rng = np.random.default_rng(seed)
     d = dc.backbone.d_model
 
-    def make(shapes, name, stacked):
-        if isinstance(shapes, dict):
-            return {k: make(v, k, stacked or k == "decoder")
-                    for k, v in shapes.items()}
-        a = rng.standard_normal(shapes, dtype=np.float32)
+    def leaf(name, shape, stacked):
+        a = rng.standard_normal(shape, dtype=np.float32)
         if name == "scale":
             a *= 0.1
         elif name == "out_proj":
             a *= out_scale / math.sqrt(d)
         elif name in ("bq", "bk", "bv"):
             a *= 0.0
-        else:  # the fan-in leaves out a stacked leading layers axis
-            a *= 1.0 / math.sqrt(math.prod(shapes[int(stacked):-1]))
+        else:
+            a *= 1.0 / math.sqrt(_fan_in(shape, stacked))
         return torch.from_numpy(a).to(dev)
 
-    return make(param_shapes(dc), None, False)
+    return _random_tree(param_shapes(dc), leaf)
+
+
+def init_lm_params(cfg: ModelConfig, seed: int, device=None):
+    """Random LM params, the tree of ``lm_param_shapes``, drawn on ``device``
+    (None means "cuda") from ``torch.Generator(device).manual_seed(seed)``:
+    a full-width model is 1.4 G floats, too many to draw on the host.  The
+    same seed gives other numbers on the CPU than on the card; to run both
+    on the same params, make them once and copy them.
+
+    As the JAX init: products lecun-normal, ``embed.table`` and ``head.w``
+    normal * 0.02, the mamba ``conv_w`` and ``dt_proj`` normal * 0.1,
+    ``A_log`` = log(1..N) in every row and ``D`` = 1, so the decays are
+    those of a real mamba.  Unlike it, the norm scales and the ``conv_b``
+    and ``dt_bias`` biases are nonzero (normal * 0.1): zero leaves would
+    hide a missing term.
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaf(name, shape, stacked):
+        if name == "A_log":
+            row = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=dev))
+            return row.expand(shape).contiguous()
+        if name == "D":
+            return torch.ones(shape, dtype=torch.float32, device=dev)
+        if name in ("bq", "bk", "bv"):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        a = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+        if name in ("table", "w"):
+            return a.mul_(0.02)
+        if name in ("scale", "conv_w", "conv_b", "dt_proj", "dt_bias"):
+            return a.mul_(0.1)
+        return a.mul_(1.0 / math.sqrt(_fan_in(shape, stacked)))
+
+    return _random_tree(lm_param_shapes(cfg), leaf)
 
 
 # the JAX ASDChainState leaves the port carries, with their dtypes; the

@@ -9,18 +9,21 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.registry import paper_diffusion_policy_smoke
+from repro_torch.configs.base import reduced
+from repro_torch.configs.registry import get_config, paper_diffusion_policy_smoke
 from repro_torch.core import asd as t_asd
 from repro_torch.core import schedules as t_sch
 from repro_torch.core.grs import grs as grs_plain
 from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha
 from repro_torch.kernels.grs.ops import grs
 from repro_torch.kernels.pack import ops as pack_ops
+from repro_torch.kernels.ssm_scan.ops import linear_scan, ssm_scan_plain
 from repro_torch.kernels.superstep import ops as fused_ops
+from repro_torch.models import lm as t_lm
 from repro_torch.models.diffusion import make_sl_model_fn
 from repro_torch.serving.engine import ContinuousASDEngine, Request
 from repro_torch.serving.packing import WaterfillingAllocator, packed_superstep
-from repro_torch.weights import init_denoiser_params
+from repro_torch.weights import init_denoiser_params, init_lm_params
 
 pytestmark = pytest.mark.cuda
 
@@ -321,3 +324,84 @@ def test_packed_and_fused_serving_agree_bit_for_bit_on_card(dev):
     for rid in sp:
         assert np.array_equal(sp[rid], sf[rid]), rid
     assert sum(a for _, a, _ in cp.values()) < sum(p for _, _, p in cp.values())
+
+
+# ---- the hymba LM path: B7 linear scan (csrc/ssm_scan.cu) and B2 in its
+# causal sliding-window form
+
+
+@pytest.mark.parametrize("B,L,D", [(1, 1, 1), (2, 1, 25600), (1, 100, 70), (3, 17, 130),
+                                   (2, 37, 25601), (2, 4096, 25600)])
+def test_ssm_scan_kernel_matches_plain(dev, B, L, D):
+    g = torch.Generator(device=dev).manual_seed(B * L + D)
+    a = 0.5 + 0.499 * torch.rand(B, L, D, generator=g, device=dev)
+    b = torch.randn(B, L, D, generator=g, device=dev)
+    before = linear_scan.launches
+    hk = linear_scan(a, b)
+    torch.cuda.synchronize()
+    assert linear_scan.launches == before + 1
+    # both round a * h, then add b, in float32: the kernel does not contract
+    # the two into an FMA, so the bits are the plain loop's
+    assert torch.equal(hk, ssm_scan_plain(a, b))
+
+
+def test_ssm_scan_kernel_refuses_what_it_does_not_take(dev):
+    a = torch.rand(2, 8, 16, device=dev)
+    strided = a.transpose(1, 2).contiguous().transpose(1, 2)
+    before = linear_scan.launches
+    for x, y in ((a.to(torch.bfloat16), a.to(torch.bfloat16)), (a.double(), a.double()),
+                 (strided, a), (a, a.cpu())):
+        with pytest.raises(ValueError):
+            linear_scan(x, y)
+    assert linear_scan.launches == before
+
+
+@pytest.mark.parametrize("L,window", [(4096, 1024), (4112, 1024), (4112, 0), (1100, 1024)])
+def test_flash_kernel_at_the_hymba_shapes(dev, L, window):
+    """25 heads, causal, window 1024 or full, the ragged last tile of the
+    L + 16 forward; 64-row tiles outside the band are skipped."""
+    g = torch.Generator(device=dev).manual_seed(L + window)
+    q, k, v = (torch.randn(2, L, 25, 64, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    ok = flash_mha(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    op = attention_plain(q, k, v, causal=True, window=window)
+    # both compute in float32 and round the output to bf16 once: one bf16 ulp
+    # (2^-7 of the value) where they round apart, 1e-4 for float32 sums in
+    # other orders near zero.  Outputs here are ~0.02-0.04 (averages over
+    # 1024-4096 keys), where one key too many or too few moves them by ~1e-3.
+    torch.testing.assert_close(ok.float(), op.float(), atol=1e-4, rtol=2.0 ** -7)
+
+
+def _to(tree, dev):
+    return ({k: _to(v, dev) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree.to(dev))
+
+
+def test_small_hymba_on_card_matches_cpu(dev):
+    """reduced(hymba-1.5b) in float32 with the same params: forward,
+    prefill and greedy decode on the card (B7, B2) against the CPU (plain
+    versions) within 2e-4 (float32 sums in other orders)."""
+    cfg = reduced(get_config("hymba-1.5b"))
+    params = init_lm_params(cfg, 0, device="cpu")
+    card = _to(params, dev)
+    B, P, T = 2, 48, 6
+    tokens = torch.randint(0, cfg.vocab_size, (B, P + T),
+                           generator=torch.Generator().manual_seed(1))
+    s0, f0 = linear_scan.launches, flash_mha.launches
+    out = {}
+    for where, p in (("cpu", params), ("card", card)):
+        dv = "cpu" if where == "cpu" else dev
+        full = t_lm.lm_fwd(p, tokens.to(dv), cfg)
+        caches = t_lm.lm_cache_init(p, cfg, B, P + T, dtype=torch.float32)
+        lg, caches = t_lm.lm_prefill(p, tokens[:, :P].to(dv), caches, cfg)
+        steps = [lg[:, 0]]
+        for i in range(P, P + T):
+            lg, caches = t_lm.lm_decode_step(p, tokens[:, i].to(dv), caches, i, cfg)
+            steps.append(lg[:, 0])
+        out[where] = (full.cpu(), torch.stack(steps, 1).cpu())
+    assert linear_scan.launches - s0 == 2 * cfg.n_layers
+    assert flash_mha.launches - f0 == 2 * cfg.n_layers
+    torch.testing.assert_close(out["card"][0], out["cpu"][0], atol=2e-4, rtol=0)
+    torch.testing.assert_close(out["card"][1], out["cpu"][1], atol=2e-4, rtol=0)
+    torch.testing.assert_close(out["card"][1], out["card"][0][:, P - 1:], atol=2e-4, rtol=0)

@@ -33,8 +33,10 @@ def _forbidden(name: str) -> bool:
 
 
 def test_the_port_has_the_files_it_is_checked_on():
-    assert len(FILES) > 20
+    assert len(FILES) > 45
     assert {p.name for p in WRAPPERS} >= {"ops.py", "_build.py"}
+    for kernel in ("grs", "flash_attention", "pack", "superstep", "ssm_scan"):
+        assert PORT / "kernels" / kernel / "ops.py" in WRAPPERS, kernel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
