@@ -9,13 +9,20 @@ Phases, each printing one JSON line and raising on any failure:
   1. device   the card (nvidia-smi's name and power limit, on a line of its
               own), torch and CUDA versions; TF32 is switched off.
   2. build    nvcc builds the kernels from ``src/repro_torch/csrc``.
-  3. grs / flash_attention / pack / fused_round / ssm_scan
+  3. flash_identity_probe
+              B2's wgmma kernel on one tile with V the identity: O must be
+              softmax(S) element by element.
+     grs / flash_attention / flash_attention_fma / pack / fused_round /
+     ssm_scan
               each kernel against its plain PyTorch version on the card, at
               the main path's shape and at edge shapes: max abs error,
-              kernel / plain / library times (CUDA events around calls
-              launched back to back, and device time under torch.profiler)
-              and the card's bound for the same work.  flash_attention also
-              at the hymba-1.5b shapes (causal, window 1024 and full).
+              kernel / plain / library times (each call after a 64 MB L2
+              flush: CUDA events around each call, and device time under
+              torch.profiler) and the card's bound for the same work.
+              flash_attention (bf16, the wgmma kernel) also at the
+              hymba-1.5b shapes (causal, window 1024 and full), with its
+              build (registers, spills, shared memory);
+              flash_attention_fma is B2's float32 kernel.
   4. denoiser the full-width ``paper-pixel-dit`` denoiser (random weights
               from a seed): one forward through the flash kernel against
               the same forward through the naive attention.
@@ -44,8 +51,9 @@ Phases, each printing one JSON line and raising on any failure:
               Two planted decode faults (window ignored, SSM state one
               token stale): the gate must see the first.
      hymba_f32
-              the same full-width run in float32: decode against forward
-              within a tight bound that both planted faults must exceed.
+              the same full-width run in float32 (B2's FMA kernel): decode
+              against forward within a tight bound that both planted
+              faults must exceed.
      hymba_reference
               the reduced hymba in float32 on the card and on the CPU with
               the same params: greedy tokens equal, logits close.
@@ -127,25 +135,72 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 10):
-    """Device milliseconds per call of ``fn``: the summed time of the
-    kernels that ``reps`` warm calls ran, under torch.profiler, so host gaps
-    between launches do not count.  None where the profiler recorded no
-    device time."""
+# L2 flush between timed kernel calls: one in-place pass over 64 MB (more
+# than the card's 50 MB L2), so each call reads its inputs from device
+# memory as a caller that just ran other work would.  Its kernel is told
+# apart from the timed ones by name.
+_FLUSH_BYTES = 64 << 20
+_FLUSH_KERNEL = "bitwise_not"
+_flush_buf = []
+
+
+def _flush_l2():
+    import torch
+
+    if not _flush_buf:
+        _flush_buf.append(torch.zeros(_FLUSH_BYTES, dtype=torch.uint8, device="cuda"))
+    _flush_buf[0].bitwise_not_()
+
+
+def cold_ms(fn, reps: int = 10) -> float:
+    """Milliseconds per call of ``fn`` with a cold L2: CUDA events around
+    each call, the flush outside them.  A sleep kernel first fills the
+    stream so the host queues the calls ahead of the card; where the host
+    still falls behind (a plain version of many small kernels) the time
+    includes the card waiting for launches."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    _, kernels = _profiled(torch, lambda: [fn() for _ in range(reps)])
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(20_000_000)  # cycles: time for the host to queue every call
+    for start, end in events:
+        _flush_l2()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / reps
+
+
+def device_ms(fn, reps: int = 10):
+    """Device milliseconds per call of ``fn`` with a cold L2: the summed time
+    of the kernels that ``reps`` calls ran, each after an L2 flush, under
+    torch.profiler (host gaps and the flush do not count).  None where the
+    profiler recorded no device time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            _flush_l2()
+            fn()
+
+    _, kernels = _profiled(torch, run)
+    kernels = [k for k in kernels if _FLUSH_KERNEL not in k[0]]
     return sum(ms for _, ms, _ in kernels) / reps if kernels else None
 
 
 def kernel_times(kernel, plain, library=None, reps: int = 20) -> dict:
     """ms / device_ms of the kernel's wrapper, its plain version and the
-    library call (None where there is none), each on the same inputs."""
+    library call (None where there is none), each on the same inputs and
+    each call after an L2 flush (cold-cache times)."""
     out = {}
     for prefix, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        out[prefix + "ms"] = None if fn is None else cuda_ms(fn, reps)
+        out[prefix + "ms"] = None if fn is None else cold_ms(fn, reps)
         out[prefix + "device_ms"] = None if fn is None else device_ms(fn, reps)
     return out
 
@@ -218,25 +273,79 @@ def check_grs(torch, dev):
 # where the two float32 results round apart; 1e-4 more covers float32 sums in
 # other orders near zero.  Rows that average over 1024-4096 keys have |o| of
 # about 0.02-0.04, where a key too many or too few moves o by about 1e-3.
+# The wgmma kernel's P = P_hi + P_lo is p within 2^-16 of it, far inside.
 FLASH_ATOL, FLASH_RTOL = 1e-4, 2.0 ** -7
 FLASH_TOLERANCE = "|kernel - plain| <= 1e-4 + 2^-7 |plain| per element (one bf16 ulp)"
+# the float32 (FMA) variant: float32 sums in other orders
+FLASH_F32_TOL = 2e-5
+FLASH_F32_TOLERANCE = "|kernel - plain| <= 2e-5 + 2e-5 |plain| per element (float32)"
+FLASH_WGMMA_SOURCE = "src/repro_torch/csrc/flash_attention_wgmma.cu"
+FLASH_FMA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:27"
 
 
-def _flash_tolerance_used(ok, op):
+def _tflops(flops, times):
+    """TFLOP/s of the kernel from its device time (its event time where the
+    profiler recorded none)."""
+    return flops / (times["device_ms"] or times["ms"]) / 1e9
+
+
+def _flash_tolerance_used(ok, op, atol=FLASH_ATOL, rtol=FLASH_RTOL):
     """max |ok - op| / (atol + rtol |op|) over the elements: <= 1 passes."""
     op = op.float()
-    return ((ok.float() - op).abs() / (FLASH_ATOL + FLASH_RTOL * op.abs())).max().item()
+    return ((ok.float() - op).abs() / (atol + rtol * op.abs())).max().item()
+
+
+def _flash_inputs(torch, dev, B, L, S, H, hd, seed, dtype=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, n, H, hd, generator=g, device=dev).to(dtype or torch.bfloat16)
+            for n in (L, S, S)]
+
+
+def _wgmma_build():
+    """The wgmma kernel's launch configuration at dh 64 and, from the
+    -Xptxas -v build log, each instance's registers and spills."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import wgmma_launch_info
+
+    log = (Path(_build.build_info["path"]).parent / "flash_attention_wgmma.log").read_text()
+    instances = {}
+    for m in re.finditer(r"flash_fwd_wgmmaILi(\d+)ELi(\d+)E\S*\n\s*(\d+) bytes stack frame, "
+                         r"(\d+) bytes spill stores, (\d+) bytes spill loads\n"
+                         r"ptxas info\s*: Used (\d+) registers", log):
+        nch, bk, stack, st, ld, regs = (int(x) for x in m.groups())
+        instances[f"dh<={64 * nch}, BK {bk}"] = dict(registers=regs, spill_store_bytes=st,
+                                                       spill_load_bytes=ld, stack_bytes=stack)
+    return dict(launch_at_dh64=wgmma_launch_info(64), ptxas=instances,
+                setmaxnreg={"consumer": 240, "producer": 24})
+
+
+def check_flash_identity_probe(torch, dev):
+    """One tile with V the identity (S = dh = 64): O is softmax(Q K^T / 8)
+    itself, so a wrong lane or column in the accumulator-to-A-fragment
+    mapping of P, or in the V descriptor, shows element by element."""
+    from repro_torch.kernels.flash_attention.ops import flash_mha
+
+    q, k, _ = _flash_inputs(torch, dev, 1, 64, 64, 1, 64, SEED + 40)
+    v = torch.eye(64, device=dev, dtype=torch.bfloat16)[None, :, None, :]
+    o = flash_mha(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    ref = torch.softmax(q[0, :, 0].float() @ k[0, :, 0].float().T / 8.0, dim=-1)
+    used = _flash_tolerance_used(o[0, :, 0], ref)
+    err = (o[0, :, 0].float() - ref).abs().max().item()
+    if not used <= 1.0:
+        fail(f"flash identity probe: O != softmax(S), {used} of the tolerance used")
+    emit("flash_identity_probe", shape=[1, 64, 1, 64], max_abs_err=err, tolerance_used=used,
+         tolerance=FLASH_TOLERANCE + " against softmax(S) in float32")
 
 
 def check_flash(torch, dev):
     from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha
 
-    bf16 = torch.bfloat16
-
     def inputs(B, L, S, H, hd, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        return [torch.randn(B, n, H, hd, generator=g, device=dev).to(bf16)
-                for n in (L, S, S)]
+        return _flash_inputs(torch, dev, B, L, S, H, hd, seed)
 
     def compare(q, k, v, **opts):
         ok = flash_mha(q, k, v, **opts)
@@ -248,6 +357,8 @@ def check_flash(torch, dev):
                  f"{tuple(q.shape)} {opts}")
         return (ok.float() - op.float()).abs().max().item()
 
+    qkv = torch.randn(2, 200, 3, 8, 64, generator=torch.Generator(device=dev).manual_seed(11),
+                      device=dev).to(torch.bfloat16)
     edges = {
         "L=16": compare(*inputs(4, 16, 16, 16, 64, 1), causal=False),
         "ragged L=40": compare(*inputs(4, 40, 40, 16, 64, 2), causal=False),
@@ -256,9 +367,16 @@ def check_flash(torch, dev):
         "softcap 30": compare(*inputs(2, 200, 200, 8, 64, 5), causal=False,
                               softcap=30.0),
         "dh=72": compare(*inputs(2, 256, 256, 16, 72, 6), causal=False),
+        "dh=128 L=129 S=255": compare(*inputs(1, 129, 255, 4, 128, 12), causal=False),
+        "L=127 S=1": compare(*inputs(2, 127, 1, 4, 64, 13), causal=False),
+        "causal L=S=129": compare(*inputs(2, 129, 129, 4, 64, 14), causal=True),
+        "true_seq_k 100 of S=255": compare(*inputs(2, 128, 255, 4, 64, 15), causal=False,
+                                           true_seq_k=100),
+        "q, k, v views of one qkv": compare(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                                            causal=True),
     }
     # hymba-1.5b: 25 heads (KV repeated from 5), ragged last tile of the
-    # L + 16 forward, 64-row tiles skipped outside the 1024 band
+    # L + 16 forward, KV tiles skipped outside the 1024 band
     edges["hymba L=4112 window 1024"] = compare(*inputs(2, 4112, 4112, 25, 64, 8),
                                                 causal=True, window=1024)
     edges["hymba L=4112 causal"] = compare(*inputs(2, 4112, 4112, 25, 64, 9), causal=True)
@@ -270,22 +388,30 @@ def check_flash(torch, dev):
     times = kernel_times(lambda: flash_mha(q, k, v, causal=False),
                          lambda: attention_plain(q, k, v, causal=False),
                          lambda: sdpa(qt, kt, vt), reps=5)
-    bms, by = bound_ms(4.0 * B * L * H * hd * 2, 4.0 * B * H * L * L * hd, PEAK_BF16)
-    emit("flash_attention", shape=[B, L, H, hd], dtype="bfloat16", max_abs_err=err,
+    flops = 4.0 * B * H * L * L * hd
+    bms, by = bound_ms(4.0 * B * L * H * hd * 2, flops, PEAK_BF16)
+    build = _wgmma_build()
+    emit("flash_attention", variant="wgmma (bf16: TMA, wgmma, P = P_hi + P_lo)",
+         shape=[B, L, H, hd], dtype="bfloat16", max_abs_err=err,
          edge_max_abs_err=edges, tolerance=FLASH_TOLERANCE, **times,
          library="scaled_dot_product_attention", bound_ms=bms, bound_by=by,
-         tflops=4.0 * B * H * L * L * hd / times["ms"] / 1e9)
+         design_floor_ms=1.5 * flops / PEAK_BF16 * 1e3, build=build,
+         tflops=_tflops(flops, times))
     hymba = {}
     for name, window in (("window 1024", 1024), ("causal", 0)):
-        hymba[name] = _flash_at_hymba_shape(torch, dev, inputs, window)
-        emit("flash_attention_hymba", **hymba[name])
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/kernel.py:27",
+        hymba[name] = _flash_at_hymba_shape(torch, dev, window)
+        emit("flash_attention_hymba", variant="wgmma", **hymba[name])
+    return dict(name="flash_attention", route="cuda", source=FLASH_WGMMA_SOURCE,
+                replaces=FLASH_REPLACES, variant="wgmma (bf16)",
                 max_abs_err=err, **times, bound_ms=bms, bound_by=by, at_hymba_shape=hymba)
 
 
-def _flash_at_hymba_shape(torch, dev, inputs, window):
+def _hymba_pairs(L, window):
+    """(q, k) pairs a causal mask with ``window`` (0: full) keeps over L rows."""
+    return sum(min(i + 1, window or L) for i in range(L))
+
+
+def _flash_at_hymba_shape(torch, dev, window):
     """B2 as the hymba prefill launches it: (2, 4096, 25, 64) bf16, causal,
     ``window`` 1024 (29 layers) or 0 (3 layers).  Two planted faults show
     that the tolerance can see a wrong band: the kernel against the plain
@@ -297,7 +423,7 @@ def _flash_at_hymba_shape(torch, dev, inputs, window):
     from repro_torch.nn.attention import attn_mask
 
     B, L, H, hd = HYMBA_BATCH, HYMBA_PROMPT, 25, 64
-    q, k, v = inputs(B, L, L, H, hd, 10 + window)
+    q, k, v = _flash_inputs(torch, dev, B, L, L, H, hd, 10 + window)
     ok = flash_mha(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     op = attention_plain(q, k, v, causal=True, window=window)
@@ -318,14 +444,63 @@ def _flash_at_hymba_shape(torch, dev, inputs, window):
     times = kernel_times(lambda: flash_mha(q, k, v, causal=True, window=window),
                          lambda: attention_plain(q, k, v, causal=True, window=window),
                          lambda: sdpa(qt, kt, vt, attn_mask=mask), reps=3)
-    pairs = sum(min(i + 1, window or L) for i in range(L))
-    bms, by = bound_ms(4.0 * B * L * H * hd * 2, 4.0 * B * H * pairs * hd, PEAK_BF16)
+    pairs = _hymba_pairs(L, window)
+    flops = 4.0 * B * H * pairs * hd
+    bms, by = bound_ms(4.0 * B * L * H * hd * 2, flops, PEAK_BF16)
     return dict(shape=[B, L, H, hd], dtype="bfloat16", causal=True, window=window,
                 max_abs_err=err, tolerance=FLASH_TOLERANCE, tolerance_used=used,
                 planted_faults_tolerance_used=planted, **times,
                 library="scaled_dot_product_attention with the boolean band mask",
-                bound_ms=bms, bound_by=by, attended_pairs=pairs,
-                tflops=4.0 * B * H * pairs * hd / times["ms"] / 1e9)
+                bound_ms=bms, bound_by=by, design_floor_ms=1.5 * flops / PEAK_BF16 * 1e3,
+                attended_pairs=pairs, tflops=_tflops(flops, times))
+
+
+def check_flash_fma(torch, dev):
+    """The float32 variant (FMAs) against its plain version: edges, then the
+    shape ``hymba_f32`` launches it at, (2, 4096, 25, 64) causal with window
+    1024.  The library call is SDPA in float32 with the band mask; the bound
+    is the float32 rate without tensor cores."""
+    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha
+    from repro_torch.nn.attention import attn_mask
+
+    f32 = torch.float32
+
+    def compare(q, k, v, **opts):
+        """(share of the tolerance used, max abs error)"""
+        ok = flash_mha(q, k, v, **opts)
+        torch.cuda.synchronize()
+        op = attention_plain(q, k, v, **opts)
+        used = _flash_tolerance_used(ok, op, FLASH_F32_TOL, FLASH_F32_TOL)
+        if not used <= 1.0:
+            fail(f"flash fma: {used} of the tolerance ({FLASH_F32_TOLERANCE}) used at "
+                 f"{tuple(q.shape)} {opts}")
+        return used, (ok - op).abs().max().item()
+
+    edges = {"ragged L=40 causal": compare(*_flash_inputs(torch, dev, 2, 40, 40, 3, 16, 21, f32),
+                                           causal=True)[0],
+             "dh=72": compare(*_flash_inputs(torch, dev, 2, 100, 100, 4, 72, 22, f32),
+                              causal=False)[0]}
+    B, L, H, hd, window = HYMBA_BATCH, HYMBA_PROMPT, 25, 64, 1024
+    q, k, v = _flash_inputs(torch, dev, B, L, L, H, hd, 23, f32)
+    used, err = compare(q, k, v, causal=True, window=window)
+    mask = attn_mask(L, L, True, window, dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = kernel_times(lambda: flash_mha(q, k, v, causal=True, window=window),
+                         lambda: attention_plain(q, k, v, causal=True, window=window),
+                         lambda: sdpa(qt, kt, vt, attn_mask=mask), reps=3)
+    pairs = _hymba_pairs(L, window)
+    flops = 4.0 * B * H * pairs * hd
+    bms, by = bound_ms(4.0 * B * L * H * hd * 4, flops, PEAK_F32)
+    emit("flash_attention_fma", variant="fma (float32)", shape=[B, L, H, hd],
+         dtype="float32", causal=True, window=window, max_abs_err=err,
+         tolerance=FLASH_F32_TOLERANCE, tolerance_used=used, edge_tolerance_used=edges,
+         **times, library="scaled_dot_product_attention (float32) with the band mask",
+         bound_ms=bms, bound_by=by, attended_pairs=pairs,
+         tflops=_tflops(flops, times))
+    return dict(name="flash_attention_fma", route="cuda", source=FLASH_FMA_SOURCE,
+                replaces=FLASH_REPLACES, variant="fma (float32)", max_abs_err=err,
+                **times, bound_ms=bms, bound_by=by)
 
 
 def _serve_maps(torch, dev):
@@ -624,8 +799,10 @@ def run_slice(torch, dev):
     return launches, flash_fn, sched, dc
 
 
-# device kernels by what they do, matched on their names
-_KERNEL_GROUPS = (("flash_attention", ("flash_fwd",)), ("grs", ("grs_",)),
+# device kernels by what they do, matched on their names (the first group
+# that matches wins: the wgmma kernel's name also starts with flash_fwd)
+_KERNEL_GROUPS = (("flash_attention", ("flash_fwd_wgmma",)),
+                  ("flash_attention_fma", ("flash_fwd",)), ("grs", ("grs_",)),
                   ("pack", ("gather_rows_kernel", "scatter_rows_kernel")),
                   ("fused_round", ("fused_gather_kernel", "fvc_")),
                   ("ssm_scan", ("ssm_scan_kernel",)),
@@ -734,13 +911,14 @@ def check_reference(torch, dev):
 
 def _counters():
     """Every kernel wrapper, by the name the kernels line gives it."""
-    from repro_torch.kernels.flash_attention.ops import flash_mha
+    from repro_torch.kernels.flash_attention.ops import flash_fma, flash_wgmma
     from repro_torch.kernels.grs.ops import grs
     from repro_torch.kernels.pack.ops import gather_rows, scatter_rows
     from repro_torch.kernels.ssm_scan.ops import linear_scan
     from repro_torch.kernels.superstep.ops import fused_gather, fused_verify_commit
 
-    return {"grs": grs, "flash_attention": flash_mha, "gather_rows": gather_rows,
+    return {"grs": grs, "flash_attention": flash_wgmma, "flash_attention_fma": flash_fma,
+            "gather_rows": gather_rows,
             "scatter_rows": scatter_rows, "fused_gather": fused_gather,
             "fused_verify_commit": fused_verify_commit, "ssm_scan": linear_scan}
 
@@ -750,10 +928,10 @@ def _counters():
 def _per_round(n_layers):
     return {"packed": {"grs": 1, "gather_rows": 3, "scatter_rows": 1, "fused_gather": 0,
                        "fused_verify_commit": 0, "flash_attention": 2 * n_layers,
-                       "ssm_scan": 0},
+                       "flash_attention_fma": 0, "ssm_scan": 0},
             "fused": {"grs": 0, "gather_rows": 0, "scatter_rows": 0, "fused_gather": 1,
                       "fused_verify_commit": 1, "flash_attention": 2 * n_layers,
-                      "ssm_scan": 0}}
+                      "flash_attention_fma": 0, "ssm_scan": 0}}
 
 
 def _serve_requests(torch, dev, dc, k, theta, n, seed):
@@ -1115,8 +1293,10 @@ def check_hymba_f32(torch, dev):
     params = init_lm_params(cfg, SEED, device=dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
+    counters = _counters()
     with torch.no_grad():
         caches = lm_cache_init(params, cfg, B, P + T, dtype=torch.float32)
+        _zero_counters(torch, counters)
         logits, caches = lm_prefill(params, prompt, caches, cfg)
         prefilled = _clone(caches)
         steps, seq = [logits[:, 0]], [prompt]
@@ -1127,11 +1307,19 @@ def check_hymba_f32(torch, dev):
             steps.append(logits[:, 0])
         seq = torch.cat(seq, dim=1)
         full = lm_fwd(params, seq, cfg)
+        torch.cuda.synchronize()
+        launches = _launches(counters)
         dec, ref = torch.stack(steps, dim=1), full[:, P - 1:]
         rel = _rel_l2(dec, ref)
         planted = _planted_decode_faults(torch, params, cfg, prompt, seq, prefilled,
                                          dec[:, 0], ref)
     finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
+    # B2 in float32 takes the FMA kernel: once a layer in the prefill and
+    # the forward, never the wgmma kernel
+    want = {name: 0 for name in counters}
+    want.update(ssm_scan=2 * cfg.n_layers, flash_attention_fma=2 * cfg.n_layers)
+    if launches != want:
+        fail(f"hymba_f32: launched {launches}, expected {want}")
     if not (finite and rel <= HYMBA_F32_GATE
             and all(planted[name] > HYMBA_F32_GATE for name in HYMBA_F32_SEES)):
         fail(f"hymba_f32: finite={finite}, decode vs forward relative L2 {rel}, planted "
@@ -1141,7 +1329,8 @@ def check_hymba_f32(torch, dev):
          batch=B, prompt=P, decode_steps=T, decode_vs_forward_relative_l2=rel,
          decode_vs_forward_max_abs_err=(dec - ref).abs().max().item(),
          planted_faults_relative_l2=planted, tolerance=f"relative L2 {HYMBA_F32_GATE}",
-         logits_abs_max=ref.abs().max().item())
+         logits_abs_max=ref.abs().max().item(), launches=launches)
+    return {"hymba_f32": launches}
 
 
 def check_hymba_reference(torch, dev):
@@ -1183,7 +1372,8 @@ def check_hymba_reference(torch, dev):
     if not err <= 2e-4:
         fail(f"hymba_reference: logits differ by {err} > 2e-4")
     card = launched[str(dev)]
-    if card["ssm_scan"] != 2 * cfg.n_layers or card["flash_attention"] != 2 * cfg.n_layers:
+    if (card["ssm_scan"] != 2 * cfg.n_layers or card["flash_attention_fma"] != 2 * cfg.n_layers
+            or card["flash_attention"] != 0):
         fail(f"hymba_reference: card launches {card}")
     emit("hymba_reference", model=cfg.name, prompt=P, decode_steps=T, max_abs_err=err,
          tolerance=2e-4, tokens=t_cpu.tolist(), logits_abs_max=f_cpu.abs().max().item(),
@@ -1227,15 +1417,17 @@ def main() -> None:
     emit("build", nvcc_seconds="cached" if info["seconds"] is None else info["seconds"],
          load_seconds=time.perf_counter() - t0, library=info["path"])
 
-    kernels = [check_grs(torch, dev), check_flash(torch, dev), *check_pack(torch, dev),
-               *check_fused_round(torch, dev), check_ssm_scan(torch, dev)]
+    check_flash_identity_probe(torch, dev)
+    kernels = [check_grs(torch, dev), check_flash(torch, dev), check_flash_fma(torch, dev),
+               *check_pack(torch, dev), *check_fused_round(torch, dev),
+               check_ssm_scan(torch, dev)]
     asd_launches, flash_fn, sched, dc = run_slice(torch, dev)
     check_reference(torch, dev)
     by_run = {"asd": asd_launches, **run_serve(torch, dev, flash_fn, sched, dc)}
     check_serve_reference(torch, dev)
     del flash_fn  # the denoiser's weights
     by_run.update(run_hymba(torch, dev))
-    check_hymba_f32(torch, dev)
+    by_run.update(check_hymba_f32(torch, dev))
     check_hymba_reference(torch, dev)
     for kern in kernels:
         per = {run: counts.get(kern["name"], 0) for run, counts in by_run.items()}

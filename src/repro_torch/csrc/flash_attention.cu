@@ -1,34 +1,31 @@
-// Flash attention (online softmax over KV tiles) for Hopper (sm_90a).
+// Flash attention (online softmax over KV tiles) in float32 with FMAs, for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention/kernel.py::_flash_kernel (called through
-// flash_attention, wrapped by kernels/flash_attention/ops.py::flash_mha).
+// flash_attention, wrapped by kernels/flash_attention/ops.py::flash_mha) for
+// float32 inputs; bf16 inputs go to flash_attention_wgmma.cu.
 //
 // o[b, l, h] = softmax_s(mask(softcap(<q[b,l,h], k[b,s,h]> / sqrt(dh)))) . v[b,s,h]
-// in float32 whatever the input type, with the TPU kernel's constants: a
-// masked logit is -1e30 (not -inf), the running max starts at -inf, and the
-// row sum is clamped at 1e-30 before the division. Options: causal, sliding
-// window (q - k < window), logit softcap, and a key count seq_k <= Sk that
-// masks a padded tail. Tiles wholly outside the causal or window band are
-// skipped, as on the TPU.
+// in float32, with the TPU kernel's constants: a masked logit is -1e30 (not
+// -inf), the running max starts at -inf, and the row sum is clamped at
+// 1e-30 before the division. Options: causal, sliding window
+// (q - k < window), logit softcap, and a key count seq_k <= Sk that masks a
+// padded tail. Tiles wholly outside the causal or window band are skipped,
+// as on the TPU.
 //
 // Layout: q, o are (B, Lq, H, dh) and k, v are (B, Sk, H, dh), each given by
 // its batch, row and head strides with dh contiguous, so the projections'
 // (B, L, H, dh) output is read in place without a transpose. dh <= 128.
 //
-// Bound: operations. At the main path's shape (B*H = 512, L = S = 1024,
-// dh = 64) the function does 4 * BH * L * S * dh = 137 GFLOP per call while
-// moving 268 MB, far above the card's balance point, so the limit is the
-// bf16 tensor-core rate. This first kernel does not use the tensor cores:
-// it computes in float32 with FMAs, which is both the TPU kernel's
-// arithmetic and the simplest correct design. One block of 256 threads owns
-// a 64-row query tile; K and V tiles of 64 rows are staged in shared memory
-// as float32 (rows padded by one word so the column reads hit distinct
-// banks); each thread holds a 4 x 4 block of the score tile and a 4-row
-// slice of the output accumulator in registers. Moving the two products
-// onto wgmma with TMA-fed tiles is later work.
+// Its callers are the float32 paths (the LM in float32, the on-card float32
+// references), whose arithmetic is the TPU kernel's float32: TF32 tensor
+// cores would keep about three decimal digits, so this kernel stays on
+// FMAs. One block of 256 threads owns a 64-row query tile; K and V tiles of
+// 64 rows are staged in shared memory (rows padded by one word so the
+// column reads hit distinct banks); each thread holds a 4 x 4 block of the
+// score tile and a 4-row slice of the output accumulator in registers.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -50,14 +47,6 @@ struct Args {
   int64_t q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, o_sb, o_sl, o_sh;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 __device__ __forceinline__ float half_warp_max(float x) {
   for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
@@ -67,19 +56,18 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t row_stride,
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t row_stride,
                                           int row0, int nrows_valid, int rows, int dh,
                                           int ld) {
   for (int e = threadIdx.x; e < rows * dh; e += kThreads) {
     const int r = e / dh, c = e - r * dh;
     const int gr = row0 + r;
-    dst[r * ld + c] = gr < nrows_valid ? to_f(src[static_cast<int64_t>(gr) * row_stride + c]) : 0.f;
+    dst[r * ld + c] = gr < nrows_valid ? src[static_cast<int64_t>(gr) * row_stride + c] : 0.f;
   }
 }
 
 // NC = columns of the dh axis each thread owns in the output: ceil(dh / 16).
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
   extern __shared__ float smem[];
   const int dh = a.dh;
@@ -97,10 +85,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
   const int b = bh / a.H, h = bh - (bh / a.H) * a.H;
   const int q0 = blockIdx.x * kBQ;
 
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  T* ob = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+  float* ob = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
 
   load_tile(Qs, qb, a.q_sl, q0, a.Lq, kBQ, dh, ld);
 
@@ -201,46 +189,45 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = cg + 16 * c;
-      if (col < dh) ob[static_cast<int64_t>(qi) * a.o_sl + col] = from_f<T>(acc[i][c] / l);
+      if (col < dh) ob[static_cast<int64_t>(qi) * a.o_sl + col] = acc[i][c] / l;
     }
   }
 }
 
-template <typename T, int NC>
+template <int NC>
 cudaError_t launch(const Args& a, int BH, cudaStream_t stream) {
   const int ld = a.dh + 1;
   const size_t smem = sizeof(float) * (static_cast<size_t>(kBQ) * ld + 2 * kBK * ld +
                                        kBQ * (kBK + 1));
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, NC>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd<NC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + kBQ - 1) / kBQ, BH);
-  flash_fwd<T, NC><<<grid, kThreads, smem, stream>>>(a);
+  flash_fwd<NC><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const Args& a, int BH, cudaStream_t s) {
   switch ((a.dh + 15) / 16) {
-    case 1: return launch<T, 1>(a, BH, s);
-    case 2: return launch<T, 2>(a, BH, s);
-    case 3: return launch<T, 3>(a, BH, s);
-    case 4: return launch<T, 4>(a, BH, s);
-    case 5: return launch<T, 5>(a, BH, s);
-    case 6: return launch<T, 6>(a, BH, s);
-    case 7: return launch<T, 7>(a, BH, s);
-    case 8: return launch<T, 8>(a, BH, s);
+    case 1: return launch<1>(a, BH, s);
+    case 2: return launch<2>(a, BH, s);
+    case 3: return launch<3>(a, BH, s);
+    case 4: return launch<4>(a, BH, s);
+    case 5: return launch<5>(a, BH, s);
+    case 6: return launch<6>(a, BH, s);
+    case 7: return launch<7>(a, BH, s);
+    case 8: return launch<8>(a, BH, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns
-// cudaGetLastError() after the launch (or the first error met).
-extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B, int H,
+// float32 only. Strides are in elements. Returns cudaGetLastError() after
+// the launch (or the first error met).
+extern "C" int repro_flash_attention_fma(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
     int Lq, int Sk, int dh, int64_t q_sb, int64_t q_sl, int64_t q_sh, int64_t k_sb,
     int64_t k_sl, int64_t k_sh, int64_t v_sb, int64_t v_sl, int64_t v_sh,
     int64_t o_sb, int64_t o_sl, int64_t o_sh, int causal, int window, float softcap,
@@ -252,7 +239,5 @@ extern "C" int repro_flash_attention(
   Args a{q, k, v, o, H, Lq, Sk, dh, seq_k, causal, window, softcap,
          q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, o_sb, o_sl, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, static_cast<int>(BH), s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, static_cast<int>(BH), s);
-  return cudaErrorInvalidValue;
+  return dispatch(a, static_cast<int>(BH), s);
 }

@@ -1,16 +1,22 @@
-"""Flash attention on the card: wrapper of the CUDA kernel
-``csrc/flash_attention.cu``, in the (B, L, H, hd) layout of the JAX
-package's ``flash_mha``.
+"""Flash attention on the card: wrapper of two hand-written CUDA kernels,
+in the (B, L, H, hd) layout of the JAX package's ``flash_mha``.
 
-Replaces the TPU kernel ``repro/kernels/flash_attention/kernel.py::
-_flash_kernel``.  The function is bound by operations at the main path's
-shape (L = S = 1024, dh = 64); the source note in the ``.cu`` file says what
-this first design does about that.  The kernel reads q, k, v through their
-strides and masks ragged edges itself, so nothing is padded or transposed.
+Both replace the TPU kernel ``repro/kernels/flash_attention/kernel.py::
+_flash_kernel``.  The dtype picks the kernel, explicitly:
+
+- bfloat16 goes to ``csrc/flash_attention_wgmma.cu`` (``flash_wgmma``):
+  TMA-fed tiles and wgmma for both products, P split into two bf16 terms.
+  It reads q, k, v in place through TMA and refuses, with ``ValueError``,
+  a tensor it cannot map: a base address or a batch, row or head stride
+  that is not a multiple of 16 bytes, hd not a multiple of 8 or above 128,
+  or a grid too large.
+- float32 goes to ``csrc/flash_attention.cu`` (``flash_fma``): float32
+  FMAs, the TPU kernel's arithmetic, for the float32 paths.
 
 The plain PyTorch version is ``attention_plain``.  ``flash_mha`` takes it
-only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  ``flash_mha.launches`` counts kernel launches.
+only for tensors on the CPU; for CUDA tensors it launches a kernel or
+raises.  ``flash_mha.launches`` counts the launches of both kernels;
+``flash_wgmma.launches`` and ``flash_fma.launches`` count each.
 """
 
 from __future__ import annotations
@@ -22,10 +28,15 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 12
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p])
+# the wgmma kernel's limits: 16-byte TMA addresses and strides, hd in
+# 64-column chunks (at most two), B*H blocks on grid x, 128-row query tiles
+# on grid y
+_TMA_ALIGN = 16
+_MAX_HD = 128
+_MAX_GRID_X, _MAX_GRID_Y, _BQ = 2 ** 31 - 1, 65535, 128
 
 
 def _mask(Lq: int, S: int, causal: bool, window: int, seq_k: int, device):
@@ -55,10 +66,7 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.einsum("bhls,bshk->blhk", p, v.float()).to(q.dtype)
 
 
-def flash_cuda(q, k, v, *, causal: bool, window: int, softcap: float,
-               true_seq_k: int):
-    """The kernel on CUDA tensors q (B, Lq, H, hd), k, v (B, S, H, hd) of
-    one dtype (float32 or bfloat16), each with a contiguous last axis."""
+def _check(q, k, v, true_seq_k):
     B, Lq, H, hd = q.shape
     S = k.shape[1]
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -67,39 +75,112 @@ def flash_cuda(q, k, v, *, causal: bool, window: int, softcap: float,
                              f"q is {q.dtype} on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"flash kernel: {name} needs a contiguous head dim")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash kernel: no kernel for {q.dtype}")
     if tuple(k.shape) != (B, S, H, hd) or tuple(v.shape) != (B, S, H, hd):
         raise ValueError(f"flash kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if hd > 128 or B * H > 65535 or not 0 < true_seq_k <= S:
-        raise ValueError(f"flash kernel: hd {hd} > 128, B*H {B * H} > 65535 or "
-                         f"true_seq_k {true_seq_k} outside (0, {S}]")
+    if not 0 < true_seq_k <= S:
+        raise ValueError(f"flash kernel: true_seq_k {true_seq_k} outside (0, {S}]")
+
+
+def _launch(entry, q, k, v, strides, causal, window, softcap, true_seq_k):
+    B, Lq, H, hd = q.shape
     o = torch.empty((B, Lq, H, hd), dtype=q.dtype, device=q.device)
-    fn = _build.function("repro_flash_attention", _ARGTYPES)
-    strides = [t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
-             B, H, Lq, S, hd, *strides, int(causal), int(window), float(softcap),
+    fn = _build.function(entry, _ARGTYPES)
+    strides = strides + [o.stride(i) for i in (0, 1, 2)]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Lq,
+             k.shape[1], hd, *strides, int(causal), int(window), float(softcap),
              int(true_seq_k), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash attention kernel launch")
+    _build.check(err, f"flash attention kernel launch ({entry})")
     flash_mha.launches += 1
     return o
+
+
+def _tma_strides(t, name):
+    """The batch, row and head strides of t (elements) for a TMA map, where
+    a dimension of size 1 takes its contiguous stride (it is never
+    stepped); raises where an address or stride is not a multiple of 16
+    bytes."""
+    B, L, H, hd = t.shape
+    natural = (L * H * hd, H * hd, hd)
+    strides = [t.stride(i) if t.shape[i] > 1 else natural[i] for i in (0, 1, 2)]
+    item = t.element_size()
+    if t.data_ptr() % _TMA_ALIGN or any(s <= 0 or s * item % _TMA_ALIGN for s in strides):
+        raise ValueError(f"flash wgmma kernel: {name} at address {t.data_ptr():#x} with "
+                         f"strides {tuple(t.stride())} is not 16-byte aligned for TMA")
+    return strides
+
+
+def flash_wgmma(q, k, v, *, causal: bool, window: int, softcap: float,
+                true_seq_k: int):
+    """The bf16 kernel (TMA + wgmma) on CUDA tensors q (B, Lq, H, hd), k, v
+    (B, S, H, hd), each with a contiguous last axis."""
+    _check(q, k, v, true_seq_k)
+    B, Lq, H, hd = q.shape
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash wgmma kernel: takes bfloat16, not {q.dtype}")
+    if hd % 8 or hd > _MAX_HD:
+        raise ValueError(f"flash wgmma kernel: hd {hd} is not a multiple of 8 "
+                         f"at most {_MAX_HD}")
+    if B * H > _MAX_GRID_X or -(-Lq // _BQ) > _MAX_GRID_Y:
+        raise ValueError(f"flash wgmma kernel: B*H {B * H} or Lq {Lq} over the grid limit")
+    strides = [s for name, t in (("q", q), ("k", k), ("v", v))
+               for s in _tma_strides(t, name)]
+    o = _launch("repro_flash_attention_wgmma", q, k, v, strides, causal, window, softcap,
+                true_seq_k)
+    flash_wgmma.launches += 1
+    return o
+
+
+def flash_fma(q, k, v, *, causal: bool, window: int, softcap: float,
+              true_seq_k: int):
+    """The float32 kernel (FMAs) on CUDA tensors q (B, Lq, H, hd), k, v
+    (B, S, H, hd), each with a contiguous last axis."""
+    _check(q, k, v, true_seq_k)
+    B, Lq, H, hd = q.shape
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash fma kernel: takes float32, not {q.dtype}")
+    if hd > 128 or B * H > 65535:
+        raise ValueError(f"flash fma kernel: hd {hd} > 128 or B*H {B * H} > 65535")
+    strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
+    o = _launch("repro_flash_attention_fma", q, k, v, strides, causal, window, softcap,
+                true_seq_k)
+    flash_fma.launches += 1
+    return o
+
+
+def wgmma_launch_info(hd: int) -> dict:
+    """The wgmma kernel's launch configuration for head dim ``hd``: keys per
+    tile, threads, dynamic shared memory bytes and compiled registers."""
+    fn = _build.function("repro_flash_attention_wgmma_info",
+                         [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4)
+    out = [ctypes.c_int() for _ in range(4)]
+    _build.check(fn(hd, *out), "flash wgmma kernel attributes")
+    return dict(zip(("keys_per_tile", "threads", "dynamic_smem_bytes", "registers"),
+                    (v.value for v in out)))
+
+
+_KERNELS = {torch.bfloat16: flash_wgmma, torch.float32: flash_fma}
 
 
 def flash_mha(q, k, v, *, causal: bool = True, window: int = 0,
               softcap: float = 0.0, true_seq_k: int | None = None):
     """q: (B, Lq, H, hd); k, v: (B, S, H, hd) (KV already head-repeated).
-    Returns (B, Lq, H, hd): the plain version on the CPU, the CUDA kernel on
-    the card."""
+    Returns (B, Lq, H, hd): the plain version on the CPU; on the card the
+    wgmma kernel for bfloat16, the FMA kernel for float32."""
     seq_k = k.shape[1] if true_seq_k is None else int(true_seq_k)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
                                softcap=softcap, true_seq_k=seq_k)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: no kernel for device {q.device}")
-    return flash_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
-                      true_seq_k=seq_k)
+    kernel = _KERNELS.get(q.dtype)
+    if kernel is None:
+        raise ValueError(f"flash_mha: no kernel for {q.dtype}")
+    return kernel(q, k, v, causal=causal, window=window, softcap=softcap,
+                  true_seq_k=seq_k)
 
 
 flash_mha.launches = 0
+flash_wgmma.launches = 0
+flash_fma.launches = 0
 

@@ -14,7 +14,8 @@ from repro_torch.configs.registry import get_config, paper_diffusion_policy_smok
 from repro_torch.core import asd as t_asd
 from repro_torch.core import schedules as t_sch
 from repro_torch.core.grs import grs as grs_plain
-from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha
+from repro_torch.kernels.flash_attention.ops import (attention_plain, flash_fma, flash_mha,
+                                                      flash_wgmma)
 from repro_torch.kernels.grs.ops import grs
 from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.kernels.ssm_scan.ops import linear_scan, ssm_scan_plain
@@ -103,10 +104,91 @@ def test_flash_kernel_matches_plain(dev, dtype, B, L, S, H, hd, causal, window, 
     torch.cuda.synchronize()
     assert flash_mha.launches == before + 1
     op = attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
-    # float32: both sum in float32 in other orders; bfloat16: one rounding of
-    # the output to bf16 (8 mantissa bits) on each side
-    tol = 2e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(ok.float(), op.float(), atol=tol, rtol=tol)
+    _assert_flash_close(ok, op)
+
+
+# float32 (the FMA kernel): both sum in float32 in other orders.  bfloat16
+# (the wgmma kernel): both compute in float32 and round the output to bf16
+# once, so an element moves by at most one bf16 ulp (2^-7 of its size), plus
+# 1e-4 for float32 sums in other orders near zero: chip_smoke.py's gate.
+def _assert_flash_close(ok, op):
+    if ok.dtype == torch.float32:
+        torch.testing.assert_close(ok, op, atol=2e-5, rtol=2e-5)
+    else:
+        torch.testing.assert_close(ok.float(), op.float(), atol=1e-4, rtol=2.0 ** -7)
+
+
+def _flash_inputs(dev, dtype, B, L, S, H, hd, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, n, H, hd, generator=g, device=dev).to(dtype) for n in (L, S, S)]
+
+
+TILE_EDGES = (1, 127, 128, 129, 255)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", TILE_EDGES)
+@pytest.mark.parametrize("L", TILE_EDGES)
+def test_flash_wgmma_tile_edges(dev, L, S, causal):
+    """Query and key counts on both sides of the 128-row tiles."""
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 2, L, S, 3, 64, 7 * L + S)
+    _assert_flash_close(flash_mha(q, k, v, causal=causal),
+                        attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq_k", [1, 100, 128, 129])
+def test_flash_kernel_masks_keys_past_true_seq_k(dev, dtype, seq_k):
+    q, k, v = _flash_inputs(dev, dtype, 2, 129, 255, 2, 64, seq_k)
+    _assert_flash_close(flash_mha(q, k, v, causal=False, true_seq_k=seq_k),
+                        attention_plain(q, k, v, causal=False, true_seq_k=seq_k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 72, 80, 128])
+def test_flash_kernel_head_dims(dev, dtype, hd):
+    """dh below one 64-column chunk, across two, and at the 128 limit; TMA
+    zero-fills the columns past dh."""
+    q, k, v = _flash_inputs(dev, dtype, 2, 150, 150, 3, hd, hd)
+    for opts in ({"causal": False}, {"causal": True, "window": 40}):
+        _assert_flash_close(flash_mha(q, k, v, **opts), attention_plain(q, k, v, **opts))
+
+
+def test_flash_wgmma_reads_qkv_views_in_place(dev):
+    g = torch.Generator(device=dev).manual_seed(2)
+    qkv = torch.randn(2, 130, 3, 4, 64, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # non-contiguous views
+    assert not q.is_contiguous()
+    before = flash_wgmma.launches
+    ok = flash_mha(q, k, v, causal=True)
+    assert flash_wgmma.launches == before + 1
+    _assert_flash_close(ok, attention_plain(q, k, v, causal=True))
+
+
+def test_flash_wgmma_refuses_what_tma_cannot_map(dev):
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 1, 32, 32, 2, 64, 0)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(q.shape)  # 2 bytes past a 16-byte boundary
+    shifted.copy_(q)
+    with pytest.raises(ValueError):
+        flash_mha(shifted, k, v, causal=False)
+    for hd in (12, 136):
+        q, k, v = _flash_inputs(dev, torch.bfloat16, 1, 32, 32, 2, hd, hd)
+        with pytest.raises(ValueError):
+            flash_mha(q, k, v, causal=False)
+
+
+def test_flash_counts_one_launch_per_kernel(dev):
+    """bfloat16 launches the wgmma kernel and float32 the FMA kernel, each
+    once, and both count in flash_mha.launches."""
+    for dtype, kernel, other in ((torch.bfloat16, flash_wgmma, flash_fma),
+                                 (torch.float32, flash_fma, flash_wgmma)):
+        q, k, v = _flash_inputs(dev, dtype, 1, 64, 64, 2, 64, 3)
+        counts = (flash_mha.launches, kernel.launches, other.launches)
+        flash_mha(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert (flash_mha.launches, kernel.launches, other.launches) == (
+            counts[0] + 1, counts[1] + 1, counts[2])
 
 
 def test_flash_kernel_reads_strided_heads_in_place(dev):
@@ -359,7 +441,7 @@ def test_ssm_scan_kernel_refuses_what_it_does_not_take(dev):
 @pytest.mark.parametrize("L,window", [(4096, 1024), (4112, 1024), (4112, 0), (1100, 1024)])
 def test_flash_kernel_at_the_hymba_shapes(dev, L, window):
     """25 heads, causal, window 1024 or full, the ragged last tile of the
-    L + 16 forward; 64-row tiles outside the band are skipped."""
+    L + 16 forward; KV tiles outside the band are skipped."""
     g = torch.Generator(device=dev).manual_seed(L + window)
     q, k, v = (torch.randn(2, L, 25, 64, generator=g, device=dev).to(torch.bfloat16)
                for _ in range(3))
