@@ -22,7 +22,11 @@ Phases, each printing one JSON line and raising on any failure:
               flash_attention (bf16, the wgmma kernel) also at the
               hymba-1.5b shapes (causal, window 1024 and full), with its
               build (registers, spills, shared memory);
-              flash_attention_fma is B2's float32 kernel.
+              flash_attention_fma is B2's float32 kernel. grs (B1) and
+              fused_round's B6 also at a view one float into its storage
+              and at rows longer than a cluster holds, with the device
+              kernels one call runs (one), and the row geometry with the
+              clusters the card keeps resident.
   4. denoiser the full-width ``paper-pixel-dit`` denoiser (random weights
               from a seed): one forward through the flash kernel against
               the same forward through the naive attention.
@@ -213,9 +217,37 @@ def bound_ms(nbytes: float, ops: float, peak: float):
 # ---------------------------------------------------------------- phase 3
 
 
+def _offset_view(torch, t, offset):
+    """t's values in a view ``offset`` floats into its storage (offset 1:
+    every row pointer 4 bytes past a 16-byte boundary)."""
+    base = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    base[offset:].copy_(t.reshape(-1))
+    return base[offset:].view(t.shape)
+
+
+def _one_call_kernels(torch, fn):
+    """The device kernels one call of ``fn`` runs, under torch.profiler, as
+    (name, count) pairs."""
+    fn()
+    torch.cuda.synchronize()
+    _, kernels = _profiled(torch, fn)
+    return [(k[:60], n) for k, _, n in kernels]
+
+
+def _row_geometry(rows, D):
+    """The geometry B1 and B6 launch for ``rows`` rows of D floats: cluster
+    size, floats and shared bytes a block, threads, blocks, and the
+    clusters of it the card keeps resident."""
+    from repro_torch.kernels.grs.ops import THREADS, max_active_clusters, row_geometry
+
+    geo = row_geometry(D)
+    return dict(geo._asdict(), threads=THREADS, blocks=rows * geo.cluster,
+                max_active_clusters=max_active_clusters(geo))
+
+
 def check_grs(torch, dev):
     from repro_torch.core.grs import grs as grs_plain
-    from repro_torch.kernels.grs.ops import grs
+    from repro_torch.kernels.grs.ops import grs, grs_cuda
 
     def inputs(R, D, seed, zero_rows=True):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -249,20 +281,34 @@ def check_grs(torch, dev):
             fail(f"grs: max abs error {err} > 1e-5 at {tuple(xi.shape)}")
         return err, int(ak.sum())
 
+    def offset(args, off):
+        u, xi, mh, m, sig = args
+        return (u, *(_offset_view(torch, t, off) for t in (xi, mh, m)), sig)
+
     R, D = CHAINS * THETA, 1024 * 192
     edges = {}
     for name, (r, d, zero) in {"R=1": (1, 1000, False), "D=1": (8, 1, True),
                                "D=4097": (9, 4097, True),
                                "sigma0_v0_rows": (16, 5000, True)}.items():
         edges[name] = compare(inputs(r, d, len(name), zero))[0]
+    # a view one float into its storage (the kernel's 4-byte path), and
+    # rows longer than a cluster holds (they stream)
+    edges["misaligned view (offset 1 float)"] = compare(offset(inputs(R, D, 2), 1))[0]
+    edges["D=262144 (streams)"] = compare(inputs(4, 262144, 3))[0]
+    edges["D=300001 (streams, offset 1 float)"] = compare(offset(inputs(3, 300001, 4), 1))[0]
     main = inputs(R, D, 1, zero_rows=False)
     err, accepted = compare(main)
     times = kernel_times(lambda: grs(*main), lambda: grs_plain(*main))
     bms, by = bound_ms(4.0 * R * D * 4 + 3 * R * 4, 10.0 * R * D, PEAK_F32)
+    u, xi, mh, m, sig = main
+    one_call = _one_call_kernels(torch, lambda: grs_cuda(u, sig, xi, mh, m))
+    if sum(n for _, n in one_call) != 1:
+        fail(f"grs: one call ran {one_call}, expected one kernel")
     emit("grs", shape=[R, D], max_abs_err=err, accepted_rows=accepted,
          edge_max_abs_err=edges, tolerance="z atol 1e-5; accept bits equal "
          "except rows within 1e-5 of the threshold",
-         **times, bound_ms=bms, bound_by=by)
+         **times, bound_ms=bms, bound_by=by, kernels_per_call=one_call,
+         geometry=_row_geometry(R, D))
     return dict(name="grs", route="cuda", source="src/repro_torch/csrc/grs.cu",
                 replaces="src/repro/kernels/grs/kernel.py:27", max_abs_err=err,
                 **times, bound_ms=bms, bound_by=by)
@@ -577,6 +623,7 @@ def check_fused_round(torch, dev):
     plain versions."""
     from repro_torch.kernels.superstep.ops import (fused_gather, fused_gather_plain,
                                                    fused_verify_commit,
+                                                   fused_verify_commit_cuda,
                                                    fused_verify_commit_plain)
 
     def commit_inputs(M, ev, g):
@@ -595,7 +642,8 @@ def check_fused_round(torch, dev):
             mh[1] = y[1]
         return [y, gg, xi, mh, A, B, u, sig], m
 
-    def compare(tbls, sc, gidx, args, m, sidx, N):
+    def compare(tbls, sc, gidx, args, m, sidx, N, off=0):
+        args = [*(_offset_view(torch, t, off) for t in args[:4]), *args[4:]]
         got = fused_gather(*tbls, sc, gidx)
         zk, ak = fused_verify_commit(*args, sidx, N)
         torch.cuda.synchronize()
@@ -627,12 +675,27 @@ def check_fused_round(torch, dev):
         args, m = commit_inputs(M, ev, g)
         edges[name] = compare(tbls, torch.randn(N, 5, generator=g, device=dev), gidx, args,
                               m, sidx, N)
+    # B6 alone: rows longer than a cluster holds (they stream), one with
+    # every (M, D) input a view one float into its storage
+    for name, (N, M, ev, off) in {"D=262144 (streams)": (6, 4, (262144,), 0),
+                                  "D=300001 (streams, offset 1 float)": (6, 4, (300001,), 1)
+                                  }.items():
+        gidx, sidx = _edge_idx(torch, dev, N, M, len(name))
+        tbls = [torch.randn((N,) + ev, generator=g, device=dev) for _ in range(3)]
+        args, m = commit_inputs(M, ev, g)
+        edges[name] = compare(tbls, torch.randn(N, 5, generator=g, device=dev), gidx, args,
+                              m, sidx, N, off)
     N, D, M, ev = SLOTS * THETA, 1024 * 192, BUDGET, (1024, 192)
     tbls = [torch.randn((N,) + ev, generator=g, device=dev) for _ in range(3)]
     sc = torch.randn(N, 5, generator=g, device=dev)
     gidx, sidx = _serve_maps(torch, dev)
     args, m = commit_inputs(M, ev, g)
     err = compare(tbls, sc, gidx, args, m, sidx, N)
+    edges["misaligned view (offset 1 float)"] = compare(tbls, sc, gidx, args, m, sidx, N, 1)
+    rows = [t.reshape(M, D) for t in args[:4]] + args[4:]
+    one_call = _one_call_kernels(torch, lambda: fused_verify_commit_cuda(*rows, sidx, N))
+    if sum(n for _, n in one_call) != 1:
+        fail(f"fused_round: one B6 call ran {one_call}, expected one kernel")
     lines = []
     for name, fn, plain, nbytes, ops, replaces in (
             ("fused_gather", lambda: fused_gather(*tbls, sc, gidx),
@@ -645,15 +708,16 @@ def check_fused_round(torch, dev):
              "src/repro/kernels/superstep/kernel.py:84")):
         times = kernel_times(fn, plain)
         bms, by = bound_ms(nbytes, ops, PEAK_F32)
-        e = 0.0 if name == "fused_gather" else err
+        commit = name != "fused_gather"
+        e = err if commit else 0.0
         emit("fused_round", kernel=name, shape={"table_rows": N, "packed_rows": M, "D": D,
                                                  "scalars": 5},
-             max_abs_err=e, edge_max_abs_err=edges if name != "fused_gather" else None,
+             max_abs_err=e, edge_max_abs_err=edges if commit else None,
              edges=sorted(_EDGES),
-             tolerance=("equal bits" if name == "fused_gather" else
-                        "z atol 1e-5; accept bits equal except rows within 1e-5 of the "
-                        "threshold"),
-             **times, bound_ms=bms, bound_by=by)
+             tolerance=("z atol 1e-5; accept bits equal except rows within 1e-5 of the "
+                        "threshold" if commit else "equal bits"),
+             **times, bound_ms=bms, bound_by=by,
+             **(dict(kernels_per_call=one_call, geometry=_row_geometry(N, D)) if commit else {}))
         lines.append(dict(name=name, route="cuda", source="src/repro_torch/csrc/superstep.cu",
                           replaces=replaces, max_abs_err=e, **times, bound_ms=bms,
                           bound_by=by))

@@ -11,19 +11,18 @@
 //
 // Bound: memory. The function reads xi, m_hat, m once and writes z once,
 // 16 bytes per element, with a few flops each; no matrix unit is involved.
-// On the main path R = 32 rows of D = 196,608, so one block per row would
-// fill 32 of 132 SMs. Design: each row is cut into chunks of `chunk`
-// elements and every (chunk, row) pair is one block of 256 threads, which
-// fills the card. Pass 1 writes each block's two partial sums to a scratch
-// table (no atomics, so the result is deterministic); pass 2 has every
-// block of a row sum that row's partials in one fixed order, decide the
-// same accept bit, and write its chunk of z. Pass 2 re-reads the three
-// inputs, so this design moves 28 bytes per element where 16 would do:
-// fusing the two passes (a grid-wide barrier or one block per row with
-// the row held on chip) is later work. The row math is in rows.cuh, shared
-// with the fused verify-commit kernel (superstep.cu, B6) so that the packed
-// and the fused round give the same bits; it moves 16 bytes per access
-// where D and the pointers allow.
+// On the main path R = 32 rows of D = 196,608 floats (768 KB an array).
+// Design: the TPU kernel holds each row whole in VMEM; here a thread block
+// cluster holds it. One launch: one cluster of C blocks per row (C = 8 at
+// the main path's D), each block holding its slice of xi and m_hat in
+// shared memory (TMA bulk copies) and of m in registers; the blocks sum
+// their partial (vv, vx), add the cluster's pairs over DSMEM in rank order
+// so every block takes the same decision with no scratch table and no
+// atomics, and write z from what they hold: 16 bytes an element, the
+// bound's. The row code is rows.cuh::grs_row, shared with the fused
+// verify-commit kernel (superstep.cu, B6) so that the packed and the fused
+// round give the same bits; its note there says what each step does and
+// how a row longer than the cluster holds is streamed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,78 +31,56 @@
 
 namespace {
 
-using repro_rows::kThreads;
+using repro_rows::kRowThreads;
 
 template <int V>
-__global__ void __launch_bounds__(kThreads)
-grs_partial(const float* __restrict__ xi, const float* __restrict__ mh,
-            const float* __restrict__ m, float* __restrict__ part,
-            int64_t D, int64_t chunk, int nchunks) {
-  const int c = blockIdx.x;
+__global__ void __launch_bounds__(kRowThreads, 1)
+grs_kernel(const float* __restrict__ u, const float* __restrict__ sigma,
+           const float* __restrict__ xi, const float* __restrict__ mh,
+           const float* __restrict__ m, float* __restrict__ z, int32_t* __restrict__ acc,
+           int64_t D, int64_t per_block, bool held) {
+  extern __shared__ __align__(16) float grs_buf[];
   const int64_t r = blockIdx.y;
-  const int64_t start = c * chunk;
-  repro_rows::grs_partial_sums<V>(repro_rows::MeanLoaded{m + r * D}, xi + r * D, mh + r * D,
-                                  start, min(start + chunk, D),
-                                  part + (r * nchunks + c) * 2);
-}
-
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-grs_apply(const float* __restrict__ u, const float* __restrict__ sigma,
-          const float* __restrict__ xi, const float* __restrict__ mh,
-          const float* __restrict__ m, const float* __restrict__ part,
-          float* __restrict__ z, int32_t* __restrict__ acc,
-          int64_t D, int64_t chunk, int nchunks) {
-  const int c = blockIdx.x;
-  const int64_t r = blockIdx.y;
-  __shared__ repro_rows::GrsRow s_row;
-  if (threadIdx.x == 0) {
-    s_row = repro_rows::grs_decide(part + r * nchunks * 2, nchunks, u[r], sigma[r]);
-    if (c == 0) acc[r] = s_row.accept;
-  }
-  __syncthreads();
-  const int64_t start = c * chunk;
-  repro_rows::grs_write<V>(repro_rows::MeanLoaded{m + r * D}, xi + r * D, mh + r * D,
-                           z + r * D, start, min(start + chunk, D), s_row);
+  repro_rows::grs_row<V>(repro_rows::MeanLoaded{m + r * D}, xi + r * D, mh + r * D,
+                         z + r * D, D, per_block, held, u[r], sigma[r], acc + r, grs_buf);
 }
 
 }  // namespace
 
 // u, sigma: (R,) f32; xi, m_hat, m, z: (R, D) f32 row-major; accept: (R,)
-// int32; part: (R, ceil(D / chunk), 2) f32 scratch; chunk a multiple of 4.
-// Returns cudaGetLastError().
+// int32. cluster, per_block, smem_bytes: the row geometry
+// (kernels/grs/ops.py::row_geometry; smem_bytes > 0 holds the slices).
+// Returns cudaErrorInvalidValue for a shape or geometry the kernel does not
+// take, else the launch's error.
 extern "C" int repro_grs(const void* u, const void* sigma, const void* xi,
-                         const void* m_hat, const void* m, void* z, void* accept,
-                         void* part, int64_t R, int64_t D, int64_t chunk,
+                         const void* m_hat, const void* m, void* z, void* accept, int64_t R,
+                         int64_t D, int64_t cluster, int64_t per_block, int64_t smem_bytes,
                          void* stream) {
-  if (R <= 0 || D <= 0 || chunk <= 0 || chunk % 4 != 0 || R > 65535)
+  if (R <= 0 || R > 65535 || !repro_rows::row_geometry_ok(D, cluster, per_block, smem_bytes))
     return cudaErrorInvalidValue;
-  const int64_t nchunks = (D + chunk - 1) / chunk;
-  if (nchunks > 0x7fffffff) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(nchunks), static_cast<unsigned>(R));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fu = static_cast<const float*>(u);
   const float* fs = static_cast<const float*>(sigma);
   const float* fx = static_cast<const float*>(xi);
   const float* fh = static_cast<const float*>(m_hat);
   const float* fm = static_cast<const float*>(m);
-  float* fp = static_cast<float*>(part);
   float* fz = static_cast<float*>(z);
   int32_t* fa = static_cast<int32_t*>(accept);
-  const int nc = static_cast<int>(nchunks);
   const bool vec = D % 4 == 0 && repro_rows::aligned16(xi) && repro_rows::aligned16(m_hat) &&
                    repro_rows::aligned16(m) && repro_rows::aligned16(z);
-  if (vec) {
-    grs_partial<4><<<grid, kThreads, 0, s>>>(fx, fh, fm, fp, D, chunk, nc);
-  } else {
-    grs_partial<1><<<grid, kThreads, 0, s>>>(fx, fh, fm, fp, D, chunk, nc);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (vec) {
-    grs_apply<4><<<grid, kThreads, 0, s>>>(fu, fs, fx, fh, fm, fp, fz, fa, D, chunk, nc);
-  } else {
-    grs_apply<1><<<grid, kThreads, 0, s>>>(fu, fs, fx, fh, fm, fp, fz, fa, D, chunk, nc);
-  }
-  return cudaGetLastError();
+  const bool held = smem_bytes > 0;
+  if (vec)
+    return repro_rows::launch_rows(grs_kernel<4>, R, cluster, smem_bytes, s, fu, fs, fx, fh,
+                                   fm, fz, fa, D, per_block, held);
+  return repro_rows::launch_rows(grs_kernel<1>, R, cluster, smem_bytes, s, fu, fs, fx, fh, fm,
+                                 fz, fa, D, per_block, held);
+}
+
+// How many clusters of this geometry the card keeps resident at once (the
+// 16-byte instance), into *out. Returns the query's error.
+extern "C" int repro_grs_max_active_clusters(int64_t cluster, int64_t smem_bytes, int* out) {
+  if (cluster < 1 || cluster > repro_rows::kMaxCluster || smem_bytes < 0 ||
+      smem_bytes > repro_rows::kMaxSmem)
+    return cudaErrorInvalidValue;
+  return repro_rows::row_max_active_clusters(grs_kernel<4>, cluster, smem_bytes, out);
 }

@@ -22,22 +22,21 @@
 // 3.35 TB/s), verify-and-commit reads 4 M D 4 and writes N D 4 bytes =
 // 75.5 MB (22.5 us); the few flops per element do not matter.
 //
-// Design. The tables are far past shared memory (the Pallas kernels keep
-// them whole in VMEM), so rows stream from device memory in 16-byte
-// accesses, one chunk of one row per block (rows.cuh). Verify-and-commit
-// reduces rows of 196,608 floats, and there are only 16 of them: one block
-// per row would fill 16 of 132 SMs. It follows grs.cu's two passes: pass 1
-// has every (chunk, packed row) block write its two partial sums to a
-// scratch table; pass 2 has every (chunk, DESTINATION row) block find the
-// packed row that targets it, sum that row's partials in one fixed order
-// (so all blocks of a row take the same accept decision, with no atomics),
-// and write its chunk of z, or zeros. m = A y + B g is recomputed in both
-// passes, never stored, and the chunk is B1's (the wrapper passes the
-// same). The TPU kernel zeroes its outputs on grid step 0 and then
+// Design. The gather's tables are far past shared memory (the Pallas
+// kernels keep them whole in VMEM), so its rows stream from device memory
+// in 16-byte accesses, one chunk of one row per block (rows.cuh).
+// Verify-and-commit is one launch of B1's cluster row code
+// (rows.cuh::grs_row, the geometry B1 takes): one cluster per DESTINATION
+// row r < N. Its blocks find the packed row p that targets r (a scan of the
+// M indices; every block of the cluster finds the same p). Where there is
+// one, the cluster runs GRS on row p with m = A y + B g formed in
+// registers from y and g as they load, holds the row on chip, reduces its
+// partial sums over DSMEM and writes z to row r; where there is none, the
+// whole cluster writes zeros and accept 0 and skips the cluster barriers
+// together. The TPU kernel zeroes its outputs on grid step 0 and then
 // scatters, relying on its sequential grid; owning destination rows needs
-// no zeroing pass and has no race. Pass 2 re-reads the four
-// inputs, so the pair moves 8 M D 4 + N D 4 bytes against the bound's
-// 4 M D 4 + N D 4: fusing the passes is later work.
+// no zeroing pass and has no race, and every input byte is read once and
+// every output byte written once, the bound's bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +45,7 @@
 
 namespace {
 
+using repro_rows::kRowThreads;
 using repro_rows::kThreads;
 
 template <int V>
@@ -73,47 +73,24 @@ fused_gather_kernel(const float* __restrict__ y, const float* __restrict__ xi,
 }
 
 template <int V>
-__global__ void __launch_bounds__(kThreads)
-fvc_partial(const float* __restrict__ A, const float* __restrict__ B,
-            const float* __restrict__ y, const float* __restrict__ g,
-            const float* __restrict__ xi, const float* __restrict__ mh,
-            float* __restrict__ part, int64_t D, int64_t chunk, int nchunks) {
-  const int c = blockIdx.x;
-  const int64_t p = blockIdx.y;
-  const int64_t start = c * chunk;
-  const repro_rows::MeanAffine mean{A[p], B[p], y + p * D, g + p * D};
-  repro_rows::grs_partial_sums<V>(mean, xi + p * D, mh + p * D, start, min(start + chunk, D),
-                                  part + (p * nchunks + c) * 2);
-}
-
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-fvc_apply(const float* __restrict__ u, const float* __restrict__ sigma,
-          const float* __restrict__ A, const float* __restrict__ B,
-          const float* __restrict__ y, const float* __restrict__ g,
-          const float* __restrict__ xi, const float* __restrict__ mh,
-          const int64_t* __restrict__ idx, const float* __restrict__ part,
-          float* __restrict__ z, int32_t* __restrict__ acc, int64_t M, int64_t D,
-          int64_t chunk, int nchunks) {
-  const int c = blockIdx.x;
+__global__ void __launch_bounds__(kRowThreads, 1)
+fvc_kernel(const float* __restrict__ u, const float* __restrict__ sigma,
+           const float* __restrict__ A, const float* __restrict__ B,
+           const float* __restrict__ y, const float* __restrict__ g,
+           const float* __restrict__ xi, const float* __restrict__ mh,
+           const int64_t* __restrict__ idx, float* __restrict__ z, int32_t* __restrict__ acc,
+           int64_t M, int64_t D, int64_t per_block, bool held) {
+  extern __shared__ __align__(16) float fvc_buf[];
   const int64_t r = blockIdx.y;
-  const int64_t start = c * chunk;
-  const int64_t end = min(start + chunk, D);
-  float* zr = z + r * D;
-  const int64_t p = repro_rows::source_of(idx, M, r);
+  const int64_t p = repro_rows::source_of<kRowThreads>(idx, M, r);
   if (p < 0) {  // no packed row targets this one: it stays zero
-    repro_rows::copy_chunk<V>(nullptr, zr, start, end);
-    if (c == 0 && threadIdx.x == 0) acc[r] = 0;
+    repro_rows::zero_slice<V>(z + r * D, D, per_block);
+    if (blockIdx.x == 0 && threadIdx.x == 0) acc[r] = 0;
     return;
   }
-  __shared__ repro_rows::GrsRow s_row;
-  if (threadIdx.x == 0) {
-    s_row = repro_rows::grs_decide(part + p * nchunks * 2, nchunks, u[p], sigma[p]);
-    if (c == 0) acc[r] = s_row.accept;
-  }
-  __syncthreads();
   const repro_rows::MeanAffine mean{A[p], B[p], y + p * D, g + p * D};
-  repro_rows::grs_write<V>(mean, xi + p * D, mh + p * D, zr, start, end, s_row);
+  repro_rows::grs_row<V>(mean, xi + p * D, mh + p * D, z + r * D, D, per_block, held, u[p],
+                         sigma[p], acc + r, fvc_buf);
 }
 
 bool rows_ok(int64_t rows) { return rows > 0 && rows <= 65535; }
@@ -155,18 +132,20 @@ extern "C" int repro_fused_gather(const void* y, const void* xi, const void* mh,
 }
 
 // u, sigma, A, B: (M,) f32; y, g, xi, mh: (M, D) f32; idx: (M,) int64;
-// z: (N, D) f32 and acc: (N,) int32, every element written; part:
-// (M, ceil(D / chunk), 2) f32 scratch. Returns cudaGetLastError().
+// z: (N, D) f32 and acc: (N,) int32, every element written once.
+// cluster, per_block, smem_bytes: B1's row geometry
+// (kernels/grs/ops.py::row_geometry; smem_bytes > 0 holds the slices).
+// Returns cudaErrorInvalidValue for a shape or geometry the kernel does not
+// take, else the launch's error.
 extern "C" int repro_fused_verify_commit(const void* u, const void* sigma, const void* A,
                                          const void* B, const void* y, const void* g,
                                          const void* xi, const void* mh, const void* idx,
-                                         void* z, void* acc, void* part, int64_t M,
-                                         int64_t N, int64_t D, int64_t chunk,
-                                         void* stream) {
-  if (!rows_ok(M) || !rows_ok(N) || D <= 0 || chunk <= 0 || chunk % 4 != 0 ||
-      (D + chunk - 1) / chunk > 0x7fffffff)
+                                         void* z, void* acc, int64_t M, int64_t N, int64_t D,
+                                         int64_t cluster, int64_t per_block,
+                                         int64_t smem_bytes, void* stream) {
+  if (!rows_ok(M) || !rows_ok(N) ||
+      !repro_rows::row_geometry_ok(D, cluster, per_block, smem_bytes))
     return cudaErrorInvalidValue;
-  const int64_t nchunks = (D + chunk - 1) / chunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = D % 4 == 0 && repro_rows::aligned16(y) && repro_rows::aligned16(g) &&
                    repro_rows::aligned16(xi) && repro_rows::aligned16(mh) &&
@@ -180,25 +159,12 @@ extern "C" int repro_fused_verify_commit(const void* u, const void* sigma, const
   const float* fx = static_cast<const float*>(xi);
   const float* fh = static_cast<const float*>(mh);
   const int64_t* ip = static_cast<const int64_t*>(idx);
-  float* fp = static_cast<float*>(part);
-  const dim3 grid1(static_cast<unsigned>(nchunks), static_cast<unsigned>(M));
-  const dim3 grid2(static_cast<unsigned>(nchunks), static_cast<unsigned>(N));
-  const int nc = static_cast<int>(nchunks);
-  if (vec) {
-    fvc_partial<4><<<grid1, kThreads, 0, s>>>(fa, fb, fy, fg, fx, fh, fp, D, chunk, nc);
-  } else {
-    fvc_partial<1><<<grid1, kThreads, 0, s>>>(fa, fb, fy, fg, fx, fh, fp, D, chunk, nc);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (vec) {
-    fvc_apply<4><<<grid2, kThreads, 0, s>>>(fu, fs, fa, fb, fy, fg, fx, fh, ip, fp,
-                                            static_cast<float*>(z),
-                                            static_cast<int32_t*>(acc), M, D, chunk, nc);
-  } else {
-    fvc_apply<1><<<grid2, kThreads, 0, s>>>(fu, fs, fa, fb, fy, fg, fx, fh, ip, fp,
-                                            static_cast<float*>(z),
-                                            static_cast<int32_t*>(acc), M, D, chunk, nc);
-  }
-  return cudaGetLastError();
+  float* fz = static_cast<float*>(z);
+  int32_t* fc = static_cast<int32_t*>(acc);
+  const bool held = smem_bytes > 0;
+  if (vec)
+    return repro_rows::launch_rows(fvc_kernel<4>, N, cluster, smem_bytes, s, fu, fs, fa, fb,
+                                   fy, fg, fx, fh, ip, fz, fc, M, D, per_block, held);
+  return repro_rows::launch_rows(fvc_kernel<1>, N, cluster, smem_bytes, s, fu, fs, fa, fb, fy,
+                                 fg, fx, fh, ip, fz, fc, M, D, per_block, held);
 }

@@ -4,8 +4,11 @@
 Replace the TPU kernels ``repro/kernels/superstep/kernel.py::
 _fused_gather_kernel`` and ``::_fused_commit_kernel``.  ``fused_gather`` is
 the pack side of a fused round in one launch; ``fused_verify_commit`` is
-the target mean, the GRS pass and the commit scatter in one call (two
-passes, see the source note in ``csrc/superstep.cu``).
+the target mean, the GRS pass and the commit scatter in one launch: B1's
+cluster row code, one cluster per destination row, with B1's row geometry
+(``kernels/grs/ops.py::row_geometry``), so the fused round gives the packed
+round's bits (the source notes in ``csrc/superstep.cu`` and
+``csrc/rows.cuh``).
 
 The plain versions are composed as the JAX package's
 ``kernels/superstep/ref.py`` composes them: row takes, the plain GRS
@@ -23,19 +26,18 @@ int64, as the pack maps carry them.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
 from repro_torch.core.grs import bcast_right
 from repro_torch.core.grs import grs as grs_plain
 from repro_torch.kernels import _build
-from repro_torch.kernels.grs.ops import CHUNK as GRS_CHUNK
+from repro_torch.kernels.grs.ops import row_geometry
 from repro_torch.kernels.pack.ops import (CHUNK, _check, _on_card, _rows,
                                           gather_rows_plain, scatter_rows_plain)
 
 _GATHER_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
-_COMMIT_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+_COMMIT_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
 
 
 def fused_gather_plain(y_tbl, xi_tbl, mh_tbl, scal_tbl, idx):
@@ -77,7 +79,7 @@ def fused_gather_cuda(y, xi, mh, sc, idx):
 
 
 def fused_verify_commit_cuda(y, g, xi, mh, A, B, u, sigma, idx, num_rows: int):
-    """The kernels on (M, D) float32 rows y, g, xi, mh, (M,) float32 A, B,
+    """The kernel on (M, D) float32 rows y, g, xi, mh, (M,) float32 A, B,
     u, sigma and (M,) int64 indices on one CUDA device.  Returns (z
     (num_rows, D) float32, accept (num_rows,) int32)."""
     M, D = y.shape
@@ -89,13 +91,12 @@ def fused_verify_commit_cuda(y, g, xi, mh, A, B, u, sigma, idx, num_rows: int):
     _check("fused commit kernel: idx", idx, (M,), torch.int64, dev)
     z = torch.empty((num_rows, D), dtype=torch.float32, device=dev)
     acc = torch.empty((num_rows,), dtype=torch.int32, device=dev)
-    # B1's chunk: the same partial sums in the same order as the packed
+    # B1's geometry: the same partial sums in the same order as the packed
     # round's GRS kernel, so both rounds give the same bits
-    part = torch.empty((M, math.ceil(D / GRS_CHUNK), 2), dtype=torch.float32, device=dev)
     fn = _build.function("repro_fused_verify_commit", _COMMIT_ARGS)
     err = fn(u.data_ptr(), sigma.data_ptr(), A.data_ptr(), B.data_ptr(), y.data_ptr(),
              g.data_ptr(), xi.data_ptr(), mh.data_ptr(), idx.data_ptr(), z.data_ptr(),
-             acc.data_ptr(), part.data_ptr(), M, num_rows, D, GRS_CHUNK,
+             acc.data_ptr(), M, num_rows, D, *row_geometry(D),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused verify-commit kernel launch")
     fused_verify_commit.launches += 1
@@ -125,8 +126,8 @@ def fused_verify_commit(y, g, xi, mh, A, B, u, sigma, idx, num_rows: int):
 
     y, g, xi, mh: (M, *event); A, B, u, sigma: (M,); idx: (M,), with
     idx[p] >= num_rows dropping row p.  Unwritten rows are zero (accept
-    False).  Accept comes back as bool.  The plain version on the CPU, the
-    kernels on the card."""
+    False).  Accept comes back as bool.  The plain version on the CPU, one
+    kernel launch on the card."""
     if not _on_card(y, "fused_verify_commit"):
         return fused_verify_commit_plain(y, g, xi, mh, A, B, u, sigma, idx, num_rows)
     ev = tuple(y.shape[1:])

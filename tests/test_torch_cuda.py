@@ -16,7 +16,7 @@ from repro_torch.core import schedules as t_sch
 from repro_torch.core.grs import grs as grs_plain
 from repro_torch.kernels.flash_attention.ops import (attention_plain, flash_fma, flash_mha,
                                                       flash_wgmma)
-from repro_torch.kernels.grs.ops import grs
+from repro_torch.kernels.grs.ops import grs, grs_cuda
 from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.kernels.ssm_scan.ops import linear_scan, ssm_scan_plain
 from repro_torch.kernels.superstep import ops as fused_ops
@@ -62,9 +62,22 @@ def _near_threshold(u, xi, mh, m, sig):
     return (margin < 1e-5) & (sig > 0)
 
 
-@pytest.mark.parametrize("R,D", [(1, 1), (6, 5), (9, 4097), (32, 196608)])
-def test_grs_kernel_matches_plain(dev, R, D):
-    args = _grs_inputs(R, D, R + D, dev)
+def _offset_view(t, offset):
+    """t's values in a view that starts ``offset`` floats into its storage
+    (offset 1: every row pointer 4 bytes past a 16-byte boundary)."""
+    base = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    base[offset:].copy_(t.reshape(-1))
+    return base[offset:].view(t.shape)
+
+
+# (R, D, storage offset of xi, m_hat, m): the main path's shape, edges of
+# the row geometry, a view one float into its storage (the 4-byte path) and
+# rows longer than a cluster holds (196,608 floats), which stream
+@pytest.mark.parametrize("R,D,offset", [(1, 1, 0), (6, 5, 0), (9, 4097, 0), (32, 196608, 0),
+                                        (32, 196608, 1), (4, 262144, 0), (3, 300001, 1)])
+def test_grs_kernel_matches_plain(dev, R, D, offset):
+    u, xi, mh, m, sig = _grs_inputs(R, D, R + D, dev)
+    args = (u, *(_offset_view(t, offset) for t in (xi, mh, m)), sig)
     before = grs.launches
     zk, ak = grs(*args)
     torch.cuda.synchronize()
@@ -306,8 +319,14 @@ def _fvc_inputs(M, event, dev, seed):
     return y, gg, xi, mh, A, B, u, sig
 
 
-@pytest.mark.parametrize("N,M,event", PACK_SHAPES)
-def test_fused_kernels_match_plain(dev, N, M, event):
+# the pack shapes, then the main path's shape with every (M, D) input a view
+# one float into its storage (the 4-byte path) and rows longer than a
+# cluster holds (196,608 floats), which stream
+@pytest.mark.parametrize("N,M,event,offset",
+                         [(*shape, 0) for shape in PACK_SHAPES]
+                         + [(32, 16, (1024, 192), 1), (6, 4, (262144,), 0),
+                            (6, 4, (300001,), 1)])
+def test_fused_kernels_match_plain(dev, N, M, event, offset):
     g = torch.Generator(device=dev).manual_seed(M)
     tbls = [torch.randn((N,) + event, generator=g, device=dev) for _ in range(3)]
     sc = torch.randn(N, 5, generator=g, device=dev)
@@ -317,6 +336,7 @@ def test_fused_kernels_match_plain(dev, N, M, event):
     for a, b in zip(got, fused_ops.fused_gather_plain(*tbls, sc, gidx)):
         assert torch.equal(a, b)
     args = _fvc_inputs(M, event, dev, N * M)
+    args = (*(_offset_view(t, offset) for t in args[:4]), *args[4:])
     zk, ak = fused_ops.fused_verify_commit(*args, sidx, N)
     torch.cuda.synchronize()
     assert (fused_ops.fused_gather.launches, fused_ops.fused_verify_commit.launches) == (
@@ -347,6 +367,29 @@ def test_fused_verify_commit_gives_the_packed_rounds_bits(dev):
     z, a = grs(u, xi, mh, m, sig, event_ndim=2)
     assert torch.equal(zf, pack_ops.scatter_rows(z, sidx, 32))
     assert torch.equal(af, pack_ops.scatter_rows_plain(a, sidx, 32))
+
+
+def test_grs_and_fused_commit_run_one_kernel_each(dev):
+    """One B1 call and one B6 call at the main path's shapes each run one
+    device kernel (a cluster launch: no scratch table, no second pass)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    u, xi, mh, m, sig = _grs_inputs(32, 196608, 5, dev)
+    y, gg, fxi, fmh, A, B, fu, fsig = (t.reshape(16, -1) if t.ndim > 1 else t
+                                       for t in _fvc_inputs(16, (1024, 192), dev, 6))
+    _, sidx = _pack_idx(32, 16, dev, 7)
+    for call in (lambda: grs_cuda(u, sig, xi, mh, m),
+                 lambda: fused_ops.fused_verify_commit_cuda(y, gg, fxi, fmh, A, B, fu, fsig,
+                                                            sidx, 32)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        assert sum(e.count for e in kernels) == 1, [(e.key, e.count) for e in kernels]
 
 
 @pytest.mark.parametrize("round_impl", ["packed", "fused"])
