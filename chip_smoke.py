@@ -61,8 +61,33 @@ Phases, each printing one JSON line and raising on any failure:
      hymba_reference
               the reduced hymba in float32 on the card and on the CPU with
               the same params: greedy tokens equal, logits close.
-  7. kernels  one JSON line with every ported kernel's numbers.
-  8. the last line: {"ok": true, "device": {...}}.
+  7. train_full_width
+              the full-width ``paper-pixel-dit`` trained through
+              ``repro_torch.training.loop.run`` (5 steps of sl_denoiser_loss
+              and AdamW on BlobImages of its shape, bf16, remat, naive
+              attention, checkpoints every 3 steps under build/): losses,
+              warm ms a step by CUDA events, TFLOP/s, peak memory; every
+              leaf's step-2 gradient finite and nonzero; a run resumed from
+              the step-3 checkpoint within 1e-5 of the unbroken one; the
+              last checkpoint equal to the live state bit for bit.
+     standin_kernels
+              B1 and B2's float32 kernel against their plain versions at the
+              shapes the stand-ins' verification calls give them (head dims
+              32 and 24; rows of 32 and 1536 floats), timed as in phase 3.
+     standin_policy, standin_pixel
+              the JAX benchmarks' policy and pixel stand-ins trained on the
+              card to their recipe (400 and 250 steps), then sampled
+              sequentially and with ASD (policy: K 100, 8 chains,
+              conditioned, theta 8 and 24 and the eager head, and table3's
+              success rates over 96 episodes; pixel: K 200, 16 chains,
+              theta 8): depth, accept rate, K / depth, wall seconds, and the
+              launches of B1 and B2's FMA kernel per round.
+     standin_reference
+              the trained policy on the card and on the CPU with the same
+              injected noise: counters equal, samples within 2e-5 of their
+              scale; the model's output rounded to bf16 must fail that.
+  8. kernels  one JSON line with every ported kernel's numbers.
+  9. the last line: {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, where there is no CUDA device or
 no ``src/repro_torch`` beside it.  No JAX is imported.
@@ -178,34 +203,77 @@ def cold_ms(fn, reps: int = 10) -> float:
     return sum(start.elapsed_time(end) for start, end in events) / reps
 
 
-def device_ms(fn, reps: int = 10):
-    """Device milliseconds per call of ``fn`` with a cold L2: the summed time
-    of the kernels that ``reps`` calls ran, each after an L2 flush, under
-    torch.profiler (host gaps and the flush do not count).  None where the
-    profiler recorded no device time."""
+# the port's kernels, by the names the profiler gives them
+_PORT_KERNELS = ("grs_kernel", "flash_fwd", "gather_rows_kernel", "scatter_rows_kernel",
+                 "fused_gather_kernel", "fvc_kernel", "ssm_scan_kernel")
+
+
+def device_ms(fn, reps: int = 10, wrapper=None):
+    """(device milliseconds per call of ``fn`` with a cold L2, launch records
+    the profiler lost).  Each kernel counts as the mean time of its recorded
+    launches times its launches a call, and those launches are counted: the
+    port's kernel by ``wrapper``'s ``launches`` counter over one call, every
+    other kernel from that call run alone under torch.profiler.  The times
+    come from ``reps`` calls under torch.profiler, each after an L2 flush
+    (host gaps and the flush do not count).  The profiler now and then loses
+    records (B2's float32 kernel once read 2/3 of its event time, SDPA at
+    the full causal shape once read nothing): the second number counts the
+    launches of the ``reps`` calls it did not record.  (None, 0) where three
+    traces in a row recorded no kernel."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    before = wrapper.launches if wrapper is not None else 0
+
+    def one():
+        _flush_l2()
+        fn()
+
+    _, one_call = _profiled(torch, one)
+    counted = wrapper.launches - before if wrapper is not None else None
+    one_call = {k: (ms, n) for k, ms, n in one_call if _FLUSH_KERNEL not in k}
 
     def run():
         for _ in range(reps):
             _flush_l2()
             fn()
 
-    _, kernels = _profiled(torch, run)
-    kernels = [k for k in kernels if _FLUSH_KERNEL not in k[0]]
-    return sum(ms for _, ms, _ in kernels) / reps if kernels else None
+    for _ in range(3):
+        _, traced = _profiled(torch, run)
+        traced = {k: (ms, n) for k, ms, n in traced if _FLUSH_KERNEL not in k}
+        if traced:
+            break
+    else:
+        return None, 0
+    port = [k for k in {**one_call, **traced} if any(p in k for p in _PORT_KERNELS)]
+    if wrapper is not None and len(port) > 1:
+        fail(f"device_ms: one call ran more than one of the port's kernels: {port}")
+    total, lost = 0.0, 0
+    for k in {**one_call, **traced}:
+        if k in port and wrapper is not None:
+            per_call = counted
+        elif k in one_call:
+            per_call = one_call[k][1]
+        else:  # in no record of the call run alone
+            per_call = traced[k][1] / reps
+        ms, n = traced.get(k, one_call.get(k))
+        total += ms / n * per_call
+        lost += max(0, round(per_call * reps) - traced.get(k, (0, 0))[1])
+    return total, lost
 
 
-def kernel_times(kernel, plain, library=None, reps: int = 20) -> dict:
+def kernel_times(kernel, plain, library=None, reps: int = 20, wrapper=None) -> dict:
     """ms / device_ms of the kernel's wrapper, its plain version and the
     library call (None where there is none), each on the same inputs and
-    each call after an L2 flush (cold-cache times)."""
+    each call after an L2 flush (cold-cache times).  ``wrapper`` is the
+    port's wrapper that ``kernel`` calls, whose counter counts its launches;
+    ``*device_records_lost`` counts launches the profiler did not record."""
     out = {}
     for prefix, fn in (("", kernel), ("plain_", plain), ("library_", library)):
         out[prefix + "ms"] = None if fn is None else cold_ms(fn, reps)
-        out[prefix + "device_ms"] = None if fn is None else device_ms(fn, reps)
+        out[prefix + "device_ms"], out[prefix + "device_records_lost"] = (
+            (None, 0) if fn is None else device_ms(fn, reps, wrapper if not prefix else None))
     return out
 
 
@@ -245,41 +313,53 @@ def _row_geometry(rows, D):
                 max_active_clusters=max_active_clusters(geo))
 
 
+def _grs_inputs(torch, dev, R, D, seed, zero_rows=True):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand(R, generator=g, device=dev)
+    xi = torch.randn(R, D, generator=g, device=dev)
+    mh = torch.randn(R, D, generator=g, device=dev)
+    m = mh + 2.0 * torch.randn(R, D, generator=g, device=dev) / D ** 0.5
+    sig = torch.rand(R, generator=g, device=dev) + 0.5
+    if zero_rows and R > 3:
+        sig[0] = 0.0  # sigma 0, v != 0: reject, z = m
+        m[1] = mh[1]  # v 0: accept
+        sig[2] = 0.0
+        m[2] = mh[2]  # sigma 0 and v 0: accept
+    return u, xi, mh, m, sig
+
+
+def _grs_compare(torch, args):
+    """B1 against its plain version: (max abs error of z, accepted rows);
+    fails where z is off by more than 1e-5 or an accept bit differs on a
+    row not within 1e-5 of the threshold."""
+    from repro_torch.core.grs import grs as grs_plain
+    from repro_torch.kernels.grs.ops import grs
+
+    zk, ak = grs(*args)
+    torch.cuda.synchronize()
+    zp, ap = grs_plain(*args)
+    u, xi, mh, m, sig = args
+    v = (mh - m).double()
+    vv, vx = (v * v).sum(-1), (v * xi.double()).sum(-1)
+    s = torch.where(sig > 0, sig, torch.ones_like(sig)).double()
+    margin = (torch.log(torch.clamp(u.double(), min=1e-20))
+              - torch.clamp(-(vx / s + vv / (2 * s * s)), max=0)).abs()
+    near = (margin < 1e-5) & (sig > 0)
+    if not torch.equal(ak[~near], ap[~near]):
+        fail(f"grs: accept bits differ away from the threshold at {tuple(xi.shape)}")
+    err = (zk - zp).abs().max().item()
+    if not err <= 1e-5:
+        fail(f"grs: max abs error {err} > 1e-5 at {tuple(xi.shape)}")
+    return err, int(ak.sum())
+
+
+def _grs_bound(R, D):
+    return bound_ms(4.0 * R * D * 4 + 3 * R * 4, 10.0 * R * D, PEAK_F32)
+
+
 def check_grs(torch, dev):
     from repro_torch.core.grs import grs as grs_plain
     from repro_torch.kernels.grs.ops import grs, grs_cuda
-
-    def inputs(R, D, seed, zero_rows=True):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        u = torch.rand(R, generator=g, device=dev)
-        xi = torch.randn(R, D, generator=g, device=dev)
-        mh = torch.randn(R, D, generator=g, device=dev)
-        m = mh + 2.0 * torch.randn(R, D, generator=g, device=dev) / D ** 0.5
-        sig = torch.rand(R, generator=g, device=dev) + 0.5
-        if zero_rows and R > 3:
-            sig[0] = 0.0  # sigma 0, v != 0: reject, z = m
-            m[1] = mh[1]  # v 0: accept
-            sig[2] = 0.0
-            m[2] = mh[2]  # sigma 0 and v 0: accept
-        return u, xi, mh, m, sig
-
-    def compare(args):
-        zk, ak = grs(*args)
-        torch.cuda.synchronize()
-        zp, ap = grs_plain(*args)
-        u, xi, mh, m, sig = args
-        v = (mh - m).double()
-        vv, vx = (v * v).sum(-1), (v * xi.double()).sum(-1)
-        s = torch.where(sig > 0, sig, torch.ones_like(sig)).double()
-        margin = (torch.log(torch.clamp(u.double(), min=1e-20))
-                  - torch.clamp(-(vx / s + vv / (2 * s * s)), max=0)).abs()
-        near = (margin < 1e-5) & (sig > 0)
-        if not torch.equal(ak[~near], ap[~near]):
-            fail(f"grs: accept bits differ away from the threshold at {tuple(xi.shape)}")
-        err = (zk - zp).abs().max().item()
-        if not err <= 1e-5:
-            fail(f"grs: max abs error {err} > 1e-5 at {tuple(xi.shape)}")
-        return err, int(ak.sum())
 
     def offset(args, off):
         u, xi, mh, m, sig = args
@@ -290,16 +370,19 @@ def check_grs(torch, dev):
     for name, (r, d, zero) in {"R=1": (1, 1000, False), "D=1": (8, 1, True),
                                "D=4097": (9, 4097, True),
                                "sigma0_v0_rows": (16, 5000, True)}.items():
-        edges[name] = compare(inputs(r, d, len(name), zero))[0]
+        edges[name] = _grs_compare(torch, _grs_inputs(torch, dev, r, d, len(name), zero))[0]
     # a view one float into its storage (the kernel's 4-byte path), and
     # rows longer than a cluster holds (they stream)
-    edges["misaligned view (offset 1 float)"] = compare(offset(inputs(R, D, 2), 1))[0]
-    edges["D=262144 (streams)"] = compare(inputs(4, 262144, 3))[0]
-    edges["D=300001 (streams, offset 1 float)"] = compare(offset(inputs(3, 300001, 4), 1))[0]
-    main = inputs(R, D, 1, zero_rows=False)
-    err, accepted = compare(main)
-    times = kernel_times(lambda: grs(*main), lambda: grs_plain(*main))
-    bms, by = bound_ms(4.0 * R * D * 4 + 3 * R * 4, 10.0 * R * D, PEAK_F32)
+    for name, (r, d, seed, off) in {"misaligned view (offset 1 float)": (R, D, 2, 1),
+                                    "D=262144 (streams)": (4, 262144, 3, 0),
+                                    "D=300001 (streams, offset 1 float)": (3, 300001, 4, 1),
+                                    }.items():
+        args = _grs_inputs(torch, dev, r, d, seed)
+        edges[name] = _grs_compare(torch, offset(args, off) if off else args)[0]
+    main = _grs_inputs(torch, dev, R, D, 1, zero_rows=False)
+    err, accepted = _grs_compare(torch, main)
+    times = kernel_times(lambda: grs(*main), lambda: grs_plain(*main), wrapper=grs)
+    bms, by = _grs_bound(R, D)
     u, xi, mh, m, sig = main
     one_call = _one_call_kernels(torch, lambda: grs_cuda(u, sig, xi, mh, m))
     if sum(n for _, n in one_call) != 1:
@@ -388,7 +471,7 @@ def check_flash_identity_probe(torch, dev):
 
 
 def check_flash(torch, dev):
-    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha
+    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha, flash_wgmma
 
     def inputs(B, L, S, H, hd, seed):
         return _flash_inputs(torch, dev, B, L, S, H, hd, seed)
@@ -433,7 +516,7 @@ def check_flash(torch, dev):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     times = kernel_times(lambda: flash_mha(q, k, v, causal=False),
                          lambda: attention_plain(q, k, v, causal=False),
-                         lambda: sdpa(qt, kt, vt), reps=5)
+                         lambda: sdpa(qt, kt, vt), reps=5, wrapper=flash_wgmma)
     flops = 4.0 * B * H * L * L * hd
     bms, by = bound_ms(4.0 * B * L * H * hd * 2, flops, PEAK_BF16)
     build = _wgmma_build()
@@ -465,7 +548,7 @@ def _flash_at_hymba_shape(torch, dev, window):
     or with the first KV tile dropped from the last 64 rows (full causal:
     the plain version's window L - 64).  The library call is SDPA with the
     boolean band mask; the bound counts the (q, k) pairs the mask keeps."""
-    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha
+    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha, flash_wgmma
     from repro_torch.nn.attention import attn_mask
 
     B, L, H, hd = HYMBA_BATCH, HYMBA_PROMPT, 25, 64
@@ -489,7 +572,7 @@ def _flash_at_hymba_shape(torch, dev, window):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     times = kernel_times(lambda: flash_mha(q, k, v, causal=True, window=window),
                          lambda: attention_plain(q, k, v, causal=True, window=window),
-                         lambda: sdpa(qt, kt, vt, attn_mask=mask), reps=3)
+                         lambda: sdpa(qt, kt, vt, attn_mask=mask), reps=3, wrapper=flash_wgmma)
     pairs = _hymba_pairs(L, window)
     flops = 4.0 * B * H * pairs * hd
     bms, by = bound_ms(4.0 * B * L * H * hd * 2, flops, PEAK_BF16)
@@ -501,40 +584,44 @@ def _flash_at_hymba_shape(torch, dev, window):
                 attended_pairs=pairs, tflops=_tflops(flops, times))
 
 
+def _fma_compare(torch, q, k, v, **opts):
+    """B2's float32 kernel against its plain version: (share of the
+    tolerance used, max abs error)."""
+    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha
+
+    ok = flash_mha(q, k, v, **opts)
+    torch.cuda.synchronize()
+    op = attention_plain(q, k, v, **opts)
+    used = _flash_tolerance_used(ok, op, FLASH_F32_TOL, FLASH_F32_TOL)
+    if not used <= 1.0:
+        fail(f"flash fma: {used} of the tolerance ({FLASH_F32_TOLERANCE}) used at "
+             f"{tuple(q.shape)} {opts}")
+    return used, (ok - op).abs().max().item()
+
+
 def check_flash_fma(torch, dev):
     """The float32 variant (FMAs) against its plain version: edges, then the
     shape ``hymba_f32`` launches it at, (2, 4096, 25, 64) causal with window
     1024.  The library call is SDPA in float32 with the band mask; the bound
     is the float32 rate without tensor cores."""
-    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha
+    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_fma, flash_mha
     from repro_torch.nn.attention import attn_mask
 
     f32 = torch.float32
-
-    def compare(q, k, v, **opts):
-        """(share of the tolerance used, max abs error)"""
-        ok = flash_mha(q, k, v, **opts)
-        torch.cuda.synchronize()
-        op = attention_plain(q, k, v, **opts)
-        used = _flash_tolerance_used(ok, op, FLASH_F32_TOL, FLASH_F32_TOL)
-        if not used <= 1.0:
-            fail(f"flash fma: {used} of the tolerance ({FLASH_F32_TOLERANCE}) used at "
-                 f"{tuple(q.shape)} {opts}")
-        return used, (ok - op).abs().max().item()
-
-    edges = {"ragged L=40 causal": compare(*_flash_inputs(torch, dev, 2, 40, 40, 3, 16, 21, f32),
-                                           causal=True)[0],
-             "dh=72": compare(*_flash_inputs(torch, dev, 2, 100, 100, 4, 72, 22, f32),
-                              causal=False)[0]}
+    edges = {name: _fma_compare(torch, *_flash_inputs(torch, dev, *shape, f32),
+                                causal=causal)[0]
+             for name, (shape, causal) in {
+                 "ragged L=40 causal": ((2, 40, 40, 3, 16, 21), True),
+                 "dh=72": ((2, 100, 100, 4, 72, 22), False)}.items()}
     B, L, H, hd, window = HYMBA_BATCH, HYMBA_PROMPT, 25, 64, 1024
     q, k, v = _flash_inputs(torch, dev, B, L, L, H, hd, 23, f32)
-    used, err = compare(q, k, v, causal=True, window=window)
+    used, err = _fma_compare(torch, q, k, v, causal=True, window=window)
     mask = attn_mask(L, L, True, window, dev)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     times = kernel_times(lambda: flash_mha(q, k, v, causal=True, window=window),
                          lambda: attention_plain(q, k, v, causal=True, window=window),
-                         lambda: sdpa(qt, kt, vt, attn_mask=mask), reps=3)
+                         lambda: sdpa(qt, kt, vt, attn_mask=mask), reps=3, wrapper=flash_fma)
     pairs = _hymba_pairs(L, window)
     flops = 4.0 * B * H * pairs * hd
     bms, by = bound_ms(4.0 * B * L * H * hd * 4, flops, PEAK_F32)
@@ -605,7 +692,7 @@ def check_pack(torch, dev):
             ("scatter_rows", lambda: scatter_rows(vals, sidx, N),
              lambda: scatter_rows_plain(vals, sidx, N), None,
              BUDGET * D * 4.0 + N * D * 4 + BUDGET * 8, "src/repro/kernels/pack/kernel.py:59")):
-        times = kernel_times(fn, plain, lib)
+        times = kernel_times(fn, plain, lib, wrapper=_counters()[name])
         bms, by = bound_ms(nbytes, 0.0, PEAK_F32)
         emit("pack", kernel=name, shape={"table_rows": N, "packed_rows": BUDGET, "D": D},
              max_abs_err=0.0, edges=sorted(_EDGES), tolerance="equal bits (data movement)",
@@ -706,7 +793,7 @@ def check_fused_round(torch, dev):
              lambda: fused_verify_commit_plain(*args, sidx, N),
              4.0 * M * D * 4 + 4 * M * 4 + M * 8 + N * D * 4 + N * 4, 12.0 * M * D,
              "src/repro/kernels/superstep/kernel.py:84")):
-        times = kernel_times(fn, plain)
+        times = kernel_times(fn, plain, wrapper=_counters()[name])
         bms, by = bound_ms(nbytes, ops, PEAK_F32)
         commit = name != "fused_gather"
         e = err if commit else 0.0
@@ -752,7 +839,8 @@ def check_ssm_scan(torch, dev):
     B, L, D = HYMBA_BATCH, HYMBA_PROMPT, 1600 * 16
     a, b = inputs(B, L, D, 1)
     err, equal = compare(a, b)
-    times = kernel_times(lambda: linear_scan(a, b), lambda: ssm_scan_plain(a, b), reps=3)
+    times = kernel_times(lambda: linear_scan(a, b), lambda: ssm_scan_plain(a, b), reps=3,
+                         wrapper=linear_scan)
     bms, by = bound_ms(12.0 * B * L * D, 2.0 * B * L * D, PEAK_F32)
     emit("ssm_scan", shape=[B, L, D], dtype="float32", max_abs_err=err, equal_bits=equal,
          edge_max_abs_err={k: e for k, (e, _) in edges.items()},
@@ -769,6 +857,7 @@ def check_ssm_scan(torch, dev):
 
 
 def run_slice(torch, dev):
+    from repro_torch import pytree
     from repro_torch.configs.registry import paper_pixel_dit
     from repro_torch.core.asd import asd_sample_batched
     from repro_torch.core.schedules import sl_geometric
@@ -781,7 +870,7 @@ def run_slice(torch, dev):
     t0 = time.perf_counter()
     params = init_denoiser_params(dc, SEED, out_scale=OUT_SCALE, device=dev)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in _leaves(params))
+    n_params = sum(p.numel() for p in pytree.leaves(params))
     emit("weights", model=cfg.name, params=n_params, seconds=time.perf_counter() - t0,
          layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
          d_ff=cfg.d_ff, seq_len=dc.seq_len, d_data=dc.d_data, seed=SEED,
@@ -924,14 +1013,6 @@ def _emit_profile(torch, phase, wall_ms, kernels, note, **extra):
          device_idle_share=max(0.0, 1.0 - busy / wall_ms), device_ms_by_group=groups,
          top_kernels=[{"name": k[:80], "ms": ms, "count": n} for k, ms, n in top],
          note=note, **extra)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def check_reference(torch, dev):
@@ -1174,6 +1255,7 @@ def run_hymba(torch, dev):
     greedy lm_decode_step calls and lm_fwd, with the launch counts of each
     run.  B7 and B2 run once per layer in the prefill and the forward and
     never in a decode step (its attention and recurrence are plain torch)."""
+    from repro_torch import pytree
     from repro_torch.configs.registry import get_config
     from repro_torch.models.lm import (lm_cache_init, lm_compute_params, lm_decode_step,
                                        lm_fwd, lm_prefill)
@@ -1183,7 +1265,7 @@ def run_hymba(torch, dev):
     B, P, T = HYMBA_BATCH, HYMBA_PROMPT, HYMBA_DECODE
     t0 = time.perf_counter()
     params = init_lm_params(cfg, SEED, device=dev)
-    n_params = sum(p.numel() for p in _leaves(params))
+    n_params = sum(p.numel() for p in pytree.leaves(params))
     cp = lm_compute_params(params, cfg)
     del params  # the float32 copies of the cast leaves
     torch.cuda.synchronize()
@@ -1211,7 +1293,7 @@ def run_hymba(torch, dev):
         torch.cuda.synchronize()
         wall["prefill_s"] = time.perf_counter() - t0
         runs["hymba_prefill"] = _launches(counters)
-        prefilled = _clone(caches)
+        prefilled = pytree.map(torch.clone, caches)
 
         steps, seq = [logits[:, 0].float()], [prompt]
         _zero_counters(torch, counters)
@@ -1306,10 +1388,6 @@ def _rel_l2(a, b):
     return ((a - b).norm() / b.norm()).item()
 
 
-def _clone(tree):
-    return {k: _clone(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
-
-
 def _planted_decode_faults(torch, params, cfg, prompt, seq, prefilled, first, ref):
     """Relative L2 of the decode logits against the forward's (the rows of
     ``ref``: the prefill's last position, then the decode steps) when the
@@ -1317,6 +1395,7 @@ def _planted_decode_faults(torch, params, cfg, prompt, seq, prefilled, first, re
     a planted fault: they ignore the sliding window, or start from the SSM
     state after P - 1 tokens (the prefill's h[:, -2]).  ``first`` is the
     prefill's logits row, which neither fault touches."""
+    from repro_torch import pytree
     from repro_torch.models.lm import lm_cache_init, lm_decode_step, lm_prefill
 
     B, P = prompt.shape
@@ -1326,12 +1405,12 @@ def _planted_decode_faults(torch, params, cfg, prompt, seq, prefilled, first, re
         cfg, group=(dataclasses.replace(desc, window_per_repeat=(0,) * cfg.n_repeats),))
     stale = lm_cache_init(params, cfg, B, P, dtype=prefilled["g0"]["kv"]["k"].dtype)
     _, stale = lm_prefill(params, prompt[:, :P - 1], stale, cfg)
-    stale_state = _clone(prefilled)
+    stale_state = pytree.map(torch.clone, prefilled)
     stale_state["g0"]["ssm"]["ssm"].copy_(stale["g0"]["ssm"]["ssm"])
     del stale
     out = {}
-    for name, (caches, step_cfg) in (("decode ignores the window", (_clone(prefilled),
-                                                                      no_window)),
+    for name, (caches, step_cfg) in (("decode ignores the window",
+                                      (pytree.map(torch.clone, prefilled), no_window)),
                                      ("SSM state one token stale", (stale_state, cfg))):
         rows = [first]
         for i in range(T):
@@ -1348,6 +1427,7 @@ def check_hymba_f32(torch, dev):
     the 4112, decode logits against forward logits within a bound that
     bf16's rounding would hide faults under; both planted faults must
     exceed it."""
+    from repro_torch import pytree
     from repro_torch.configs.registry import get_config
     from repro_torch.models.lm import lm_cache_init, lm_decode_step, lm_fwd, lm_prefill
     from repro_torch.weights import init_lm_params
@@ -1362,7 +1442,7 @@ def check_hymba_f32(torch, dev):
         caches = lm_cache_init(params, cfg, B, P + T, dtype=torch.float32)
         _zero_counters(torch, counters)
         logits, caches = lm_prefill(params, prompt, caches, cfg)
-        prefilled = _clone(caches)
+        prefilled = pytree.map(torch.clone, caches)
         steps, seq = [logits[:, 0]], [prompt]
         for i in range(T):
             tok = steps[-1].argmax(-1)
@@ -1403,6 +1483,7 @@ def check_hymba_reference(torch, dev):
     prefill of 48 tokens, 8 greedy decode steps, forward of the 56.  Greedy
     tokens equal; logits within 2e-4 (float32 sums in other orders; the JAX
     package's own decode == forward bound)."""
+    from repro_torch import pytree
     from repro_torch.configs.base import reduced
     from repro_torch.configs.registry import get_config
     from repro_torch.models.lm import lm_cache_init, lm_decode_step, lm_fwd, lm_prefill
@@ -1416,7 +1497,7 @@ def check_hymba_reference(torch, dev):
     counters = _counters()
     out, launched = {}, {}
     for where in ("cpu", dev):
-        params = params_cpu if str(where) == "cpu" else _to(params_cpu, where)
+        params = pytree.map(lambda t: t.to(where), params_cpu)
         _zero_counters(torch, counters)
         with torch.no_grad():
             caches = lm_cache_init(params, cfg, B, P + T, dtype=torch.float32)
@@ -1444,10 +1525,482 @@ def check_hymba_reference(torch, dev):
          card_launches={k: v for k, v in card.items() if v})
 
 
-def _to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+# ---------------------------------------------------------------- phase 7
+
+# The stand-ins the JAX benchmarks train for the paper's figures and
+# tables, copied as data from benchmarks/common.py:97-116 (MODELS "policy"
+# and "pixel"; backbone at :86-92: dense, no positions, float32, no remat)
+# with the recipe of get_trained (:122-152): denoiser_init from seed 0,
+# AdamW at 2e-3 without decay, sl_denoiser_loss on [0.05, 50], log time.
+STANDINS = {
+    "policy": dict(n_layers=4, d_model=128, n_heads=4, d_ff=512, seq_len=16, d_data=2,
+                   d_cond=4, data=dict(kind="RobotReach", horizon=16, batch=128),
+                   steps=400),
+    "pixel": dict(n_layers=3, d_model=96, n_heads=4, d_ff=384, seq_len=64, d_data=24,
+                  d_cond=0, data=dict(kind="BlobImages", grid=8, patch_dim=24, batch=32),
+                  steps=250),
+}
+T_MIN, T_MAX = 0.05, 50.0
+# standin_reference: card against CPU samples, relative to max |sample|.
+# Float32 sums in other orders, chained over 100 steps: an H100 run
+# (700 W) read 7.4e-6 (1.70e-4 at a scale of 22.9); on the CPU the float32
+# run sits 5.8e-6 (1.32e-4) from the model computed in float64.
+STANDIN_REF_TOL = 2e-5
+STANDIN_LR = 2e-3
+# the sampling settings of fig5 / table3 (K 100, 8 chains, theta 8 and 24,
+# the eager head at 24, 96 episodes) and of fig4's quick run (K 200, theta 8)
+POLICY_K, POLICY_CHAINS, POLICY_THETAS, POLICY_EPISODES = 100, 8, (8, 24), 96
+PIXEL_K, PIXEL_CHAINS, PIXEL_THETA = 200, 16, 8
+# train_full_width: paper-pixel-dit on BlobImages of its own shape
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_LR = 8, 5, 3, 1e-4
+CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
+
+
+def _fresh_dir(name):
+    import shutil
+
+    path = CKPT_ROOT / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def _sl_loss_fn(dc):
+    from repro_torch.models.diffusion import sl_denoiser_loss
+
+    def loss_fn(p, batch, gen):
+        return sl_denoiser_loss(p, dc, batch["x0"], gen, T_MIN, T_MAX,
+                                cond=batch.get("cond")), {}
+
+    return loss_fn
+
+
+class _StepTimer:
+    """Wraps a train step: CUDA events around each call, on the card."""
+
+    def __init__(self, torch, step):
+        self.torch, self.step, self.events = torch, step, []
+
+    def __call__(self, *args):
+        ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = self.step(*args)
+        ev[1].record()
+        self.events.append(ev)
+        return out
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def _grad_recorder(torch, opt, at_step):
+    """The optimizer, recording for each leaf whether the gradient it gets
+    at step ``at_step`` is finite and not all zero."""
+    from repro_torch import pytree
+    from repro_torch.training.optimizer import Optimizer
+
+    seen = {}
+
+    def update(grads, state, params):
+        if int(state["step"]) + 1 == at_step:
+            flat = pytree.leaves(grads)
+            seen["finite"] = torch.stack([torch.isfinite(g).all() for g in flat]).tolist()
+            seen["nonzero"] = torch.stack([g.abs().amax() > 0 for g in flat]).tolist()
+        return opt.update(grads, state, params)
+
+    return Optimizer(opt.init, update, opt.schedule), seen
+
+
+def run_train_full_width(torch, dev):
+    """train_full_width: paper-pixel-dit at full width (bf16 compute,
+    float32 params, remat) through repro_torch.training.loop.run: 5 steps of
+    sl_denoiser_loss and AdamW on BlobImages of its own shape, async
+    checkpoints every 3 steps; then a run resumed from the step-3
+    checkpoint, and the last checkpoint restored against the live state."""
+    import shutil
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs.registry import paper_pixel_dit
+    from repro_torch.data.pipeline import BlobImages
+    from repro_torch.training import loop
+    from repro_torch import pytree
+    from repro_torch.training.optimizer import adamw, constant_schedule
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.weights import denoiser_init_params
+
+    dc = paper_pixel_dit()
+    cfg = dc.backbone
+    batch = TRAIN_BATCH
+    grid = int(round(dc.seq_len ** 0.5))
+    data = BlobImages(grid=grid, patch_dim=dc.d_data, batch=batch)
+    if data.seq_len != dc.seq_len:
+        fail(f"train_full_width: {grid}x{grid} patches for {dc.seq_len} tokens")
+    opt, seen = _grad_recorder(torch, adamw(constant_schedule(TRAIN_LR)), at_step=2)
+    step = _StepTimer(torch, make_train_step(_sl_loss_fn(dc), opt))
+    batch_fn = lambda s: {"x0": data.batch_at(s)}
+    fresh = lambda: denoiser_init_params(dc, torch.Generator(device=dev).manual_seed(SEED),
+                                         device=dev)
+    run_dir = _fresh_dir("train_full_width")
+    params = fresh()
+    n_params = sum(p.numel() for p in pytree.leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lcfg = loop.LoopConfig(total_steps=TRAIN_STEPS, ckpt_dir=str(run_dir / "a"),
+                           ckpt_every=TRAIN_CKPT_EVERY, keep=3)
+    params, opt_state, last, hist = loop.run(step, params, opt.init(params), batch_fn,
+                                             SEED, lcfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = step.ms()
+    losses = [h["loss"] for h in hist]
+    if last != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"train_full_width: {last} steps, losses {losses}")
+    names = [".".join(path) for path, _ in pytree.paths(params)]
+    if not seen or not all(seen["finite"]) or not all(seen["nonzero"]):
+        bad = [n for n, f, z in zip(names, seen.get("finite", []), seen.get("nonzero", []))
+               if not (f and z)]
+        fail(f"train_full_width: step 2 gradients not finite and nonzero for {bad or names}")
+
+    # resumed: the step-3 checkpoint alone in a new directory, 2 more steps
+    shutil.copytree(run_dir / "a" / f"step_{TRAIN_CKPT_EVERY:09d}",
+                    run_dir / "b" / f"step_{TRAIN_CKPT_EVERY:09d}")
+    p_b = fresh()
+    p_b, s_b, last_b, hist_b = loop.run(make_train_step(_sl_loss_fn(dc), opt), p_b,
+                                        opt.init(p_b), batch_fn, SEED,
+                                        dataclasses.replace(lcfg, ckpt_dir=str(run_dir / "b")),
+                                        device=dev)
+    num = sum(float((a - b).double().square().sum()) for a, b in
+              zip(pytree.leaves(p_b), pytree.leaves(params)))
+    den = sum(float(b.double().square().sum()) for b in pytree.leaves(params))
+    resume_rel = math.sqrt(num / den)
+    if last_b != TRAIN_STEPS or [h["step"] for h in hist_b] != [4, 5] or \
+            not resume_rel <= 1e-5:
+        fail(f"train_full_width: resumed run at step {last_b}, relative L2 {resume_rel}")
+    del p_b, s_b
+    restored, manifest = ckpt.restore(str(run_dir / "a"), None,
+                                      {"params": params, "opt": opt_state})
+    live = pytree.leaves({"params": params, "opt": opt_state})
+    same = all(torch.equal(a, b) for a, b in zip(pytree.leaves(restored), live))
+    if manifest["step"] != TRAIN_STEPS or not same:
+        fail(f"train_full_width: checkpoint of step {manifest['step']} is not the live "
+             "state bit for bit")
+    del restored
+    shutil.rmtree(run_dir, ignore_errors=True)
+    gen = loop.step_generator(SEED, TRAIN_STEPS, dev)
+    x0 = {"x0": torch.from_numpy(data.batch_at(TRAIN_STEPS)).to(dev)}
+    wall_ms, kernels = _profiled(torch, lambda: step.step(params, opt_state, x0, gen))
+    _emit_profile(torch, "train_profile", wall_ms, kernels,
+                  "one warm full-width training step (forward, recompute, backward, "
+                  "AdamW) under torch.profiler")
+
+    tokens = batch * dc.seq_len
+    hd = cfg.d_model // cfg.n_heads
+    # 4 passes over the products (forward, recompute, the backward's two),
+    # 2 operations a multiply-add; naive attention's QK^T and PV the same way
+    linear_flops = 8.0 * n_params * tokens
+    attn_flops = 4 * 4.0 * batch * cfg.n_heads * dc.seq_len ** 2 * hd * cfg.n_layers
+    warm = step_ms[1:]
+    warm_ms = statistics.mean(warm)
+    emit("train_full_width", model=cfg.name, params=n_params, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, d_ff=cfg.d_ff, seq_len=dc.seq_len,
+         d_data=dc.d_data, compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+         batch=batch, tokens_per_step=tokens, lr=TRAIN_LR, steps=last, losses=losses,
+         step_ms=step_ms, warm_step_ms=warm_ms, peak_memory_gb=peak_gb, wall_s=wall,
+         step2_gradients="every leaf finite and nonzero", leaves=len(names),
+         flop_per_step=linear_flops + attn_flops, linear_flop=linear_flops,
+         attention_flop=attn_flops,
+         tflops=(linear_flops + attn_flops) / (warm_ms * 1e-3) / 1e12,
+         bound_ms_at_bf16_peak=(linear_flops + attn_flops) / PEAK_BF16 * 1e3,
+         resumed_relative_l2=resume_rel, resumed_steps=[h["step"] for h in hist_b],
+         checkpoint_restored="equal bits", checkpoint_every=TRAIN_CKPT_EVERY,
+         note="warm step ms by CUDA events around train_step (steps 2-5); the loop "
+              "adds the batch, the per-step generator and the metrics read")
+
+
+def _standin_dc(spec):
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models.diffusion import DenoiserConfig
+
+    bb = ModelConfig(name=f"bench-{spec['n_layers']}x{spec['d_model']}",
+                     family="dense", n_layers=spec["n_layers"],
+                     d_model=spec["d_model"], n_heads=spec["n_heads"],
+                     n_kv_heads=spec["n_heads"], d_ff=spec["d_ff"], vocab_size=1,
+                     pos_embed="none", embed_inputs=False, compute_dtype="float32",
+                     remat=False)
+    return DenoiserConfig(backbone=bb, seq_len=spec["seq_len"], d_data=spec["d_data"],
+                          d_cond=spec["d_cond"], time_log=True)
+
+
+def _standin_data(spec):
+    from repro_torch.data import pipeline
+
+    opts = dict(spec["data"])
+    return getattr(pipeline, opts.pop("kind"))(**opts)
+
+
+def train_standin(torch, dev, kind):
+    """Train a stand-in to the recipe of the JAX benchmarks through
+    loop.run (checkpoints every 100 steps); returns (params, dc, data,
+    losses)."""
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import adamw, constant_schedule
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.weights import denoiser_init_params
+
+    spec = STANDINS[kind]
+    dc, data = _standin_dc(spec), _standin_data(spec)
+    steps = spec["steps"]
+    opt = adamw(constant_schedule(STANDIN_LR), weight_decay=0.0)
+
+    def batch_fn(s):
+        b = data.batch_at(s)
+        return {"x0": b[0], "cond": b[1]} if isinstance(b, tuple) else {"x0": b}
+
+    params = denoiser_init_params(dc, torch.Generator(device=dev).manual_seed(0), device=dev)
+    lcfg = loop.LoopConfig(total_steps=steps, ckpt_dir=str(_fresh_dir(f"standin_{kind}")),
+                           ckpt_every=100, keep=2)
+    t0 = time.perf_counter()
+    params, _, last, hist = loop.run(make_train_step(_sl_loss_fn(dc), opt), params,
+                                     opt.init(params), batch_fn, SEED, lcfg, device=dev)
+    wall = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    if last != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"standin_{kind}: {last} of {steps} steps, losses not finite")
+    return params, dc, data, losses, wall
+
+
+def _sample_runs(torch, dev, model_fn, sched, dc, B, runs, conds=None, seed=SEED):
+    """Sequential and ASD on the same B chains (zeros at t 0, buffer noise
+    from seeded generators), with the launch counts of B1 and B2 in each
+    ASD run checked per round.  ``runs``: (name, theta, eager)."""
+    from repro_torch.core.asd import asd_sample_batched
+    from repro_torch.core.sequential import sequential_sample_batched
+
+    counters = {k: v for k, v in _counters().items()
+                if k in ("grs", "flash_attention", "flash_attention_fma")}
+    K, n_layers = sched.K, dc.backbone.n_layers
+    y0 = torch.zeros(B, dc.seq_len, dc.d_data, device=dev)
+    out, launches_by_run = {}, {}
+    with torch.no_grad():
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        seq = sequential_sample_batched(model_fn, sched, y0, device=dev, conds=conds,
+                                        generator=torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        got = _launches(counters)
+        if got != {"grs": 0, "flash_attention": 0, "flash_attention_fma": n_layers * K}:
+            fail(f"sequential: launches {got}, expected {n_layers} x {K} FMA flash")
+        out["sequential"] = dict(depth=K, wall_s=seq_s, sample=seq, launches=got)
+        for name, theta, eager in runs:
+            _zero_counters(torch, counters)
+            t0 = time.perf_counter()
+            res = asd_sample_batched(model_fn, sched, y0, theta, eager_head=eager,
+                                     generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                                     device=dev, conds=conds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _launches(counters)
+            loop_rounds = int(res.rounds.max())
+            want = {"grs": loop_rounds, "flash_attention": 0,
+                    "flash_attention_fma": n_layers * 2 * loop_rounds}
+            if got != want:
+                fail(f"{name}: launches {got}, expected {want} for {loop_rounds} rounds")
+            if not bool(torch.isfinite(res.sample).all()):
+                fail(f"{name}: samples not finite")
+            depth = (res.rounds + res.head_calls).double()
+            accepts, proposals = int(res.accepts.sum()), int(res.proposals.sum())
+            out[name] = dict(theta=theta, eager_head=eager, depth=depth.mean().item(),
+                             depth_per_chain=depth.tolist(), K_over_depth=K / depth.mean().item(),
+                             accept_rate=accepts / max(proposals, 1), accepts=accepts,
+                             proposals=proposals, loop_rounds=loop_rounds, wall_s=wall,
+                             speedup_vs_sequential_wall=seq_s / wall, sample=res.sample,
+                             launches=got, launches_per_round={
+                                 "grs": got["grs"] / loop_rounds,
+                                 "flash_attention_fma": got["flash_attention_fma"] / loop_rounds})
+            launches_by_run[name] = got
+        launches_by_run["sequential"] = out["sequential"]["launches"]
+    return out, launches_by_run
+
+
+def _public(runs):
+    return {k: {f: v for f, v in r.items() if f != "sample"} for k, r in runs.items()}
+
+
+def run_standin_policy(torch, dev):
+    """standin_policy: the policy stand-in trained on the card, then fig5's
+    sampling (K 100, 8 chains, theta 8 and 24, the eager head at 24) and
+    table3's success rates (sequential and theta 24 over 96 episodes)."""
+    from repro_torch.core.schedules import sl_geometric
+    from repro_torch.data.pipeline import RobotReach
+    from repro_torch.models.diffusion import make_sl_model_fn
+
+    params, dc, data, losses, train_s = train_standin(torch, dev, "policy")
+    if not losses[-1] * 5 <= losses[0]:
+        fail(f"standin_policy: loss {losses[0]} at step 1, {losses[-1]} at the last step "
+             "(must fall 5x)")
+    sched = sl_geometric(POLICY_K, T_MIN, T_MAX)
+    model_fn = make_sl_model_fn(params, dc)
+    conds = torch.from_numpy(data.batch_at(999)[1][:POLICY_CHAINS]).to(dev)
+    runs = [(f"asd_theta{t}", t, False) for t in POLICY_THETAS] + [
+        (f"asd_theta{POLICY_THETAS[-1]}_eager", POLICY_THETAS[-1], True)]
+    out, launches = _sample_runs(torch, dev, model_fn, sched, dc, POLICY_CHAINS, runs, conds)
+
+    episodes = POLICY_EPISODES
+    obs = torch.from_numpy(data.batch_at(555)[1][:episodes]).to(dev)
+    succ_runs, succ_launches = _sample_runs(torch, dev, model_fn, sched, dc, episodes,
+                                            [("asd_theta24", 24, False)], obs,
+                                            seed=SEED + 10)
+    launches.update({f"success_{k}": v for k, v in succ_launches.items()})
+    success = {name: RobotReach.success(r["sample"] / T_MAX, obs).double().mean().item()
+               for name, r in succ_runs.items()}
+    emit("standin_policy", model=dc.backbone.name, layers=dc.backbone.n_layers,
+         d_model=dc.backbone.d_model, heads=dc.backbone.n_heads,
+         head_dim=dc.backbone.d_model // dc.backbone.n_heads, seq_len=dc.seq_len,
+         d_data=dc.d_data, d_cond=dc.d_cond, train_steps=len(losses),
+         train_batch=data.batch, lr=STANDIN_LR, loss_first=losses[0], loss_last=losses[-1],
+         loss_fall=losses[0] / losses[-1], train_wall_s=train_s,
+         train_step_ms=train_s / len(losses) * 1e3, K=POLICY_K, chains=POLICY_CHAINS,
+         schedule=f"sl_geometric({POLICY_K}, {T_MIN}, {T_MAX})", runs=_public(out),
+         success_episodes=episodes, success_rate=success,
+         success_runs={k: {f: r[f] for f in ("depth", "accept_rate", "wall_s")
+                           if f in r} for k, r in succ_runs.items()})
+    return params, dc, {f"policy_{k}": v for k, v in launches.items()}
+
+
+def run_standin_pixel(torch, dev):
+    """standin_pixel: the pixel stand-in (d 96 over 4 heads: B2's FMA kernel
+    at head dim 24) trained on the card, then ASD theta 8 and the sequential
+    sampler at K 200 on 16 chains."""
+    from repro_torch.core.schedules import sl_geometric
+    from repro_torch.models.diffusion import make_sl_model_fn
+
+    params, dc, data, losses, train_s = train_standin(torch, dev, "pixel")
+    K = PIXEL_K
+    sched = sl_geometric(K, T_MIN, T_MAX)
+    out, launches = _sample_runs(torch, dev, make_sl_model_fn(params, dc), sched, dc,
+                                 PIXEL_CHAINS, [(f"asd_theta{PIXEL_THETA}", PIXEL_THETA, False)])
+    emit("standin_pixel", model=dc.backbone.name, layers=dc.backbone.n_layers,
+         d_model=dc.backbone.d_model, heads=dc.backbone.n_heads,
+         head_dim=dc.backbone.d_model // dc.backbone.n_heads, seq_len=dc.seq_len,
+         d_data=dc.d_data, train_steps=len(losses), train_batch=data.batch,
+         loss_first=losses[0], loss_last=losses[-1], train_wall_s=train_s,
+         train_step_ms=train_s / len(losses) * 1e3, K=K, chains=PIXEL_CHAINS,
+         schedule=f"sl_geometric({K}, {T_MIN}, {T_MAX})", runs=_public(out))
+    return {f"pixel_{k}": v for k, v in launches.items()}
+
+
+def check_standin_kernels(torch, dev):
+    """B1 and B2's float32 kernel against their plain versions at the shapes
+    the stand-ins' verification calls give them: the policy at theta 24 (8
+    chains: 192 points of 16 tokens, 4 heads of 32; GRS rows of 16 x 2) and
+    the pixel model at theta 8 (16 chains: 128 points of 64 tokens, 4 heads
+    of 24; rows of 64 x 24).  Times cold-cache as in phase 3; the library
+    call is SDPA in float32."""
+    from repro_torch.core.grs import grs as grs_plain
+    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_fma, flash_mha
+    from repro_torch.kernels.grs.ops import grs
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for kind, theta, chains in (("policy", POLICY_THETAS[-1], POLICY_CHAINS),
+                                ("pixel", PIXEL_THETA, PIXEL_CHAINS)):
+        spec = STANDINS[kind]
+        B, L, H = theta * chains, spec["seq_len"], spec["n_heads"]
+        hd = spec["d_model"] // H
+        q, k, v = _flash_inputs(torch, dev, B, L, L, H, hd, 31 + hd, torch.float32)
+        used, err = _fma_compare(torch, q, k, v, causal=False)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        times = kernel_times(lambda: flash_mha(q, k, v, causal=False),
+                             lambda: attention_plain(q, k, v, causal=False),
+                             lambda: sdpa(qt, kt, vt), wrapper=flash_fma)
+        flops = 4.0 * B * H * L * L * hd
+        bms, by = bound_ms(4.0 * B * L * H * hd * 4, flops, PEAK_F32)
+        emit("standin_kernels", kernel="flash_attention_fma", standin=kind,
+             shape=[B, L, H, hd], dtype="float32", causal=False, max_abs_err=err,
+             tolerance=FLASH_F32_TOLERANCE, tolerance_used=used, **times,
+             library="scaled_dot_product_attention (float32)", bound_ms=bms, bound_by=by,
+             tflops=_tflops(flops, times))
+        R, D = B, L * spec["d_data"]
+        args = _grs_inputs(torch, dev, R, D, 41 + D)
+        err, accepted = _grs_compare(torch, args)
+        times = kernel_times(lambda: grs(*args), lambda: grs_plain(*args), wrapper=grs)
+        bms, by = _grs_bound(R, D)
+        emit("standin_kernels", kernel="grs", standin=kind, shape=[R, D], max_abs_err=err,
+             accepted_rows=accepted, tolerance="z atol 1e-5; accept bits equal except "
+             "rows within 1e-5 of the threshold", **times, bound_ms=bms, bound_by=by,
+             geometry=_row_geometry(R, D))
+
+
+def check_standin_reference(torch, dev, params, dc):
+    """The trained policy weights on the card and copied to the CPU: ASD
+    theta 8 on 8 chains with the same injected u_buf and xi_buf.  Counters
+    equal (an accept bit may differ only on a row within float rounding of
+    the GRS threshold: the rule of serve_reference, which finds none),
+    samples within STANDIN_REF_TOL of their scale (max |sample|).  A planted
+    fault must fail the gate: the card's run with the model's output rounded
+    to bfloat16 on every call.  The line also gives the CPU float32 run's
+    distance from the same chains with the model computed in float64: the
+    size of float32 rounding here."""
+    from repro_torch import pytree
+    from repro_torch.core.asd import asd_sample_batched
+    from repro_torch.core.schedules import sl_geometric
+    from repro_torch.models.diffusion import make_sl_model_fn
+
+    theta, chains, K = POLICY_THETAS[0], POLICY_CHAINS, POLICY_K
+    sched = sl_geometric(K, T_MIN, T_MAX)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    n = K + theta + 1
+    u = torch.rand(chains, n, generator=gen)
+    xi = torch.randn(chains, n, dc.seq_len, dc.d_data, generator=gen)
+    conds = torch.rand(chains, dc.d_cond, generator=gen) * 2 - 1
+    y0 = torch.zeros(chains, dc.seq_len, dc.d_data)
+    counters = ("rounds", "head_calls", "model_evals", "accepts", "proposals")
+
+    def sample(model_fn, where):
+        with torch.no_grad():
+            return asd_sample_batched(model_fn, sched, y0, theta, u_buf=u, xi_buf=xi,
+                                      device=where, conds=conds)
+
+    def against_cpu(res):
+        """(counters that differ from the CPU's, max abs sample error)"""
+        differ = [n for n in counters if not torch.equal(getattr(res, n).cpu(),
+                                                         getattr(cpu, n))]
+        return differ, (res.sample.cpu() - cpu.sample).abs().max().item()
+
+    params_cpu = pytree.map(lambda t: t.cpu(), params)
+    cpu = sample(make_sl_model_fn(params_cpu, dc), "cpu")
+    scale = cpu.sample.abs().max().item()
+    card_fn = make_sl_model_fn(params, dc)
+    differ, err = against_cpu(sample(card_fn, dev))
+    if differ or not err <= STANDIN_REF_TOL * scale:
+        fail(f"standin_reference: counters {differ} differ, sample error {err} against "
+             f"{STANDIN_REF_TOL} x {scale}")
+    f_differ, f_err = against_cpu(sample(lambda *a: card_fn(*a).bfloat16().float(), dev))
+    if not (f_differ or f_err > STANDIN_REF_TOL * scale):
+        fail(f"standin_reference: the gate passes the planted bf16 fault ({f_err})")
+    # the float32 run's own rounding: the same chains with the model computed
+    # in float64 on the CPU
+    dc64 = dataclasses.replace(dc, backbone=dataclasses.replace(dc.backbone,
+                                                                compute_dtype="float64"))
+    p64 = pytree.map(lambda t: t.double(), params_cpu)
+    with torch.no_grad():
+        f64 = asd_sample_batched(make_sl_model_fn(p64, dc64, attn_impl="naive"), sched, y0,
+                                 theta, u_buf=u, xi_buf=xi, device="cpu", conds=conds)
+    emit("standin_reference", model=dc.backbone.name, K=K, theta=theta, chains=chains,
+         max_abs_err=err, relative_err=err / scale,
+         tolerance=f"{STANDIN_REF_TOL} x max |sample|",
+         planted_fault={"fault": "model output rounded to bfloat16 on every call",
+                        "max_abs_err": f_err, "relative_err": f_err / scale,
+                        "counters_differ": f_differ},
+         cpu_float32_vs_float64_model_max_abs_err=(cpu.sample - f64.sample).abs().max().item(),
+         float64_counters_equal=all(torch.equal(getattr(f64, n), getattr(cpu, n))
+                                    for n in ("rounds", "accepts", "proposals")),
+         sample_abs_max=scale,
+         rounds=cpu.rounds.tolist(), accepts=int(cpu.accepts.sum()),
+         proposals=int(cpu.proposals.sum()))
 
 
 # ---------------------------------------------------------------- main
@@ -1493,6 +2046,12 @@ def main() -> None:
     by_run.update(run_hymba(torch, dev))
     by_run.update(check_hymba_f32(torch, dev))
     check_hymba_reference(torch, dev)
+    check_standin_kernels(torch, dev)
+    run_train_full_width(torch, dev)
+    policy_params, policy_dc, policy_launches = run_standin_policy(torch, dev)
+    by_run.update(policy_launches)
+    by_run.update(run_standin_pixel(torch, dev))
+    check_standin_reference(torch, dev, policy_params, policy_dc)
     for kern in kernels:
         per = {run: counts.get(kern["name"], 0) for run, counts in by_run.items()}
         if not any(per.values()):

@@ -365,7 +365,7 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
                        u_buf: Optional[torch.Tensor] = None,
                        xi_buf: Optional[torch.Tensor] = None,
-                       device=None) -> ASDResult:
+                       device=None, conds: Optional[torch.Tensor] = None) -> ASDResult:
     """ASD on independent chains y0 (B, *event), stepped together.
 
     Each round makes one proposal call over the B chains and one
@@ -375,7 +375,9 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
     is drawn from ``generator``.  ``theta >= K`` gives ASD-infinity.
 
     ``model_fn(t: f32[m], y: f32[m, *event]) -> f32[m, *event]`` must accept
-    any leading batch size m.  Runs on ``device`` (None means "cuda").
+    any leading batch size m; with ``conds`` (B, d_cond), one condition row
+    a chain, it is called as ``model_fn(t, y, cond_rows)`` with the row of
+    every point.  Runs on ``device`` (None means "cuda").
     """
     dev = resolve_device(device)
     K = schedule.K
@@ -383,9 +385,13 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
     schedule = schedule.to(dev)
     st = init_chain_state(schedule, y0.to(dev), theta, keep_trajectory,
                           controller, generator, u_buf, xi_buf)
+    if conds is not None:
+        conds = conds.to(dev)
+        if conds.shape[0] != y0.shape[0]:
+            raise ValueError(f"conds: {conds.shape[0]} rows for {y0.shape[0]} chains")
     while not bool(chain_done(st, K).all()):
         st = asd_round(model_fn, schedule, st, theta, eager_head,
-                       keep_trajectory, controller)
+                       keep_trajectory, controller, conds)
     return ASDResult(
         sample=chain_sample(st, K, keep_trajectory),
         trajectory=st.y[:, : K + 1] if keep_trajectory else st.y,
@@ -401,12 +407,14 @@ def asd_sample(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                u_buf: Optional[torch.Tensor] = None,
                xi_buf: Optional[torch.Tensor] = None,
-               device=None) -> ASDResult:
+               device=None, cond: Optional[torch.Tensor] = None) -> ASDResult:
     """ASD for one chain y0 (*event); ``u_buf`` (K+theta+1,) and ``xi_buf``
-    (K+theta+1, *event) inject its noise.  Results have no batch axis."""
+    (K+theta+1, *event) inject its noise, ``cond`` (d_cond,) conditions it.
+    Results have no batch axis."""
     res = asd_sample_batched(
         model_fn, schedule, y0[None], theta, eager_head, keep_trajectory,
         controller, generator, None if u_buf is None else u_buf[None],
-        None if xi_buf is None else xi_buf[None], device)
+        None if xi_buf is None else xi_buf[None], device,
+        None if cond is None else cond[None])
     return ASDResult(**{f.name: getattr(res, f.name)[0]
                         for f in dataclasses.fields(ASDResult)})

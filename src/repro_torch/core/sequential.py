@@ -27,12 +27,13 @@ def init_y0(schedule: Schedule, event_shape, generator=None,
 
 
 def _run(model_fn: ModelFn, schedule: Schedule, y: torch.Tensor,
-         xi: torch.Tensor, keep: Optional[list]):
-    """K steps on a batch of chains: y (m, *event), xi (K, m, *event)."""
+         xi: torch.Tensor, keep: Optional[list], conds=None):
+    """K steps on a batch of chains: y (m, *event), xi (K, m, *event);
+    ``conds`` (m, d_cond) conditions each chain's calls."""
     m = y.shape[0]
     for i in range(schedule.K):
         t = schedule.t_model[i].expand(m)
-        g = model_fn(t, y)
+        g = model_fn(t, y) if conds is None else model_fn(t, y, conds)
         y = schedule.A[i] * y + schedule.B[i] * g + schedule.sigma[i] * xi[i]
         if keep is not None:
             keep.append(y)
@@ -68,13 +69,20 @@ def sequential_sample_with_noise(model_fn: ModelFn, schedule: Schedule,
 def sequential_sample_batched(model_fn: ModelFn, schedule: Schedule,
                               y0: torch.Tensor,
                               generator: Optional[torch.Generator] = None,
-                              xi: Optional[torch.Tensor] = None, device=None):
+                              xi: Optional[torch.Tensor] = None, device=None,
+                              conds: Optional[torch.Tensor] = None):
     """B independent chains y0 (B, *event) stepped together: each of the K
     steps is one model call over all B chains.  ``xi`` (K, B, *event) gives
-    the noises; else they are drawn from ``generator``."""
+    the noises; else they are drawn from ``generator``.  ``conds``
+    (B, d_cond), one condition row a chain, is passed to every call as
+    ``model_fn(t, y, conds)``."""
     dev = resolve_device(device)
     y0 = y0.to(dev)
+    if conds is not None:
+        conds = conds.to(dev)
+        if conds.shape[0] != y0.shape[0]:
+            raise ValueError(f"conds: {conds.shape[0]} rows for {y0.shape[0]} chains")
     if xi is None:
         xi = torch.randn((schedule.K,) + tuple(y0.shape), generator=generator,
                          dtype=y0.dtype, device=dev)
-    return _run(model_fn, schedule.to(dev), y0, xi.to(dev), None)
+    return _run(model_fn, schedule.to(dev), y0, xi.to(dev), None, conds)

@@ -15,7 +15,11 @@ _flash_kernel``.  The dtype picks the kernel, explicitly:
 
 The plain PyTorch version is ``attention_plain``.  ``flash_mha`` takes it
 only for tensors on the CPU; for CUDA tensors it launches a kernel or
-raises.  ``flash_mha.launches`` counts the launches of both kernels;
+raises.  The kernels have no backward and are launched through ``ctypes``,
+so their output is cut from the autograd graph: for CUDA tensors
+``flash_mha`` raises where autograd would record through it, instead of
+giving q, k and v a silent zero gradient (train through the naive core).
+``flash_mha.launches`` counts the launches of both kernels;
 ``flash_wgmma.launches`` and ``flash_fma.launches`` count each.
 """
 
@@ -173,6 +177,10 @@ def flash_mha(q, k, v, *, causal: bool = True, window: int = 0,
                                softcap=softcap, true_seq_k=seq_k)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_mha: the CUDA kernels have no backward; autograd is "
+                           "recording through q, k or v (train with attn_impl='naive', "
+                           "or call under torch.no_grad())")
     kernel = _KERNELS.get(q.dtype)
     if kernel is None:
         raise ValueError(f"flash_mha: no kernel for {q.dtype}")

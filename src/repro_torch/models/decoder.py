@@ -3,14 +3,24 @@
 repeats with a leading ``layers`` axis, as in the JAX package; its
 ``lax.scan`` over that axis is a Python loop here.  Per-repeat windows
 (``window_per_repeat``, hymba's three full-attention layers) are Python
-ints, so the flash kernel gets a static window in every layer."""
+ints, so the flash kernel gets a static window in every layer.
+
+Where ``cfg.remat`` is set and autograd records through a layer, the
+layer runs under ``torch.utils.checkpoint``: its activations are recomputed
+in the backward instead of kept (the JAX package wraps its group body in
+``jax.checkpoint``).  The values are the same either way; only memory
+differs."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockDesc, ModelConfig
 from repro_torch.models.blocks import BLOCKS
+from repro_torch.pytree import leaves
 
 
 def _layer(tree, r: int):
@@ -49,10 +59,22 @@ def _layers(cfg: ModelConfig, part: str):
             yield r, f"g{gi}", fn, desc, windows[r]
 
 
+def _records(x, layer) -> bool:
+    """Whether autograd records through a layer of input x and params
+    ``layer``."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in leaves(layer)))
+
+
 def decoder_fwd(params, x, cfg: ModelConfig, ctx):
     """x: (B, L, d_model) -> (B, L, d_model)."""
     for r, g, fwd, desc, window in _layers(cfg, "fwd"):
-        x = fwd(_layer(params[g], r), x, cfg, desc, ctx, window)
+        layer = _layer(params[g], r)
+        if cfg.remat and _records(x, layer):
+            x = checkpoint(functools.partial(fwd, layer), x, cfg, desc, ctx, window,
+                           use_reentrant=False)
+        else:
+            x = fwd(layer, x, cfg, desc, ctx, window)
     return x
 
 

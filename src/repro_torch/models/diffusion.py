@@ -3,13 +3,15 @@ oracle.  The model predicts x0_hat = E[x0 | y_t], the ``g`` that ASD
 consumes (paper Remark 2 / Eq. 4).
 
 Params are a plain dict of tensors in the JAX package's tree layout (see
-``repro_torch.weights``).  Tensor, sequence and expert parallelism are not
-ported yet.
+``repro_torch.weights``).  ``sl_denoiser_loss`` and ``ddpm_denoiser_loss``
+are the training losses, with their random draws injectable.  Tensor,
+sequence and expert parallelism are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -107,3 +109,43 @@ def make_ddpm_model_fn(params, dc: DenoiserConfig, cond=None, attn_impl=None):
 
     return model_fn
 
+
+def ddpm_denoiser_loss(params, dc: DenoiserConfig, x0, abar, generator=None, cond=None,
+                       s=None, eps=None):
+    """The DDPM x0-prediction loss, mean((pred - x0)^2).  x0: (B, L, d_data);
+    abar: (K,).  The step indices ``s`` (B,) int and the noise ``eps`` (like
+    x0) are injected where given, else drawn from ``generator`` in that
+    order (s uniform on 0..K-1, eps standard normal).  Trains through the
+    naive attention, as the JAX package does: the flash kernel has no
+    backward."""
+    B, K = x0.shape[0], abar.shape[0]
+    if s is None:
+        s = torch.randint(0, K, (B,), generator=generator, device=x0.device)
+    if eps is None:
+        eps = torch.randn(x0.shape, generator=generator, device=x0.device)
+    s = s.to(x0.device)
+    ab = abar.to(x0.device)[s][:, None, None]
+    y = torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * eps
+    pred = denoiser_fwd(params, s.float(), y, dc, cond=cond, attn_impl="naive")
+    return torch.mean((pred - x0) ** 2)
+
+
+def sl_denoiser_loss(params, dc: DenoiserConfig, x0, generator=None, t_min=1e-2,
+                     t_max=100.0, cond=None, t=None, xi=None):
+    """The SL-parametrized x0-prediction loss: y_t = t x0 + sqrt(t) xi, the
+    net sees y_t / sqrt(t^2 + t) and log1p(t).  The noise levels ``t`` (B,)
+    and the noise ``xi`` (like x0) are injected where given, else drawn from
+    ``generator`` in that order (t log-uniform on [t_min, t_max], xi
+    standard normal).  Trains through the naive attention."""
+    B = x0.shape[0]
+    if t is None:
+        u = torch.rand(B, generator=generator, device=x0.device)
+        lo, hi = math.log(t_min), math.log(t_max)
+        t = torch.exp(lo + (hi - lo) * u)
+    if xi is None:
+        xi = torch.randn(x0.shape, generator=generator, device=x0.device)
+    t = t.to(x0.device)
+    y = t[:, None, None] * x0 + torch.sqrt(t)[:, None, None] * xi
+    scale = torch.sqrt(t**2 + t)[:, None, None]
+    pred = denoiser_fwd(params, t, y / scale, dc, cond=cond, attn_impl="naive")
+    return torch.mean((pred - x0) ** 2)

@@ -1,0 +1,88 @@
+"""AdamW, learning-rate schedules and global-norm clipping, with the JAX
+package's functional interface (``repro.training.optimizer``):
+
+    opt = adamw(schedule, ...)
+    state = opt.init(params)
+    params, state, metrics = opt.update(grads, state, params)
+
+Params (float32) and state are nested dicts of tensors; ``update``
+changes them in place (``torch._foreach_*``) and returns them.  The arithmetic is the
+reference's: clipping by the float32 global norm, bias correction, and
+decoupled weight decay on every leaf with ndim >= 2 -- on the stacked
+layer tree that includes the (n, d) norm scales, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch import pytree
+
+
+class Optimizer(NamedTuple):
+    init: Callable
+    update: Callable
+    schedule: Callable  # step -> learning rate (what a skipped step reports)
+
+
+def cosine_schedule(peak_lr: float, warmup: int, total: int, floor: float = 0.1):
+    """Linear warmup to ``peak_lr``, then a cosine down to ``floor`` * peak
+    at ``total``: step (int32 tensor) -> float32 tensor."""
+    def lr(step):
+        step = step.float()
+        warm = peak_lr * step / max(warmup, 1)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = peak_lr * (floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * prog)))
+        return torch.where(step < warmup, warm, cos)
+
+    return lr
+
+
+def constant_schedule(lr_val: float):
+    return lambda step: torch.tensor(lr_val, dtype=torch.float32, device=step.device)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32."""
+    sq = torch._foreach_norm([x.float() for x in pytree.leaves(tree)])
+    return torch.sqrt(sum(n * n for n in sq))
+
+
+def adamw(schedule: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1, clip_norm: float = 1.0) -> Optimizer:
+    def init(params):
+        step = torch.zeros((), dtype=torch.int32, device=pytree.leaves(params)[0].device)
+        mu, nu = (pytree.map(lambda x: torch.zeros_like(x, dtype=torch.float32), params)
+                  for _ in range(2))
+        return {"mu": mu, "nu": nu, "step": step}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        g = [x.float() for x in pytree.leaves(grads)]
+        gnorm = global_norm(grads)
+        scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+        g = torch._foreach_mul(g, scale)
+        mu, nu, ps = (pytree.leaves(t) for t in (state["mu"], state["nu"], params))
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, g, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, g, g, value=1 - b2)
+        t = step.float()
+        bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=t.device) ** t
+        bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=t.device) ** t
+        lr = schedule(step)
+        delta = torch._foreach_div(torch._foreach_div(mu, bc1), torch._foreach_add(
+            torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps))
+        if weight_decay:
+            mats = [i for i, p in enumerate(ps) if p.ndim >= 2]
+            torch._foreach_add_([delta[i] for i in mats], [ps[i].float() for i in mats],
+                                alpha=weight_decay)
+        torch._foreach_sub_(ps, torch._foreach_mul(delta, lr))
+        state["step"] = step
+        return params, state, {"grad_norm": gnorm, "lr": lr}
+
+    return Optimizer(init, update, schedule)

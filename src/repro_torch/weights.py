@@ -21,9 +21,11 @@ with n the layer count (the stacked ``layers`` axis).  The LM tree
     embed.table (vocab, d)    head.w (d, vocab)    final_norm.scale (d,)
 
 ``from_jax_params`` and ``from_jax_lm_params`` convert the JAX package's
-unboxed params (as numpy arrays) and need no JAX; ``init_denoiser_params``
-(from a numpy seed) and ``init_lm_params`` (from a torch generator on the
-device) make the same trees at random.
+unboxed params (as numpy arrays) and need no JAX, and ``from_jax_opt_state``
+its AdamW state.  ``denoiser_init_params`` draws a denoiser with the JAX
+init's law, the one to train from; ``init_denoiser_params`` (from a numpy
+seed, with nonzero ``out_proj`` and norm scales, for testing) and
+``init_lm_params`` (from a torch generator on the device) make random trees.
 ``from_jax_chain_state`` converts a slot batch of the JAX package's chain
 states, so both packages can start from the same states.
 """
@@ -150,6 +152,25 @@ def _fan_in(shape, stacked) -> int:
     return math.prod(shape[int(stacked):-1])
 
 
+def denoiser_init_params(dc: DenoiserConfig, generator: torch.Generator, device=None):
+    """Denoiser params drawn with the law of the JAX package's
+    ``denoiser_init``: product weights lecun-normal (normal / sqrt(fan-in),
+    the fan-in over all but the last axis and not over the stacked layers
+    axis), ``out_proj`` zero, the RMSNorm scales zero (the norm is
+    (1 + scale)) and the qkv biases zero.  Drawn on ``device`` (None means
+    "cuda") from ``generator``, which must live there; the leaves come in
+    the tree's key order."""
+    dev = resolve_device(device)
+
+    def leaf(name, shape, stacked):
+        if name in ("out_proj", "scale", "bq", "bk", "bv"):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        a = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
+        return a.mul_(1.0 / math.sqrt(_fan_in(shape, stacked)))
+
+    return _random_tree(param_shapes(dc), leaf)
+
+
 def init_denoiser_params(dc: DenoiserConfig, seed: int, out_scale: float = 1e-2,
                          device=None):
     """Random params from ``numpy.random.default_rng(seed)``.
@@ -158,7 +179,8 @@ def init_denoiser_params(dc: DenoiserConfig, seed: int, out_scale: float = 1e-2,
     the JAX package.  Unlike its init, ``out_proj`` and the norm scales are
     nonzero (normal * ``out_scale`` / sqrt(d) and normal * 0.1):
     a zero ``out_proj`` makes the denoiser output 0 everywhere, so every
-    speculation would be accepted and the reject path never run.
+    speculation would be accepted and the reject path never run.  Train
+    from ``denoiser_init_params``, not from these.
     """
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -177,6 +199,17 @@ def init_denoiser_params(dc: DenoiserConfig, seed: int, out_scale: float = 1e-2,
         return torch.from_numpy(a).to(dev)
 
     return _random_tree(param_shapes(dc), leaf)
+
+
+def from_jax_opt_state(state, dc: DenoiserConfig, device=None):
+    """The JAX package's ``adamw`` state of denoiser params, ``{"mu", "nu",
+    "step"}`` with numpy leaves, as the port's: ``mu`` and ``nu`` float32
+    trees on ``device`` (None means "cuda"), ``step`` an int32 scalar."""
+    dev = resolve_device(device)
+    return {"mu": from_jax_params(state["mu"], dc, dev),
+            "nu": from_jax_params(state["nu"], dc, dev),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                                 device=dev)}
 
 
 def init_lm_params(cfg: ModelConfig, seed: int, device=None):

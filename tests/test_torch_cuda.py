@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint import _msgpack
+from repro_torch.checkpoint import manager as t_ckpt
 from repro_torch.configs.base import reduced
 from repro_torch.configs.registry import get_config, paper_diffusion_policy_smoke
 from repro_torch.core import asd as t_asd
@@ -20,10 +22,13 @@ from repro_torch.kernels.grs.ops import grs, grs_cuda
 from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.kernels.ssm_scan.ops import linear_scan, ssm_scan_plain
 from repro_torch.kernels.superstep import ops as fused_ops
+from repro_torch.models import diffusion as t_diff
 from repro_torch.models import lm as t_lm
 from repro_torch.models.diffusion import make_sl_model_fn
 from repro_torch.serving.engine import ContinuousASDEngine, Request
 from repro_torch.serving.packing import WaterfillingAllocator, packed_superstep
+from repro_torch.training.optimizer import adamw, constant_schedule
+from repro_torch.training.train_step import make_train_step
 from repro_torch.weights import init_denoiser_params, init_lm_params
 
 pytestmark = pytest.mark.cuda
@@ -158,7 +163,7 @@ def test_flash_kernel_masks_keys_past_true_seq_k(dev, dtype, seq_k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64, 72, 80, 128])
+@pytest.mark.parametrize("hd", [16, 24, 32, 64, 72, 80, 128])
 def test_flash_kernel_head_dims(dev, dtype, hd):
     """dh below one 64-column chunk, across two, and at the 128 limit; TMA
     zero-fills the columns past dh."""
@@ -530,3 +535,88 @@ def test_small_hymba_on_card_matches_cpu(dev):
     torch.testing.assert_close(out["card"][0], out["cpu"][0], atol=2e-4, rtol=0)
     torch.testing.assert_close(out["card"][1], out["cpu"][1], atol=2e-4, rtol=0)
     torch.testing.assert_close(out["card"][1], out["card"][0][:, P - 1:], atol=2e-4, rtol=0)
+
+
+def test_flash_mha_refuses_autograd_on_the_card(dev):
+    """The kernels have no backward: a loss through them would give q, k
+    and v a silent zero gradient, so flash_mha raises instead; under
+    no_grad, or with inputs that need no grad, it launches as before."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _flash_inputs(dev, dtype, 1, 16, 16, 2, 32, 1)
+        for leaf in (q, k, v):
+            x = leaf.clone().requires_grad_()
+            args = [x if t is leaf else t for t in (q, k, v)]
+            before = flash_mha.launches
+            with pytest.raises(RuntimeError, match="no backward"):
+                flash_mha(*args, causal=False)
+            assert flash_mha.launches == before
+            with torch.no_grad():
+                flash_mha(*args, causal=False)
+            assert flash_mha.launches == before + 1
+    dc = paper_diffusion_policy_smoke()
+    params = _requires_grad(init_denoiser_params(dc, 0, device=dev))
+    with pytest.raises(RuntimeError, match="no backward"):
+        t_diff.denoiser_fwd(params, torch.ones(2, device=dev), torch.zeros(2, 8, 4, device=dev),
+                            dc, attn_impl="flash")
+
+
+def _requires_grad(tree):
+    return {k: _requires_grad(v) for k, v in tree.items()} if isinstance(tree, dict) \
+        else tree.requires_grad_()
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """Two AdamW steps of the small denoiser (naive attention, float32) on
+    the card and on the CPU from the same params and injected draws: losses,
+    gradient norms and params within 1e-4."""
+    dc = paper_diffusion_policy_smoke()
+    opt = adamw(constant_schedule(1e-3))
+
+    def loss_fn(p, batch, gen):
+        return t_diff.sl_denoiser_loss(p, dc, batch["x0"], gen, 0.05, 50.0, t=batch["t"],
+                                       xi=batch["xi"]), {}
+
+    step = make_train_step(loss_fn, opt)
+    g = torch.Generator().manual_seed(3)
+    batches = [{"x0": torch.randn(4, 8, 4, generator=g),
+                "t": torch.exp(torch.rand(4, generator=g) * 6 - 3),
+                "xi": torch.randn(4, 8, 4, generator=g)} for _ in range(2)]
+    out = {}
+    for where in ("cpu", dev):
+        params = init_denoiser_params(dc, 0, out_scale=1.0, device=where)
+        st = opt.init(params)
+        metrics = []
+        for b in batches:
+            params, st, m = step(params, st, {k: v.to(where) for k, v in b.items()})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        out[str(where)] = (params, metrics)
+    (p_cpu, m_cpu), (p_card, m_card) = out["cpu"], out[str(dev)]
+    np.testing.assert_allclose(m_card, m_cpu, rtol=1e-4)
+    for (a, b) in zip(_leaves_of(p_card), _leaves_of(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves_of(tree[k])
+    else:
+        yield tree
+
+
+def test_checkpoint_manifest_codec_round_trips_on_this_machine(dev, tmp_path):
+    """The card's machine has no msgpack package: the manifest goes through
+    the port's own codec, and a checkpoint of card tensors restores onto the
+    card bit for bit."""
+    manifest = {"step": 70000, "keys": ["['a']"] * 20, "shapes": [[2, 3]] * 20,
+                "dtypes": ["float32"] * 20, "extra": {"data_step": -3, "preempted": True,
+                                                      "lr": 1e-4, "note": None}}
+    assert _msgpack.unpackb(_msgpack.packb(manifest)) == manifest
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"params": {"w": torch.randn(3, 5, generator=g, device=dev)},
+            "opt": {"step": torch.tensor(4, dtype=torch.int32, device=dev)}}
+    t_ckpt.save(str(tmp_path), 4, tree, extra={"data_step": 4})
+    got, man = t_ckpt.restore(str(tmp_path), target=tree)
+    assert man["extra"] == {"data_step": 4} and got["params"]["w"].device.type == "cuda"
+    assert torch.equal(got["params"]["w"], tree["params"]["w"])
+    assert got["opt"]["step"].dtype == torch.int32

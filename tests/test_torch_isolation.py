@@ -64,3 +64,25 @@ def _env_lookups(tree):
 def test_kernel_wrappers_read_no_environment(path):
     found = list(_env_lookups(ast.parse(path.read_text())))
     assert not found, f"{path.relative_to(ROOT)} reads the environment: {found}"
+
+
+TRAINER = sorted(p for part in ("data", "training", "checkpoint")
+                 for p in (PORT / part).rglob("*.py"))
+
+
+def test_the_trainer_modules_are_checked():
+    names = {str(p.relative_to(PORT)) for p in TRAINER}
+    assert names >= {"data/pipeline.py", "training/optimizer.py", "training/train_step.py",
+                     "training/loop.py", "checkpoint/manager.py", "checkpoint/_msgpack.py"}
+    assert set(TRAINER) <= set(FILES)
+
+
+@pytest.mark.parametrize("path", TRAINER + [PORT / "weights.py", PORT / "pytree.py",
+                                             ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_the_trainer_imports_no_jax_msgpack_or_repro(path):
+    """The card's machine has no msgpack either: the checkpoint manifest goes
+    through the port's own codec."""
+    bad = [n for n in _imported(ast.parse(path.read_text()))
+           if _forbidden(n) or n.split(".")[0] == "msgpack"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
