@@ -12,7 +12,7 @@ Phases, each printing one JSON line and raising on any failure:
   3. flash_identity_probe
               B2's wgmma kernel on one tile with V the identity: O must be
               softmax(S) element by element.
-     grs / flash_attention / flash_attention_fma / pack / fused_round /
+     grs / flash_attention / flash_attention_f32 / pack / fused_round /
      ssm_scan
               each kernel against its plain PyTorch version on the card, at
               the main path's shape and at edge shapes: max abs error,
@@ -22,7 +22,10 @@ Phases, each printing one JSON line and raising on any failure:
               flash_attention (bf16, the wgmma kernel) also at the
               hymba-1.5b shapes (causal, window 1024 and full), with its
               build (registers, spills, shared memory);
-              flash_attention_fma is B2's float32 kernel. grs (B1) and
+              flash_attention_f32 is B2's float32 kernel (two designs:
+              3xTF32 tensor cores, and (batch, head) pairs packed into
+              blocks for Lq, Sk <= 64) at both hymba_f32 shapes, with the
+              design each call launched. grs (B1) and
               fused_round's B6 also at a view one float into its storage
               and at rows longer than a cluster holds, with the device
               kernels one call runs (one), and the row geometry with the
@@ -55,9 +58,10 @@ Phases, each printing one JSON line and raising on any failure:
               Two planted decode faults (window ignored, SSM state one
               token stale): the gate must see the first.
      hymba_f32
-              the same full-width run in float32 (B2's FMA kernel): decode
-              against forward within a tight bound that both planted
-              faults must exceed.
+              the same full-width run in float32 (B2's float32 kernel in
+              its tensor-core design): decode against forward within a
+              tight bound that both planted faults must exceed; warm
+              prefill and forward times.
      hymba_reference
               the reduced hymba in float32 on the card and on the CPU with
               the same params: greedy tokens equal, logits close.
@@ -81,7 +85,8 @@ Phases, each printing one JSON line and raising on any failure:
               conditioned, theta 8 and 24 and the eager head, and table3's
               success rates over 96 episodes; pixel: K 200, 16 chains,
               theta 8): depth, accept rate, K / depth, wall seconds, and the
-              launches of B1 and B2's FMA kernel per round.
+              launches of B1 and B2's float32 kernel (its packed design)
+              per round.
      standin_reference
               the trained policy on the card and on the CPU with the same
               injected noise: counters equal, samples within 2e-5 of their
@@ -109,9 +114,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (dense): bf16 tensor cores, float32 without
-# tensor cores, HBM3 bandwidth
+# tensor cores, TF32 tensor cores, HBM3 bandwidth
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 K, THETA, CHAINS = 64, 8, 4
@@ -282,6 +288,20 @@ def bound_ms(nbytes: float, ops: float, peak: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def f32_attention_bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations", the term that bounds it) for float32
+    attention: max(bytes / 3.35 TB/s, min(flops / 67 TFLOP/s, 3 flops / 495
+    TFLOP/s)), the lesser of float32 FMAs and the three TF32 products of
+    3xTF32 on the tensor cores."""
+    t_fma, t_tc = flops / PEAK_F32, 3 * flops / PEAK_TF32
+    t_ops, term = (t_tc, "operations (3xTF32)") if t_tc <= t_fma else (
+        t_fma, "operations (float32 FMA)")
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", "bytes"
+    return t_ops * 1e3, "operations", term
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -295,10 +315,15 @@ def _offset_view(torch, t, offset):
 
 def _one_call_kernels(torch, fn):
     """The device kernels one call of ``fn`` runs, under torch.profiler, as
-    (name, count) pairs."""
+    (name, count) pairs.  A trace with no kernel at all is the profiler
+    losing its records (seen on the card for a call that did launch), so
+    it is taken again, up to three times."""
     fn()
     torch.cuda.synchronize()
-    _, kernels = _profiled(torch, fn)
+    for _ in range(3):
+        _, kernels = _profiled(torch, fn)
+        if kernels:
+            break
     return [(k[:60], n) for k, _, n in kernels]
 
 
@@ -405,11 +430,12 @@ def check_grs(torch, dev):
 # The wgmma kernel's P = P_hi + P_lo is p within 2^-16 of it, far inside.
 FLASH_ATOL, FLASH_RTOL = 1e-4, 2.0 ** -7
 FLASH_TOLERANCE = "|kernel - plain| <= 1e-4 + 2^-7 |plain| per element (one bf16 ulp)"
-# the float32 (FMA) variant: float32 sums in other orders
+# the float32 kernel: float32 sums in other orders, and 3xTF32 products
+# within ~2^-21 of each product (a CPU emulation uses 1.5-2.7 % of this)
 FLASH_F32_TOL = 2e-5
 FLASH_F32_TOLERANCE = "|kernel - plain| <= 2e-5 + 2e-5 |plain| per element (float32)"
 FLASH_WGMMA_SOURCE = "src/repro_torch/csrc/flash_attention_wgmma.cu"
-FLASH_FMA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_F32_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:27"
 
 
@@ -449,6 +475,25 @@ def _wgmma_build():
                                                        spill_load_bytes=ld, stack_bytes=stack)
     return dict(launch_at_dh64=wgmma_launch_info(64), ptxas=instances,
                 setmaxnreg={"consumer": 240, "producer": 24})
+
+
+def _f32_build():
+    """B2's float32 kernel instances (design and template widths) with their
+    registers and spills, from the -Xptxas -v build log."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    log = (Path(_build.build_info["path"]).parent / "flash_attention.log").read_text()
+    out = {}
+    for m in re.finditer(r"(flash_fwd_f32_(?:tc|packed))I(\w+?)EEEv\S*\n\s*(\d+) bytes stack "
+                         r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n"
+                         r"ptxas info\s*: Used (\d+) registers", log):
+        name, targs, stack, st, ld, regs = m.groups()
+        widths = ",".join(re.findall(r"Li(\d+)", targs))
+        out[f"{name}<{widths}>"] = dict(registers=int(regs), spill_store_bytes=int(st),
+                                        spill_load_bytes=int(ld), stack_bytes=int(stack))
+    return out
 
 
 def check_flash_identity_probe(torch, dev):
@@ -584,56 +629,110 @@ def _flash_at_hymba_shape(torch, dev, window):
                 attended_pairs=pairs, tflops=_tflops(flops, times))
 
 
-def _fma_compare(torch, q, k, v, **opts):
+def _f32_compare(torch, q, k, v, **opts):
     """B2's float32 kernel against its plain version: (share of the
-    tolerance used, max abs error)."""
-    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha
+    tolerance used, max abs error, the design the call launched)."""
+    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_f32, flash_mha
 
+    before = dict(flash_f32.launches_by_design)
     ok = flash_mha(q, k, v, **opts)
     torch.cuda.synchronize()
+    ran = [d for d, n in flash_f32.launches_by_design.items() if n != before[d]]
     op = attention_plain(q, k, v, **opts)
     used = _flash_tolerance_used(ok, op, FLASH_F32_TOL, FLASH_F32_TOL)
-    if not used <= 1.0:
-        fail(f"flash fma: {used} of the tolerance ({FLASH_F32_TOLERANCE}) used at "
-             f"{tuple(q.shape)} {opts}")
-    return used, (ok - op).abs().max().item()
+    if not used <= 1.0 or len(ran) != 1:
+        fail(f"flash f32: {used} of the tolerance ({FLASH_F32_TOLERANCE}) used at "
+             f"{tuple(q.shape)} {opts}, designs launched {ran}")
+    return used, (ok - op).abs().max().item(), ran[0]
 
 
-def check_flash_fma(torch, dev):
-    """The float32 variant (FMAs) against its plain version: edges, then the
-    shape ``hymba_f32`` launches it at, (2, 4096, 25, 64) causal with window
-    1024.  The library call is SDPA in float32 with the band mask; the bound
-    is the float32 rate without tensor cores."""
-    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_fma, flash_mha
+def _f32_timed(torch, q, k, v, opts, library, reps=20):
+    """B2's float32 kernel at one shape: the compare, then cold-cache times of
+    the kernel, the plain version and ``library`` (SDPA on the same inputs),
+    and the bound, with the (q, k) pairs the mask keeps."""
+    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_f32, flash_mha
+
+    used, err, design = _f32_compare(torch, q, k, v, **opts)
+    times = kernel_times(lambda: flash_mha(q, k, v, **opts),
+                         lambda: attention_plain(q, k, v, **opts), library, reps=reps,
+                         wrapper=flash_f32)
+    B, L, H, hd = q.shape
+    S = k.shape[1]
+    causal, window = opts.get("causal", False), opts.get("window", 0)
+    pairs = _hymba_pairs(L, window) if causal else L * S  # causal here: L == S
+    flops = 4.0 * B * H * pairs * hd
+    bms, by, term = f32_attention_bound(4.0 * B * L * H * hd * 4, flops)
+    return dict(shape=[B, L, H, hd], dtype="float32", causal=causal, window=window,
+                design=design, max_abs_err=err, tolerance=FLASH_F32_TOLERANCE,
+                tolerance_used=used, **times, bound_ms=bms, bound_by=by, bound_term=term,
+                attended_pairs=pairs, tflops=_tflops(flops, times))
+
+
+def check_flash_f32(torch, dev):
+    """B2's float32 kernel against its plain version: edges of both designs
+    (the packed design's limit of 64 on each side, head dims, the 4-byte
+    copies of a view one float into its storage and of hd 18), then the two
+    shapes ``hymba_f32`` launches it at, (2, 4096, 25, 64) causal with
+    window 1024 (32 launches) and full (6 launches), tensor-core design.
+    The library call is SDPA in float32 with the band mask; the bound is
+    ``f32_attention_bound``."""
     from repro_torch.nn.attention import attn_mask
 
     f32 = torch.float32
-    edges = {name: _fma_compare(torch, *_flash_inputs(torch, dev, *shape, f32),
-                                causal=causal)[0]
-             for name, (shape, causal) in {
-                 "ragged L=40 causal": ((2, 40, 40, 3, 16, 21), True),
-                 "dh=72": ((2, 100, 100, 4, 72, 22), False)}.items()}
-    B, L, H, hd, window = HYMBA_BATCH, HYMBA_PROMPT, 25, 64, 1024
+
+    def offset(t):
+        return _offset_view(torch, t, 1)
+
+    edges = {}
+    for name, (shape, opts) in {
+            "packed ragged L=40 causal hd 16": ((2, 40, 40, 3, 16), dict(causal=True)),
+            "packed L=64 S=63": ((3, 64, 63, 3, 32), dict(causal=False)),
+            "packed L=S=64 window 9 softcap 5": ((3, 64, 64, 3, 24),
+                                                 dict(causal=True, window=9, softcap=5.0)),
+            "tensor_core L=64 S=65": ((3, 64, 65, 3, 32), dict(causal=False)),
+            "tensor_core hd 72": ((2, 100, 100, 4, 72), dict(causal=False)),
+            "tensor_core hd 128 true_seq_k 150 of 255": ((1, 129, 255, 2, 128),
+                                                         dict(causal=False, true_seq_k=150)),
+            "tensor_core hd 24 causal window 100": ((2, 300, 300, 2, 24),
+                                                    dict(causal=True, window=100)),
+    }.items():
+        B, L, S, H, hd = shape
+        q, k, v = _flash_inputs(torch, dev, B, L, S, H, hd, L + S + hd, f32)
+        used, _, design = _f32_compare(torch, q, k, v, **opts)
+        edges[name] = dict(tolerance_used=used, design=design)
+        if L <= 64 or hd == 24:  # the same values one float into their storage
+            used, _, design = _f32_compare(torch, offset(q), offset(k), offset(v), **opts)
+            edges[name + ", offset views (4-byte copies)"] = dict(tolerance_used=used,
+                                                                   design=design)
+    q, k, v = _flash_inputs(torch, dev, 2, 90, 90, 3, 18, 18, f32)
+    for L in (50, 90):
+        used, _, design = _f32_compare(torch, q[:, :L], k[:, :L], v[:, :L], causal=True)
+        edges[f"hd 18 L={L} (4-byte copies)"] = dict(tolerance_used=used, design=design)
+
+    B, L, H, hd = HYMBA_BATCH, HYMBA_PROMPT, 25, 64
     q, k, v = _flash_inputs(torch, dev, B, L, L, H, hd, 23, f32)
-    used, err = _fma_compare(torch, q, k, v, causal=True, window=window)
-    mask = attn_mask(L, L, True, window, dev)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    times = kernel_times(lambda: flash_mha(q, k, v, causal=True, window=window),
-                         lambda: attention_plain(q, k, v, causal=True, window=window),
-                         lambda: sdpa(qt, kt, vt, attn_mask=mask), reps=3, wrapper=flash_fma)
-    pairs = _hymba_pairs(L, window)
-    flops = 4.0 * B * H * pairs * hd
-    bms, by = bound_ms(4.0 * B * L * H * hd * 4, flops, PEAK_F32)
-    emit("flash_attention_fma", variant="fma (float32)", shape=[B, L, H, hd],
-         dtype="float32", causal=True, window=window, max_abs_err=err,
-         tolerance=FLASH_F32_TOLERANCE, tolerance_used=used, edge_tolerance_used=edges,
-         **times, library="scaled_dot_product_attention (float32) with the band mask",
-         bound_ms=bms, bound_by=by, attended_pairs=pairs,
-         tflops=_tflops(flops, times))
-    return dict(name="flash_attention_fma", route="cuda", source=FLASH_FMA_SOURCE,
-                replaces=FLASH_REPLACES, variant="fma (float32)", max_abs_err=err,
-                **times, bound_ms=bms, bound_by=by)
+    shapes = {}
+    for name, window in (("window 1024", 1024), ("causal", 0)):
+        mask = attn_mask(L, L, True, window, dev)
+        shapes[name] = _f32_timed(torch, q, k, v, dict(causal=True, window=window),
+                                  lambda: sdpa(qt, kt, vt, attn_mask=mask), reps=3)
+        del mask
+        if shapes[name]["design"] != "tensor_core":
+            fail(f"flash f32 at the hymba_f32 shape ({name}): design {shapes[name]['design']}")
+        emit("flash_attention_f32", **shapes[name],
+             library="scaled_dot_product_attention (float32) with the band mask",
+             **({"edge_tolerance_used": edges, "build": _f32_build()} if window else {}))
+    main = shapes["window 1024"]
+    return dict(name="flash_attention_f32", route="cuda", source=FLASH_F32_SOURCE,
+                replaces=FLASH_REPLACES, variant="float32: 3xTF32 tensor cores, or packed "
+                "(batch, head) pairs for Lq, Sk <= 64", design=main["design"],
+                max_abs_err=main["max_abs_err"],
+                **{k: main[k] for k in ("ms", "device_ms", "device_records_lost", "plain_ms",
+                                        "plain_device_ms", "library_ms", "library_device_ms",
+                                        "bound_ms", "bound_by", "bound_term")},
+                at_shapes={"hymba_f32 causal": shapes["causal"]})
 
 
 def _serve_maps(torch, dev):
@@ -955,7 +1054,7 @@ def run_slice(torch, dev):
 # device kernels by what they do, matched on their names (the first group
 # that matches wins: the wgmma kernel's name also starts with flash_fwd)
 _KERNEL_GROUPS = (("flash_attention", ("flash_fwd_wgmma",)),
-                  ("flash_attention_fma", ("flash_fwd",)), ("grs", ("grs_",)),
+                  ("flash_attention_f32", ("flash_fwd_f32",)), ("grs", ("grs_",)),
                   ("pack", ("gather_rows_kernel", "scatter_rows_kernel")),
                   ("fused_round", ("fused_gather_kernel", "fvc_")),
                   ("ssm_scan", ("ssm_scan_kernel",)),
@@ -1056,13 +1155,13 @@ def check_reference(torch, dev):
 
 def _counters():
     """Every kernel wrapper, by the name the kernels line gives it."""
-    from repro_torch.kernels.flash_attention.ops import flash_fma, flash_wgmma
+    from repro_torch.kernels.flash_attention.ops import flash_f32, flash_wgmma
     from repro_torch.kernels.grs.ops import grs
     from repro_torch.kernels.pack.ops import gather_rows, scatter_rows
     from repro_torch.kernels.ssm_scan.ops import linear_scan
     from repro_torch.kernels.superstep.ops import fused_gather, fused_verify_commit
 
-    return {"grs": grs, "flash_attention": flash_wgmma, "flash_attention_fma": flash_fma,
+    return {"grs": grs, "flash_attention": flash_wgmma, "flash_attention_f32": flash_f32,
             "gather_rows": gather_rows,
             "scatter_rows": scatter_rows, "fused_gather": fused_gather,
             "fused_verify_commit": fused_verify_commit, "ssm_scan": linear_scan}
@@ -1073,10 +1172,10 @@ def _counters():
 def _per_round(n_layers):
     return {"packed": {"grs": 1, "gather_rows": 3, "scatter_rows": 1, "fused_gather": 0,
                        "fused_verify_commit": 0, "flash_attention": 2 * n_layers,
-                       "flash_attention_fma": 0, "ssm_scan": 0},
+                       "flash_attention_f32": 0, "ssm_scan": 0},
             "fused": {"grs": 0, "gather_rows": 0, "scatter_rows": 0, "fused_gather": 1,
                       "fused_verify_commit": 1, "flash_attention": 2 * n_layers,
-                      "flash_attention_fma": 0, "ssm_scan": 0}}
+                      "flash_attention_f32": 0, "ssm_scan": 0}}
 
 
 def _serve_requests(torch, dev, dc, k, theta, n, seed):
@@ -1244,10 +1343,19 @@ def _zero_counters(torch, counters):
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_design"):
+            fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
 
 
 def _launches(counters):
     return {name: fn.launches for name, fn in counters.items()}
+
+
+def _f32_designs():
+    """The launches of B2's float32 kernel by design since the last zeroing."""
+    from repro_torch.kernels.flash_attention.ops import flash_f32
+
+    return dict(flash_f32.launches_by_design)
 
 
 def run_hymba(torch, dev):
@@ -1452,29 +1560,37 @@ def check_hymba_f32(torch, dev):
         seq = torch.cat(seq, dim=1)
         full = lm_fwd(params, seq, cfg)
         torch.cuda.synchronize()
-        launches = _launches(counters)
+        launches, designs = _launches(counters), _f32_designs()
         dec, ref = torch.stack(steps, dim=1), full[:, P - 1:]
         rel = _rel_l2(dec, ref)
         planted = _planted_decode_faults(torch, params, cfg, prompt, seq, prefilled,
                                          dec[:, 0], ref)
     finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
-    # B2 in float32 takes the FMA kernel: once a layer in the prefill and
-    # the forward, never the wgmma kernel
+    # B2 in float32 takes the float32 kernel's tensor-core design (4096 and
+    # 4112 rows): once a layer in the prefill and the forward, never the
+    # wgmma kernel
     want = {name: 0 for name in counters}
-    want.update(ssm_scan=2 * cfg.n_layers, flash_attention_fma=2 * cfg.n_layers)
-    if launches != want:
-        fail(f"hymba_f32: launched {launches}, expected {want}")
+    want.update(ssm_scan=2 * cfg.n_layers, flash_attention_f32=2 * cfg.n_layers)
+    if launches != want or designs != {"tensor_core": 2 * cfg.n_layers, "packed": 0}:
+        fail(f"hymba_f32: launched {launches}, designs {designs}, expected {want}, all on "
+             "the tensor cores")
     if not (finite and rel <= HYMBA_F32_GATE
             and all(planted[name] > HYMBA_F32_GATE for name in HYMBA_F32_SEES)):
         fail(f"hymba_f32: finite={finite}, decode vs forward relative L2 {rel}, planted "
              f"faults {planted} (the gate {HYMBA_F32_GATE} must hold the first and not "
              "the others)")
+    # warm times: CUDA events around calls launched back to back
+    with torch.no_grad():
+        prefill_ms = cuda_ms(lambda: lm_prefill(params, prompt, caches, cfg), reps=2, warmup=1)
+        forward_ms = cuda_ms(lambda: lm_fwd(params, seq, cfg), reps=2, warmup=1)
     emit("hymba_f32", model=cfg.name, compute_dtype="float32", kv_cache_dtype="float32",
-         batch=B, prompt=P, decode_steps=T, decode_vs_forward_relative_l2=rel,
+         batch=B, prompt=P, decode_steps=T, prefill_ms=prefill_ms, forward_ms=forward_ms,
+         decode_vs_forward_relative_l2=rel,
          decode_vs_forward_max_abs_err=(dec - ref).abs().max().item(),
          planted_faults_relative_l2=planted, tolerance=f"relative L2 {HYMBA_F32_GATE}",
-         logits_abs_max=ref.abs().max().item(), launches=launches)
-    return {"hymba_f32": launches}
+         logits_abs_max=ref.abs().max().item(), launches=launches,
+         f32_launches_by_design=designs)
+    return {"hymba_f32": launches}, {"hymba_f32": designs}
 
 
 def check_hymba_reference(torch, dev):
@@ -1517,7 +1633,7 @@ def check_hymba_reference(torch, dev):
     if not err <= 2e-4:
         fail(f"hymba_reference: logits differ by {err} > 2e-4")
     card = launched[str(dev)]
-    if (card["ssm_scan"] != 2 * cfg.n_layers or card["flash_attention_fma"] != 2 * cfg.n_layers
+    if (card["ssm_scan"] != 2 * cfg.n_layers or card["flash_attention_f32"] != 2 * cfg.n_layers
             or card["flash_attention"] != 0):
         fail(f"hymba_reference: card launches {card}")
     emit("hymba_reference", model=cfg.name, prompt=P, decode_steps=T, max_abs_err=err,
@@ -1780,7 +1896,7 @@ def _sample_runs(torch, dev, model_fn, sched, dc, B, runs, conds=None, seed=SEED
     from repro_torch.core.sequential import sequential_sample_batched
 
     counters = {k: v for k, v in _counters().items()
-                if k in ("grs", "flash_attention", "flash_attention_fma")}
+                if k in ("grs", "flash_attention", "flash_attention_f32")}
     K, n_layers = sched.K, dc.backbone.n_layers
     y0 = torch.zeros(B, dc.seq_len, dc.d_data, device=dev)
     out, launches_by_run = {}, {}
@@ -1791,10 +1907,13 @@ def _sample_runs(torch, dev, model_fn, sched, dc, B, runs, conds=None, seed=SEED
                                         generator=torch.Generator(device=dev).manual_seed(seed))
         torch.cuda.synchronize()
         seq_s = time.perf_counter() - t0
-        got = _launches(counters)
-        if got != {"grs": 0, "flash_attention": 0, "flash_attention_fma": n_layers * K}:
-            fail(f"sequential: launches {got}, expected {n_layers} x {K} FMA flash")
+        got, designs = _launches(counters), _f32_designs()
+        if (got != {"grs": 0, "flash_attention": 0, "flash_attention_f32": n_layers * K}
+                or designs["packed"] != n_layers * K):
+            fail(f"sequential: launches {got}, designs {designs}, expected {n_layers} x {K} "
+                 "float32 flash, packed")
         out["sequential"] = dict(depth=K, wall_s=seq_s, sample=seq, launches=got)
+        designs_by_run = {"sequential": designs}
         for name, theta, eager in runs:
             _zero_counters(torch, counters)
             t0 = time.perf_counter()
@@ -1803,12 +1922,13 @@ def _sample_runs(torch, dev, model_fn, sched, dc, B, runs, conds=None, seed=SEED
                                      device=dev, conds=conds)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            got = _launches(counters)
+            got, designs = _launches(counters), _f32_designs()
             loop_rounds = int(res.rounds.max())
             want = {"grs": loop_rounds, "flash_attention": 0,
-                    "flash_attention_fma": n_layers * 2 * loop_rounds}
-            if got != want:
-                fail(f"{name}: launches {got}, expected {want} for {loop_rounds} rounds")
+                    "flash_attention_f32": n_layers * 2 * loop_rounds}
+            if got != want or designs["packed"] != want["flash_attention_f32"]:
+                fail(f"{name}: launches {got}, designs {designs}, expected {want} for "
+                     f"{loop_rounds} rounds, packed")
             if not bool(torch.isfinite(res.sample).all()):
                 fail(f"{name}: samples not finite")
             depth = (res.rounds + res.head_calls).double()
@@ -1820,10 +1940,11 @@ def _sample_runs(torch, dev, model_fn, sched, dc, B, runs, conds=None, seed=SEED
                              speedup_vs_sequential_wall=seq_s / wall, sample=res.sample,
                              launches=got, launches_per_round={
                                  "grs": got["grs"] / loop_rounds,
-                                 "flash_attention_fma": got["flash_attention_fma"] / loop_rounds})
+                                 "flash_attention_f32": got["flash_attention_f32"] / loop_rounds})
             launches_by_run[name] = got
+            designs_by_run[name] = designs
         launches_by_run["sequential"] = out["sequential"]["launches"]
-    return out, launches_by_run
+    return out, launches_by_run, designs_by_run
 
 
 def _public(runs):
@@ -1847,14 +1968,16 @@ def run_standin_policy(torch, dev):
     conds = torch.from_numpy(data.batch_at(999)[1][:POLICY_CHAINS]).to(dev)
     runs = [(f"asd_theta{t}", t, False) for t in POLICY_THETAS] + [
         (f"asd_theta{POLICY_THETAS[-1]}_eager", POLICY_THETAS[-1], True)]
-    out, launches = _sample_runs(torch, dev, model_fn, sched, dc, POLICY_CHAINS, runs, conds)
+    out, launches, designs = _sample_runs(torch, dev, model_fn, sched, dc, POLICY_CHAINS,
+                                          runs, conds)
 
     episodes = POLICY_EPISODES
     obs = torch.from_numpy(data.batch_at(555)[1][:episodes]).to(dev)
-    succ_runs, succ_launches = _sample_runs(torch, dev, model_fn, sched, dc, episodes,
-                                            [("asd_theta24", 24, False)], obs,
-                                            seed=SEED + 10)
+    succ_runs, succ_launches, succ_designs = _sample_runs(
+        torch, dev, model_fn, sched, dc, episodes, [("asd_theta24", 24, False)], obs,
+        seed=SEED + 10)
     launches.update({f"success_{k}": v for k, v in succ_launches.items()})
+    designs.update({f"success_{k}": v for k, v in succ_designs.items()})
     success = {name: RobotReach.success(r["sample"] / T_MAX, obs).double().mean().item()
                for name, r in succ_runs.items()}
     emit("standin_policy", model=dc.backbone.name, layers=dc.backbone.n_layers,
@@ -1868,12 +1991,13 @@ def run_standin_policy(torch, dev):
          success_episodes=episodes, success_rate=success,
          success_runs={k: {f: r[f] for f in ("depth", "accept_rate", "wall_s")
                            if f in r} for k, r in succ_runs.items()})
-    return params, dc, {f"policy_{k}": v for k, v in launches.items()}
+    return (params, dc, {f"policy_{k}": v for k, v in launches.items()},
+            {f"policy_{k}": v for k, v in designs.items()})
 
 
 def run_standin_pixel(torch, dev):
-    """standin_pixel: the pixel stand-in (d 96 over 4 heads: B2's FMA kernel
-    at head dim 24) trained on the card, then ASD theta 8 and the sequential
+    """standin_pixel: the pixel stand-in (d 96 over 4 heads: B2's float32
+    kernel, packed design, at head dim 24) trained on the card, then ASD theta 8 and the sequential
     sampler at K 200 on 16 chains."""
     from repro_torch.core.schedules import sl_geometric
     from repro_torch.models.diffusion import make_sl_model_fn
@@ -1881,8 +2005,9 @@ def run_standin_pixel(torch, dev):
     params, dc, data, losses, train_s = train_standin(torch, dev, "pixel")
     K = PIXEL_K
     sched = sl_geometric(K, T_MIN, T_MAX)
-    out, launches = _sample_runs(torch, dev, make_sl_model_fn(params, dc), sched, dc,
-                                 PIXEL_CHAINS, [(f"asd_theta{PIXEL_THETA}", PIXEL_THETA, False)])
+    out, launches, designs = _sample_runs(
+        torch, dev, make_sl_model_fn(params, dc), sched, dc, PIXEL_CHAINS,
+        [(f"asd_theta{PIXEL_THETA}", PIXEL_THETA, False)])
     emit("standin_pixel", model=dc.backbone.name, layers=dc.backbone.n_layers,
          d_model=dc.backbone.d_model, heads=dc.backbone.n_heads,
          head_dim=dc.backbone.d_model // dc.backbone.n_heads, seq_len=dc.seq_len,
@@ -1890,7 +2015,8 @@ def run_standin_pixel(torch, dev):
          loss_first=losses[0], loss_last=losses[-1], train_wall_s=train_s,
          train_step_ms=train_s / len(losses) * 1e3, K=K, chains=PIXEL_CHAINS,
          schedule=f"sl_geometric({K}, {T_MIN}, {T_MAX})", runs=_public(out))
-    return {f"pixel_{k}": v for k, v in launches.items()}
+    return ({f"pixel_{k}": v for k, v in launches.items()},
+            {f"pixel_{k}": v for k, v in designs.items()})
 
 
 def check_standin_kernels(torch, dev):
@@ -1898,31 +2024,27 @@ def check_standin_kernels(torch, dev):
     the stand-ins' verification calls give them: the policy at theta 24 (8
     chains: 192 points of 16 tokens, 4 heads of 32; GRS rows of 16 x 2) and
     the pixel model at theta 8 (16 chains: 128 points of 64 tokens, 4 heads
-    of 24; rows of 64 x 24).  Times cold-cache as in phase 3; the library
-    call is SDPA in float32."""
+    of 24; rows of 64 x 24); B2 takes its packed design at both.  Times
+    cold-cache as in phase 3; the library call is SDPA in float32.  Returns
+    B2's numbers by stand-in for the kernels line."""
     from repro_torch.core.grs import grs as grs_plain
-    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_fma, flash_mha
     from repro_torch.kernels.grs.ops import grs
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    f32_rows = {}
     for kind, theta, chains in (("policy", POLICY_THETAS[-1], POLICY_CHAINS),
                                 ("pixel", PIXEL_THETA, PIXEL_CHAINS)):
         spec = STANDINS[kind]
         B, L, H = theta * chains, spec["seq_len"], spec["n_heads"]
         hd = spec["d_model"] // H
         q, k, v = _flash_inputs(torch, dev, B, L, L, H, hd, 31 + hd, torch.float32)
-        used, err = _fma_compare(torch, q, k, v, causal=False)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        times = kernel_times(lambda: flash_mha(q, k, v, causal=False),
-                             lambda: attention_plain(q, k, v, causal=False),
-                             lambda: sdpa(qt, kt, vt), wrapper=flash_fma)
-        flops = 4.0 * B * H * L * L * hd
-        bms, by = bound_ms(4.0 * B * L * H * hd * 4, flops, PEAK_F32)
-        emit("standin_kernels", kernel="flash_attention_fma", standin=kind,
-             shape=[B, L, H, hd], dtype="float32", causal=False, max_abs_err=err,
-             tolerance=FLASH_F32_TOLERANCE, tolerance_used=used, **times,
-             library="scaled_dot_product_attention (float32)", bound_ms=bms, bound_by=by,
-             tflops=_tflops(flops, times))
+        f32_rows[kind] = _f32_timed(torch, q, k, v, dict(causal=False),
+                                    lambda: sdpa(qt, kt, vt))
+        if f32_rows[kind]["design"] != "packed":
+            fail(f"standin_kernels: {kind} launched {f32_rows[kind]['design']}, not packed")
+        emit("standin_kernels", kernel="flash_attention_f32", standin=kind,
+             **f32_rows[kind], library="scaled_dot_product_attention (float32)")
         R, D = B, L * spec["d_data"]
         args = _grs_inputs(torch, dev, R, D, 41 + D)
         err, accepted = _grs_compare(torch, args)
@@ -1932,6 +2054,7 @@ def check_standin_kernels(torch, dev):
              accepted_rows=accepted, tolerance="z atol 1e-5; accept bits equal except "
              "rows within 1e-5 of the threshold", **times, bound_ms=bms, bound_by=by,
              geometry=_row_geometry(R, D))
+    return f32_rows
 
 
 def check_standin_reference(torch, dev, params, dc):
@@ -2035,7 +2158,7 @@ def main() -> None:
          load_seconds=time.perf_counter() - t0, library=info["path"])
 
     check_flash_identity_probe(torch, dev)
-    kernels = [check_grs(torch, dev), check_flash(torch, dev), check_flash_fma(torch, dev),
+    kernels = [check_grs(torch, dev), check_flash(torch, dev), check_flash_f32(torch, dev),
                *check_pack(torch, dev), *check_fused_round(torch, dev),
                check_ssm_scan(torch, dev)]
     asd_launches, flash_fn, sched, dc = run_slice(torch, dev)
@@ -2044,13 +2167,17 @@ def main() -> None:
     check_serve_reference(torch, dev)
     del flash_fn  # the denoiser's weights
     by_run.update(run_hymba(torch, dev))
-    by_run.update(check_hymba_f32(torch, dev))
+    hymba_f32_launches, designs_by_run = check_hymba_f32(torch, dev)
+    by_run.update(hymba_f32_launches)
     check_hymba_reference(torch, dev)
-    check_standin_kernels(torch, dev)
+    f32_standins = check_standin_kernels(torch, dev)
     run_train_full_width(torch, dev)
-    policy_params, policy_dc, policy_launches = run_standin_policy(torch, dev)
+    policy_params, policy_dc, policy_launches, policy_designs = run_standin_policy(torch, dev)
     by_run.update(policy_launches)
-    by_run.update(run_standin_pixel(torch, dev))
+    designs_by_run.update(policy_designs)
+    pixel_launches, pixel_designs = run_standin_pixel(torch, dev)
+    by_run.update(pixel_launches)
+    designs_by_run.update(pixel_designs)
     check_standin_reference(torch, dev, policy_params, policy_dc)
     for kern in kernels:
         per = {run: counts.get(kern["name"], 0) for run, counts in by_run.items()}
@@ -2058,6 +2185,15 @@ def main() -> None:
             fail(f"kernels: {kern['name']} was launched in no main-path run")
         kern["launches"] = sum(per.values())
         kern["launches_by_run"] = per
+        if kern["name"] == "flash_attention_f32":
+            # the tensor-core design on hymba_f32, the packed one on the stand-ins
+            by_design = {d: sum(r[d] for r in designs_by_run.values())
+                         for d in ("tensor_core", "packed")}
+            if not all(by_design.values()):
+                fail(f"kernels: flash_attention_f32 launches by design {by_design}")
+            kern["launches_by_design"] = by_design
+            kern["launches_by_design_by_run"] = designs_by_run
+            kern["at_shapes"].update(f32_standins)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

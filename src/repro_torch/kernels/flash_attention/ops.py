@@ -10,8 +10,14 @@ _flash_kernel``.  The dtype picks the kernel, explicitly:
   a tensor it cannot map: a base address or a batch, row or head stride
   that is not a multiple of 16 bytes, hd not a multiple of 8 or above 128,
   or a grid too large.
-- float32 goes to ``csrc/flash_attention.cu`` (``flash_fma``): float32
-  FMAs, the TPU kernel's arithmetic, for the float32 paths.
+- float32 goes to ``csrc/flash_attention.cu`` (``flash_f32``), in one of
+  two designs that ``f32_design`` picks by shape: ``"packed"`` where the
+  query and key counts are both at most 64 (a (batch, head) pair's whole
+  problem is one tile: several pairs a block, float32 FMAs), else
+  ``"tensor_core"`` (64-row query tiles, 3xTF32 ``mma.sync`` for both
+  products, which holds the float32 gate where one TF32 pass does not).
+  It reads q, k and v in place with 16-byte copies where every row starts
+  on a 16-byte boundary and 4-byte copies otherwise (``vec_loads``).
 
 The plain PyTorch version is ``attention_plain``.  ``flash_mha`` takes it
 only for tensors on the CPU; for CUDA tensors it launches a kernel or
@@ -20,7 +26,8 @@ so their output is cut from the autograd graph: for CUDA tensors
 ``flash_mha`` raises where autograd would record through it, instead of
 giving q, k and v a silent zero gradient (train through the naive core).
 ``flash_mha.launches`` counts the launches of both kernels;
-``flash_wgmma.launches`` and ``flash_fma.launches`` count each.
+``flash_wgmma.launches`` and ``flash_f32.launches`` count each, and
+``flash_f32.launches_by_design`` splits the float32 kernel's by design.
 """
 
 from __future__ import annotations
@@ -41,6 +48,12 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
 _TMA_ALIGN = 16
 _MAX_HD = 128
 _MAX_GRID_X, _MAX_GRID_Y, _BQ = 2 ** 31 - 1, 65535, 128
+# the float32 kernel's designs (the C entry's design argument is the index)
+# and the longest query and key counts the packed design takes; the tensor
+# core design's query tiles are 64 rows on grid y
+F32_DESIGNS = ("tensor_core", "packed")
+PACKED_MAX_SEQ = 64
+_BQ_F32 = 64
 
 
 def _mask(Lq: int, S: int, causal: bool, window: int, seq_k: int, device):
@@ -86,14 +99,15 @@ def _check(q, k, v, true_seq_k):
         raise ValueError(f"flash kernel: true_seq_k {true_seq_k} outside (0, {S}]")
 
 
-def _launch(entry, q, k, v, strides, causal, window, softcap, true_seq_k):
+def _launch(entry, q, k, v, strides, causal, window, softcap, true_seq_k, *extra):
     B, Lq, H, hd = q.shape
     o = torch.empty((B, Lq, H, hd), dtype=q.dtype, device=q.device)
-    fn = _build.function(entry, _ARGTYPES)
+    fn = _build.function(entry, _ARGTYPES[:-1] + [ctypes.c_int] * len(extra)
+                         + _ARGTYPES[-1:])
     strides = strides + [o.stride(i) for i in (0, 1, 2)]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Lq,
              k.shape[1], hd, *strides, int(causal), int(window), float(softcap),
-             int(true_seq_k), torch.cuda.current_stream(q.device).cuda_stream)
+             int(true_seq_k), *extra, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, f"flash attention kernel launch ({entry})")
     flash_mha.launches += 1
     return o
@@ -135,20 +149,42 @@ def flash_wgmma(q, k, v, *, causal: bool, window: int, softcap: float,
     return o
 
 
-def flash_fma(q, k, v, *, causal: bool, window: int, softcap: float,
+def f32_design(Lq: int, S: int) -> str:
+    """The float32 kernel's design for Lq query and S key rows: "packed"
+    where both are at most PACKED_MAX_SEQ, else "tensor_core"."""
+    return "packed" if Lq <= PACKED_MAX_SEQ and S <= PACKED_MAX_SEQ else "tensor_core"
+
+
+def vec_loads(q, k, v) -> bool:
+    """Whether the float32 kernel may copy q, k and v in 16-byte pieces:
+    hd a multiple of 4 and every base address and stepped batch, row and
+    head stride a multiple of 16 bytes."""
+    if q.shape[-1] % 4:
+        return False
+    return all(t.data_ptr() % 16 == 0
+               and all(t.stride(i) % 4 == 0 for i in (0, 1, 2) if t.shape[i] > 1)
+               for t in (q, k, v))
+
+
+def flash_f32(q, k, v, *, causal: bool, window: int, softcap: float,
               true_seq_k: int):
-    """The float32 kernel (FMAs) on CUDA tensors q (B, Lq, H, hd), k, v
-    (B, S, H, hd), each with a contiguous last axis."""
+    """The float32 kernel on CUDA tensors q (B, Lq, H, hd), k, v (B, S, H,
+    hd), each with a contiguous last axis, in the design ``f32_design``
+    picks."""
     _check(q, k, v, true_seq_k)
     B, Lq, H, hd = q.shape
     if q.dtype != torch.float32:
-        raise ValueError(f"flash fma kernel: takes float32, not {q.dtype}")
-    if hd > 128 or B * H > 65535:
-        raise ValueError(f"flash fma kernel: hd {hd} > 128 or B*H {B * H} > 65535")
+        raise ValueError(f"flash f32 kernel: takes float32, not {q.dtype}")
+    if hd > _MAX_HD:
+        raise ValueError(f"flash f32 kernel: hd {hd} > {_MAX_HD}")
+    design = f32_design(Lq, k.shape[1])
+    if B * H > _MAX_GRID_X or (design == "tensor_core" and -(-Lq // _BQ_F32) > _MAX_GRID_Y):
+        raise ValueError(f"flash f32 kernel: B*H {B * H} or Lq {Lq} over the grid limit")
     strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
-    o = _launch("repro_flash_attention_fma", q, k, v, strides, causal, window, softcap,
-                true_seq_k)
-    flash_fma.launches += 1
+    o = _launch("repro_flash_attention_f32", q, k, v, strides, causal, window, softcap,
+                true_seq_k, F32_DESIGNS.index(design), int(vec_loads(q, k, v)))
+    flash_f32.launches += 1
+    flash_f32.launches_by_design[design] += 1
     return o
 
 
@@ -163,14 +199,15 @@ def wgmma_launch_info(hd: int) -> dict:
                     (v.value for v in out)))
 
 
-_KERNELS = {torch.bfloat16: flash_wgmma, torch.float32: flash_fma}
+_KERNELS = {torch.bfloat16: flash_wgmma, torch.float32: flash_f32}
 
 
 def flash_mha(q, k, v, *, causal: bool = True, window: int = 0,
               softcap: float = 0.0, true_seq_k: int | None = None):
     """q: (B, Lq, H, hd); k, v: (B, S, H, hd) (KV already head-repeated).
     Returns (B, Lq, H, hd): the plain version on the CPU; on the card the
-    wgmma kernel for bfloat16, the FMA kernel for float32."""
+    wgmma kernel for bfloat16, the float32 kernel (``flash_f32``) for
+    float32."""
     seq_k = k.shape[1] if true_seq_k is None else int(true_seq_k)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
@@ -190,5 +227,6 @@ def flash_mha(q, k, v, *, causal: bool = True, window: int = 0,
 
 flash_mha.launches = 0
 flash_wgmma.launches = 0
-flash_fma.launches = 0
+flash_f32.launches = 0
+flash_f32.launches_by_design = dict.fromkeys(F32_DESIGNS, 0)
 

@@ -16,8 +16,8 @@ from repro_torch.configs.registry import get_config, paper_diffusion_policy_smok
 from repro_torch.core import asd as t_asd
 from repro_torch.core import schedules as t_sch
 from repro_torch.core.grs import grs as grs_plain
-from repro_torch.kernels.flash_attention.ops import (attention_plain, flash_fma, flash_mha,
-                                                      flash_wgmma)
+from repro_torch.kernels.flash_attention.ops import (attention_plain, f32_design, flash_f32,
+                                                      flash_mha, flash_wgmma)
 from repro_torch.kernels.grs.ops import grs, grs_cuda
 from repro_torch.kernels.pack import ops as pack_ops
 from repro_torch.kernels.ssm_scan.ops import linear_scan, ssm_scan_plain
@@ -125,7 +125,9 @@ def test_flash_kernel_matches_plain(dev, dtype, B, L, S, H, hd, causal, window, 
     _assert_flash_close(ok, op)
 
 
-# float32 (the FMA kernel): both sum in float32 in other orders.  bfloat16
+# float32 (flash_f32: float32 FMAs in the packed design, 3xTF32 products on
+# the tensor cores, which keep ~2^-21 of each product): both sum in float32
+# in other orders.  bfloat16
 # (the wgmma kernel): both compute in float32 and round the output to bf16
 # once, so an element moves by at most one bf16 ulp (2^-7 of its size), plus
 # 1e-4 for float32 sums in other orders near zero: chip_smoke.py's gate.
@@ -197,10 +199,10 @@ def test_flash_wgmma_refuses_what_tma_cannot_map(dev):
 
 
 def test_flash_counts_one_launch_per_kernel(dev):
-    """bfloat16 launches the wgmma kernel and float32 the FMA kernel, each
-    once, and both count in flash_mha.launches."""
-    for dtype, kernel, other in ((torch.bfloat16, flash_wgmma, flash_fma),
-                                 (torch.float32, flash_fma, flash_wgmma)):
+    """bfloat16 launches the wgmma kernel and float32 the float32 kernel,
+    each once, and both count in flash_mha.launches."""
+    for dtype, kernel, other in ((torch.bfloat16, flash_wgmma, flash_f32),
+                                 (torch.float32, flash_f32, flash_wgmma)):
         q, k, v = _flash_inputs(dev, dtype, 1, 64, 64, 2, 64, 3)
         counts = (flash_mha.launches, kernel.launches, other.launches)
         flash_mha(q, k, v, causal=True)
@@ -216,6 +218,90 @@ def test_flash_kernel_reads_strided_heads_in_place(dev):
     torch.testing.assert_close(flash_mha(q, k, v, causal=False),
                                attention_plain(q, k, v, causal=False),
                                atol=2e-5, rtol=2e-5)
+
+
+# ---- B2's float32 kernel: the tensor-core design (3xTF32 mma.sync) and the
+# packed design ((batch, head) pairs packed into blocks, float32 FMAs)
+
+
+def _f32_launch(q, k, v, design, **opts):
+    """flash_mha on float32 inputs, checking that exactly one launch of
+    ``design`` ran; returns the kernel's output."""
+    before = dict(flash_f32.launches_by_design)
+    n = flash_f32.launches
+    ok = flash_mha(q, k, v, **opts)
+    torch.cuda.synchronize()
+    after = dict(before, **{design: before[design] + 1})
+    assert (flash_f32.launches, flash_f32.launches_by_design) == (n + 1, after)
+    return ok
+
+
+# the main paths' shapes: hymba_f32's prefill and forward (batch 1 of 2),
+# the policy and pixel stand-ins' verify calls
+@pytest.mark.parametrize("B,L,H,hd,causal,window,design", [
+    (1, 4096, 25, 64, True, 1024, "tensor_core"),
+    (1, 4112, 25, 64, True, 0, "tensor_core"),
+    (192, 16, 4, 32, False, 0, "packed"),
+    (128, 64, 4, 24, False, 0, "packed"),
+])
+def test_flash_f32_at_the_main_path_shapes(dev, B, L, H, hd, causal, window, design):
+    q, k, v = _flash_inputs(dev, torch.float32, B, L, L, H, hd, L + hd)
+    ok = _f32_launch(q, k, v, design, causal=causal, window=window)
+    _assert_flash_close(ok, attention_plain(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L,S", [(64, 63), (64, 64), (64, 65), (63, 64), (65, 64), (40, 63)])
+def test_flash_f32_design_boundary(dev, L, S, causal):
+    """Query and key counts on both sides of the packed design's limit of 64:
+    each goes to the design tests/test_torch_flash_f32_design.py expects."""
+    design = "packed" if L <= 64 and S <= 64 else "tensor_core"
+    assert f32_design(L, S) == design
+    q, k, v = _flash_inputs(dev, torch.float32, 3, L, S, 3, 32, 11 * L + S)
+    opts = dict(causal=causal)
+    _assert_flash_close(_f32_launch(q, k, v, design, **opts),
+                        attention_plain(q, k, v, **opts))
+
+
+@pytest.mark.parametrize("opts", [
+    dict(causal=False), dict(causal=True), dict(causal=True, window=13),
+    dict(causal=False, softcap=4.0), dict(causal=False, true_seq_k=29),
+], ids=["full", "causal", "window", "softcap", "true_seq_k"])
+@pytest.mark.parametrize("L,design", [(40, "packed"), (150, "tensor_core")])
+@pytest.mark.parametrize("hd", [16, 24, 32, 72, 128])
+def test_flash_f32_head_dims_and_options(dev, hd, L, design, opts):
+    q, k, v = _flash_inputs(dev, torch.float32, 2, L, L, 3, hd, hd * L)
+    _assert_flash_close(_f32_launch(q, k, v, design, **opts),
+                        attention_plain(q, k, v, **opts))
+
+
+@pytest.mark.parametrize("L,design", [(50, "packed"), (130, "tensor_core")])
+def test_flash_f32_reads_strided_and_misaligned_views(dev, L, design):
+    """Views of one qkv projection (16-byte copies), the same one float into
+    its storage and a head dim of 18 (4-byte copies): each read in place."""
+    g = torch.Generator(device=dev).manual_seed(L)
+    qkv = torch.randn(2, L, 3, 4, 32, generator=g, device=dev)
+    flat = torch.empty(qkv.numel() + 1, device=dev)
+    shifted = flat[1:].view(qkv.shape)
+    shifted.copy_(qkv)
+    odd = torch.randn(2, L, 3, 4, 18, generator=g, device=dev)
+    for src in (qkv, shifted, odd):
+        q, k, v = src[:, :, 0], src[:, :, 1], src[:, :, 2]
+        assert not q.is_contiguous()
+        for opts in (dict(causal=False), dict(causal=True, window=17)):
+            _assert_flash_close(_f32_launch(q, k, v, design, **opts),
+                                attention_plain(q, k, v, **opts))
+
+
+def test_flash_f32_refuses_what_it_does_not_take(dev):
+    q, k, v = _flash_inputs(dev, torch.float32, 1, 32, 32, 2, 136, 0)
+    before = flash_f32.launches
+    with pytest.raises(ValueError):
+        flash_mha(q, k, v, causal=False)
+    with pytest.raises(ValueError):
+        flash_f32(q.double(), k.double(), v.double(), causal=False, window=0, softcap=0.0,
+                  true_seq_k=32)
+    assert flash_f32.launches == before
 
 
 def test_smoke_slice_on_card_matches_cpu(dev):
