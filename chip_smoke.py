@@ -44,11 +44,41 @@ Phases, each printing one JSON line and raising on any failure:
               4 rounds a superstep), once with round_impl "packed" and once
               "fused" on the same per-request noise: launch counts of every
               kernel per round, equal counters and samples in the two runs;
-              then one superstep of each round_impl profiled and one run
-              with host syncs made errors.
+              then one superstep of each round_impl profiled, and one of
+              each (in buffer and in counter noise, and an unpacked one in
+              counter noise) with host syncs made errors.
      serve_reference
               the same engine on a small denoiser, on the card and on the
               CPU with the same noise, in both round_impls.
+     prng     the port's threefry (``core/prng.py``) on the card against the
+              CPU: keys, splits, folds, bits and uniforms equal, normals
+              within ``NORMAL_ULPS``, at paper-pixel-dit's event and at 1, 5
+              and 4097 elements; one round's counter window (4 slots,
+              theta 8) timed.
+     serve_counter_memory
+              paper-pixel-dit through the serve CLI's engine (counter
+              noise) in counter and in buffer mode: 6 requests at K 64
+              (round wall ms, one profiled round), then 4 requests admitted
+              at K 1000 and 2 supersteps: peak device memory, counter mode
+              at least 90 % of the buffers' bytes below buffer mode.
+     cli_kernels
+              B1 and B2 (bf16) against their plain versions at the serve
+              CLI's shapes (GRS rows of 224 floats; attention over 36
+              points of 16 tokens, 8 heads of 64), timed as in phase 3.
+     serve_cli
+              ``repro_torch.launch.serve.main`` at the CLI's defaults
+              (paper-diffusion-policy at full width, 8 requests, 4 slots,
+              theta 8, K 100) and each variant (the fused engine, packed
+              rounds with budget 24 in both round_impls, aimd and
+              accept-rate, R 4, the metrics endpoint, the trace, a
+              profile with the device's idle share): launches of every
+              kernel per round, finite samples.
+     serve_keys_reference
+              the counter-noise engine on a small denoiser, on the card
+              and on the CPU from the same keys (keyed and unkeyed
+              requests, static and aimd): counters equal, samples within
+              2e-3; a planted fault (one xi draw off by one step) must
+              exceed that.
   6. hymba    the full-width ``hymba-1.5b`` LM (random weights from a seed):
               ``lm_prefill`` of 2 prompts of 4096 tokens into caches of
               4112, 16 greedy ``lm_decode_step`` calls, then ``lm_fwd`` on
@@ -1196,7 +1226,8 @@ def _serve_requests(torch, dev, dc, k, theta, n, seed):
 def run_serve(torch, dev, model_fn, sched, dc):
     """pixel-dit-serve: ContinuousASDEngine, packed execution, in both
     round_impls on the same requests."""
-    from repro_torch.core.asd import init_chain_state
+    from repro_torch.core import prng
+    from repro_torch.core.asd import asd_superstep, init_chain_state
     from repro_torch.serving.engine import ContinuousASDEngine
     from repro_torch.serving.packing import WaterfillingAllocator, packed_superstep
 
@@ -1254,25 +1285,35 @@ def run_serve(torch, dev, model_fn, sched, dc):
     emit("serve_parity", max_abs_err=err, tolerance="equal bits and equal counters",
          requests=REQUESTS)
 
-    # one superstep of each round_impl with every host sync an error
+    # one superstep of each round_impl, and in counter noise of the unpacked
+    # round too, with every host sync an error
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    keys = prng.split(prng.PRNGKey(SEED + 7), SLOTS).to(dev)
     sched_dev = sched.to(dev)
-    for impl in ("packed", "fused"):
+    for mode, impl in (("buffer", "packed"), ("buffer", "fused"), ("counter", "packed"),
+                       ("counter", "fused"), ("counter", "unpacked")):
         st = init_chain_state(sched_dev, torch.zeros((SLOTS,) + event, device=dev),
-                              THETA, False, generator=g)
+                              THETA, False, generator=g, noise_mode=mode,
+                              key=keys if mode == "counter" else None)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             with torch.no_grad():
-                packed_superstep(model_fn, sched_dev, st, None,
-                                 torch.ones(SLOTS, device=dev), rounds=RPS, theta=THETA,
-                                 budget=BUDGET,
-                                 allocator=WaterfillingAllocator(theta_max=THETA),
-                                 round_impl=impl)
+                if impl == "unpacked":
+                    asd_superstep(model_fn, sched_dev, st, THETA, RPS, eager_head=True,
+                                  keep_trajectory=False, noise_mode=mode)
+                else:
+                    packed_superstep(model_fn, sched_dev, st, None,
+                                     torch.ones(SLOTS, device=dev), rounds=RPS, theta=THETA,
+                                     budget=BUDGET,
+                                     allocator=WaterfillingAllocator(theta_max=THETA),
+                                     round_impl=impl, noise_mode=mode)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-    emit("serve_no_host_sync", rounds=RPS, round_impls=["packed", "fused"],
+    emit("serve_no_host_sync", rounds=RPS,
+         supersteps=["buffer packed", "buffer fused", "counter packed", "counter fused",
+                     "counter unpacked"],
          note="one superstep each under torch.cuda.set_sync_debug_mode('error')")
 
     # one warm superstep of the engine under the profiler, per round_impl
@@ -1334,6 +1375,365 @@ def check_serve_reference(torch, dev):
         emit("serve_reference", round_impl=impl, model=dc.backbone.name, K=k, theta=theta,
              slots=slots, requests=n, round_budget=5, max_abs_err=err, tolerance=2e-3,
              accepts=accepts, proposals=proposals)
+
+
+# ---------------------------------------------------------------- phase 5b
+# counter noise, the serve CLI and its engine
+
+
+PRNG_SHAPES = {"pixel_event": (1024, 192), "1": (1,), "5": (5,), "4097": (4097,)}
+
+
+def _ulps(torch, a, b):
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+def check_prng(torch, dev):
+    """The port's threefry on the card against the CPU for a batch of keys:
+    keys, splits, folds, bits and uniforms equal bit for bit, normals within
+    ``prng.NORMAL_ULPS``; then one round's counter window at paper-pixel-dit
+    (4 slots x theta 8 x (1024, 192)): card against CPU, and its time."""
+    from repro_torch.core import prng
+    from repro_torch.core.asd import _noise_window, init_chain_state
+    from repro_torch.core.schedules import sl_geometric
+
+    keys = prng.split(prng.PRNGKey(SEED + 11), SLOTS)
+    normal_ulps = {}
+    for name, shape in PRNG_SHAPES.items():
+        for what, fn in (("split", lambda k: prng.split(k, 4)),
+                         ("fold_in", lambda k: prng.fold_in(k, 2**31 + 5)),
+                         ("random_bits", lambda k, s=shape: prng.random_bits(k, s))):
+            if not torch.equal(fn(keys.to(dev)).cpu(), fn(keys)):
+                fail(f"prng: {what} at {shape} differs between card and CPU")
+        u_card, u_cpu = prng.uniform(keys.to(dev), shape).cpu(), prng.uniform(keys, shape)
+        if not torch.equal(u_card.view(torch.int32), u_cpu.view(torch.int32)):
+            fail(f"prng: uniform at {shape} differs between card and CPU")
+        normal_ulps[name] = _ulps(torch, prng.normal(keys.to(dev), shape).cpu(),
+                                  prng.normal(keys, shape))
+    event = PRNG_SHAPES["pixel_event"]
+    sched = sl_geometric(K, t_min=0.05, t_max=50.0)
+    states = {}
+    for where in ("cpu", dev):
+        states[str(where)] = init_chain_state(
+            sched.to(where), torch.zeros((SLOTS,) + event, device=where), THETA, False,
+            key=keys.to(where), noise_mode="counter")
+        states[str(where)].a.copy_(torch.tensor([0, 9, 31, 56]))
+    (u_cpu, xi_cpu) = _noise_window(states["cpu"], THETA, "counter")
+    (u_card, xi_card) = _noise_window(states[str(dev)], THETA, "counter")
+    if not torch.equal(u_card.cpu().view(torch.int32), u_cpu.view(torch.int32)):
+        fail("prng: the counter window's uniforms differ between card and CPU")
+    normal_ulps["window"] = _ulps(torch, xi_card.cpu(), xi_cpu)
+    if max(normal_ulps.values()) > prng.NORMAL_ULPS:
+        fail(f"prng: normals {normal_ulps} ulps from the CPU's, bound {prng.NORMAL_ULPS}")
+    st = states[str(dev)]
+    window = lambda: _noise_window(st, THETA, "counter")  # noqa: E731
+    ms = cold_ms(window, reps=10)
+    dev_ms, lost = device_ms(window, reps=5)
+    n = SLOTS * THETA * math.prod(event)
+    emit("prng", shapes={k: list(v) for k, v in PRNG_SHAPES.items()}, keys=SLOTS,
+         equal_bits=["split", "fold_in", "random_bits", "uniform"],
+         normal_max_ulps=normal_ulps, normal_ulp_bound=prng.NORMAL_ULPS,
+         window_shape=[SLOTS, THETA, *event], window_elements=n, window_ms=ms,
+         window_device_ms=dev_ms, window_device_records_lost=lost,
+         note="one round's counter window (u and xi of theta steps of every slot), "
+              "plain torch ops; each call after an L2 flush")
+    return dev_ms
+
+
+def check_cli_kernels(torch, dev):
+    """B1 and B2 (bf16, the wgmma kernel) against their plain versions at
+    the shapes the serve CLI's default model gives them: GRS rows of 4 slots
+    x theta 8 at D = 16 x 14 = 224 (one block a row), and the unpacked
+    verification call's attention, 4 slots x (theta 8 + the eager head) =
+    36 points of 16 tokens, 8 heads of 64 (one 128-row tile at 12.5 %).
+    Times cold-cache as in phase 3; the library call is SDPA (bf16)."""
+    from repro_torch.configs.registry import get_denoiser_config
+    from repro_torch.core.grs import grs as grs_plain
+    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha, flash_wgmma
+    from repro_torch.kernels.grs.ops import grs
+
+    dc = get_denoiser_config("paper-diffusion-policy")
+    cfg = dc.backbone
+    R, D = SLOTS * THETA, dc.seq_len * dc.d_data
+    args = _grs_inputs(torch, dev, R, D, 51)
+    err, accepted = _grs_compare(torch, args)
+    times = kernel_times(lambda: grs(*args), lambda: grs_plain(*args), wrapper=grs)
+    bms, by = _grs_bound(R, D)
+    out = {"grs": dict(shape=[R, D], max_abs_err=err, **times, bound_ms=bms, bound_by=by,
+                       geometry=_row_geometry(R, D))}
+    emit("cli_kernels", kernel="grs", accepted_rows=accepted, **out["grs"])
+    B, L, H, hd = SLOTS * (THETA + 1), dc.seq_len, cfg.n_heads, cfg.d_model // cfg.n_heads
+    q, k, v = _flash_inputs(torch, dev, B, L, L, H, hd, 52)
+    ok = flash_mha(q, k, v, causal=False)
+    op = attention_plain(q, k, v, causal=False)
+    used = _flash_tolerance_used(ok, op)
+    if not used <= 1.0:
+        fail(f"cli_kernels: B2 used {used} of the tolerance at {(B, L, H, hd)}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = kernel_times(lambda: flash_mha(q, k, v, causal=False),
+                         lambda: attention_plain(q, k, v, causal=False),
+                         lambda: sdpa(qt, kt, vt), wrapper=flash_wgmma)
+    bms, by = bound_ms(4.0 * B * L * H * hd * 2, 4.0 * B * H * L * L * hd, PEAK_BF16)
+    out["flash_attention"] = dict(shape=[B, L, H, hd], dtype="bfloat16",
+                                  max_abs_err=(ok.float() - op.float()).abs().max().item(),
+                                  tolerance_used=used, **times, bound_ms=bms, bound_by=by,
+                                  library="scaled_dot_product_attention")
+    emit("cli_kernels", kernel="flash_attention", **out["flash_attention"])
+    return out
+
+
+# launches of each kernel per round on the serve CLI's default model (bf16,
+# so B2 is the wgmma kernel): unpacked rounds and the fused engine run B1 and
+# B2 only; the packed round adds B3 and B4, the fused round B5 and B6
+def _cli_per_round(n_layers, round_impl):
+    flash = {"flash_attention": 2 * n_layers}
+    if round_impl == "packed":
+        return {**flash, "grs": 1, "gather_rows": 3, "scatter_rows": 1}
+    if round_impl == "fused":
+        return {**flash, "fused_gather": 1, "fused_verify_commit": 1}
+    return {**flash, "grs": 1}
+
+
+SERVE_CLI_PROFILE = 8  # warm supersteps under torch.profiler
+SERVE_CLI_REQUESTS = 8  # the CLI's default --chains
+SERVE_CLI_RUNS = (
+    ("default", []),
+    ("engine_fused", ["--engine", "fused"]),
+    ("packed", ["--execution", "packed", "--round-budget", "24", "--round-impl", "packed"]),
+    ("packed_fused_round", ["--execution", "packed", "--round-budget", "24",
+                            "--round-impl", "fused"]),
+    ("aimd", ["--theta-controller", "aimd"]),
+    ("accept_rate", ["--theta-controller", "accept-rate"]),
+    ("rounds_per_sync_4", ["--rounds-per-sync", "4"]),
+    ("metrics", ["--metrics-port", "0"]),
+    ("trace", ["--trace-out", str(ROOT / "build" / "serve_cli_trace.json")]),
+    ("profile", ["--profile-supersteps", str(SERVE_CLI_PROFILE),
+                 "--profile-dir", str(ROOT / "build" / "serve_cli_profile")]),
+)
+
+
+def run_serve_cli(torch, dev):
+    """``repro_torch.launch.serve.main`` on the card at the CLI's defaults
+    (paper-diffusion-policy at full width, 8 requests, 4 slots, theta 8,
+    K 100, continuous, unpacked, counter noise), then each variant: the
+    launches of every kernel per round, finite samples, and the summary."""
+    from repro_torch.configs.registry import get_denoiser_config
+    from repro_torch.launch import serve
+
+    n_layers = get_denoiser_config("paper-diffusion-policy").backbone.n_layers
+    counters = _counters()
+    by_run = {}
+    for name, argv in SERVE_CLI_RUNS:
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        summary = serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches(counters)
+        impl = (None if "--execution" not in argv
+                else argv[argv.index("--round-impl") + 1])
+        rounds = summary["rounds_total"]
+        want = {k: 0 for k in launches}
+        want.update({k: n * rounds for k, n in _cli_per_round(n_layers, impl).items()})
+        if launches != want:
+            fail(f"serve_cli {name}: launches {launches}, expected {want} for {rounds} rounds")
+        if not summary["finite"]:
+            fail(f"serve_cli {name}: samples not finite")
+        extra = {}
+        if name == "metrics":
+            if summary["metrics"]["healthz"] != "ok" or summary["metrics"]["samples"] < 10:
+                fail(f"serve_cli metrics: self-scrape {summary['metrics']}")
+            extra["metrics"] = summary["metrics"]
+        if name == "trace":
+            extra["trace"] = summary["trace"]
+        if name == "profile":
+            prof = summary["profile"]
+            if prof["device_idle_share"] is None or prof["supersteps"] != SERVE_CLI_PROFILE:
+                fail(f"serve_cli profile: {prof}")
+            extra["profile"] = prof
+        # the requests the timed serve answered over its wall (a profiled
+        # run's warm pool retires outside it but lands in the engine's stats)
+        emit("serve_cli", variant=name, argv=argv, model="paper-diffusion-policy",
+             samples_per_s=SERVE_CLI_REQUESTS / summary["wall_time_s"],
+             accept_rate=summary["accept_rate"],
+             mean_live_window=summary["mean_window"], rounds=rounds,
+             supersteps=summary.get("supersteps"), wall_s=wall,
+             serve_wall_s=summary["wall_time_s"], launches=launches, **extra)
+        by_run[f"serve_cli_{name}"] = launches
+    return by_run
+
+
+# the K 1000 cell's buffers: xi of (K + theta + 1) steps a slot, float32
+MEMORY_K = 1000
+
+
+def run_serve_counter_memory(torch, dev, model_fn, dc, window_device_ms):
+    """paper-pixel-dit through the serve CLI's engine (counter noise, eager
+    head, live window) at 4 slots and theta 8, in counter and in buffer
+    mode: 6 requests to completion at K 64 (round wall ms), one warm round
+    profiled (the counter window's share of its busy time), then 4 requests
+    admitted at K 1000 and 2 supersteps run: peak device memory.  Counter
+    mode's peak must lie below buffer mode's by 90 % of the buffers' bytes."""
+    import gc
+
+    from repro_torch.core import prng
+    from repro_torch.core.schedules import sl_geometric
+    from repro_torch.serving.engine import ContinuousASDEngine, Request
+
+    counters = _counters()
+    event = (dc.seq_len, dc.d_data)
+    by_run, walls = {}, {}
+
+    def engine(k, mode):
+        return ContinuousASDEngine(model_fn, sl_geometric(k, t_min=0.05, t_max=50.0), event,
+                                   num_slots=SLOTS, theta=THETA, eager_head=True,
+                                   noise_mode=mode, keep_trajectory=False, device=dev)
+
+    for mode in ("counter", "buffer"):
+        eng = engine(K, mode)
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        out = eng.serve([Request(i, key=prng.PRNGKey(1000 + i)) for i in range(REQUESTS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if sorted(out) != list(range(REQUESTS)) or not all(
+                np.isfinite(v).all() and v.shape == event for v in out.values()):
+            fail(f"serve_counter_memory {mode}: samples missing, misshapen or not finite")
+        rounds = eng.stats.rounds_total
+        launches = _launches(counters)
+        per = _cli_per_round(dc.backbone.n_layers, None)
+        if any(launches[k] != n * rounds for k, n in per.items()):
+            fail(f"serve_counter_memory {mode}: launches {launches} for {rounds} rounds")
+        walls[mode] = wall / rounds * 1e3
+        by_run[f"serve_{mode}_k{K}"] = launches
+        extra = {}
+        if mode == "counter":
+            for r in range(SLOTS):
+                eng.submit(Request(100 + r, key=prng.PRNGKey(3000 + r)))
+            eng.step()
+            torch.cuda.synchronize()
+            wall_ms, kernels = _profiled(torch, eng.step)
+            busy = sum(ms for _, ms, _ in kernels)
+            extra = dict(profiled_round_wall_ms=wall_ms, profiled_round_busy_ms=busy,
+                         counter_window_device_ms=window_device_ms,
+                         counter_window_share_of_busy=(window_device_ms / busy
+                                                       if busy and window_device_ms else None))
+        emit("serve_counter_memory", K=K, noise_mode=mode, requests=REQUESTS, slots=SLOTS,
+             theta=THETA, rounds=rounds, supersteps=eng.stats.supersteps, wall_s=wall,
+             round_wall_ms=walls[mode], samples_per_s=REQUESTS / wall,
+             accept_rate=eng.stats.accept_rate(), launches=launches, **extra)
+        del eng, out
+    peaks = {}
+    for mode in ("counter", "buffer"):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = engine(MEMORY_K, mode)
+        for i in range(SLOTS):
+            eng.submit(Request(i, key=prng.PRNGKey(2000 + i)))
+        eng.step()
+        eng.step()
+        torch.cuda.synchronize()
+        peaks[mode] = torch.cuda.max_memory_allocated() - base
+        held = torch.cuda.memory_allocated() - base
+        if eng.stats.supersteps != 2 or eng.scheduler.queue_depth:
+            fail(f"serve_counter_memory K {MEMORY_K} {mode}: not all admitted in 2 supersteps")
+        emit("serve_counter_memory", K=MEMORY_K, noise_mode=mode, slots=SLOTS, theta=THETA,
+             admitted=SLOTS, supersteps=2, peak_bytes_above_weights=peaks[mode],
+             held_bytes_after=held, weights_bytes=base)
+        del eng
+    buffers = SLOTS * (MEMORY_K + THETA + 1) * math.prod(event) * 4
+    saved = peaks["buffer"] - peaks["counter"]
+    if saved < 0.9 * buffers:
+        fail(f"serve_counter_memory: counter mode saves {saved} bytes of peak, less than "
+             f"90 % of the buffers' {buffers}")
+    emit("serve_counter_memory_check", K=MEMORY_K, buffers_bytes=buffers, saved_bytes=saved,
+         gate="saved >= 0.9 x buffers", counter_peak=peaks["counter"],
+         buffer_peak=peaks["buffer"], round_wall_ms_k64=walls)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_run
+
+
+SERVE_KEYS_TOL = 2e-3  # as serve_reference: float32 sums in other orders, chained
+_FAULT_STEP = 3  # the planted fault draws this step's xi from the next step's key
+
+
+def _off_by_one_step(torch, window):
+    """A counter window whose xi of absolute step _FAULT_STEP is drawn one
+    step late: the planted fault serve_keys_reference must see."""
+    def faulty(st, theta, noise_mode):
+        u, xi = window(st, theta, noise_mode)
+        _, xi_late = window(dataclasses.replace(st, a=st.a + 1), theta, noise_mode)
+        hit = st.a[:, None] + torch.arange(theta, device=st.a.device) == _FAULT_STEP
+        return u, torch.where(hit.reshape(hit.shape + (1,) * (xi.ndim - 2)), xi_late, xi)
+    return faulty
+
+
+def check_serve_keys_reference(torch, dev):
+    """The engine with counter noise on the smoke denoiser, on the card and
+    on the CPU, from the same serve key and rids (odd ones keyed, even ones
+    by fold_in(serve key, rid)), with the static and the aimd controller:
+    per-request counters equal, samples within SERVE_KEYS_TOL; a planted
+    fault (one xi draw off by one step) must exceed it."""
+    from repro_torch.configs.registry import paper_diffusion_policy_smoke
+    from repro_torch.core import asd, prng
+    from repro_torch.core.controller import make_controller
+    from repro_torch.core.schedules import sl_geometric
+    from repro_torch.models.diffusion import make_sl_model_fn
+    from repro_torch.serving.engine import ContinuousASDEngine, Request
+    from repro_torch.weights import init_denoiser_params
+
+    dc = paper_diffusion_policy_smoke()
+    k, theta, slots, n = 16, 4, 3, 5
+    sched = sl_geometric(k, 0.05, 50.0)
+    configs = {"static": dict(rounds_per_sync=2),
+               "aimd": dict(execution="packed", round_impl="fused", round_budget=5,
+                            rounds_per_sync=2)}
+
+    def serve(where, ctl):
+        fn = make_sl_model_fn(init_denoiser_params(dc, SEED, out_scale=1.0, device=where), dc)
+        eng = ContinuousASDEngine(fn, sched, (dc.seq_len, dc.d_data), num_slots=slots,
+                                  theta=theta, noise_mode="counter", seed=SEED + 5,
+                                  controller=make_controller(ctl), device=where,
+                                  **configs[ctl])
+        out = eng.serve([Request(i, key=prng.PRNGKey(1000 + i) if i % 2 else None)
+                         for i in range(n)])
+        return out, {m.rid: (m.rounds, m.head_calls, m.model_evals, m.accepts, m.proposals)
+                     for m in eng.stats.per_request}
+
+    def error(a, b):
+        if a[1] != b[1]:
+            return math.inf  # counters differ
+        return max(float(np.abs(a[0][r] - b[0][r]).max()) for r in range(n))
+
+    window = asd._noise_window
+    for ctl in configs:
+        cpu, card = serve("cpu", ctl), serve(dev, ctl)
+        err = error(card, cpu)
+        accepts = sum(c[3] for c in cpu[1].values())
+        proposals = sum(c[4] for c in cpu[1].values())
+        if not err <= SERVE_KEYS_TOL or not accepts < proposals:
+            fail(f"serve_keys_reference {ctl}: error {err} (inf: counters differ) or no "
+                 "rejection")
+        asd._noise_window = _off_by_one_step(torch, window)
+        try:
+            planted = error(serve(dev, ctl), cpu)
+        finally:
+            asd._noise_window = window
+        if not planted > SERVE_KEYS_TOL:
+            fail(f"serve_keys_reference {ctl}: the planted fault reads {planted}, within "
+                 f"the tolerance {SERVE_KEYS_TOL}")
+        emit("serve_keys_reference", controller=ctl, config=configs[ctl],
+             model=dc.backbone.name, K=k, theta=theta, slots=slots, requests=n,
+             keyed="odd rids; even rids fold_in(PRNGKey(seed), rid)", noise_mode="counter",
+             max_abs_err=err, tolerance=SERVE_KEYS_TOL, accepts=accepts,
+             proposals=proposals,
+             planted_fault=f"xi of step {_FAULT_STEP} drawn from step {_FAULT_STEP + 1}",
+             planted_fault_err=planted if math.isfinite(planted) else "counters differ")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2165,7 +2565,12 @@ def main() -> None:
     check_reference(torch, dev)
     by_run = {"asd": asd_launches, **run_serve(torch, dev, flash_fn, sched, dc)}
     check_serve_reference(torch, dev)
+    window_device_ms = check_prng(torch, dev)
+    cli_shapes = check_cli_kernels(torch, dev)
+    by_run.update(run_serve_counter_memory(torch, dev, flash_fn, dc, window_device_ms))
     del flash_fn  # the denoiser's weights
+    by_run.update(run_serve_cli(torch, dev))
+    check_serve_keys_reference(torch, dev)
     by_run.update(run_hymba(torch, dev))
     hymba_f32_launches, designs_by_run = check_hymba_f32(torch, dev)
     by_run.update(hymba_f32_launches)
@@ -2185,6 +2590,8 @@ def main() -> None:
             fail(f"kernels: {kern['name']} was launched in no main-path run")
         kern["launches"] = sum(per.values())
         kern["launches_by_run"] = per
+        if kern["name"] in cli_shapes:
+            kern["at_serve_cli_shape"] = cli_shapes[kern["name"]]
         if kern["name"] == "flash_attention_f32":
             # the tensor-core design on hymba_f32, the packed one on the stand-ins
             by_design = {d: sum(r[d] for r in designs_by_run.values())

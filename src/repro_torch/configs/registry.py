@@ -53,6 +53,23 @@ def paper_diffusion_policy_smoke(action_dim: int = 4) -> DenoiserConfig:
     return DenoiserConfig(backbone=backbone, seq_len=8, d_data=action_dim)
 
 
+PAPER_MODELS = {
+    "paper-ldm-dit": paper_ldm_dit,
+    "paper-pixel-dit": paper_pixel_dit,
+    "paper-diffusion-policy": paper_diffusion_policy,
+    "paper-diffusion-policy-smoke": paper_diffusion_policy_smoke,
+}
+
+
+def get_denoiser_config(name: str) -> DenoiserConfig:
+    """A paper denoiser config by its name (the JAX registry's dense ones;
+    its MoE smoke model waits for the port's MoE layers)."""
+    if name in PAPER_MODELS:
+        return PAPER_MODELS[name]()
+    raise KeyError(f"unknown or not yet ported paper model {name!r}; "
+                   f"known: {sorted(PAPER_MODELS)}")
+
+
 def get_config(name: str) -> ModelConfig:
     """A ported LM arch by its name, e.g. ``"hymba-1.5b"``."""
     if name in ARCHS:

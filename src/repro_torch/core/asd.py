@@ -10,9 +10,19 @@ Each round of every chain makes
   4. the verifier (Alg 2 / GRS Alg 3), a windowed commit of the accepted
      prefix and the reflected first rejection, and the advance a <- j+1.
 
-The (u_i, xi_i) streams are drawn once per chain (``u_buf``, ``xi_buf``,
-indexed by absolute step) and reused across rounds, the filtration the
-exactness proof relies on.  Only this buffer noise mode is ported.
+Every round re-reads the (u_i, xi_i) of absolute steps a .. a+theta-1, so
+re-speculation sees the same noise, the filtration the exactness proof
+relies on.  Two noise modes give the same law:
+
+  * ``noise_mode="buffer"``: the streams are drawn once per chain into
+    ``u_buf`` (K+theta+1,) and ``xi_buf`` (K+theta+1, *event);
+  * ``noise_mode="counter"``: nothing is stored but the chain's two keys
+    ``k_u``, ``k_xi``; u_i and xi_i are drawn when a round needs them, as
+    ``uniform(fold_in(k_u, i))`` and ``normal(fold_in(k_xi, i), event)``
+    (``repro_torch.core.prng``, JAX's threefry bit for bit).
+
+A chain started from a key draws what the JAX package draws from it, in
+either mode.
 
 The JAX package writes one chain and ``vmap``s it; here every state tensor
 carries the batch of chains on its leading axis, and the ``while_loop`` is a
@@ -36,9 +46,11 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.controller import StaticTheta, ThetaController
 from repro_torch.core.grs import bcast_right
 from repro_torch.core.schedules import Schedule
+from repro_torch.core.sequential import init_y0
 from repro_torch.core.verifier import leading_true_count
 from repro_torch.device import resolve_device
 from repro_torch.kernels.grs.ops import grs
@@ -46,6 +58,7 @@ from repro_torch.kernels.grs.ops import grs
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 _STATIC = StaticTheta()
+NOISE_MODES = ("buffer", "counter")
 
 
 @dataclasses.dataclass
@@ -89,11 +102,13 @@ class ASDChainState:
     proposals: torch.Tensor
     theta_live: torch.Tensor  # (B,) current speculation window (<= theta_max)
     ctrl: torch.Tensor  # (B, n) controller state
-    u_buf: torch.Tensor  # (B, K+theta+1)
-    xi_buf: torch.Tensor  # (B, K+theta+1, *event)
+    k_u: torch.Tensor  # (B, 2) uniform-stream key (counter mode)
+    k_xi: torch.Tensor  # (B, 2) noise-stream key (counter mode)
+    u_buf: Optional[torch.Tensor]  # (B, K+theta+1), None in counter mode
+    xi_buf: Optional[torch.Tensor]  # (B, K+theta+1, *event), None in counter mode
 
 
-# the fields a round may change (the noise buffers never change)
+# the fields a round may change (the keys and noise buffers never change)
 _ROUND_FIELDS = ("y", "a", "v_cache", "v_valid", "rounds", "head_calls",
                  "model_evals", "accepts", "proposals", "theta_live", "ctrl")
 
@@ -107,25 +122,44 @@ def init_chain_state(schedule: Schedule, y0: torch.Tensor, theta: int,
                      controller: ThetaController = _STATIC,
                      generator: Optional[torch.Generator] = None,
                      u_buf: Optional[torch.Tensor] = None,
-                     xi_buf: Optional[torch.Tensor] = None) -> ASDChainState:
+                     xi_buf: Optional[torch.Tensor] = None,
+                     key=None, noise_mode: str = "buffer") -> ASDChainState:
     """Fresh chains y0 (B, *event) at position 0 with their absolute-step
-    randomness fixed: ``u_buf`` (B, K+theta+1) and ``xi_buf`` (B, K+theta+1,
-    *event) are taken as given, or drawn from ``generator``.  ``theta`` is
-    the static cap theta_max that shapes the buffers."""
+    randomness fixed.  ``key`` (B, 2) holds each chain's key, split into
+    its streams ``k_u``, ``k_xi`` as the JAX package splits it.
+
+    Buffer mode: ``u_buf`` (B, K+theta+1) and ``xi_buf`` (B, K+theta+1,
+    *event) are taken as given, or drawn from the stream keys (the JAX
+    package's buffers), or else from ``generator``.  Counter mode holds no
+    buffer and needs ``key``.  ``theta`` is the static cap theta_max that
+    shapes the buffers."""
+    if noise_mode not in NOISE_MODES:
+        raise ValueError(f"unknown noise_mode {noise_mode!r}; have {NOISE_MODES}")
     K = schedule.K
     theta = _clamp_theta(theta, K)
     B, ev = y0.shape[0], tuple(y0.shape[1:])
     dev = y0.device
     n = K + theta + 1
-    if u_buf is None:
-        u_buf = torch.rand((B, n), generator=generator, device=dev)
-    if xi_buf is None:
-        xi_buf = torch.randn((B, n) + ev, generator=generator, dtype=y0.dtype,
-                             device=dev)
-    u_buf, xi_buf = u_buf.to(dev), xi_buf.to(dev, y0.dtype)
-    if tuple(u_buf.shape) != (B, n) or tuple(xi_buf.shape) != (B, n) + ev:
-        raise ValueError(f"u_buf {tuple(u_buf.shape)} / xi_buf "
-                         f"{tuple(xi_buf.shape)}: expected {(B, n)} / {(B, n) + ev}")
+    if key is not None:
+        k_u, k_xi = prng.split(prng.as_key(key, dev), 2).unbind(-2)
+    else:
+        k_u = k_xi = torch.zeros((B, 2), dtype=torch.int64, device=dev)
+    if noise_mode == "counter":
+        if key is None or u_buf is not None or xi_buf is not None:
+            raise ValueError("counter noise draws from the chains' keys: pass key "
+                             "and no u_buf / xi_buf")
+    else:
+        if u_buf is None:
+            u_buf = (prng.uniform(k_u, (n,)) if key is not None
+                     else torch.rand((B, n), generator=generator, device=dev))
+        if xi_buf is None:
+            xi_buf = (prng.normal(k_xi, (n,) + ev) if key is not None
+                      else torch.randn((B, n) + ev, generator=generator, dtype=y0.dtype,
+                                       device=dev))
+        u_buf, xi_buf = u_buf.to(dev), xi_buf.to(dev, y0.dtype)
+        if tuple(u_buf.shape) != (B, n) or tuple(xi_buf.shape) != (B, n) + ev:
+            raise ValueError(f"u_buf {tuple(u_buf.shape)} / xi_buf "
+                             f"{tuple(xi_buf.shape)}: expected {(B, n)} / {(B, n) + ev}")
     y = torch.zeros((B, n if keep_trajectory else theta + 1) + ev,
                     dtype=y0.dtype, device=dev)
     y[:, 0] = y0
@@ -136,7 +170,7 @@ def init_chain_state(schedule: Schedule, y0: torch.Tensor, theta: int,
         v_valid=torch.zeros((B,), dtype=torch.bool, device=dev),
         rounds=zero, head_calls=zero, model_evals=zero, accepts=zero,
         proposals=zero, theta_live=theta_live.to(torch.int64), ctrl=ctrl,
-        u_buf=u_buf, xi_buf=xi_buf)
+        k_u=k_u, k_xi=k_xi, u_buf=u_buf, xi_buf=xi_buf)
 
 
 def chain_done(st: ASDChainState, K: int) -> torch.Tensor:
@@ -188,11 +222,30 @@ def _window(arr: torch.Tensor, start: torch.Tensor, length: int):
     return arr[rows, _offsets(start, length)]
 
 
+def _noise_window(st: ASDChainState, theta: int, noise_mode: str):
+    """u (B, theta) and xi (B, theta, *event) of absolute steps a .. a+theta-1:
+    read from the buffers, or drawn from the stream keys folded on each
+    step (one batched draw for every chain)."""
+    if noise_mode == "buffer":
+        if st.u_buf is None:
+            raise ValueError("buffer noise on a chain state that holds no buffers "
+                             "(made in counter mode)")
+        return _window(st.u_buf, st.a, theta), _window(st.xi_buf, st.a, theta)
+    if noise_mode != "counter":
+        raise ValueError(f"unknown noise_mode {noise_mode!r}; have {NOISE_MODES}")
+    steps = _offsets(st.a, theta)
+    u_w = prng.uniform(prng.fold_in(st.k_u[:, None], steps))
+    xi_w = prng.normal(prng.fold_in(st.k_xi[:, None], steps), tuple(st.v_cache.shape[1:]))
+    return u_w, xi_w.to(st.y.dtype)
+
+
 def plan_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
                theta: int, eager_head: bool = False,
-               keep_trajectory: bool = True, conds=None) -> RoundPlan:
+               keep_trajectory: bool = True, conds=None,
+               noise_mode: str = "buffer") -> RoundPlan:
     """Phase 1 of a round (Alg 1 lines 6-9): the proposal call (possibly
-    served from the eager cache) and the theta-step rollout."""
+    served from the eager cache) and the theta-step rollout, with the
+    noise window of ``noise_mode``."""
     K = schedule.K
     theta = _clamp_theta(theta, K)
     sched = schedule.pad(theta + 1)
@@ -215,7 +268,7 @@ def plan_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
     idx = _offsets(a, theta)
     A_w, B_w, sig_w = sched.A[idx], sched.B[idx], sched.sigma[idx]
     t_w1 = sched.t_model[_offsets(a, theta + 1)]
-    u_w, xi_w = _window(st.u_buf, a, theta), _window(st.xi_buf, a, theta)
+    u_w, xi_w = _noise_window(st, theta, noise_mode)
 
     y_i = y_a
     m_hats, y_props = [], []
@@ -297,7 +350,7 @@ def asd_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
               theta: int, eager_head: bool = False,
               keep_trajectory: bool = True,
               controller: ThetaController = _STATIC,
-              conds=None) -> ASDChainState:
+              conds=None, noise_mode: str = "buffer") -> ASDChainState:
     """One speculation round of every chain: propose, roll theta steps,
     verify all chains' points in ONE model call, GRS, commit.
 
@@ -310,7 +363,7 @@ def asd_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
     K = schedule.K
     theta = _clamp_theta(theta, K)
     plan = plan_round(model_fn, schedule, st, theta, eager_head, keep_trajectory,
-                      conds)
+                      conds, noise_mode)
     B = st.a.shape[0]
     ev = tuple(st.v_cache.shape[1:])
     ev_ndim = len(ev)
@@ -346,7 +399,7 @@ def asd_superstep(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
                   theta: int, rounds: int, eager_head: bool = False,
                   keep_trajectory: bool = True,
                   controller: ThetaController = _STATIC,
-                  conds=None) -> ASDChainState:
+                  conds=None, noise_mode: str = "buffer") -> ASDChainState:
     """``rounds`` speculation rounds in a row: R calls of ``asd_round``
     (the JAX package's ``lax.scan``), with no read of a device value on the
     host between them, so the card runs the R rounds as one queue of
@@ -354,7 +407,7 @@ def asd_superstep(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
     ``commit_round`` for the remaining rounds, counters included."""
     for _ in range(int(rounds)):
         st = asd_round(model_fn, schedule, st, theta, eager_head,
-                       keep_trajectory, controller, conds)
+                       keep_trajectory, controller, conds, noise_mode)
     return st
 
 
@@ -365,14 +418,18 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
                        u_buf: Optional[torch.Tensor] = None,
                        xi_buf: Optional[torch.Tensor] = None,
-                       device=None, conds: Optional[torch.Tensor] = None) -> ASDResult:
+                       device=None, conds: Optional[torch.Tensor] = None,
+                       key=None, noise_mode: str = "buffer") -> ASDResult:
     """ASD on independent chains y0 (B, *event), stepped together.
 
     Each round makes one proposal call over the B chains and one
     verification call over their B * theta points; the loop runs until the
-    slowest chain finishes, and finished chains stay frozen.  ``u_buf`` /
-    ``xi_buf`` inject each chain's noise (see ``init_chain_state``); else it
-    is drawn from ``generator``.  ``theta >= K`` gives ASD-infinity.
+    slowest chain finishes, and finished chains stay frozen.  ``key`` (2,)
+    is split into one key a chain, as the JAX package splits it, and the
+    chains draw from those in ``noise_mode`` ("buffer" or "counter").
+    Without a key, ``u_buf`` / ``xi_buf`` inject each chain's noise (see
+    ``init_chain_state``), or it is drawn from ``generator`` (buffer mode).
+    ``theta >= K`` gives ASD-infinity.
 
     ``model_fn(t: f32[m], y: f32[m, *event]) -> f32[m, *event]`` must accept
     any leading batch size m; with ``conds`` (B, d_cond), one condition row
@@ -380,18 +437,28 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
     every point.  Runs on ``device`` (None means "cuda").
     """
     dev = resolve_device(device)
+    keys = None if key is None else prng.split(prng.as_key(key, dev), y0.shape[0])
+    return _sample(model_fn, schedule, y0.to(dev), theta, eager_head, keep_trajectory,
+                   controller, generator, u_buf, xi_buf, conds, keys, noise_mode)
+
+
+def _sample(model_fn, schedule, y0, theta, eager_head, keep_trajectory, controller,
+            generator, u_buf, xi_buf, conds, keys, noise_mode) -> ASDResult:
+    """Chains y0 (B, *event) on y0's device, each from its own key of
+    ``keys`` (B, 2) or else from the buffers or the generator, run to K."""
+    dev = y0.device
     K = schedule.K
     theta = _clamp_theta(theta, K)
     schedule = schedule.to(dev)
-    st = init_chain_state(schedule, y0.to(dev), theta, keep_trajectory,
-                          controller, generator, u_buf, xi_buf)
+    st = init_chain_state(schedule, y0, theta, keep_trajectory, controller, generator,
+                          u_buf, xi_buf, keys, noise_mode)
     if conds is not None:
         conds = conds.to(dev)
         if conds.shape[0] != y0.shape[0]:
             raise ValueError(f"conds: {conds.shape[0]} rows for {y0.shape[0]} chains")
     while not bool(chain_done(st, K).all()):
         st = asd_round(model_fn, schedule, st, theta, eager_head,
-                       keep_trajectory, controller, conds)
+                       keep_trajectory, controller, conds, noise_mode)
     return ASDResult(
         sample=chain_sample(st, K, keep_trajectory),
         trajectory=st.y[:, : K + 1] if keep_trajectory else st.y,
@@ -407,14 +474,25 @@ def asd_sample(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                u_buf: Optional[torch.Tensor] = None,
                xi_buf: Optional[torch.Tensor] = None,
-               device=None, cond: Optional[torch.Tensor] = None) -> ASDResult:
-    """ASD for one chain y0 (*event); ``u_buf`` (K+theta+1,) and ``xi_buf``
-    (K+theta+1, *event) inject its noise, ``cond`` (d_cond,) conditions it.
-    Results have no batch axis."""
-    res = asd_sample_batched(
-        model_fn, schedule, y0[None], theta, eager_head, keep_trajectory,
+               device=None, cond: Optional[torch.Tensor] = None,
+               key=None, noise_mode: str = "buffer") -> ASDResult:
+    """ASD for one chain y0 (*event): ``key`` (2,) is the chain's own key
+    (not split, as in the JAX package), or ``u_buf`` (K+theta+1,) and
+    ``xi_buf`` (K+theta+1, *event) inject its noise; ``cond`` (d_cond,)
+    conditions it.  Results have no batch axis."""
+    dev = resolve_device(device)
+    res = _sample(
+        model_fn, schedule, y0.to(dev)[None], theta, eager_head, keep_trajectory,
         controller, generator, None if u_buf is None else u_buf[None],
-        None if xi_buf is None else xi_buf[None], device,
-        None if cond is None else cond[None])
+        None if xi_buf is None else xi_buf[None],
+        None if cond is None else cond[None],
+        None if key is None else prng.as_key(key, dev)[None], noise_mode)
     return ASDResult(**{f.name: getattr(res, f.name)[0]
                         for f in dataclasses.fields(ASDResult)})
+
+
+def asd_init_y0(schedule: Schedule, key, event_shape, dtype=torch.float32):
+    """The JAX package's ``asd_init_y0``: y0 (*event) drawn from ``key`` on
+    its device (zeros where the schedule starts at zero)."""
+    key = prng.as_key(key)
+    return init_y0(schedule, event_shape, dtype=dtype, device=key.device, key=key)

@@ -11,6 +11,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.schedules import Schedule
 from repro_torch.device import resolve_device
 
@@ -18,12 +19,16 @@ ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def init_y0(schedule: Schedule, event_shape, generator=None,
-            dtype=torch.float32, device=None):
-    dev = resolve_device(device)
+            dtype=torch.float32, device=None, key=None):
+    """The chain's start y0 (*event): zeros, or standard normal drawn from
+    ``key`` (``prng.normal``, as the JAX package draws it; it runs on the
+    key's device) or else from ``generator``."""
     if schedule.y0_mode == "zeros":
-        return torch.zeros(tuple(event_shape), dtype=dtype, device=dev)
+        return torch.zeros(tuple(event_shape), dtype=dtype, device=resolve_device(device))
+    if key is not None:
+        return prng.normal(key, tuple(event_shape)).to(dtype)
     return torch.randn(tuple(event_shape), generator=generator, dtype=dtype,
-                       device=dev)
+                       device=resolve_device(device))
 
 
 def _run(model_fn: ModelFn, schedule: Schedule, y: torch.Tensor,

@@ -1,0 +1,346 @@
+"""The ASD server on one device: batched diffusion sampling from the command
+line, the port's counterpart of the JAX package's ``repro.launch.serve``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve            # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --model paper-diffusion-policy-smoke --K 20
+
+Two serving modes, both with counter noise and the live window only
+(``noise_mode="counter"``, ``keep_trajectory=False``), as the JAX CLI runs
+them:
+
+  --engine fused       ``asd_sample_batched`` over --chains chains (y0 from
+                       ``numpy.random.default_rng(0)``, key ``PRNGKey(1)``):
+                       the batch runs to its slowest chain.
+  --engine continuous  ``ContinuousASDEngine`` over --slots slots; request i
+                       carries ``PRNGKey(1000 + i)``, finished chains retire
+                       at superstep boundaries and their slots are refilled.
+
+The flags, their names and defaults are the JAX CLI's, with two
+differences: ``--mesh`` takes only ``1x1`` (its default here), and
+``--device`` picks the device (default the card; ``cpu`` runs the kernels'
+plain versions).  The weights are ``denoiser_init_params`` at seed 0, the
+JAX init's law.  What the port has no counterpart for yet is refused with
+exit status 2 and the ROADMAP.md item that brings it, never ignored:
+branched speculation (``--num-branches`` > 1, ``--branch-controller gain``:
+A5), sharded serving (``--shards`` > 1, ``--router``, ``--dispatch fused``:
+A7), model parallelism and MoE models (``--model-shards``, ``--seq-shards``,
+``--expert-parallel``: A9), and ``--grs-impl`` / ``--pack-impl``, since
+the device picks the plain version (CPU) or the CUDA kernel (card).
+
+Observability: ``--metrics-port`` serves /metrics, /metrics.json and
+/healthz on 127.0.0.1 and scrapes itself once after the run;
+``--trace-out`` writes the engine's spans as Chrome trace-event JSON;
+``--profile-supersteps N`` brackets N warm supersteps in ``torch.profiler``
+and writes its Chrome trace into ``--profile-dir``.
+
+``main(argv)`` returns the engine's ``summary()`` (continuous) or the
+sampler's numbers (fused), with ``finite``, so a script can drive it in
+process.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import time
+import urllib.error
+import urllib.request
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import get_denoiser_config
+from repro_torch.core import prng
+from repro_torch.core.asd import asd_sample_batched
+from repro_torch.core.controller import CONTROLLERS, make_controller
+from repro_torch.core.schedules import ddpm as ddpm_schedule
+from repro_torch.device import resolve_device
+from repro_torch.models.diffusion import make_ddpm_model_fn
+from repro_torch.serving.engine import ContinuousASDEngine, Request
+from repro_torch.serving.obs import (MetricsRegistry, MetricsServer, TraceRecorder,
+                                     instrument_engine)
+from repro_torch.serving.packing import ALLOCATORS, make_allocator
+from repro_torch.serving.scheduler import POLICIES, make_policy
+from repro_torch.weights import denoiser_init_params
+
+# the JAX CLI's choices for the flags the port refuses
+_BRANCH_CONTROLLERS = ("gain", "static")
+_ROUTERS = ("deadline", "least-loaded", "round-robin")
+# the JAX registry's MoE denoisers
+_MOE_MODELS = ("qwen3-moe-a3b-smoke",)
+
+
+def _refusal(args):
+    """The message for a flag the port cannot honour yet, or None."""
+    if args.num_branches > 1:
+        return f"--num-branches {args.num_branches}: branched speculation is ROADMAP.md A5"
+    if args.branch_controller != "static":
+        return (f"--branch-controller {args.branch_controller}: branched speculation is "
+                "ROADMAP.md A5")
+    if args.shards > 1:
+        return f"--shards {args.shards}: sharded serving is ROADMAP.md A7"
+    if args.router is not None:
+        return f"--router {args.router}: the request router is ROADMAP.md A7"
+    if args.dispatch == "fused":
+        return "--dispatch fused: the fused sharded front end is ROADMAP.md A7"
+    if args.model_shards != 1 or args.seq_shards != 1 or args.expert_parallel:
+        return ("--model-shards / --seq-shards / --expert-parallel: model parallelism "
+                "is ROADMAP.md A9")
+    if args.model in _MOE_MODELS:
+        return f"--model {args.model}: MoE denoisers are ROADMAP.md A9"
+    if args.mesh != "1x1":
+        return (f"--mesh {args.mesh}: one device only (1x1); meshes and sharding are "
+                "ROADMAP.md A7 and A9")
+    for flag, value in (("--grs-impl", args.grs_impl), ("--pack-impl", args.pack_impl)):
+        if value is not None:
+            return (f"{flag} {value}: no counterpart in the port, whose device picks "
+                    "the plain version (CPU) or the CUDA kernel (card); see ROADMAP.md A8")
+    return None
+
+
+def _build(args):
+    dev = resolve_device(args.device)
+    dc = get_denoiser_config(args.model)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = denoiser_init_params(dc, gen, device=dev)
+    return dev, dc, make_ddpm_model_fn(params, dc)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_fused(args) -> dict:
+    dev, dc, model_fn = _build(args)
+    sched = ddpm_schedule(args.K)
+    y0 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (args.chains, dc.seq_len, dc.d_data), np.float32))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        res = asd_sample_batched(model_fn, sched, y0, args.theta, eager_head=True,
+                                 keep_trajectory=False,
+                                 controller=make_controller(args.theta_controller),
+                                 device=dev, key=prng.PRNGKey(1), noise_mode="counter")
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    rounds, heads = res.rounds.cpu().numpy(), res.head_calls.cpu().numpy()
+    depth = float(np.mean(rounds + heads))
+    out = res.sample.cpu().numpy()
+    finite = bool(np.isfinite(out).all())
+    print(f"[fused] sampled {args.chains} chains (K={args.K}) in {dt:.1f}s "
+          f"(includes compile); sequential depth {depth:.0f} "
+          f"=> {args.K / depth:.1f}x algorithmic speedup")
+    print(f"output {tuple(out.shape)}, finite={finite}")
+    accepts, proposals = int(res.accepts.sum()), int(res.proposals.sum())
+    return {"chains": args.chains, "wall_time_s": dt, "throughput_rps": args.chains / dt,
+            "rounds_total": int(rounds.max()), "mean_parallel_depth": depth,
+            "accept_rate": accepts / max(proposals, 1),
+            "mean_window": proposals / max(int(rounds.sum()), 1), "finite": finite}
+
+
+def _profile_supersteps(eng, args, slots, dev) -> dict:
+    """Bracket N warm supersteps in ``torch.profiler``.  A warm pool fills
+    the slots and runs its first superstep before the bracket opens; its
+    results are discarded (its work does land in the stats).  Returns the
+    window's host wall time and the device's busy time (the kernels' own
+    times, one stream), and writes the Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(slots):
+        eng.submit(Request(-1 - i, key=prng.PRNGKey(10**6 + i)))
+    eng.step()
+    _sync(dev)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if dev.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        n = 0
+        while n < args.profile_supersteps and eng.has_work():
+            eng.step()
+            n += 1
+        _sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    while eng.step():
+        pass
+    eng.drain_results()
+    os.makedirs(args.profile_dir, exist_ok=True)
+    path = os.path.join(args.profile_dir, "serve_trace.json")
+    prof.export_chrome_trace(path)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    idle = max(0.0, 1.0 - busy / wall_ms) if busy > 0 else None
+    print(f"[profile] {n} warm supersteps -> {path} (view in Perfetto): wall "
+          f"{wall_ms:.1f}ms, device busy "
+          + (f"{busy:.1f}ms, idle share {idle:.3f}" if idle is not None
+             else "not measured (no device kernels traced)"))
+    return {"supersteps": n, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": idle, "trace": path}
+
+
+def run_continuous(args) -> dict:
+    dev, dc, model_fn = _build(args)
+    sched = ddpm_schedule(args.K)
+    slots = args.slots or max(args.chains // 2, 1)
+    budget = allocator = None
+    if args.execution == "packed":
+        budget = ("auto" if args.round_budget == "auto"
+                  else int(args.round_budget) or slots * args.theta)
+        allocator = make_allocator(args.allocator, theta_max=args.theta)
+    tracer = TraceRecorder(capacity=args.trace_capacity) if args.trace_out else None
+    eng = ContinuousASDEngine(
+        model_fn, sched, (dc.seq_len, dc.d_data), num_slots=slots, theta=args.theta,
+        eager_head=True, noise_mode="counter", keep_trajectory=False,
+        controller=make_controller(args.theta_controller), policy=make_policy(args.policy),
+        execution=args.execution, round_budget=budget, allocator=allocator,
+        round_impl=args.round_impl,
+        rounds_per_sync=(args.rounds_per_sync if args.rounds_per_sync == "auto"
+                         else int(args.rounds_per_sync)),
+        overcommit=args.overcommit, device=dev, tracer=tracer)
+    server = None
+    if args.metrics_port >= 0:
+        registry = instrument_engine(MetricsRegistry(), eng)
+        server = MetricsServer(registry, health_fn=eng.healthz, port=args.metrics_port)
+        server.start()
+        print(f"[metrics] serving /metrics and /healthz at {server.url}")
+    try:
+        profiled = (_profile_supersteps(eng, args, slots, dev)
+                    if args.profile_supersteps > 0 else None)
+        reqs = [Request(i, key=prng.PRNGKey(1000 + i)) for i in range(args.chains)]
+        t0 = time.perf_counter()
+        out = eng.serve(reqs)
+        dt = time.perf_counter() - t0
+        s = eng.stats
+        exec_desc = (f"packed B={budget}/{slots * args.theta} alloc={args.allocator}"
+                     if args.execution == "packed" else "unpacked")
+        grs = "cuda" if dev.type == "cuda" else "plain"
+        print(f"[continuous] served {s.retired} requests on {slots} slots "
+              f"({exec_desc}, K={args.K}, policy={args.policy}, "
+              f"controller={args.theta_controller}, grs={grs}, "
+              f"R={args.rounds_per_sync}) in {dt:.1f}s (includes compile): "
+              f"{s.rounds_total} fused rounds in {s.supersteps} supersteps, "
+              f"accept rate {s.accept_rate():.2f}, "
+              f"mean live window {s.mean_window():.1f}/{args.theta}, "
+              f"mean queue latency {s.mean_queue_latency() * 1e3:.0f}ms, "
+              f"SLO attainment {s.slo_attainment():.2f}, "
+              f"{s.throughput():.2f} samples/s")
+        sample = next(iter(out.values()))
+        finite = all(bool(np.isfinite(v).all()) for v in out.values())
+        print(f"output {sample.shape} per request, finite={finite}")
+        summary = dict(s.summary(), finite=finite, slots=slots)
+        if profiled is not None:
+            summary["profile"] = profiled
+        if server is not None:
+            # self-scrape: the endpoints answer with the numbers just made
+            body = urllib.request.urlopen(server.url + "/metrics", timeout=5).read().decode()
+            try:
+                hz_body = urllib.request.urlopen(server.url + "/healthz", timeout=5).read()
+            except urllib.error.HTTPError as e:  # a 503 carries the document too
+                hz_body = e.read()
+            hz = json.loads(hz_body)
+            n_samples = sum(1 for ln in body.splitlines() if ln and not ln.startswith("#"))
+            print(f"[metrics] scraped {n_samples} samples from {server.url}/metrics; "
+                  f"/healthz status={hz['status']}")
+            summary["metrics"] = {"samples": n_samples, "healthz": hz["status"]}
+    finally:
+        if server is not None:
+            server.stop()
+    if tracer is not None:
+        doc = tracer.export_chrome_trace(args.trace_out)
+        print(f"[trace] {len(doc['traceEvents'])} events ({doc['droppedEvents']} dropped) "
+              f"-> {args.trace_out} (load in Perfetto / chrome://tracing)")
+        summary["trace"] = {"events": len(doc["traceEvents"]),
+                            "dropped": doc["droppedEvents"]}
+    return summary
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--model", default="paper-diffusion-policy")
+    ap.add_argument("--mesh", default="1x1",
+                    help="device mesh; one device only here (1x1)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--engine", default="continuous", choices=("continuous", "fused"))
+    ap.add_argument("--chains", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=0,
+                    help="continuous engine slots (default: ~chains/2)")
+    ap.add_argument("--theta", type=int, default=8,
+                    help="speculation window cap theta_max")
+    ap.add_argument("--K", type=int, default=100)
+    ap.add_argument("--theta-controller", default="static", choices=sorted(CONTROLLERS),
+                    help="per-chain speculation-window controller")
+    ap.add_argument("--num-branches", type=int, default=1,
+                    help="branched speculation cap (only 1 here: ROADMAP.md A5)")
+    ap.add_argument("--branch-controller", default="static", choices=_BRANCH_CONTROLLERS,
+                    help="branch-count controller (only static here: ROADMAP.md A5)")
+    ap.add_argument("--policy", default="fcfs", choices=sorted(POLICIES),
+                    help="continuous-engine admission policy")
+    ap.add_argument("--grs-impl", default=None, choices=("core", "kernel"),
+                    help="refused: the device picks the GRS version")
+    ap.add_argument("--execution", default="unpacked", choices=("unpacked", "packed"),
+                    help="packed: gather only live verification points into a "
+                         "fixed --round-budget model call per round")
+    ap.add_argument("--round-budget", default="0",
+                    help="packed verification points per round (default: slots * "
+                         'theta, never binding), or "auto" for live-demand tiers')
+    ap.add_argument("--allocator", default="waterfill", choices=sorted(ALLOCATORS),
+                    help="packed budget split across slots")
+    ap.add_argument("--pack-impl", default=None, choices=("ref", "kernel"),
+                    help="refused: the device picks the gather/scatter version")
+    ap.add_argument("--round-impl", default="packed", choices=("packed", "fused"),
+                    help="packed-round body: per-phase kernels, or the fused "
+                         "gather and verify-commit kernels")
+    ap.add_argument("--rounds-per-sync", default="1",
+                    help="speculation rounds per superstep: an integer, or 'auto'")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="shard-local workers (only 1 here: ROADMAP.md A7)")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="tensor parallelism (only 1 here: ROADMAP.md A9)")
+    ap.add_argument("--expert-parallel", action="store_true",
+                    help="refused: expert parallelism is ROADMAP.md A9")
+    ap.add_argument("--seq-shards", type=int, default=1,
+                    help="sequence parallelism (only 1 here: ROADMAP.md A9)")
+    ap.add_argument("--router", default=None, choices=_ROUTERS,
+                    help="refused: the sharded request router is ROADMAP.md A7")
+    ap.add_argument("--dispatch", default="per-shard", choices=("per-shard", "fused"),
+                    help="sharded execution (per-shard only here: ROADMAP.md A7)")
+    ap.add_argument("--overcommit", type=float, default=1.0,
+                    help="BudgetAware admission multiplexing factor (>= 1)")
+    ap.add_argument("--metrics-port", type=int, default=-1,
+                    help="serve /metrics, /metrics.json and /healthz on "
+                         "127.0.0.1:PORT (0 = ephemeral port; default off)")
+    ap.add_argument("--trace-out", default=None,
+                    help="export request and superstep spans as Chrome trace JSON")
+    ap.add_argument("--trace-capacity", type=int, default=65536,
+                    help="trace ring-buffer capacity (drop-oldest beyond)")
+    ap.add_argument("--profile-supersteps", type=int, default=0,
+                    help="bracket N warm supersteps in torch.profiler before the "
+                         "timed serve (0 = off)")
+    ap.add_argument("--profile-dir", default="results/profile",
+                    help="--profile-supersteps output directory")
+    ap.add_argument("--log-level", default="info",
+                    choices=("debug", "info", "warning", "error"),
+                    help="repro_torch.serving.* logger threshold")
+    return ap
+
+
+def main(argv=None) -> dict:
+    ap = parser()
+    args = ap.parse_args(argv)
+    refused = _refusal(args)
+    if refused is not None:
+        ap.error(refused)
+    logging.basicConfig(format="%(levelname)s %(name)s: %(message)s")
+    logging.getLogger("repro_torch.serving").setLevel(getattr(logging, args.log_level.upper()))
+    if args.engine == "continuous":
+        return run_continuous(args)
+    return run_fused(args)
+
+
+if __name__ == "__main__":
+    main()

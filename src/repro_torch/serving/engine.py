@@ -22,6 +22,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.serving.worker import Request, ShardWorker
 
 log = logging.getLogger("repro_torch.serving.engine")
@@ -48,12 +49,12 @@ class ContinuousASDEngine(ShardWorker):
         self._harvest(self._dispatch_superstep())
         return self.scheduler.has_work()
 
-    def serve(self, requests: list[Request], seed=None) -> dict[int, np.ndarray]:
+    def serve(self, requests: list[Request], key=None) -> dict[int, np.ndarray]:
         """Submit everything, drive supersteps until drained, and return
-        {rid: sample}.  ``seed`` replaces the worker seed that requests
-        without injected noise draw from."""
-        if seed is not None:
-            self.seed = int(seed)
+        {rid: sample}.  ``key`` replaces the serve key that requests without
+        a key of their own are derived from."""
+        if key is not None:
+            self._key = prng.as_key(key, "cpu")
         self.dropped_rids = []
         t0 = time.perf_counter()
         for r in requests:

@@ -18,6 +18,9 @@ verification points, however the live windows are spread:
 A grant depends only on pre-round state, so a trimmed round is a round at
 a smaller live window and the chain's law is unchanged; when the budget
 covers every live window the packed round is the unpacked ``asd_round``.
+The plan's noise window comes from the buffers or, with
+``noise_mode="counter"``, from the chains' keys; the gathers below move its
+rows either way.
 
 ``round_impl``:
   "packed"  the gathers run three launches of the row-gather kernel (B3),
@@ -62,7 +65,8 @@ def packed_round(model_fn: ModelFn, schedule: Schedule, states,
                  theta: int, budget: int, allocator, eager_head: bool = True,
                  keep_trajectory: bool = False,
                  controller: ThetaController = _STATIC,
-                 round_impl: str = "packed", budget_data=None):
+                 round_impl: str = "packed", budget_data=None,
+                 noise_mode: str = "buffer"):
     """One packed verification round over all slots; returns the new state.
 
     ``states`` is the slot batch (``ASDChainState``, leading S axis),
@@ -81,7 +85,7 @@ def packed_round(model_fn: ModelFn, schedule: Schedule, states,
 
     # --- 1. plan: proposal call + rollout of every slot ----------------------
     plan = plan_round(model_fn, schedule, states, theta, eager_head,
-                      keep_trajectory, conds)
+                      keep_trajectory, conds, noise_mode)
 
     # --- 2. pack: allocate the budget, build maps, gather the live points ---
     demand = torch.where(states.a < K, plan.n_valid, 0)
@@ -160,7 +164,8 @@ def packed_superstep(model_fn: ModelFn, schedule: Schedule, states,
                      rounds: int, theta: int, budget: int, allocator,
                      eager_head: bool = True, keep_trajectory: bool = False,
                      controller: ThetaController = _STATIC,
-                     round_impl: str = "packed", budget_data=None):
+                     round_impl: str = "packed", budget_data=None,
+                     noise_mode: str = "buffer"):
     """``rounds`` packed rounds in a row on the device-resident slot state
     (the JAX package's ``lax.scan``): each re-allocates the budget from that
     round's windows, and retired slots stay frozen.  ``weights`` and
@@ -171,5 +176,5 @@ def packed_superstep(model_fn: ModelFn, schedule: Schedule, states,
             model_fn, schedule, states, conds, weights, theta=theta, budget=budget,
             allocator=allocator, eager_head=eager_head,
             keep_trajectory=keep_trajectory, controller=controller,
-            round_impl=round_impl, budget_data=budget_data)
+            round_impl=round_impl, budget_data=budget_data, noise_mode=noise_mode)
     return states

@@ -17,19 +17,24 @@ A ``ShardWorker`` owns what one shard of a deployment needs:
 Where the JAX package donates the slot pytree to a cached jitted superstep,
 the port updates the slot tensors in place: admission writes a new chain's
 rows into the slot tensors, and a superstep rebinds the round fields to the
-tensors it produced (the noise buffers, the largest, are never copied).
+tensors it produced (the keys and noise buffers are never copied).
 PyTorch runs eagerly, so there is no executable cache to keep, and the
 JAX package's ``donate``, ``pipelined``, ``pack_impl`` and ``grs_impl``
 have no counterpart: the device picks the plain versions (CPU) or the
-kernels (CUDA).  Admission runs at the JAX worker's default overcommit
-of 1 (``AdmissionContext``'s default), and the auto budget at its default
-hysteresis.  Not ported yet: ``overcommit`` (with the serve CLI that sets
-it), ``budget_hysteresis``, ``model_mesh``, ``param_specs``,
-``state_sharding``, ``tracer``, ``adopt_programs``, branched speculation
-and counter noise.
+kernels (CUDA).  Not ported yet: ``model_mesh``, ``param_specs``,
+``state_sharding``, ``collective_payloads``, ``adopt_programs`` and
+branched speculation.
 
-Budget auto-tiering (``round_budget="auto"``, packed execution) and auto
-``rounds_per_sync`` follow the JAX worker rule for rule.
+Every chain draws from its key as the JAX worker's does: a request's own
+``key``, or else ``fold_in(serve key, rid)`` (the serve key is
+``PRNGKey(seed)`` until ``serve(key=...)`` replaces it), split once for y0
+when the request brings none.  ``noise_mode="counter"`` keeps two keys a
+chain in place of the (K+theta+1)-step buffers.  Keys are handled on the
+host and copied to the device, so admission reads nothing back from it.
+
+Budget auto-tiering (``round_budget="auto"``, packed execution, with
+``budget_hysteresis``), auto ``rounds_per_sync``, ``overcommit`` and the
+``tracer``'s boundary spans follow the JAX worker rule for rule.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.asd import (ASDChainState, asd_superstep, chain_sample,
                                   init_chain_state)
 from repro_torch.core.controller import StaticTheta, ThetaController
@@ -65,20 +71,18 @@ _SYNC_ROWS = ("a", "theta_live", "rounds", "head_calls", "model_evals",
 # the power-of-two ladder auto rounds_per_sync picks from
 _AUTO_MAX_R = 16
 
-# auto budget: downshift one rung only once the demand EWMA sits at or below
-# this fraction of the lower rung (the JAX worker's default)
-_BUDGET_HYSTERESIS = 0.75
-
 
 @dataclasses.dataclass
 class Request:
-    """A sampling request.  ``u_buf`` (K+theta+1,) and ``xi_buf``
-    (K+theta+1, *event) inject the chain's noise, the port's counterpart of
-    the JAX ``Request.key``; a request without them draws them on the
-    device from a generator that is a pure function of (worker seed, rid)."""
+    """A sampling request.  ``key`` (2,) is the chain's PRNG key (a JAX key
+    as a numpy uint32 array will do); without one the worker derives it
+    from (serve key, rid).  In buffer mode ``u_buf`` (K+theta+1,) and
+    ``xi_buf`` (K+theta+1, *event) may inject the chain's noise instead of
+    drawing it from the key."""
 
     rid: int
     cond: Optional[np.ndarray] = None  # (d_cond,) or None
+    key: Optional[Any] = None  # per-request PRNG key (else derived)
     u_buf: Optional[Any] = None  # array or tensor (K+theta+1,)
     xi_buf: Optional[Any] = None  # array or tensor (K+theta+1, *event)
     y0: Optional[np.ndarray] = None  # explicit start state (else init_y0)
@@ -117,6 +121,11 @@ class ShardWorker:
       event_shape: per-chain sample shape.
       num_slots: chains stepped together.
       theta: speculation window cap theta_max.
+      noise_mode: "buffer" (each chain's noise drawn at admission into
+        (K+theta+1)-step buffers) or "counter" (drawn a round at a time
+        from the chain's two keys).
+      keep_trajectory: keep each chain's whole trajectory (else the live
+        window only).
       controller: per-chain window controller (default StaticTheta).
       policy: admission policy of the queue (default FCFS).
       execution: "unpacked" (theta-shaped windows per slot) or "packed"
@@ -128,16 +137,27 @@ class ShardWorker:
       round_impl: "packed" or "fused" (packed execution only; the budget
         tier is then data and the pack width is the ladder's top).
       rounds_per_sync: rounds per superstep R, or "auto".
+      overcommit: admission multiplexing factor (>= 1): ``BudgetAware``
+        admits until live demand reaches overcommit * round_budget.
+      budget_hysteresis: the auto budget drops a rung only once the demand
+        EWMA sits at or below this fraction of the rung below.
       device: where the slot batch lives (None means "cuda").
+      tracer: optional ``repro_torch.serving.obs.TraceRecorder``: the
+        boundary spans (dispatch, device wait, harvest) and each request's
+        queued and request spans, from the host clock readings the stats
+        take anyway.
     """
 
     def __init__(self, model_fn: Callable, schedule: Schedule, event_shape: tuple,
                  num_slots: int = 8, theta: int = 8, d_cond: int = 0,
-                 eager_head: bool = True, keep_trajectory: bool = False,
+                 eager_head: bool = True, noise_mode: str = "buffer",
+                 keep_trajectory: bool = False,
                  seed: int = 0, controller: Optional[ThetaController] = None,
                  policy: Optional[SchedulingPolicy] = None,
                  execution: str = "unpacked", round_budget=None, allocator=None,
-                 round_impl: str = "packed", rounds_per_sync=1, device=None, shard_id: int = 0):
+                 round_impl: str = "packed", rounds_per_sync=1,
+                 overcommit: float = 1.0, budget_hysteresis: float = 0.75,
+                 device=None, shard_id: int = 0, tracer=None):
         self.device = resolve_device(device)
         self.schedule = schedule.to(self.device)
         self.event_shape = tuple(event_shape)
@@ -145,9 +165,10 @@ class ShardWorker:
         self.theta = int(min(theta, schedule.K))
         self.d_cond = d_cond
         self.eager_head = eager_head
+        self.noise_mode = noise_mode
         self.keep_trajectory = keep_trajectory
-        self.seed = int(seed)
         self.shard_id = shard_id
+        self._tracer = tracer
         self.draining = False
         self.controller = controller if controller is not None else StaticTheta()
         self._model_fn = model_fn
@@ -160,6 +181,10 @@ class ShardWorker:
             raise ValueError('round_impl="fused" requires execution="packed" (the '
                              "fused kernels run the packed round body)")
         self.round_impl = round_impl
+        if overcommit < 1.0:
+            raise ValueError(f"overcommit must be >= 1, got {overcommit}")
+        self.overcommit = float(overcommit)
+        self.budget_hysteresis = float(budget_hysteresis)
         self._budget_ladder = _pow2_ladder(num_slots, num_slots * self.theta)
         if round_budget == "auto":
             if execution != "packed":
@@ -190,6 +215,7 @@ class ShardWorker:
                                  f"{rounds_per_sync!r}")
         self.scheduler = SlotScheduler(num_slots, policy=policy)
         self.stats = EngineStats(shard=shard_id)
+        self._key = prng.PRNGKey(seed)  # the serve key, on the host
         self._results: dict[int, np.ndarray] = {}
         self.dropped_rids: list[int] = []
         self._accept_ewma = 1.0
@@ -208,14 +234,18 @@ class ShardWorker:
                                        device=self.device)
 
         # every slot starts as an already finished dummy chain, frozen by
-        # the rounds until a request is admitted over it
+        # the rounds until a request is admitted over it (zero buffers in
+        # buffer mode: nothing reads them)
         K, dev = schedule.K, self.device
         n = K + self.theta + 1
+        bufs = {} if noise_mode == "counter" else dict(
+            u_buf=torch.zeros((num_slots, n), device=dev),
+            xi_buf=torch.zeros((num_slots, n) + self.event_shape, device=dev))
         self._states = init_chain_state(
             self.schedule, torch.zeros((num_slots,) + self.event_shape, device=dev),
             self.theta, keep_trajectory, self.controller,
-            u_buf=torch.zeros((num_slots, n), device=dev),
-            xi_buf=torch.zeros((num_slots, n) + self.event_shape, device=dev))
+            key=prng.split(prng.PRNGKey(seed), num_slots).to(dev),
+            noise_mode=noise_mode, **bufs)
         self._states.a.fill_(K)
         self._conds = (torch.zeros((num_slots, d_cond), device=dev) if d_cond
                        else None)
@@ -231,7 +261,7 @@ class ShardWorker:
         """R rounds over the slot batch, launched with no host read."""
         statics = dict(eager_head=self.eager_head,
                        keep_trajectory=self.keep_trajectory,
-                       controller=self.controller)
+                       controller=self.controller, noise_mode=self.noise_mode)
         with torch.no_grad():
             if self.execution == "packed":
                 fused = self.round_impl == "fused"
@@ -263,40 +293,47 @@ class ShardWorker:
 
     # -- request lifecycle ---------------------------------------------------
 
-    def _request_generator(self, rid: int) -> torch.Generator:
-        """The generator of a request without injected noise: seeded by a
-        pure function of (worker seed, rid), not of admission order or
-        slot, so the sample such a request gets is pinned by its id."""
-        seed = np.random.SeedSequence(
-            [self.seed & 0xFFFFFFFF, int(rid) & 0xFFFFFFFF]).generate_state(1, np.uint64)
-        return torch.Generator(device=self.device).manual_seed(
-            int(seed[0]) & ((1 << 63) - 1))
+    def _request_key(self, rid: int) -> torch.Tensor:
+        """The key of a request submitted without one: the serve key folded
+        on the request id, a pure function of (serve key, rid) and not of
+        admission order, slot or re-admission, as in the JAX worker."""
+        return prng.fold_in(self._key, int(rid) & 0xFFFFFFFF)
 
     def _new_chain(self, req: Request) -> ASDChainState:
-        """A fresh one-chain state for ``req`` on the device."""
-        g = self._request_generator(req.rid)
+        """A fresh one-chain state for ``req`` on the device: its key split
+        once for y0 where the request brings none, as the JAX worker does
+        (on the host, then copied over)."""
+        key = (prng.as_key(req.key) if req.key is not None
+               else self._request_key(req.rid))
         if req.y0 is not None:
             y0 = _as_tensor(req.y0, self.device)
         else:
-            y0 = init_y0(self.schedule, self.event_shape, g, device=self.device)
+            key, k0 = prng.split(key, 2).unbind(0)
+            y0 = init_y0(self.schedule, self.event_shape, device=self.device,
+                         key=k0.to(self.device))
         return init_chain_state(
             self.schedule, y0[None], self.theta, self.keep_trajectory,
-            self.controller, g,
+            self.controller, None,
             None if req.u_buf is None else _as_tensor(req.u_buf, self.device)[None],
-            None if req.xi_buf is None else _as_tensor(req.xi_buf, self.device)[None])
+            None if req.xi_buf is None else _as_tensor(req.xi_buf, self.device)[None],
+            key=key[None].to(self.device), noise_mode=self.noise_mode)
 
     def _admission_context(self, now: float) -> AdmissionContext:
         return AdmissionContext(
             K=self.schedule.K, theta_max=self.theta, accept_rate=self._accept_ewma,
             seconds_per_round=self._spr_ewma, now=now,
             round_budget=self.round_budget, live_demand=self._live_demand,
-            theta_open=self._points_open, rounds_per_sync=self._rps)
+            theta_open=self._points_open, rounds_per_sync=self._rps,
+            overcommit=self.overcommit)
 
     @property
     def load(self) -> float:
         """Occupancy + queue pressure, in units of full slot batches."""
         busy = self.num_slots - len(self.scheduler.free_slots())
         return (busy + self.scheduler.queue_depth) / max(self.num_slots, 1)
+
+    def has_work(self) -> bool:
+        return self.scheduler.has_work()
 
     # -- health / drain ------------------------------------------------------
 
@@ -357,7 +394,7 @@ class ShardWorker:
     def _pick_budget(self) -> Optional[int]:
         """The budget for the next superstep: fixed, or the auto tier
         (upshift at once to the covering tier, downshift one rung only once
-        the demand EWMA sits at or below ``_BUDGET_HYSTERESIS`` of it)."""
+        the demand EWMA sits at or below ``budget_hysteresis`` of it)."""
         if self.execution != "packed":
             return None
         if not self._budget_auto:
@@ -370,7 +407,7 @@ class ShardWorker:
             self.round_budget = target
         elif target < cur and cur > self._budget_ladder[0]:
             lower = max(t for t in self._budget_ladder if t < cur)
-            if self._demand_ewma <= _BUDGET_HYSTERESIS * lower:
+            if self._demand_ewma <= self.budget_hysteresis * lower:
                 self.round_budget = lower
         if self.round_budget != cur:
             log.debug("shard %d budget tier %d -> %d (demand ewma %.1f)",
@@ -408,7 +445,9 @@ class ShardWorker:
         for slot, req in self._collect_admissions(time.perf_counter()):
             new = self._new_chain(req)
             for f in dataclasses.fields(ASDChainState):
-                getattr(self._states, f.name)[slot] = getattr(new, f.name)[0]
+                rows = getattr(new, f.name)
+                if rows is not None:  # counter mode holds no buffers
+                    getattr(self._states, f.name)[slot] = rows[0]
             if self.d_cond:
                 self._conds[slot] = (0.0 if req.cond is None
                                      else _as_tensor(req.cond, self.device))
@@ -421,9 +460,15 @@ class ShardWorker:
         t0 = time.perf_counter()
         self._states = self._run_rounds(self._states, R, B)
         sync = self._sync_packet(self._states)
-        self.stats.dispatch_s += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.stats.dispatch_s += t1 - t0
         self.stats.rounds_total += R
         self.stats.supersteps += 1
+        tr = self._tracer
+        if tr is not None and tr.enabled:
+            tr.add_span("dispatch", t0, t1, pid=self.shard_id, tid=self.num_slots,
+                        pname=f"shard-{self.shard_id}", tname="dispatch",
+                        args={"superstep": self.stats.supersteps, "R": R, "budget": B})
         return sync, self.stats.rounds_total, R, t0
 
     def _harvest(self, pending) -> None:
@@ -432,11 +477,17 @@ class ShardWorker:
         admitted at or after the packet's round count hold chains the packet
         does not show yet and are not retired against it."""
         (info_host, ready, samples_dev), snapshot_rounds, R, t_dispatch = pending
+        tr = self._tracer
+        if tr is not None and not tr.enabled:
+            tr = None
         t0 = time.perf_counter()
         if ready is not None:
             ready.synchronize()
         t1 = time.perf_counter()
         self.stats.device_s += t1 - t0
+        if tr is not None:
+            tr.add_span("device_wait", t0, t1, pid=self.shard_id, tid=self.num_slots + 1,
+                        pname=f"shard-{self.shard_id}", tname="device", args={"R": R})
         info = info_host.numpy()
         row = {name: info[i] for i, name in enumerate(_SYNC_ROWS)}
         a, theta_live = row["a"], row["theta_live"]
@@ -461,6 +512,15 @@ class ShardWorker:
                 sinfo = self.scheduler.retire(slot)
                 self._set_weight(slot, 1.0)
                 self._results[sinfo.request.rid] = samples[slot].copy()
+                if tr is not None:
+                    rid = sinfo.request.rid
+                    tr.add_span("queued", sinfo.submit_time, sinfo.admit_time,
+                                pid=self.shard_id, tid=slot, pname=f"shard-{self.shard_id}",
+                                tname=f"slot-{slot}", args={"rid": rid})
+                    tr.add_span("request", sinfo.admit_time, now, pid=self.shard_id,
+                                tid=slot, args={"rid": rid, "rounds": int(row["rounds"][slot]),
+                                                "accepts": int(row["accepts"][slot]),
+                                                "theta_live": int(theta_live[slot])})
                 deadline = sinfo.request.deadline
                 rm = RequestMetrics(
                     rid=sinfo.request.rid,
@@ -480,7 +540,12 @@ class ShardWorker:
             # re-tiers from its own demand
             self._live_demand = 0
             self._demand_ewma = 0.0
-        self.stats.host_sync_s += time.perf_counter() - t1
+        t_end = time.perf_counter()
+        self.stats.host_sync_s += t_end - t1
+        if tr is not None:
+            tr.add_span("harvest", t1, t_end, pid=self.shard_id, tid=self.num_slots + 2,
+                        tname="harvest", args={"retired": len(finished),
+                                               "live_demand": self._live_demand})
         self._refresh_health()
         self._observe_round_time((time.perf_counter() - t_dispatch) / R)
 

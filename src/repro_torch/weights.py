@@ -247,15 +247,15 @@ def init_lm_params(cfg: ModelConfig, seed: int, device=None):
     return _random_tree(lm_param_shapes(cfg), leaf)
 
 
-# the JAX ASDChainState leaves the port carries, with their dtypes; the
-# others (k_u, k_xi: counter-mode keys; b_live, bctrl, draft_points:
-# branched speculation) are dropped
+# the JAX ASDChainState leaves the port carries, with their dtypes (the
+# keys' uint32 words are held in int64); the others (b_live, bctrl,
+# draft_points: branched speculation) are dropped
 _STATE_DTYPES = {
     "y": torch.float32, "a": torch.int64, "v_cache": torch.float32,
     "v_valid": torch.bool, "rounds": torch.int64, "head_calls": torch.int64,
     "model_evals": torch.int64, "accepts": torch.int64, "proposals": torch.int64,
-    "theta_live": torch.int64, "ctrl": torch.float32, "u_buf": torch.float32,
-    "xi_buf": torch.float32,
+    "theta_live": torch.int64, "ctrl": torch.float32, "k_u": torch.int64,
+    "k_xi": torch.int64, "u_buf": torch.float32, "xi_buf": torch.float32,
 }
 
 
@@ -264,20 +264,23 @@ def from_jax_chain_state(state, K: int, theta: int, device=None) -> ASDChainStat
     arrays with a leading slot axis B, buffer noise mode, one branch) as
     the port's ``ASDChainState`` on ``device`` (None means "cuda").
 
-    ``k_u``, ``k_xi``, ``bctrl``, ``b_live`` and ``draft_points`` are
-    dropped.  Shapes are checked against K and theta (the clamped cap that
-    shaped the buffers): y (B, K+theta+1 or theta+1, *event), u_buf
-    (B, K+theta+1), xi_buf (B, K+theta+1, *event), ctrl (B, n), the rest
+    ``bctrl``, ``b_live`` and ``draft_points`` are dropped.  Shapes are
+    checked against K and theta (the clamped cap that shaped the buffers):
+    y (B, K+theta+1 or theta+1, *event), u_buf (B, K+theta+1), xi_buf
+    (B, K+theta+1, *event), ctrl (B, n), k_u and k_xi (B, 2), the rest
     (B,)."""
     dev = resolve_device(device)
     get = state.get if isinstance(state, dict) else (lambda k: getattr(state, k))
     arrs = {k: np.asarray(get(k)) for k in _STATE_DTYPES}
+    for k in ("k_u", "k_xi"):
+        arrs[k] = arrs[k].astype(np.int64)
     B = arrs["a"].shape[0] if arrs["a"].ndim == 1 else -1
     ev = arrs["v_cache"].shape[1:]
     n = K + theta + 1
     y_len = arrs["y"].shape[1] if arrs["y"].ndim >= 2 else -1
     want = {"y": (B, y_len) + ev, "v_cache": (B,) + ev, "u_buf": (B, n),
-            "xi_buf": (B, n) + ev, "ctrl": (B,) + arrs["ctrl"].shape[1:2]}
+            "xi_buf": (B, n) + ev, "ctrl": (B,) + arrs["ctrl"].shape[1:2],
+            "k_u": (B, 2), "k_xi": (B, 2)}
     for name in _STATE_DTYPES:
         shape = want.get(name, (B,))
         if B < 0 or arrs[name].shape != shape or (

@@ -706,3 +706,66 @@ def test_checkpoint_manifest_codec_round_trips_on_this_machine(dev, tmp_path):
     assert man["extra"] == {"data_step": 4} and got["params"]["w"].device.type == "cuda"
     assert torch.equal(got["params"]["w"], tree["params"]["w"])
     assert got["opt"]["step"].dtype == torch.int32
+
+
+# ---- counter noise (core/prng.py) and the serve CLI
+
+
+@pytest.mark.parametrize("shape", [(), (1,), (5,), (4097,), (1024, 192)], ids=str)
+def test_prng_on_card_equals_cpu(dev, shape):
+    """Keys, bits and uniforms equal bit for bit; normals within the ulp
+    bound (the card's log1p is not the CPU's), for a batch of 3 keys."""
+    from repro_torch.core import prng
+
+    keys = prng.split(prng.PRNGKey(17), 3)
+    for fn in (lambda k: prng.split(k, 4), lambda k: prng.fold_in(k, 2**31 + 5),
+               lambda k: prng.random_bits(k, shape)):
+        assert torch.equal(fn(keys.to(dev)).cpu(), fn(keys))
+    u_card, u_cpu = prng.uniform(keys.to(dev), shape).cpu(), prng.uniform(keys, shape)
+    assert torch.equal(u_card.view(torch.int32), u_cpu.view(torch.int32))
+    n_card, n_cpu = prng.normal(keys.to(dev), shape).cpu(), prng.normal(keys, shape)
+    ulps = (n_card.view(torch.int32).long() - n_cpu.view(torch.int32).long()).abs()
+    assert ulps.max().item() <= prng.NORMAL_ULPS
+
+
+def test_counter_noise_superstep_makes_no_host_sync(dev):
+    """A counter-noise superstep draws its windows on the card and reads
+    nothing back on the host, packed and unpacked."""
+    from repro_torch.core import prng
+
+    dc = paper_diffusion_policy_smoke()
+    K, theta, S = 16, 4, 3
+    sched = t_sch.sl_geometric(K, 0.05, 50.0).to(dev)
+    fn = make_sl_model_fn(init_denoiser_params(dc, 0, out_scale=1.0, device=dev), dc)
+    st = t_asd.init_chain_state(sched, torch.zeros((S, dc.seq_len, dc.d_data), device=dev),
+                                theta, False, key=prng.split(prng.PRNGKey(1), S).to(dev),
+                                noise_mode="counter")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            t_asd.asd_superstep(fn, sched, st, theta, 2, eager_head=True,
+                                keep_trajectory=False, noise_mode="counter")
+            packed_superstep(fn, sched, st, None, torch.ones(S, device=dev), rounds=2,
+                             theta=theta, budget=5,
+                             allocator=WaterfillingAllocator(theta_max=theta),
+                             round_impl="fused", noise_mode="counter")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_serve_cli_on_card(dev):
+    """``python -m repro_torch.launch.serve`` in process on the card (smoke
+    model, packed fused rounds): finite samples, B1's work inside B6 and
+    B2 launched."""
+    from repro_torch.launch import serve
+
+    before = (fused_ops.fused_verify_commit.launches, flash_f32.launches)
+    summary = serve.main(["--model", "paper-diffusion-policy-smoke", "--K", "20",
+                          "--execution", "packed", "--round-budget", "24",
+                          "--round-impl", "fused", "--theta-controller", "aimd"])
+    assert summary["finite"] and summary["retired"] == 8
+    after = (fused_ops.fused_verify_commit.launches, flash_f32.launches)
+    assert after[0] - before[0] == summary["rounds_total"]
+    assert after[1] > before[1]

@@ -130,13 +130,16 @@ def _gmm_engine(num_slots, **kw):
 
 
 def test_unkeyed_requests_draw_by_rid_not_by_slot_or_order():
-    """A request without injected noise draws from a generator that is a
-    pure function of (worker seed, rid): the same rid gets the same sample
-    whatever the slot count, arrival order or superstep length."""
+    """A request without a key or injected noise draws from
+    fold_in(serve key, rid), a pure function of (serve key, rid): the same
+    rid gets the same sample whatever the slot count, arrival order or
+    superstep length, and another one under another serve key."""
     a = _gmm_engine(2).serve([TRequest(i) for i in range(4)])
     b = _gmm_engine(3, rounds_per_sync=3).serve([TRequest(i) for i in (3, 1, 0, 2)])
+    c = _gmm_engine(2).serve([TRequest(i) for i in range(4)], key=np.array([0, 99]))
     for rid in range(4):
         np.testing.assert_allclose(a[rid], b[rid], rtol=1e-5, atol=1e-5)
+        assert not np.allclose(a[rid], c[rid])
     assert not np.allclose(a[0], a[1])
 
 
