@@ -47,9 +47,26 @@ Phases, each printing one JSON line and raising on any failure:
               then one superstep of each round_impl profiled, and one of
               each (in buffer and in counter noise, and an unpacked one in
               counter noise) with host syncs made errors.
+     branched the same denoiser with B 2 draft branches (counter noise):
+              ``asd_sample_batched`` (4 chains, theta 8, K 64) at B 1 and 2
+              from one key, and one round from the same states (the
+              branched advance never shorter), profiled warm at B 1 and 2
+              (branched_profile); the engine (6 keyed
+              requests, 4 slots, R 4) at budgets 32 (one window a slot:
+              branches shed) and 64 (covering) in both round_impls, equal
+              counters and sample bits between them, launches of every
+              kernel per round; one superstep of each round with host
+              syncs made errors; and B 1 asked for explicitly against the
+              serve phase: the same bits, counters and launches.
      serve_reference
               the same engine on a small denoiser, on the card and on the
               CPU with the same noise, in both round_impls.
+     branched_reference
+              branched serving (B 3, counter noise, static and gain branch
+              controllers) on the small denoiser, card against CPU from
+              the same keys: counters, drafted points and branch counts
+              equal, samples within 2e-3; a planted fault (branch 1 drawn
+              with branch 2's salt) must exceed that.
      prng     the port's threefry (``core/prng.py``) on the card against the
               CPU: keys, splits, folds, bits and uniforms equal, normals
               within ``NORMAL_ULPS``, at paper-pixel-dit's event and at 1, 5
@@ -73,6 +90,11 @@ Phases, each printing one JSON line and raising on any failure:
               accept-rate, R 4, the metrics endpoint, the trace, a
               profile with the device's idle share): launches of every
               kernel per round, finite samples.
+     serve_cli_branched
+              the same at --num-branches 2, at 4 with the gain branch
+              controller, and at 2 with packed fused rounds, each profiled:
+              samples/s, round ms, idle share, branch depth and waste
+              beside the B 1 profiled run.
      serve_keys_reference
               the counter-noise engine on a small denoiser, on the card
               and on the CPU from the same keys (keyed and unkeyed
@@ -117,11 +139,20 @@ Phases, each printing one JSON line and raising on any failure:
               theta 8): depth, accept rate, K / depth, wall seconds, and the
               launches of B1 and B2's float32 kernel (its packed design)
               per round.
+     standin_branched
+              the trained pixel stand-in at B 1, 2 and 4 (K 200, 16 chains,
+              theta 8, one key): depth, K / depth, branch depth, waste,
+              wall seconds; one round from the same states never advances
+              less at B > 1, nor is the mean depth above B 1's.
      standin_reference
               the trained policy on the card and on the CPU with the same
               injected noise: counters equal, samples within 2e-5 of their
               scale; the model's output rounded to bf16 must fail that.
-  8. kernels  one JSON line with every ported kernel's numbers.
+     branched_kernels
+              B1-B6 against their plain versions at the branched rounds'
+              shapes (rows of S x B x theta), timed as in phase 3.
+  8. kernels  one JSON line with every ported kernel's numbers, and rows
+              at the branched shapes (``at``) with their launches there.
   9. the last line: {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, where there is no CUDA device or
@@ -383,6 +414,19 @@ def _grs_inputs(torch, dev, R, D, seed, zero_rows=True):
     return u, xi, mh, m, sig
 
 
+def _near_threshold(torch, u, xi, mh, m, sig):
+    """Rows whose GRS accept test lies within 1e-5 of its threshold (in
+    float64), where float32 sums in another order may decide either way:
+    u (R,), xi, mh, m (R, *event), sig (R,)."""
+    R = u.shape[0]
+    v = (mh - m).reshape(R, -1).double()
+    vv, vx = (v * v).sum(-1), (v * xi.reshape(R, -1).double()).sum(-1)
+    s = torch.where(sig > 0, sig, torch.ones_like(sig)).double()
+    margin = (torch.log(torch.clamp(u.double(), min=1e-20))
+              - torch.clamp(-(vx / s + vv / (2 * s * s)), max=0)).abs()
+    return (margin < 1e-5) & (sig > 0)
+
+
 def _grs_compare(torch, args):
     """B1 against its plain version: (max abs error of z, accepted rows);
     fails where z is off by more than 1e-5 or an accept bit differs on a
@@ -393,13 +437,8 @@ def _grs_compare(torch, args):
     zk, ak = grs(*args)
     torch.cuda.synchronize()
     zp, ap = grs_plain(*args)
-    u, xi, mh, m, sig = args
-    v = (mh - m).double()
-    vv, vx = (v * v).sum(-1), (v * xi.double()).sum(-1)
-    s = torch.where(sig > 0, sig, torch.ones_like(sig)).double()
-    margin = (torch.log(torch.clamp(u.double(), min=1e-20))
-              - torch.clamp(-(vx / s + vv / (2 * s * s)), max=0)).abs()
-    near = (margin < 1e-5) & (sig > 0)
+    xi = args[1]
+    near = _near_threshold(torch, *args)
     if not torch.equal(ak[~near], ap[~near]):
         fail(f"grs: accept bits differ away from the threshold at {tuple(xi.shape)}")
     err = (zk - zp).abs().max().item()
@@ -867,15 +906,9 @@ def check_fused_round(torch, dev):
             fail(f"fused_round: fused gather differs from plain at {tuple(tbls[0].shape)}")
         zp, ap = fused_verify_commit_plain(*args, sidx, N)
         y, gg, xi, mh, A, B, u, sig = args
-        M = y.shape[0]
-        v = (mh - m).reshape(M, -1).double()
-        vv, vx = (v * v).sum(-1), (v * xi.reshape(M, -1).double()).sum(-1)
-        s = torch.where(sig > 0, sig, torch.ones_like(sig)).double()
-        margin = (torch.log(torch.clamp(u.double(), min=1e-20))
-                  - torch.clamp(-(vx / s + vv / (2 * s * s)), max=0)).abs()
         near = torch.zeros(N, dtype=torch.bool, device=dev)
         live = sidx < N
-        near[sidx[live]] = ((margin < 1e-5) & (sig > 0))[live]
+        near[sidx[live]] = _near_threshold(torch, u, xi, mh, m, sig)[live]
         if not torch.equal(ak[~near], ap[~near]):
             fail(f"fused_round: accept bits differ away from the threshold at {tuple(y.shape)}")
         err = (zk - zp).abs().max().item()
@@ -1270,9 +1303,9 @@ def run_serve(torch, dev, model_fn, sched, dc):
              proposals=sum(m.proposals for m in per_req.values()),
              slot_occupancy=sum(m.rounds for m in per_req.values()) / (rounds * SLOTS),
              launches=launches)
-        runs[impl] = (out, per_req)
+        runs[impl] = (out, per_req, launches)
         launches_by_run[f"serve_{impl}"] = launches
-    (out_p, req_p), (out_f, req_f) = runs["packed"], runs["fused"]
+    (out_p, req_p, _), (out_f, req_f, _) = runs["packed"], runs["fused"]
     for rid in range(REQUESTS):
         a, b = req_p[rid], req_f[rid]
         if (a.rounds, a.head_calls, a.accepts, a.proposals) != (
@@ -1331,7 +1364,202 @@ def run_serve(torch, dev, model_fn, sched, dc):
                       f"one warm superstep ({RPS} rounds, harvest included) of the serve "
                       "cell under torch.profiler", round_impl=impl, rounds=RPS,
                       round_wall_ms=wall_ms / RPS)
-    return launches_by_run
+    return launches_by_run, runs
+
+
+# the branched cell (pixel-dit-branched): branches, and the packed engine's
+# budgets: 32 gives each of the 4 slots one window (every branch past the
+# first is shed), 64 covers slots x theta x branches
+BRANCHES = 2
+BRANCHED_BUDGETS = (32, SLOTS * THETA * BRANCHES)
+
+
+def _branch_lanes(res):
+    """Mean accepted prefix a round and the wasted share of the drafted
+    points, over a batch of chains (an ASDResult)."""
+    accepts = int(res.accepts.sum())
+    return (accepts / max(int(res.rounds.sum()), 1),
+            1.0 - accepts / max(int(res.draft_points.sum()), 1))
+
+
+def run_branched(torch, dev, model_fn, sched, dc, serve_runs):
+    """pixel-dit-branched: the full-width denoiser with B 2 draft branches.
+
+    ``asd_sample_batched`` (4 chains, theta 8, K 64, counter noise) at B 1
+    and 2 from the same key, with one round from the same states (the
+    branched advance is never shorter); ``ContinuousASDEngine`` (packed, 6
+    keyed requests on 4 slots, R 4) at budgets 32 and 64 in both
+    round_impls, which must give equal counters and sample bits; one
+    superstep of each round with host syncs made errors; and B 1 asked for
+    explicitly (a gain branch controller beside it) against the serve
+    phase's runs: the same bits, counters and launches."""
+    from repro_torch.core import prng
+    from repro_torch.core.asd import asd_round, asd_sample_batched, asd_superstep, init_chain_state
+    from repro_torch.core.controller import GainBranches
+    from repro_torch.serving.engine import ContinuousASDEngine, Request
+    from repro_torch.serving.packing import WaterfillingAllocator, packed_superstep
+
+    counters = _counters()
+    n_layers = dc.backbone.n_layers
+    event = (dc.seq_len, dc.d_data)
+    sched_dev = sched.to(dev)
+    key = prng.PRNGKey(SEED + 30)
+    y0 = torch.zeros((CHAINS,) + event, device=dev)
+    by_run, sampled = {}, {}
+    with torch.no_grad():
+        for nb in (1, BRANCHES):
+            _zero_counters(torch, counters)
+            t0 = time.perf_counter()
+            res = asd_sample_batched(model_fn, sched, y0, THETA, eager_head=False, device=dev,
+                                     key=key, noise_mode="counter", num_branches=nb)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches(counters)
+            loops = int(res.rounds.max())
+            want = dict.fromkeys(launches, 0)
+            want.update(grs=loops, flash_attention=2 * n_layers * loops)
+            if launches != want:
+                fail(f"branched asd B {nb}: launches {launches}, expected {want}")
+            if not (bool(torch.isfinite(res.sample).all())
+                    and tuple(res.sample.shape) == (CHAINS,) + event):
+                fail(f"branched asd B {nb}: samples not finite or misshapen")
+            depth = (res.rounds + res.head_calls).tolist()
+            accept_depth, waste = _branch_lanes(res)
+            sampled[nb] = statistics.mean(depth)
+            emit("branched", run="asd", branches=nb, K=K, theta=THETA, chains=CHAINS,
+                 noise_mode="counter", eager_head=False, depth=depth,
+                 mean_depth=sampled[nb], K_over_depth=K / sampled[nb],
+                 accept_rate=int(res.accepts.sum()) / max(int(res.proposals.sum()), 1),
+                 branch_accept_depth=accept_depth, wasted_draft_frac=waste,
+                 draft_points=int(res.draft_points.sum()),
+                 proposals=int(res.proposals.sum()), loop_rounds=loops, wall_s=wall,
+                 round_wall_ms=wall / loops * 1e3, launches=launches,
+                 launches_per_round={k: v / loops for k, v in launches.items() if v},
+                 grs_rows=CHAINS * nb * THETA,
+                 flash_verify_points=CHAINS * nb * THETA)
+            by_run[f"branched_asd_b{nb}"] = launches
+        # one round from the same states: the longest of B prefixes is never
+        # shorter than branch 0's, which is the single-draft round's
+        st = init_chain_state(sched_dev, y0, THETA, False,
+                              key=prng.split(key, CHAINS).to(dev), noise_mode="counter",
+                              num_branches=BRANCHES)
+        one = asd_round(model_fn, sched_dev, st, THETA, keep_trajectory=False,
+                        noise_mode="counter")
+        many = asd_round(model_fn, sched_dev, st, THETA, keep_trajectory=False,
+                         noise_mode="counter", num_branches=BRANCHES)
+        if bool((many.a < one.a).any()):
+            fail(f"branched: one round advanced {many.a.tolist()} at B {BRANCHES}, below "
+                 f"{one.a.tolist()} at B 1")
+        # that round again under the profiler, warm, at B 1 and B 2
+        for nb in (1, BRANCHES):
+            wall_ms, kernels = _profiled(torch, lambda nb=nb: asd_round(
+                model_fn, sched_dev, st, THETA, keep_trajectory=False, noise_mode="counter",
+                num_branches=nb))
+            _emit_profile(torch, "branched_profile", wall_ms, kernels,
+                          "one warm round from the same states (proposal and verification "
+                          "call, the counter window and branch draws, GRS, plan and commit) "
+                          "under torch.profiler", branches=nb)
+    emit("branched_round", branches=BRANCHES, advance_b1=one.a.tolist(),
+         advance_branched=many.a.tolist(), depth_ratio=sampled[BRANCHES] / sampled[1],
+         note="one round from the same states: the branched advance is never shorter")
+
+    reqs = [Request(i, key=prng.PRNGKey(3000 + i)) for i in range(REQUESTS)]
+    per_round = _per_round(n_layers)
+    for budget in BRANCHED_BUDGETS:
+        runs = {}
+        for impl in ("packed", "fused"):
+            eng = ContinuousASDEngine(model_fn, sched, event, num_slots=SLOTS, theta=THETA,
+                                      execution="packed", round_budget=budget,
+                                      rounds_per_sync=RPS, round_impl=impl, seed=SEED,
+                                      noise_mode="counter", num_branches=BRANCHES,
+                                      device=dev)
+            _zero_counters(torch, counters)
+            t0 = time.perf_counter()
+            out = eng.serve(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches(counters)
+            rounds = eng.stats.rounds_total
+            want = {name: rounds * n for name, n in per_round[impl].items()}
+            if launches != want:
+                fail(f"branched serve {impl} budget {budget}: launches {launches}, expected "
+                     f"{want} for {rounds} rounds")
+            if sorted(out) != list(range(REQUESTS)) or not all(
+                    v.shape == event and np.isfinite(v).all() for v in out.values()):
+                fail(f"branched serve {impl} budget {budget}: samples missing or not finite")
+            per_req = {m.rid: m for m in eng.stats.per_request}
+            s = eng.stats
+            emit("branched", run="serve", round_impl=impl, branches=BRANCHES,
+                 round_budget=budget, covering_budget=SLOTS * THETA * BRANCHES,
+                 requests=REQUESTS, slots=SLOTS, theta=THETA, K=K, rounds_per_sync=RPS,
+                 noise_mode="counter", wall_s=wall, samples_per_s=REQUESTS / wall,
+                 rounds=rounds, round_wall_ms=wall / rounds * 1e3,
+                 per_request_depth=[per_req[r].parallel_depth for r in range(REQUESTS)],
+                 accept_rate=s.accept_rate(), branch_accept_depth=s.branch_accept_depth(),
+                 wasted_draft_frac=s.wasted_draft_frac(), draft_points=s.draft_points_total,
+                 proposals=s.proposals_total, launches=launches,
+                 launches_per_round={k: v / rounds for k, v in launches.items() if v})
+            runs[impl] = (out, {r: (m.rounds, m.head_calls, m.model_evals, m.accepts,
+                                    m.proposals, m.draft_points) for r, m in per_req.items()})
+            by_run[f"branched_serve_{impl}_b{budget}"] = launches
+        (op, cp), (of, cf) = runs["packed"], runs["fused"]
+        err = max(float(np.abs(op[r] - of[r]).max()) for r in range(REQUESTS))
+        if cp != cf or err != 0.0:
+            fail(f"branched serve budget {budget}: packed and fused differ (counters equal: "
+                 f"{cp == cf}, samples by {err})")
+
+    # one superstep of each round, B 2, with every host sync an error
+    st = init_chain_state(sched_dev, torch.zeros((SLOTS,) + event, device=dev), THETA, False,
+                          key=prng.split(prng.PRNGKey(SEED + 31), SLOTS).to(dev),
+                          noise_mode="counter", num_branches=BRANCHES,
+                          branch_controller=GainBranches())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            asd_superstep(model_fn, sched_dev, st, THETA, RPS, eager_head=True,
+                          keep_trajectory=False, noise_mode="counter", num_branches=BRANCHES,
+                          branch_controller=GainBranches())
+            for impl in ("packed", "fused"):
+                packed_superstep(model_fn, sched_dev, st, None, torch.ones(SLOTS, device=dev),
+                                 rounds=RPS, theta=THETA, budget=BRANCHED_BUDGETS[0],
+                                 allocator=WaterfillingAllocator(theta_max=THETA * BRANCHES),
+                                 round_impl=impl, noise_mode="counter",
+                                 num_branches=BRANCHES, branch_controller=GainBranches())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit("branched_no_host_sync", branches=BRANCHES, rounds=RPS,
+         supersteps=["unpacked", "packed", "fused"], branch_controller="gain",
+         note="one superstep each under torch.cuda.set_sync_debug_mode('error')")
+
+    # B 1 asked for explicitly: the serve phase's bits, counters and launches
+    serve_reqs = _serve_requests(torch, dev, dc, K, THETA, REQUESTS, SEED + 100)
+    for impl in ("packed", "fused"):
+        eng = ContinuousASDEngine(model_fn, sched, event, num_slots=SLOTS, theta=THETA,
+                                  execution="packed", round_budget=BUDGET,
+                                  rounds_per_sync=RPS, round_impl=impl, seed=SEED,
+                                  num_branches=1, branch_controller=GainBranches(), device=dev)
+        _zero_counters(torch, counters)
+        out = eng.serve(serve_reqs)
+        torch.cuda.synchronize()
+        launches = _launches(counters)
+        ref_out, ref_req, ref_launches = serve_runs[impl]
+        got = {m.rid: (m.rounds, m.head_calls, m.model_evals, m.accepts, m.proposals)
+               for m in eng.stats.per_request}
+        want = {r: (m.rounds, m.head_calls, m.model_evals, m.accepts, m.proposals)
+                for r, m in ref_req.items()}
+        same = all(np.array_equal(out[r].view(np.int32), ref_out[r].view(np.int32))
+                   for r in range(REQUESTS))
+        if got != want or not same or launches != ref_launches:
+            fail(f"branched B 1 {impl}: counters equal {got == want}, bits equal {same}, "
+                 f"launches {launches} against {ref_launches}")
+        if any(m.draft_points != m.proposals for m in eng.stats.per_request):
+            fail(f"branched B 1 {impl}: drafted points differ from proposals")
+    emit("branched_b1", round_impls=["packed", "fused"], requests=REQUESTS,
+         note="num_branches=1 with a gain branch controller against the serve phase: "
+              "equal sample bits, counters and launches")
+    return by_run
 
 
 def check_serve_reference(torch, dev):
@@ -1483,6 +1711,151 @@ def check_cli_kernels(torch, dev):
     return out
 
 
+def check_branched_kernels(torch, dev):
+    """B1-B6 against their plain versions at the shapes branched rounds give
+    them, timed as in phase 3: GRS over (S x B x theta) rows (the CLI's 64
+    and 128 rows of 224 at B 2 and 4; paper-pixel-dit's 64 rows of
+    196,608 at B 2), B2 at the verification calls (the CLI's 72 and 144
+    points of 16 tokens; pixel-dit's budget 64 plus 8 head lanes, 72
+    points of 1024 tokens), and B3-B6 over pixel-dit's 64-row branch
+    tables, with a packed batch of 64 (58 live rows, 6 padding).  Each row
+    names the main-path runs at its shape, and the share of a run's
+    launches made there (B2: the verification call, half a round's)."""
+    from repro_torch.configs.registry import get_denoiser_config
+    from repro_torch.core.grs import grs as grs_plain
+    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha, flash_wgmma
+    from repro_torch.kernels.grs.ops import grs
+    from repro_torch.kernels.pack.ops import (gather_rows, gather_rows_plain, scatter_rows,
+                                              scatter_rows_plain)
+    from repro_torch.kernels.superstep.ops import (fused_gather, fused_gather_plain,
+                                                   fused_verify_commit,
+                                                   fused_verify_commit_plain)
+    from repro_torch.serving.packing import build_branched_pack_maps
+
+    cli = get_denoiser_config("paper-diffusion-policy")
+    cli_D, cli_L = cli.seq_len * cli.d_data, cli.seq_len
+    cli_H, cli_hd = cli.backbone.n_heads, cli.backbone.d_model // cli.backbone.n_heads
+    pix_D = 1024 * 192
+    rows = []
+
+    def row(name, at, source, replaces, runs, err, times, nbytes, ops, peak, **extra):
+        bms, by = bound_ms(nbytes, ops, peak)
+        line = dict(name=name, at=at, route="cuda", source=source, replaces=replaces,
+                    max_abs_err=err, **times, bound_ms=bms, bound_by=by, runs=runs, **extra)
+        emit("branched_kernels", **line)
+        rows.append(line)
+
+    for at, R, D, runs in (
+            ("serve CLI, B 2: (64, 224)", SLOTS * 2 * THETA, cli_D,
+             {"serve_cli_branched_branches_2": 1.0}),
+            ("serve CLI, B 4: (128, 224)", SLOTS * 4 * THETA, cli_D,
+             {"serve_cli_branched_branches_4_gain": 1.0}),
+            ("paper-pixel-dit, B 2: (64, 196608)", CHAINS * BRANCHES * THETA, pix_D,
+             {f"branched_asd_b{BRANCHES}": 1.0,
+              f"branched_serve_packed_b{BRANCHED_BUDGETS[-1]}": 1.0})):
+        args = _grs_inputs(torch, dev, R, D, 60 + R)
+        err, _ = _grs_compare(torch, args)
+        times = kernel_times(lambda: grs(*args), lambda: grs_plain(*args), wrapper=grs)
+        row("grs", at, "src/repro_torch/csrc/grs.cu", "src/repro/kernels/grs/kernel.py:27",
+            runs, err, times, 4.0 * R * D * 4 + 3 * R * 4, 10.0 * R * D, PEAK_F32,
+            geometry=_row_geometry(R, D))
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for at, B, L, H, hd, runs in (
+            ("serve CLI verification, B 2: (72, 16, 8, 64)", SLOTS * 2 * (THETA + 1), cli_L,
+             cli_H, cli_hd, {"serve_cli_branched_branches_2": 0.5}),
+            ("serve CLI verification, B 4: (144, 16, 8, 64)", SLOTS * 4 * (THETA + 1), cli_L,
+             cli_H, cli_hd, {"serve_cli_branched_branches_4_gain": 0.5}),
+            ("paper-pixel-dit packed verification, B 2 budget 64: (72, 1024, 16, 64)",
+             BRANCHED_BUDGETS[-1] + SLOTS * BRANCHES, 1024, 16, 64,
+             {f"branched_serve_{impl}_b{BRANCHED_BUDGETS[-1]}": 0.5
+              for impl in ("packed", "fused")})):
+        q, k, v = _flash_inputs(torch, dev, B, L, L, H, hd, 70 + B)
+        ok = flash_mha(q, k, v, causal=False)
+        op = attention_plain(q, k, v, causal=False)
+        used = _flash_tolerance_used(ok, op)
+        if not used <= 1.0:
+            fail(f"branched_kernels: B2 used {used} of the tolerance at {(B, L, H, hd)}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        times = kernel_times(lambda: flash_mha(q, k, v, causal=False),
+                             lambda: attention_plain(q, k, v, causal=False),
+                             lambda: sdpa(qt, kt, vt), reps=5 if L > 64 else 20,
+                             wrapper=flash_wgmma)
+        row("flash_attention", at, FLASH_WGMMA_SOURCE, FLASH_REPLACES, runs,
+            (ok.float() - op.float()).abs().max().item(), times, 4.0 * B * L * H * hd * 2,
+            4.0 * B * H * L * L * hd, PEAK_BF16, dtype="bfloat16", tolerance_used=used,
+            library="scaled_dot_product_attention")
+        del q, k, v, ok, op
+
+    # pixel-dit's branch tables: 4 slots x 2 branches x theta 8 rows; the
+    # covering budget packs 58 live rows and 6 padding lanes
+    N, M, ev = SLOTS * BRANCHES * THETA, BRANCHED_BUDGETS[-1], (1024, 192)
+    maps = build_branched_pack_maps(torch.tensor([8, 8, 8, 5], device=dev),
+                                    torch.full((SLOTS,), BRANCHES, device=dev), M)
+    gidx = torch.where(maps.valid, (maps.slot_id * BRANCHES + maps.branch_id) * THETA
+                       + maps.step_id, 0)
+    sidx = maps.row_id(BRANCHES, THETA)
+    g = torch.Generator(device=dev).manual_seed(SEED + 80)
+    tbls = [torch.randn((N,) + ev, generator=g, device=dev) for _ in range(3)]
+    sc = torch.randn(N, 5, generator=g, device=dev)
+    vals = torch.randn((M,) + ev, generator=g, device=dev)
+    at = f"paper-pixel-dit, B 2 budget 64: {N}-row tables, {M} packed rows"
+    packed = {f"branched_serve_packed_b{M}": 1.0}
+    fused = {f"branched_serve_fused_b{M}": 1.0}
+    for name, fn, plain, lib, nbytes, replaces, runs in (
+            ("gather_rows", lambda: gather_rows(tbls[0], gidx),
+             lambda: gather_rows_plain(tbls[0], gidx),
+             lambda: torch.index_select(tbls[0], 0, gidx), 2.0 * M * pix_D * 4 + M * 8,
+             "src/repro/kernels/pack/kernel.py:31", packed),
+            ("scatter_rows", lambda: scatter_rows(vals, sidx, N),
+             lambda: scatter_rows_plain(vals, sidx, N), None,
+             M * pix_D * 4.0 + N * pix_D * 4 + M * 8, "src/repro/kernels/pack/kernel.py:59",
+             packed),
+            ("fused_gather", lambda: fused_gather(*tbls, sc, gidx),
+             lambda: fused_gather_plain(*tbls, sc, gidx), None,
+             2.0 * (3 * M * pix_D * 4 + M * 5 * 4) + M * 8,
+             "src/repro/kernels/superstep/kernel.py:42", fused)):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(
+                got if isinstance(got, tuple) else (got,),
+                want if isinstance(want, tuple) else (want,))):
+            fail(f"branched_kernels: {name} differs from its plain version at {at}")
+        times = kernel_times(fn, plain, lib, wrapper=_counters()[name])
+        row(name, at, "src/repro_torch/csrc/pack.cu" if "rows" in name
+            else "src/repro_torch/csrc/superstep.cu", replaces, runs, 0.0, times, nbytes, 0.0,
+            PEAK_F32, tolerance="equal bits (data movement)",
+            library="index_select" if lib is not None else None)
+    # B6 on inputs where the target sits near the proposal (some accepts)
+    y, gg, xi = (torch.randn((M,) + ev, generator=g, device=dev) for _ in range(3))
+    A = 1.0 + 0.1 * torch.rand(M, generator=g, device=dev)
+    Bc = 0.5 * torch.rand(M, generator=g, device=dev)
+    m = A[:, None, None] * y + Bc[:, None, None] * gg
+    mh = m + 0.3 * torch.randn((M,) + ev, generator=g, device=dev) / pix_D ** 0.5
+    u = torch.rand(M, generator=g, device=dev)
+    sig = 0.2 + 0.3 * torch.rand(M, generator=g, device=dev)
+    args = (y, gg, xi, mh, A, Bc, u, sig, sidx, N)
+    (zk, ak), (zp, ap) = fused_verify_commit(*args), fused_verify_commit_plain(*args)
+    torch.cuda.synchronize()
+    err = (zk - zp).abs().max().item()
+    live = sidx < N
+    near = torch.zeros(N, dtype=torch.bool, device=dev)
+    near[sidx[live]] = _near_threshold(torch, u, xi, mh, m, sig)[live]
+    if not (err <= 1e-5 and torch.equal(ak[~near], ap[~near])):
+        fail(f"branched_kernels: fused_verify_commit z error {err} or accept bits differ "
+             "away from the threshold")
+    times = kernel_times(lambda: fused_verify_commit(*args),
+                         lambda: fused_verify_commit_plain(*args),
+                         wrapper=fused_verify_commit)
+    row("fused_verify_commit", at, "src/repro_torch/csrc/superstep.cu",
+        "src/repro/kernels/superstep/kernel.py:84", fused, err, times,
+        4.0 * M * pix_D * 4 + 4 * M * 4 + M * 8 + N * pix_D * 4 + N * 4, 12.0 * M * pix_D,
+        PEAK_F32, tolerance="z atol 1e-5; accept bits equal except rows within 1e-5 of the "
+        "threshold", accepted_rows=int(ak.sum()),
+        geometry=_row_geometry(M, pix_D))
+    return rows
+
+
 # launches of each kernel per round on the serve CLI's default model (bf16,
 # so B2 is the wgmma kernel): unpacked rounds and the fused engine run B1 and
 # B2 only; the packed round adds B3 and B4, the fused round B5 and B6
@@ -1513,18 +1886,50 @@ SERVE_CLI_RUNS = (
 )
 
 
-def run_serve_cli(torch, dev):
+def _profiled_run(name):
+    return ["--profile-supersteps", str(SERVE_CLI_PROFILE),
+            "--profile-dir", str(ROOT / "build" / f"serve_cli_{name}_profile")]
+
+
+# branched speculation at the CLI's defaults, each profiled as the B 1
+# "profile" run is (the line compares them)
+SERVE_CLI_BRANCHED_RUNS = (
+    ("branches_2", ["--num-branches", "2", *_profiled_run("branches_2")]),
+    ("branches_4_gain", ["--num-branches", "4", "--branch-controller", "gain",
+                         *_profiled_run("branches_4_gain")]),
+    ("branches_2_packed_fused_round", ["--execution", "packed", "--round-impl", "fused",
+                                       "--num-branches", "2",
+                                       *_profiled_run("branches_2_packed_fused_round")]),
+)
+
+
+def _cli_numbers(summary):
+    """samples/s over the serve's wall, a round's ms (a profiled warm
+    superstep of one round), the idle share, branch depth and waste."""
+    prof = summary.get("profile") or {}
+    n = prof.get("supersteps") or 0
+    return dict(samples_per_s=SERVE_CLI_REQUESTS / summary["wall_time_s"],
+                round_ms=prof["wall_ms"] / n if n else None,
+                device_idle_share=prof.get("device_idle_share"),
+                rounds=summary["rounds_total"],
+                branch_accept_depth=summary["branch_accept_depth"],
+                wasted_draft_frac=summary["wasted_draft_frac"])
+
+
+def run_serve_cli(torch, dev, runs=SERVE_CLI_RUNS, phase="serve_cli", reference=None):
     """``repro_torch.launch.serve.main`` on the card at the CLI's defaults
     (paper-diffusion-policy at full width, 8 requests, 4 slots, theta 8,
     K 100, continuous, unpacked, counter noise), then each variant: the
-    launches of every kernel per round, finite samples, and the summary."""
+    launches of every kernel per round, finite samples, and the summary.
+    Returns the launches and the summaries by run; with ``reference`` (a
+    summary) each line also gives its numbers beside the reference's."""
     from repro_torch.configs.registry import get_denoiser_config
     from repro_torch.launch import serve
 
     n_layers = get_denoiser_config("paper-diffusion-policy").backbone.n_layers
     counters = _counters()
-    by_run = {}
-    for name, argv in SERVE_CLI_RUNS:
+    by_run, summaries = {}, {}
+    for name, argv in runs:
         _zero_counters(torch, counters)
         t0 = time.perf_counter()
         summary = serve.main(argv)
@@ -1537,9 +1942,9 @@ def run_serve_cli(torch, dev):
         want = {k: 0 for k in launches}
         want.update({k: n * rounds for k, n in _cli_per_round(n_layers, impl).items()})
         if launches != want:
-            fail(f"serve_cli {name}: launches {launches}, expected {want} for {rounds} rounds")
+            fail(f"{phase} {name}: launches {launches}, expected {want} for {rounds} rounds")
         if not summary["finite"]:
-            fail(f"serve_cli {name}: samples not finite")
+            fail(f"{phase} {name}: samples not finite")
         extra = {}
         if name == "metrics":
             if summary["metrics"]["healthz"] != "ok" or summary["metrics"]["samples"] < 10:
@@ -1547,21 +1952,27 @@ def run_serve_cli(torch, dev):
             extra["metrics"] = summary["metrics"]
         if name == "trace":
             extra["trace"] = summary["trace"]
-        if name == "profile":
+        if "--profile-supersteps" in argv:
             prof = summary["profile"]
             if prof["device_idle_share"] is None or prof["supersteps"] != SERVE_CLI_PROFILE:
-                fail(f"serve_cli profile: {prof}")
+                fail(f"{phase} {name}: profile {prof}")
             extra["profile"] = prof
+        if reference is not None:
+            numbers = _cli_numbers(summary)
+            extra.update({k: numbers[k] for k in ("round_ms", "device_idle_share",
+                                                  "branch_accept_depth", "wasted_draft_frac")},
+                         b1=_cli_numbers(reference))
         # the requests the timed serve answered over its wall (a profiled
         # run's warm pool retires outside it but lands in the engine's stats)
-        emit("serve_cli", variant=name, argv=argv, model="paper-diffusion-policy",
+        emit(phase, variant=name, argv=argv, model="paper-diffusion-policy",
              samples_per_s=SERVE_CLI_REQUESTS / summary["wall_time_s"],
              accept_rate=summary["accept_rate"],
              mean_live_window=summary["mean_window"], rounds=rounds,
              supersteps=summary.get("supersteps"), wall_s=wall,
              serve_wall_s=summary["wall_time_s"], launches=launches, **extra)
-        by_run[f"serve_cli_{name}"] = launches
-    return by_run
+        by_run[f"{phase}_{name}"] = launches
+        summaries[name] = summary
+    return by_run, summaries
 
 
 # the K 1000 cell's buffers: xi of (K + theta + 1) steps a slot, float32
@@ -1733,6 +2144,83 @@ def check_serve_keys_reference(torch, dev):
              max_abs_err=err, tolerance=SERVE_KEYS_TOL, accepts=accepts,
              proposals=proposals,
              planted_fault=f"xi of step {_FAULT_STEP} drawn from step {_FAULT_STEP + 1}",
+             planted_fault_err=planted if math.isfinite(planted) else "counters differ")
+
+
+def _branch_salt_fault(torch, branch_noise):
+    """Branch noise whose branch 1 draws from salt _BRANCH_SALT + 2 (branch
+    2's stream): the planted fault branched_reference must see."""
+    def faulty(st, theta, num_branches):
+        u, xi = branch_noise(st, theta, num_branches + 1)  # salts + 1 .. + B
+        keep = slice(1, num_branches - 1)
+        return (torch.cat([u[:, 1:2], u[:, keep]], dim=1),
+                torch.cat([xi[:, 1:2], xi[:, keep]], dim=1))
+    return faulty
+
+
+def check_branched_reference(torch, dev):
+    """Branched serving (B 3, counter noise) on the smoke denoiser, on the
+    card and on the CPU from the same keys, with the static and the gain
+    branch controller: per-request counters (drafted points included) and
+    the slots' final branch counts and controller state equal, samples
+    within SERVE_KEYS_TOL; a planted fault (branch 1 drawn with salt
+    _BRANCH_SALT + 2) must exceed it."""
+    from repro_torch.configs.registry import paper_diffusion_policy_smoke
+    from repro_torch.core import asd, prng
+    from repro_torch.core.controller import make_branch_controller
+    from repro_torch.core.schedules import sl_geometric
+    from repro_torch.models.diffusion import make_sl_model_fn
+    from repro_torch.serving.engine import ContinuousASDEngine, Request
+    from repro_torch.weights import init_denoiser_params
+
+    dc = paper_diffusion_policy_smoke()
+    k, theta, slots, n, nb = 16, 4, 3, 5, 3
+    sched = sl_geometric(k, 0.05, 50.0)
+    configs = {"static": dict(rounds_per_sync=2),
+               "gain": dict(execution="packed", round_impl="fused", round_budget=24,
+                            rounds_per_sync=2)}
+
+    def serve(where, ctl):
+        fn = make_sl_model_fn(init_denoiser_params(dc, SEED, out_scale=1.0, device=where), dc)
+        eng = ContinuousASDEngine(fn, sched, (dc.seq_len, dc.d_data), num_slots=slots,
+                                  theta=theta, noise_mode="counter", seed=SEED + 6,
+                                  num_branches=nb, branch_controller=make_branch_controller(ctl),
+                                  device=where, **configs[ctl])
+        out = eng.serve([Request(i, key=prng.PRNGKey(1100 + i) if i % 2 else None)
+                         for i in range(n)])
+        counts = {m.rid: (m.rounds, m.head_calls, m.model_evals, m.accepts, m.proposals,
+                          m.draft_points) for m in eng.stats.per_request}
+        final = (eng._states.b_live.tolist(), eng._states.bctrl.cpu().numpy().tobytes())
+        return out, counts, final
+
+    def error(a, b):
+        if a[1:] != b[1:]:
+            return math.inf  # counters, branch counts or controller state differ
+        return max(float(np.abs(a[0][r] - b[0][r]).max()) for r in range(n))
+
+    noise = asd._branch_noise
+    for ctl in configs:
+        cpu, card = serve("cpu", ctl), serve(dev, ctl)
+        err = error(card, cpu)
+        draft = sum(c[5] for c in cpu[1].values())
+        proposals = sum(c[4] for c in cpu[1].values())
+        if not err <= SERVE_KEYS_TOL or not draft > proposals:
+            fail(f"branched_reference {ctl}: error {err} (inf: counters differ) or no "
+                 "extra branch drafted")
+        asd._branch_noise = _branch_salt_fault(torch, noise)
+        try:
+            planted = error(serve(dev, ctl), cpu)
+        finally:
+            asd._branch_noise = noise
+        if not planted > SERVE_KEYS_TOL:
+            fail(f"branched_reference {ctl}: the planted fault reads {planted}, within "
+                 f"the tolerance {SERVE_KEYS_TOL}")
+        emit("branched_reference", branch_controller=ctl, branches=nb, config=configs[ctl],
+             model=dc.backbone.name, K=k, theta=theta, slots=slots, requests=n,
+             noise_mode="counter", max_abs_err=err, tolerance=SERVE_KEYS_TOL,
+             accepts=sum(c[3] for c in cpu[1].values()), proposals=proposals,
+             draft_points=draft, final_b_live=cpu[2][0],
+             planted_fault="branch 1 drawn with salt _BRANCH_SALT + 2",
              planted_fault_err=planted if math.isfinite(planted) else "counters differ")
 
 
@@ -2416,7 +2904,80 @@ def run_standin_pixel(torch, dev):
          train_step_ms=train_s / len(losses) * 1e3, K=K, chains=PIXEL_CHAINS,
          schedule=f"sl_geometric({K}, {T_MIN}, {T_MAX})", runs=_public(out))
     return ({f"pixel_{k}": v for k, v in launches.items()},
-            {f"pixel_{k}": v for k, v in designs.items()})
+            {f"pixel_{k}": v for k, v in designs.items()}, params, dc)
+
+
+STANDIN_BRANCHES = (1, 2, 4)
+
+
+def run_standin_branched(torch, dev, params, dc):
+    """standin_branched: the pixel stand-in trained in standin_pixel, ASD
+    theta 8 at K 200 on 16 chains from one key (counter noise) at B 1, 2
+    and 4: depth, K / depth, the mean accepted prefix a round, the wasted
+    share of the drafted points, wall seconds, and the launches of B1 and
+    B2's float32 kernel a round.  A round from the same states never
+    advances less at B > 1, and the mean depth over the chains is never
+    above B 1's."""
+    from repro_torch.core import prng
+    from repro_torch.core.asd import asd_round, asd_sample_batched, init_chain_state
+    from repro_torch.core.schedules import sl_geometric
+    from repro_torch.models.diffusion import make_sl_model_fn
+
+    counters = {k: v for k, v in _counters().items()
+                if k in ("grs", "flash_attention", "flash_attention_f32")}
+    K, n_layers = PIXEL_K, dc.backbone.n_layers
+    sched = sl_geometric(K, T_MIN, T_MAX)
+    model_fn = make_sl_model_fn(params, dc)
+    event = (dc.seq_len, dc.d_data)
+    y0 = torch.zeros((PIXEL_CHAINS,) + event, device=dev)
+    key = prng.PRNGKey(SEED + 40)
+    runs, by_run, designs_by_run, advance = {}, {}, {}, {}
+    with torch.no_grad():
+        st = init_chain_state(sched.to(dev), y0, PIXEL_THETA, False,
+                              key=prng.split(key, PIXEL_CHAINS).to(dev), noise_mode="counter",
+                              num_branches=max(STANDIN_BRANCHES))
+        for nb in STANDIN_BRANCHES:
+            advance[nb] = asd_round(model_fn, sched.to(dev), st, PIXEL_THETA,
+                                    keep_trajectory=False, noise_mode="counter",
+                                    num_branches=nb).a
+            _zero_counters(torch, counters)
+            t0 = time.perf_counter()
+            res = asd_sample_batched(model_fn, sched, y0, PIXEL_THETA, keep_trajectory=False,
+                                     device=dev, key=key, noise_mode="counter",
+                                     num_branches=nb)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got, designs = _launches(counters), _f32_designs()
+            loops = int(res.rounds.max())
+            want = {"grs": loops, "flash_attention": 0,
+                    "flash_attention_f32": 2 * n_layers * loops}
+            if got != want or designs["packed"] != want["flash_attention_f32"]:
+                fail(f"standin_branched B {nb}: launches {got}, designs {designs}, "
+                     f"expected {want}, packed")
+            if not bool(torch.isfinite(res.sample).all()):
+                fail(f"standin_branched B {nb}: samples not finite")
+            depth = (res.rounds + res.head_calls).double()
+            accept_depth, waste = _branch_lanes(res)
+            runs[nb] = dict(depth=depth.mean().item(), depth_per_chain=depth.tolist(),
+                            K_over_depth=K / depth.mean().item(),
+                            accept_rate=int(res.accepts.sum()) / int(res.proposals.sum()),
+                            branch_accept_depth=accept_depth, wasted_draft_frac=waste,
+                            loop_rounds=loops, wall_s=wall,
+                            launches_per_round={k: v / loops for k, v in got.items() if v})
+            by_run[f"standin_branched_b{nb}"] = got
+            designs_by_run[f"standin_branched_b{nb}"] = designs
+    for nb in STANDIN_BRANCHES[1:]:
+        if bool((advance[nb] < advance[1]).any()):
+            fail(f"standin_branched: one round advanced {advance[nb].tolist()} at B {nb}, "
+                 f"below {advance[1].tolist()} at B 1")
+        if runs[nb]["depth"] > runs[1]["depth"]:
+            fail(f"standin_branched: mean depth {runs[nb]['depth']} at B {nb} above "
+                 f"{runs[1]['depth']} at B 1")
+    emit("standin_branched", model=dc.backbone.name, K=K, chains=PIXEL_CHAINS,
+         theta=PIXEL_THETA, noise_mode="counter", schedule=f"sl_geometric({K}, {T_MIN}, "
+         f"{T_MAX})", runs={f"B{nb}": r for nb, r in runs.items()},
+         one_round_advance={f"B{nb}": a.tolist() for nb, a in advance.items()})
+    return by_run, designs_by_run
 
 
 def check_standin_kernels(torch, dev):
@@ -2563,13 +3124,20 @@ def main() -> None:
                check_ssm_scan(torch, dev)]
     asd_launches, flash_fn, sched, dc = run_slice(torch, dev)
     check_reference(torch, dev)
-    by_run = {"asd": asd_launches, **run_serve(torch, dev, flash_fn, sched, dc)}
+    serve_launches, serve_runs = run_serve(torch, dev, flash_fn, sched, dc)
+    by_run = {"asd": asd_launches, **serve_launches}
+    by_run.update(run_branched(torch, dev, flash_fn, sched, dc, serve_runs))
+    del serve_runs
     check_serve_reference(torch, dev)
+    check_branched_reference(torch, dev)
     window_device_ms = check_prng(torch, dev)
     cli_shapes = check_cli_kernels(torch, dev)
     by_run.update(run_serve_counter_memory(torch, dev, flash_fn, dc, window_device_ms))
     del flash_fn  # the denoiser's weights
-    by_run.update(run_serve_cli(torch, dev))
+    cli_launches, cli_summaries = run_serve_cli(torch, dev)
+    by_run.update(cli_launches)
+    by_run.update(run_serve_cli(torch, dev, SERVE_CLI_BRANCHED_RUNS, "serve_cli_branched",
+                                reference=cli_summaries["profile"])[0])
     check_serve_keys_reference(torch, dev)
     by_run.update(run_hymba(torch, dev))
     hymba_f32_launches, designs_by_run = check_hymba_f32(torch, dev)
@@ -2580,10 +3148,15 @@ def main() -> None:
     policy_params, policy_dc, policy_launches, policy_designs = run_standin_policy(torch, dev)
     by_run.update(policy_launches)
     designs_by_run.update(policy_designs)
-    pixel_launches, pixel_designs = run_standin_pixel(torch, dev)
+    pixel_launches, pixel_designs, pixel_params, pixel_dc = run_standin_pixel(torch, dev)
     by_run.update(pixel_launches)
     designs_by_run.update(pixel_designs)
+    branched_launches, branched_designs = run_standin_branched(torch, dev, pixel_params,
+                                                               pixel_dc)
+    by_run.update(branched_launches)
+    designs_by_run.update(branched_designs)
     check_standin_reference(torch, dev, policy_params, policy_dc)
+    branched_rows = check_branched_kernels(torch, dev)
     for kern in kernels:
         per = {run: counts.get(kern["name"], 0) for run, counts in by_run.items()}
         if not any(per.values()):
@@ -2601,6 +3174,17 @@ def main() -> None:
             kern["launches_by_design"] = by_design
             kern["launches_by_design_by_run"] = designs_by_run
             kern["at_shapes"].update(f32_standins)
+    for kern in branched_rows:
+        # the launches of the runs at this row's shape (B2: the verification
+        # call's share of a run's launches)
+        per = {run: round(by_run[run].get(kern["name"], 0) * share)
+               for run, share in kern.pop("runs").items()}
+        if not all(per.values()):
+            fail(f"kernels: {kern['name']} at {kern['at']} was launched in no run at its "
+                 f"shape: {per}")
+        kern["launches"] = sum(per.values())
+        kern["launches_by_run"] = per
+    kernels += branched_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

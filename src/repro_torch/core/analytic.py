@@ -15,7 +15,10 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
+
+from repro_torch.core import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +34,26 @@ class GMM:
     def to(self, device) -> "GMM":
         return GMM(self.means.to(device), self.scales.to(device),
                    self.weights.to(device))
+
+    def sample(self, key, n: int) -> torch.Tensor:
+        """n draws (n, d) from the mixture on the key's device, as the JAX
+        package draws them: the key split into (component, noise) keys, the
+        component by the Gumbel-max trick (``jax.random.categorical``), the
+        noise ``normal`` (``repro_torch.core.prng``)."""
+        kc, kx = prng.split(prng.as_key(key), 2).unbind(-2)
+        gmm = self.to(kc.device)
+        u = prng.uniform(kc, (n, gmm.weights.shape[0]),
+                         minval=float(np.finfo(np.float32).tiny), maxval=1.0)
+        comp = torch.argmax(-torch.log(-torch.log(u)) + torch.log(gmm.weights), dim=-1)
+        eps = prng.normal(kx, (n, gmm.d))
+        return gmm.means[comp] + gmm.scales[comp][:, None] * eps
+
+    def trace_cov(self) -> torch.Tensor:
+        """Tr(Cov[mu]), the beta * d of the paper's Thm 4 assumption."""
+        mean = torch.sum(self.weights[:, None] * self.means, dim=0)
+        second = torch.sum(self.weights[:, None]
+                           * ((self.means - mean) ** 2 + self.scales[:, None] ** 2), dim=0)
+        return torch.sum(second)
 
 
 def default_gmm(d: int = 2, ncomp: int = 3, spread: float = 2.0) -> GMM:

@@ -37,6 +37,15 @@ Conditioning: where the JAX package ``vmap``s one model function per chain
 over its condition vector, the port passes ``conds`` (B, d_cond) and calls
 ``model_fn(t, y, cond)`` with the condition rows of every point, so each
 call stays one batched call.
+
+Branched speculation (``num_branches`` B > 1): each round rolls B draft
+branches from the same proposal output, verifies all B x theta points of
+every chain in the one batched call, and commits the branch with the
+longest accepted prefix (the lowest index on ties).  Branch 0 is the
+canonical stream, so B = 1 is the single-draft round; branch b >= 1 draws
+step i from ``fold_in(fold_in(k, _BRANCH_SALT + b), i)`` of the chain's
+stream keys, in either noise mode.  ``b_live`` <= B, set by a
+``BranchController``, is how many branches compete.
 """
 
 from __future__ import annotations
@@ -47,7 +56,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.controller import StaticTheta, ThetaController
+from repro_torch.core.controller import (BranchController, StaticBranches, StaticTheta,
+                                         ThetaController)
 from repro_torch.core.grs import bcast_right
 from repro_torch.core.schedules import Schedule
 from repro_torch.core.sequential import init_y0
@@ -58,7 +68,12 @@ from repro_torch.kernels.grs.ops import grs
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 _STATIC = StaticTheta()
+_STATIC_B = StaticBranches()
 NOISE_MODES = ("buffer", "counter")
+
+# the key-fold offset of branch b >= 1's streams: a pure function of the
+# chain's keys, the branch and the absolute step, as in the JAX package
+_BRANCH_SALT = 0x5D5_0000
 
 
 @dataclasses.dataclass
@@ -70,6 +85,7 @@ class ASDResult:
     model_evals: torch.Tensor  # (*batch,) model evaluations (all slots)
     accepts: torch.Tensor  # (*batch,) accepted speculations
     proposals: torch.Tensor  # (*batch,) verified slots
+    draft_points: torch.Tensor  # (*batch,) verified points of every branch
 
     def parallel_depth(self):
         """Sequential model-call depth: rounds + proposal calls."""
@@ -106,11 +122,15 @@ class ASDChainState:
     k_xi: torch.Tensor  # (B, 2) noise-stream key (counter mode)
     u_buf: Optional[torch.Tensor]  # (B, K+theta+1), None in counter mode
     xi_buf: Optional[torch.Tensor]  # (B, K+theta+1, *event), None in counter mode
+    b_live: torch.Tensor  # (B,) current branch count (<= num_branches)
+    bctrl: torch.Tensor  # (B, n) branch controller state
+    draft_points: torch.Tensor  # (B,) verified points of every branch
 
 
 # the fields a round may change (the keys and noise buffers never change)
 _ROUND_FIELDS = ("y", "a", "v_cache", "v_valid", "rounds", "head_calls",
-                 "model_evals", "accepts", "proposals", "theta_live", "ctrl")
+                 "model_evals", "accepts", "proposals", "theta_live", "ctrl",
+                 "b_live", "bctrl", "draft_points")
 
 
 def _clamp_theta(theta: int, K: int) -> int:
@@ -123,7 +143,8 @@ def init_chain_state(schedule: Schedule, y0: torch.Tensor, theta: int,
                      generator: Optional[torch.Generator] = None,
                      u_buf: Optional[torch.Tensor] = None,
                      xi_buf: Optional[torch.Tensor] = None,
-                     key=None, noise_mode: str = "buffer") -> ASDChainState:
+                     key=None, noise_mode: str = "buffer", num_branches: int = 1,
+                     branch_controller: BranchController = _STATIC_B) -> ASDChainState:
     """Fresh chains y0 (B, *event) at position 0 with their absolute-step
     randomness fixed.  ``key`` (B, 2) holds each chain's key, split into
     its streams ``k_u``, ``k_xi`` as the JAX package splits it.
@@ -132,9 +153,14 @@ def init_chain_state(schedule: Schedule, y0: torch.Tensor, theta: int,
     *event) are taken as given, or drawn from the stream keys (the JAX
     package's buffers), or else from ``generator``.  Counter mode holds no
     buffer and needs ``key``.  ``theta`` is the static cap theta_max that
-    shapes the buffers."""
+    shapes the buffers.  ``num_branches`` is the branch cap; branches past
+    the first draw from the stream keys in either mode, so they need
+    ``key`` too (without one every chain would draw the same branches)."""
     if noise_mode not in NOISE_MODES:
         raise ValueError(f"unknown noise_mode {noise_mode!r}; have {NOISE_MODES}")
+    if num_branches > 1 and key is None:
+        raise ValueError(f"num_branches {num_branches}: branches past the first draw from "
+                         "the chains' keys; pass key")
     K = schedule.K
     theta = _clamp_theta(theta, K)
     B, ev = y0.shape[0], tuple(y0.shape[1:])
@@ -164,13 +190,15 @@ def init_chain_state(schedule: Schedule, y0: torch.Tensor, theta: int,
                     dtype=y0.dtype, device=dev)
     y[:, 0] = y0
     ctrl, theta_live = controller.init(theta, B, dev)
+    bctrl, b_live = branch_controller.init(num_branches, B, dev)
     zero = torch.zeros((B,), dtype=torch.int64, device=dev)
     return ASDChainState(
         y=y, a=zero, v_cache=torch.zeros_like(y0),
         v_valid=torch.zeros((B,), dtype=torch.bool, device=dev),
         rounds=zero, head_calls=zero, model_evals=zero, accepts=zero,
         proposals=zero, theta_live=theta_live.to(torch.int64), ctrl=ctrl,
-        k_u=k_u, k_xi=k_xi, u_buf=u_buf, xi_buf=xi_buf)
+        k_u=k_u, k_xi=k_xi, u_buf=u_buf, xi_buf=xi_buf,
+        b_live=b_live.to(torch.int64), bctrl=bctrl, draft_points=zero)
 
 
 def chain_done(st: ASDChainState, K: int) -> torch.Tensor:
@@ -202,6 +230,13 @@ class RoundPlan:
     A_w: torch.Tensor  # (B, theta)
     B_w: torch.Tensor  # (B, theta)
     sig_w: torch.Tensor  # (B, theta)
+    # branched plans: (B, NB, theta, ...) stacks over every draft branch,
+    # branch 0 the canonical leaves above; None for a single-draft plan
+    y_prev_b: Optional[torch.Tensor] = None  # (B, NB, theta, *event)
+    y_props_b: Optional[torch.Tensor] = None  # (B, NB, theta, *event)
+    m_hats_b: Optional[torch.Tensor] = None  # (B, NB, theta, *event)
+    u_w_b: Optional[torch.Tensor] = None  # (B, NB, theta)
+    xi_w_b: Optional[torch.Tensor] = None  # (B, NB, theta, *event)
 
 
 def _offsets(start: torch.Tensor, length: int) -> torch.Tensor:
@@ -239,13 +274,47 @@ def _noise_window(st: ASDChainState, theta: int, noise_mode: str):
     return u_w, xi_w.to(st.y.dtype)
 
 
+def _branch_noise(st: ASDChainState, theta: int, num_branches: int):
+    """u (B, NB-1, theta) and xi (B, NB-1, theta, *event) of branches
+    1 .. NB-1 at absolute steps a .. a+theta-1: each stream key folded on
+    ``_BRANCH_SALT + b``, then on the step, in one batched draw per stream
+    for every chain and branch."""
+    dev = st.a.device
+    salts = _BRANCH_SALT + torch.arange(1, num_branches, device=dev)
+    steps = _offsets(st.a, theta)[:, None, :]
+    u_r = prng.uniform(prng.fold_in(prng.fold_in(st.k_u[:, None], salts)[:, :, None], steps))
+    xi_r = prng.normal(prng.fold_in(prng.fold_in(st.k_xi[:, None], salts)[:, :, None], steps),
+                       tuple(st.v_cache.shape[1:]))
+    return u_r, xi_r.to(st.y.dtype)
+
+
+def _rollout(y_a, v_a, A_w, B_w, sig_w, xi):
+    """The theta-step proposal rollout (Alg 1 lines 7-9) from y_a, v_a
+    (B, *event) over noises xi (B, *branch, theta, *event): proposal means
+    and samples, both of xi's shape."""
+    ev = tuple(y_a.shape[1:])
+    lead = xi.ndim - len(ev) - 1  # the axes before theta
+    nd = lead + len(ev)
+    y_i = y_a.reshape(y_a.shape[:1] + (1,) * (lead - 1) + ev).expand(xi.shape[:lead] + ev)
+    v = v_a.reshape(y_a.shape[:1] + (1,) * (lead - 1) + ev)
+    m_hats, y_props = [], []
+    for j in range(xi.shape[lead]):
+        m_hat = bcast_right(A_w[:, j], nd) * y_i + bcast_right(B_w[:, j], nd) * v
+        y_i = m_hat + bcast_right(sig_w[:, j], nd) * xi.select(lead, j)
+        m_hats.append(m_hat)
+        y_props.append(y_i)
+    return torch.stack(m_hats, lead), torch.stack(y_props, lead)
+
+
 def plan_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
                theta: int, eager_head: bool = False,
                keep_trajectory: bool = True, conds=None,
-               noise_mode: str = "buffer") -> RoundPlan:
+               noise_mode: str = "buffer", num_branches: int = 1) -> RoundPlan:
     """Phase 1 of a round (Alg 1 lines 6-9): the proposal call (possibly
     served from the eager cache) and the theta-step rollout, with the
-    noise window of ``noise_mode``."""
+    noise window of ``noise_mode``.  With ``num_branches`` > 1 the rollout
+    runs every branch from the same proposal output and the ``*_b`` fields
+    hold the branch stacks; the canonical fields are branch 0."""
     K = schedule.K
     theta = _clamp_theta(theta, K)
     sched = schedule.pad(theta + 1)
@@ -270,32 +339,46 @@ def plan_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
     t_w1 = sched.t_model[_offsets(a, theta + 1)]
     u_w, xi_w = _noise_window(st, theta, noise_mode)
 
-    y_i = y_a
-    m_hats, y_props = [], []
-    for j in range(theta):
-        m_hat = (bcast_right(A_w[:, j], ev_ndim + 1) * y_i
-                 + bcast_right(B_w[:, j], ev_ndim + 1) * v_a)
-        y_i = m_hat + bcast_right(sig_w[:, j], ev_ndim + 1) * xi_w[:, j]
-        m_hats.append(m_hat)
-        y_props.append(y_i)
-    m_hats, y_props = torch.stack(m_hats, 1), torch.stack(y_props, 1)
-    y_prev = torch.cat([y_a[:, None], y_props[:, :-1]], dim=1)
+    branched = {}
+    if num_branches > 1:
+        # every branch in one rollout: elementwise, so branch 0's values
+        # are the single-draft rollout's to the bit
+        u_r, xi_r = _branch_noise(st, theta, num_branches)
+        u_w_b = torch.cat([u_w[:, None], u_r], dim=1)
+        xi_w_b = torch.cat([xi_w[:, None], xi_r], dim=1)
+        m_hats_b, y_props_b = _rollout(y_a, v_a, A_w, B_w, sig_w, xi_w_b)
+        y_start = y_a[:, None, None].expand((B, num_branches, 1) + tuple(y_a.shape[1:]))
+        y_prev_b = torch.cat([y_start, y_props_b[:, :, :-1]], dim=2)
+        branched = dict(y_prev_b=y_prev_b, y_props_b=y_props_b, m_hats_b=m_hats_b,
+                        u_w_b=u_w_b, xi_w_b=xi_w_b)
+        m_hats, y_props, y_prev = m_hats_b[:, 0], y_props_b[:, 0], y_prev_b[:, 0]
+    else:
+        m_hats, y_props = _rollout(y_a, v_a, A_w, B_w, sig_w, xi_w)
+        y_prev = torch.cat([y_a[:, None], y_props[:, :-1]], dim=1)
     return RoundPlan(
         a=a, theta_live=theta_live, n_valid=torch.minimum(theta_live, K - a),
         v_a=v_a, new_head=new_head, y_prev=y_prev, y_props=y_props,
         m_hats=m_hats, t_w1=t_w1, u_w=u_w, xi_w=xi_w, A_w=A_w, B_w=B_w,
-        sig_w=sig_w)
+        sig_w=sig_w, **branched)
 
 
 def commit_round(schedule: Schedule, st: ASDChainState, plan: RoundPlan,
                  z: torch.Tensor, acc: torch.Tensor, theta_r: torch.Tensor,
                  g_head: Optional[torch.Tensor], theta: int,
                  eager_head: bool = False, keep_trajectory: bool = True,
-                 controller: ThetaController = _STATIC) -> ASDChainState:
+                 controller: ThetaController = _STATIC, *,
+                 b_r: Optional[torch.Tensor] = None, gain: Optional[torch.Tensor] = None,
+                 num_branches: int = 1,
+                 branch_controller: BranchController = _STATIC_B) -> ASDChainState:
     """Phase 3 (Alg 1 lines 12-13): commit the accepted prefix and the
     reflected first rejection, update the counters and the window.  Only
     slots < min(theta_r, K - a) of ``z``/``acc`` are read.  Finished chains
-    come back unchanged."""
+    come back unchanged.
+
+    A branched round passes the selected branch's ``z``/``acc``/``g_head``
+    with ``b_r`` (B,), the branches it ran (they scale ``model_evals`` and
+    ``draft_points``), and ``gain`` (B,), the selected branch's accepted
+    slots over branch 0's (what the branch controller observes)."""
     K = schedule.K
     theta = _clamp_theta(theta, K)
     ev_ndim = st.v_cache.ndim - 1
@@ -326,6 +409,16 @@ def commit_round(schedule: Schedule, st: ASDChainState, plan: RoundPlan,
     full_accept = (~rejected) & (n_valid == theta_r) & (n_valid > 0)
     ctrl_new, theta_next = controller.update(st.ctrl, theta_r, lead, n_valid,
                                              rejected, theta)
+    # one branch: the single-draft counters; a branched round verified b_r
+    # windows (and b_r eager heads)
+    b_eff = 1 if b_r is None else b_r
+    if num_branches > 1:
+        bctrl_new, b_next = branch_controller.update(
+            st.bctrl, b_eff, torch.zeros_like(lead) if gain is None else gain, lead,
+            rejected, num_branches)
+        b_next = torch.clamp(b_next.to(torch.int64), 1, num_branches)
+    else:
+        bctrl_new, b_next = st.bctrl, st.b_live
     new = dict(
         y=y_new,
         a=a + advance,
@@ -333,11 +426,15 @@ def commit_round(schedule: Schedule, st: ASDChainState, plan: RoundPlan,
         v_valid=full_accept if eager_head else torch.zeros_like(st.v_valid),
         rounds=st.rounds + 1,
         head_calls=st.head_calls + plan.new_head,
-        model_evals=st.model_evals + plan.new_head + n_valid + int(eager_head),
+        model_evals=(st.model_evals + plan.new_head + b_eff * n_valid
+                     + (b_eff if eager_head else 0)),
         accepts=st.accepts + lead,
         proposals=st.proposals + n_valid,
         theta_live=torch.clamp(theta_next.to(torch.int64), 1, theta),
         ctrl=ctrl_new,
+        b_live=b_next,
+        bctrl=bctrl_new,
+        draft_points=st.draft_points + b_eff * n_valid,
     )
     live = a < K
     for name in _ROUND_FIELDS:
@@ -350,7 +447,8 @@ def asd_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
               theta: int, eager_head: bool = False,
               keep_trajectory: bool = True,
               controller: ThetaController = _STATIC,
-              conds=None, noise_mode: str = "buffer") -> ASDChainState:
+              conds=None, noise_mode: str = "buffer", num_branches: int = 1,
+              branch_controller: BranchController = _STATIC_B) -> ASDChainState:
     """One speculation round of every chain: propose, roll theta steps,
     verify all chains' points in ONE model call, GRS, commit.
 
@@ -358,12 +456,19 @@ def asd_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
     theta-shaped windows, and ``st.theta_live`` masks how many slots count.
     The GRS step goes through ``repro_torch.kernels.grs`` (the CUDA kernel
     on the card).  ``conds`` (B, d_cond) conditions each chain's calls.
-    Identity on finished chains.  Nothing in a round reads a device value
-    on the host."""
+    ``num_branches`` > 1 verifies every branch of every chain in the one
+    call and commits each chain's longest accepted prefix.  Identity on
+    finished chains.  Nothing in a round reads a device value on the host."""
     K = schedule.K
     theta = _clamp_theta(theta, K)
     plan = plan_round(model_fn, schedule, st, theta, eager_head, keep_trajectory,
-                      conds, noise_mode)
+                      conds, noise_mode, num_branches)
+    if num_branches > 1:
+        z, acc, g_head, b_r, gain = _branched_verify_select(
+            model_fn, st, plan, theta, num_branches, eager_head, conds)
+        return commit_round(schedule, st, plan, z, acc, plan.theta_live, g_head, theta,
+                            eager_head, keep_trajectory, controller, b_r=b_r, gain=gain,
+                            num_branches=num_branches, branch_controller=branch_controller)
     B = st.a.shape[0]
     ev = tuple(st.v_cache.shape[1:])
     ev_ndim = len(ev)
@@ -395,11 +500,66 @@ def asd_round(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
                         theta, eager_head, keep_trajectory, controller)
 
 
+def select_longest(acc_b: torch.Tensor, n_valid: torch.Tensor, b_r: torch.Tensor):
+    """The branch each chain commits: accept bits (B, NB, theta), masked to
+    the first ``n_valid`` (B,) slots, and the branches that ran, ``b_r``
+    (B,).  Returns (best (B,), the masked bits (B, NB, theta), gain (B,)):
+    the branch with the longest accepted prefix, the lowest index on ties
+    (``torch.argmax`` returns the first maximum, as ``jnp.argmax`` does),
+    and its prefix's length over branch 0's."""
+    NB, theta = acc_b.shape[1:]
+    acc_m = acc_b & (torch.arange(theta, device=acc_b.device) < n_valid[:, None, None])
+    lead_b = leading_true_count(acc_m, dim=2).to(torch.int64)
+    live = torch.arange(NB, device=acc_b.device) < b_r[:, None]
+    lead_m = torch.where(live, lead_b, -1)
+    best = torch.argmax(lead_m, dim=1)
+    rows = torch.arange(acc_b.shape[0], device=acc_b.device)
+    return best, acc_m, lead_m[rows, best] - lead_b[:, 0]
+
+
+def _branched_verify_select(model_fn: ModelFn, st: ASDChainState, plan: RoundPlan,
+                            theta: int, num_branches: int, eager_head: bool, conds):
+    """Phase 2 of a branched round: one model call over every chain's
+    NB x theta points (and NB eager heads), one GRS pass over the
+    (B, NB, theta) rows (B1 on the card), and the longest accepted prefix.
+    Returns (z, acc, g_head, b_r, gain) for ``commit_round``; branches at or
+    past a chain's ``b_live`` are masked out of the selection."""
+    NB = num_branches
+    B = st.a.shape[0]
+    ev = tuple(st.v_cache.shape[1:])
+    ev_ndim = len(ev)
+    rows = torch.arange(B, device=st.a.device)
+    b_live = torch.clamp(st.b_live, 1, NB)
+    t_w = plan.t_w1[:, None, :theta].expand(B, NB, theta).reshape(B, NB * theta)
+    y_prev = plan.y_prev_b.reshape((B, NB * theta) + ev)
+    per = NB * theta
+    if eager_head:
+        # a head point per branch at the end of the live window: whichever
+        # branch wins a full accept, its head is the next proposal call
+        heads = plan.y_props_b[rows, :, plan.theta_live - 1]
+        pts = torch.cat([y_prev, heads], dim=1)
+        ts = torch.cat([t_w, plan.t_w1[rows, plan.theta_live][:, None].expand(B, NB)], dim=1)
+        per += NB
+    else:
+        pts, ts = y_prev, t_w
+    g_all = _call(model_fn, ts.reshape(-1), pts.reshape((B * per,) + ev), conds, per)
+    g_all = g_all.reshape((B, per) + ev)
+    g_par = g_all[:, :NB * theta].reshape((B, NB, theta) + ev)
+    m_tgt = (bcast_right(plan.A_w[:, None], ev_ndim + 3) * plan.y_prev_b
+             + bcast_right(plan.B_w[:, None], ev_ndim + 3) * g_par)
+    sig = plan.sig_w[:, None].expand(B, NB, theta)
+    z_b, acc_b = grs(plan.u_w_b, plan.xi_w_b, plan.m_hats_b, m_tgt, sig, event_ndim=ev_ndim)
+    best, acc_m, gain = select_longest(acc_b, plan.n_valid, b_live)
+    g_head = g_all[:, NB * theta:][rows, best] if eager_head else None
+    return z_b[rows, best], acc_m[rows, best], g_head, b_live, gain
+
+
 def asd_superstep(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
                   theta: int, rounds: int, eager_head: bool = False,
                   keep_trajectory: bool = True,
                   controller: ThetaController = _STATIC,
-                  conds=None, noise_mode: str = "buffer") -> ASDChainState:
+                  conds=None, noise_mode: str = "buffer", num_branches: int = 1,
+                  branch_controller: BranchController = _STATIC_B) -> ASDChainState:
     """``rounds`` speculation rounds in a row: R calls of ``asd_round``
     (the JAX package's ``lax.scan``), with no read of a device value on the
     host between them, so the card runs the R rounds as one queue of
@@ -407,7 +567,8 @@ def asd_superstep(model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
     ``commit_round`` for the remaining rounds, counters included."""
     for _ in range(int(rounds)):
         st = asd_round(model_fn, schedule, st, theta, eager_head,
-                       keep_trajectory, controller, conds, noise_mode)
+                       keep_trajectory, controller, conds, noise_mode, num_branches,
+                       branch_controller)
     return st
 
 
@@ -419,7 +580,8 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
                        u_buf: Optional[torch.Tensor] = None,
                        xi_buf: Optional[torch.Tensor] = None,
                        device=None, conds: Optional[torch.Tensor] = None,
-                       key=None, noise_mode: str = "buffer") -> ASDResult:
+                       key=None, noise_mode: str = "buffer", num_branches: int = 1,
+                       branch_controller: BranchController = _STATIC_B) -> ASDResult:
     """ASD on independent chains y0 (B, *event), stepped together.
 
     Each round makes one proposal call over the B chains and one
@@ -434,16 +596,19 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
     ``model_fn(t: f32[m], y: f32[m, *event]) -> f32[m, *event]`` must accept
     any leading batch size m; with ``conds`` (B, d_cond), one condition row
     a chain, it is called as ``model_fn(t, y, cond_rows)`` with the row of
-    every point.  Runs on ``device`` (None means "cuda").
+    every point.  ``num_branches`` > 1 runs branched rounds (it needs
+    ``key``).  Runs on ``device`` (None means "cuda").
     """
     dev = resolve_device(device)
     keys = None if key is None else prng.split(prng.as_key(key, dev), y0.shape[0])
     return _sample(model_fn, schedule, y0.to(dev), theta, eager_head, keep_trajectory,
-                   controller, generator, u_buf, xi_buf, conds, keys, noise_mode)
+                   controller, generator, u_buf, xi_buf, conds, keys, noise_mode,
+                   num_branches, branch_controller)
 
 
 def _sample(model_fn, schedule, y0, theta, eager_head, keep_trajectory, controller,
-            generator, u_buf, xi_buf, conds, keys, noise_mode) -> ASDResult:
+            generator, u_buf, xi_buf, conds, keys, noise_mode, num_branches=1,
+            branch_controller=_STATIC_B) -> ASDResult:
     """Chains y0 (B, *event) on y0's device, each from its own key of
     ``keys`` (B, 2) or else from the buffers or the generator, run to K."""
     dev = y0.device
@@ -451,20 +616,21 @@ def _sample(model_fn, schedule, y0, theta, eager_head, keep_trajectory, controll
     theta = _clamp_theta(theta, K)
     schedule = schedule.to(dev)
     st = init_chain_state(schedule, y0, theta, keep_trajectory, controller, generator,
-                          u_buf, xi_buf, keys, noise_mode)
+                          u_buf, xi_buf, keys, noise_mode, num_branches, branch_controller)
     if conds is not None:
         conds = conds.to(dev)
         if conds.shape[0] != y0.shape[0]:
             raise ValueError(f"conds: {conds.shape[0]} rows for {y0.shape[0]} chains")
     while not bool(chain_done(st, K).all()):
         st = asd_round(model_fn, schedule, st, theta, eager_head,
-                       keep_trajectory, controller, conds, noise_mode)
+                       keep_trajectory, controller, conds, noise_mode, num_branches,
+                       branch_controller)
     return ASDResult(
         sample=chain_sample(st, K, keep_trajectory),
         trajectory=st.y[:, : K + 1] if keep_trajectory else st.y,
         rounds=st.rounds, head_calls=st.head_calls,
         model_evals=st.model_evals, accepts=st.accepts,
-        proposals=st.proposals)
+        proposals=st.proposals, draft_points=st.draft_points)
 
 
 def asd_sample(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
@@ -475,7 +641,8 @@ def asd_sample(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
                u_buf: Optional[torch.Tensor] = None,
                xi_buf: Optional[torch.Tensor] = None,
                device=None, cond: Optional[torch.Tensor] = None,
-               key=None, noise_mode: str = "buffer") -> ASDResult:
+               key=None, noise_mode: str = "buffer", num_branches: int = 1,
+               branch_controller: BranchController = _STATIC_B) -> ASDResult:
     """ASD for one chain y0 (*event): ``key`` (2,) is the chain's own key
     (not split, as in the JAX package), or ``u_buf`` (K+theta+1,) and
     ``xi_buf`` (K+theta+1, *event) inject its noise; ``cond`` (d_cond,)
@@ -486,7 +653,8 @@ def asd_sample(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
         controller, generator, None if u_buf is None else u_buf[None],
         None if xi_buf is None else xi_buf[None],
         None if cond is None else cond[None],
-        None if key is None else prng.as_key(key, dev)[None], noise_mode)
+        None if key is None else prng.as_key(key, dev)[None], noise_mode, num_branches,
+        branch_controller)
     return ASDResult(**{f.name: getattr(res, f.name)[0]
                         for f in dataclasses.fields(ASDResult)})
 

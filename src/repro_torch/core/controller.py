@@ -16,7 +16,15 @@ so they run inside a superstep.
 The float32 arithmetic follows the JAX package's jitted order (XLA's one
 FMA included), so the windows are equal to its integer for integer and the
 state bit for bit (``torch.round`` rounds half to even, as ``jnp.round``
-does).  The branch controllers are not ported yet.
+does).
+
+Branch controllers (branched speculation, ``num_branches`` B > 1) decide
+each chain's live branch count ``b_live`` <= B the same way, from state
+``bctrl`` carried beside it:
+
+  ``StaticBranches``   b_live == B (or a fixed smaller value).
+  ``GainBranches``     the count steps up or down with a discounted average
+                       of the accepted slots each extra branch bought.
 """
 
 from __future__ import annotations
@@ -139,3 +147,94 @@ def make_controller(name: str, **kwargs) -> ThetaController:
     except KeyError:
         raise ValueError(
             f"unknown theta controller {name!r}; have {sorted(CONTROLLERS)}") from None
+
+
+# -- branch controllers: the live draft-branch count of each chain ----------
+
+
+@dataclasses.dataclass(frozen=True)
+class BranchController:
+    """Interface: ``init`` and ``update`` over a batch of chains."""
+
+    name = "base"
+
+    def init(self, b_max: int, batch: int, device):
+        """-> (bctrl: (batch, n) f32 state, b_live: (batch,) int32)."""
+        raise NotImplementedError
+
+    def update(self, bctrl, b_live, gain, lead, rejected, b_max: int):
+        """Observe one branched round, emit the next branch count.
+
+        ``b_live``: branches the round ran; ``gain``: accepted slots the
+        winning branch bought over branch 0 (0 when branch 0 won); ``lead``
+        and ``rejected``: the selected branch's accepted prefix and whether
+        it hit a rejection; all per chain.  Returns (bctrl', b_live'), with
+        1 <= b_live' <= b_max."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticBranches(BranchController):
+    """A constant branch count: ``value=None`` means the full ``b_max``;
+    ``b_max == 1`` is the single-draft sampler."""
+
+    name = "static"
+    value: typing.Optional[int] = None
+
+    def _b(self, b_max: int, like: torch.Tensor):
+        v = b_max if self.value is None else min(self.value, b_max)
+        return torch.full_like(like, max(v, 1), dtype=torch.int32)
+
+    def init(self, b_max: int, batch: int, device):
+        bctrl = torch.zeros((batch, 0), dtype=torch.float32, device=device)
+        return bctrl, self._b(b_max, torch.empty((batch,), dtype=torch.int32, device=device))
+
+    def update(self, bctrl, b_live, gain, lead, rejected, b_max: int):
+        return bctrl, self._b(b_max, b_live)
+
+
+@dataclasses.dataclass(frozen=True)
+class GainBranches(BranchController):
+    """Branch count tracked to a discounted average of the realised gain.
+
+    The state is one float32 a chain: an EWMA of ``gain / (b_live - 1)``,
+    the accepted slots each extra branch bought (a round with one branch
+    carries no information and leaves it as it was).  At or above ``grow``
+    the count steps up, below ``shrink`` it steps down, so chains that
+    accept everything fall back to one branch and early-rejecting chains
+    widen toward the cap."""
+
+    name = "gain"
+    decay: float = 0.9
+    grow: float = 0.35
+    shrink: float = 0.1
+
+    def init(self, b_max: int, batch: int, device):
+        # an optimistic start: open at the cap with a prior above ``grow``
+        bctrl = torch.full((batch, 1), 2.0 * self.grow, dtype=torch.float32, device=device)
+        return bctrl, torch.full((batch,), max(b_max, 1), dtype=torch.int32, device=device)
+
+    def update(self, bctrl, b_live, gain, lead, rejected, b_max: int):
+        extra = torch.clamp(b_live - 1, min=0).to(torch.float32)
+        per_branch = gain.to(torch.float32) / torch.clamp(extra, min=1.0)
+        # XLA rounds decay * g, then contracts (1 - decay) * per_branch + that
+        # into one FMA; the float32 product is exact in float64, so the sum
+        # there rounds to float32 as the FMA does
+        kept = bctrl[:, 0] * _f32(self.decay)
+        g = (per_branch.double() * _f32(1.0 - self.decay) + kept.double()).to(torch.float32)
+        g = torch.where(extra > 0, g, bctrl[:, 0])
+        b_next = torch.where(g >= _f32(self.grow), b_live + 1,
+                             torch.where(g < _f32(self.shrink), b_live - 1, b_live))
+        return g[:, None], torch.clamp(b_next, 1, max(b_max, 1)).to(torch.int32)
+
+
+BRANCH_CONTROLLERS = {c.name: c for c in (StaticBranches, GainBranches)}
+
+
+def make_branch_controller(name: str, **kwargs) -> BranchController:
+    """The serve CLI's factory: ``make_branch_controller("gain", grow=0.5)``."""
+    try:
+        return BRANCH_CONTROLLERS[name](**kwargs)
+    except KeyError:
+        raise ValueError(f"unknown branch controller {name!r}; "
+                         f"have {sorted(BRANCH_CONTROLLERS)}") from None

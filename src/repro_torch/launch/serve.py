@@ -20,13 +20,17 @@ The flags, their names and defaults are the JAX CLI's, with two
 differences: ``--mesh`` takes only ``1x1`` (its default here), and
 ``--device`` picks the device (default the card; ``cpu`` runs the kernels'
 plain versions).  The weights are ``denoiser_init_params`` at seed 0, the
-JAX init's law.  What the port has no counterpart for yet is refused with
-exit status 2 and the ROADMAP.md item that brings it, never ignored:
-branched speculation (``--num-branches`` > 1, ``--branch-controller gain``:
-A5), sharded serving (``--shards`` > 1, ``--router``, ``--dispatch fused``:
-A7), model parallelism and MoE models (``--model-shards``, ``--seq-shards``,
-``--expert-parallel``: A9), and ``--grs-impl`` / ``--pack-impl``, since
-the device picks the plain version (CPU) or the CUDA kernel (card).
+JAX init's law.  ``--num-branches`` B > 1 runs branched speculation in the
+continuous engine (B draft branches a chain a round, the longest accepted
+prefix committed; ``--branch-controller`` static or gain), and the summary
+line then gives the mean accepted prefix a round and the wasted share of
+the drafted points; as in the JAX CLI, the fused engine runs one branch.
+What the port has no counterpart for yet is refused with exit status 2 and
+the ROADMAP.md item that brings it, never ignored: sharded serving
+(``--shards`` > 1, ``--router``, ``--dispatch fused``: A7), model
+parallelism and MoE models (``--model-shards``, ``--seq-shards``,
+``--expert-parallel``: A9), and ``--grs-impl`` / ``--pack-impl``, since the
+device picks the plain version (CPU) or the CUDA kernel (card).
 
 Observability: ``--metrics-port`` serves /metrics, /metrics.json and
 /healthz on 127.0.0.1 and scrapes itself once after the run;
@@ -55,7 +59,8 @@ import torch
 from repro_torch.configs.registry import get_denoiser_config
 from repro_torch.core import prng
 from repro_torch.core.asd import asd_sample_batched
-from repro_torch.core.controller import CONTROLLERS, make_controller
+from repro_torch.core.controller import (BRANCH_CONTROLLERS, CONTROLLERS,
+                                         make_branch_controller, make_controller)
 from repro_torch.core.schedules import ddpm as ddpm_schedule
 from repro_torch.device import resolve_device
 from repro_torch.models.diffusion import make_ddpm_model_fn
@@ -67,7 +72,6 @@ from repro_torch.serving.scheduler import POLICIES, make_policy
 from repro_torch.weights import denoiser_init_params
 
 # the JAX CLI's choices for the flags the port refuses
-_BRANCH_CONTROLLERS = ("gain", "static")
 _ROUTERS = ("deadline", "least-loaded", "round-robin")
 # the JAX registry's MoE denoisers
 _MOE_MODELS = ("qwen3-moe-a3b-smoke",)
@@ -75,11 +79,6 @@ _MOE_MODELS = ("qwen3-moe-a3b-smoke",)
 
 def _refusal(args):
     """The message for a flag the port cannot honour yet, or None."""
-    if args.num_branches > 1:
-        return f"--num-branches {args.num_branches}: branched speculation is ROADMAP.md A5"
-    if args.branch_controller != "static":
-        return (f"--branch-controller {args.branch_controller}: branched speculation is "
-                "ROADMAP.md A5")
     if args.shards > 1:
         return f"--shards {args.shards}: sharded serving is ROADMAP.md A7"
     if args.router is not None:
@@ -188,13 +187,17 @@ def run_continuous(args) -> dict:
     budget = allocator = None
     if args.execution == "packed":
         budget = ("auto" if args.round_budget == "auto"
-                  else int(args.round_budget) or slots * args.theta)
-        allocator = make_allocator(args.allocator, theta_max=args.theta)
+                  else int(args.round_budget) or slots * args.theta * args.num_branches)
+        # a slot's largest demand is theta * branches: the waterfill level
+        # scan must reach it
+        allocator = make_allocator(args.allocator, theta_max=args.theta * args.num_branches)
     tracer = TraceRecorder(capacity=args.trace_capacity) if args.trace_out else None
     eng = ContinuousASDEngine(
         model_fn, sched, (dc.seq_len, dc.d_data), num_slots=slots, theta=args.theta,
         eager_head=True, noise_mode="counter", keep_trajectory=False,
         controller=make_controller(args.theta_controller), policy=make_policy(args.policy),
+        num_branches=args.num_branches,
+        branch_controller=make_branch_controller(args.branch_controller),
         execution=args.execution, round_budget=budget, allocator=allocator,
         round_impl=args.round_impl,
         rounds_per_sync=(args.rounds_per_sync if args.rounds_per_sync == "auto"
@@ -224,7 +227,10 @@ def run_continuous(args) -> dict:
               f"{s.rounds_total} fused rounds in {s.supersteps} supersteps, "
               f"accept rate {s.accept_rate():.2f}, "
               f"mean live window {s.mean_window():.1f}/{args.theta}, "
-              f"mean queue latency {s.mean_queue_latency() * 1e3:.0f}ms, "
+              + (f"branch depth {s.branch_accept_depth():.2f} "
+                 f"(waste {s.wasted_draft_frac():.2f}, B={args.num_branches}), "
+                 if args.num_branches > 1 else "")
+              + f"mean queue latency {s.mean_queue_latency() * 1e3:.0f}ms, "
               f"SLO attainment {s.slo_attainment():.2f}, "
               f"{s.throughput():.2f} samples/s")
         sample = next(iter(out.values()))
@@ -275,9 +281,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--theta-controller", default="static", choices=sorted(CONTROLLERS),
                     help="per-chain speculation-window controller")
     ap.add_argument("--num-branches", type=int, default=1,
-                    help="branched speculation cap (only 1 here: ROADMAP.md A5)")
-    ap.add_argument("--branch-controller", default="static", choices=_BRANCH_CONTROLLERS,
-                    help="branch-count controller (only static here: ROADMAP.md A5)")
+                    help="branched speculation cap B: draft branches rolled per round "
+                         "per chain, committing the branch with the longest accepted "
+                         "prefix (1: single-draft)")
+    ap.add_argument("--branch-controller", default="static",
+                    choices=sorted(BRANCH_CONTROLLERS),
+                    help="per-chain live branch-count controller (b_live <= "
+                         "--num-branches)")
     ap.add_argument("--policy", default="fcfs", choices=sorted(POLICIES),
                     help="continuous-engine admission policy")
     ap.add_argument("--grs-impl", default=None, choices=("core", "kernel"),

@@ -1,5 +1,7 @@
-"""The continuous-batching ASD engine: one ``ShardWorker`` plus the host
-serve loop.
+"""ASD serving engines: batched diffusion-sampling requests.
+
+``ContinuousASDEngine``, the continuous-batching engine: one ``ShardWorker``
+plus the host serve loop.
 
 The worker runs device-resident SUPERSTEPS: each runs ``rounds_per_sync``
 speculation rounds launched in a row (finished chains stay frozen), and the
@@ -10,8 +12,11 @@ harvests first, so a freed slot refills at the next boundary.  A chain
 that commits its last step retires at the next boundary and its slot is
 refilled from the queue (FCFS by default, see ``scheduler.py``).
 
-The chunked static engine (``ASDServingEngine``) and the sharded front end
-are not ported yet.
+``ASDServingEngine``, the chunked static baseline: requests are padded into
+fixed-size batches, and each batch runs the batched sampler to its slowest
+chain (padded lanes burn compute), the waste the continuous engine removes.
+
+The sharded front end is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,15 +24,23 @@ from __future__ import annotations
 import logging
 import time
 
+from typing import Callable, Optional
+
 import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core.asd import _sample
+from repro_torch.core.controller import StaticTheta
+from repro_torch.core.schedules import Schedule
+from repro_torch.core.sequential import sequential_sample_batched
+from repro_torch.device import resolve_device
+from repro_torch.serving.metrics import EngineStats
 from repro_torch.serving.worker import Request, ShardWorker
 
 log = logging.getLogger("repro_torch.serving.engine")
 
-__all__ = ["ContinuousASDEngine", "Request"]
+__all__ = ["ASDServingEngine", "ContinuousASDEngine", "Request"]
 
 
 class ContinuousASDEngine(ShardWorker):
@@ -78,3 +91,90 @@ class ContinuousASDEngine(ShardWorker):
                  self.shard_id, self.stats.retired, self.stats.dropped,
                  self.stats.supersteps)
         return self.drain_results()
+
+
+class ASDServingEngine:
+    """Batched exact-sampling server, the chunked static baseline.
+
+    ``mode`` "asd" (speculative) or "ddpm" (the K-step sequential sampler).
+    Every chunk is padded to ``batch_size`` chains and run to its slowest
+    chain in one batched call of the sampler (a model call over the whole
+    chunk each step).  Chain i of a chunk draws from ``split(key,
+    batch_size)[i]`` as the JAX package's does: buffer noise and the whole
+    trajectory for "asd" (its ``asd_sample`` defaults), the K step noises
+    ``normal(key_i, (K, *event))`` for "ddpm"; y0 is zeros, or, where the
+    schedule starts from a standard normal, ``normal`` of ``split(keys[0],
+    batch_size)[i]``.
+
+    ``model_fn(t, y)``, or ``model_fn(t, y, cond)`` with one condition row
+    per point when ``d_cond`` > 0 (a request without ``cond`` gets zeros).
+    Runs on ``device`` (None means "cuda")."""
+
+    def __init__(self, model_fn: Callable, schedule: Schedule, event_shape: tuple,
+                 theta: int = 8, batch_size: int = 8, mode: str = "asd",
+                 eager_head: bool = True, d_cond: int = 0, device=None):
+        if mode not in ("asd", "ddpm"):
+            raise ValueError(f"unknown mode {mode!r}; have ('asd', 'ddpm')")
+        self.device = resolve_device(device)
+        self.model_fn = model_fn
+        self.schedule = schedule.to(self.device)
+        self.event_shape = tuple(event_shape)
+        self.theta = theta
+        self.batch_size = batch_size
+        self.mode = mode
+        self.eager_head = eager_head
+        self.d_cond = d_cond
+        self.stats = EngineStats()
+
+    def _batch(self, conds: Optional[torch.Tensor], keys: torch.Tensor):
+        """(samples, rounds, head calls) of one padded chunk; ``keys``
+        (batch_size, 2) on the device."""
+        sched, ev, n = self.schedule, self.event_shape, self.batch_size
+        y0 = torch.zeros((n,) + ev, device=self.device)
+        if sched.y0_mode == "std_normal":
+            y0 = prng.normal(prng.split(keys[0], n), ev)
+        with torch.no_grad():
+            if self.mode == "asd":
+                res = _sample(self.model_fn, sched, y0, self.theta, self.eager_head, True,
+                              StaticTheta(), None, None, None, conds, keys, "buffer")
+                return res.sample, res.rounds, res.head_calls
+            xi = prng.normal(keys, (sched.K,) + ev).transpose(0, 1)
+            out = sequential_sample_batched(self.model_fn, sched, y0, xi=xi,
+                                            device=self.device, conds=conds)
+        steps = torch.full((n,), sched.K, dtype=torch.int64)
+        return out, steps, steps
+
+    def submit_batch(self, requests: list[Request], key) -> dict[int, np.ndarray]:
+        """Pads ``requests`` to batch_size, samples, returns {rid: sample}."""
+        t0 = time.perf_counter()
+        n = len(requests)
+        if n > self.batch_size:
+            raise ValueError(f"{n} requests for a batch of {self.batch_size}")
+        conds = None
+        if self.d_cond:
+            rows = np.zeros((self.batch_size, self.d_cond), np.float32)
+            for i, r in enumerate(requests):
+                if r.cond is not None:
+                    rows[i] = r.cond
+            conds = torch.from_numpy(rows).to(self.device)
+        keys = prng.split(prng.as_key(key, self.device), self.batch_size)
+        samples, rounds, heads = self._batch(conds, keys)
+        samples = samples.cpu().numpy()
+        self.stats.requests += n
+        self.stats.batches += 1
+        # the batch runs to its slowest chain: its depth is the max
+        self.stats.rounds_total += int(rounds.max())
+        self.stats.head_calls_total += int(heads.max())
+        self.stats.retired += n
+        self.stats.wall_time += time.perf_counter() - t0
+        return {r.rid: samples[i] for i, r in enumerate(requests)}
+
+    def serve(self, requests: list[Request], key) -> dict[int, np.ndarray]:
+        """Chunked static serving: the queue in chunks of batch_size, each
+        from its own split of ``key``."""
+        out = {}
+        key = prng.as_key(key, "cpu")
+        for i in range(0, len(requests), self.batch_size):
+            key, sub = prng.split(key, 2).unbind(0)
+            out.update(self.submit_batch(requests[i:i + self.batch_size], sub))
+        return out

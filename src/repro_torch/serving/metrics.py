@@ -8,11 +8,11 @@ counters (rounds, head calls, accepts, proposals) come straight off the
 chain's counters while its slot waits to be retired.
 
 ``EngineStats`` aggregates across requests and keeps the engine-level counters
-(rounds driven, supersteps, host wall time).  The JAX fields of the sharded
-front end (``merged``, ``fused_dispatch_s``), of model parallelism
-(``collective_*``), of branched speculation (``draft_points``,
-``branch_accept_depth``, ``wasted_draft_frac``) and of the chunked engine
-(``batches``) come with the slices that port those.
+(rounds driven, supersteps, the chunked engine's batches, host wall time)
+and the branched-speculation lanes (``draft_points``,
+``branch_accept_depth``, ``wasted_draft_frac``).  The JAX fields of the
+sharded front end (``merged``, ``fused_dispatch_s``) and of model
+parallelism (``collective_*``) come with the slices that port those.
 """
 
 from __future__ import annotations
@@ -32,12 +32,27 @@ class RequestMetrics:
     model_evals: int  # total model evaluations (all speculation slots)
     accepts: int
     proposals: int
+    draft_points: int = 0  # verification points drafted across ALL branches
     deadline: Optional[float] = None  # absolute SLO deadline, if any
     slo_met: Optional[bool] = None  # retired before the deadline? (None: no SLO)
 
     @property
     def accept_rate(self) -> float:
         return self.accepts / max(self.proposals, 1)
+
+    @property
+    def branch_accept_depth(self) -> float:
+        """Mean accepted prefix a round: extra draft branches deepen it."""
+        return self.accepts / max(self.rounds, 1)
+
+    @property
+    def wasted_draft_frac(self) -> float:
+        """Fraction of drafted verification points that never committed
+        (``1 - accept_rate`` at one branch, where draft_points ==
+        proposals); with the accept depth it prices the branches."""
+        if self.draft_points <= 0:
+            return 0.0
+        return 1.0 - self.accepts / self.draft_points
 
     @property
     def parallel_depth(self) -> int:
@@ -59,6 +74,7 @@ class RequestMetrics:
 class EngineStats:
     requests: int = 0  # admitted into the engine
     retired: int = 0  # completed and returned
+    batches: int = 0  # chunked engine: batches launched
     rounds_total: int = 0  # engine rounds driven (all slots at once)
     supersteps: int = 0  # device dispatches (each runs rounds_per_sync rounds)
     # where the engine's HOST wall time goes, per superstep boundary.  These
@@ -77,6 +93,7 @@ class EngineStats:
     model_evals_total: int = 0
     accepts_total: int = 0
     proposals_total: int = 0
+    draft_points_total: int = 0  # branched speculation: points drafted (all branches)
     queue_latency_total: float = 0.0
     wall_time: float = 0.0
     dropped: int = 0  # rejected at admission (SLO admission control)
@@ -98,6 +115,7 @@ class EngineStats:
         self.model_evals_total += rm.model_evals
         self.accepts_total += rm.accepts
         self.proposals_total += rm.proposals
+        self.draft_points_total += rm.draft_points
         self.queue_latency_total += rm.queue_latency
         if rm.slo_met is not None:
             self.slo_tracked += 1
@@ -133,6 +151,18 @@ class EngineStats:
         """Verified slots per fused round per chain (mean live theta)."""
         rounds = sum(m.rounds for m in self.per_request)
         return self.proposals_total / max(rounds, 1)
+
+    def branch_accept_depth(self) -> float:
+        """Mean accepted prefix a round over retired chains."""
+        rounds = sum(m.rounds for m in self.per_request)
+        return self.accepts_total / max(rounds, 1)
+
+    def wasted_draft_frac(self) -> float:
+        """Drafted verification points that never committed, as a fraction
+        of all drafted points (``1 - accept_rate`` at one branch)."""
+        if self.draft_points_total <= 0:
+            return 0.0
+        return 1.0 - self.accepts_total / self.draft_points_total
 
     def latency_percentiles(self, qs=(50, 95, 99)) -> dict:
         """Nearest-rank percentiles of queue and completion (submit ->
@@ -184,6 +214,9 @@ class EngineStats:
             "dispatch_frac": self.dispatch_s / denom,
             "device_frac": self.device_s / denom,
             "host_sync_frac": self.host_sync_s / denom,
+            # the branch lanes ride along (not time components)
+            "branch_accept_depth": self.branch_accept_depth(),
+            "wasted_draft_frac": self.wasted_draft_frac(),
         }
 
     def summary(self) -> dict:
@@ -197,6 +230,8 @@ class EngineStats:
             "model_evals_total": self.model_evals_total,
             "accept_rate": self.accept_rate(),
             "mean_window": self.mean_window(),
+            "branch_accept_depth": self.branch_accept_depth(),
+            "wasted_draft_frac": self.wasted_draft_frac(),
             "mean_parallel_depth": self.mean_parallel_depth(),
             "mean_queue_latency_s": self.mean_queue_latency(),
             "slo_attainment": self.slo_attainment(),

@@ -231,9 +231,8 @@ def instrument_engine(registry: MetricsRegistry, engine) -> MetricsRegistry:
     Every metric is labeled by shard, and all values are read at SCRAPE
     time from the engine's existing ``EngineStats``/scheduler state
     (callback gauges), so instrumentation adds nothing to the serve loops.
-    The catalog is the JAX package's less the branched-speculation and
-    model-parallel collective gauges, whose engine features the port does
-    not have yet.
+    The catalog is the JAX package's less the model-parallel collective
+    gauges, whose engine feature the port does not have yet.
     """
     w = engine
     lab = dict(shard=str(w.shard_id))
@@ -275,6 +274,14 @@ def instrument_engine(registry: MetricsRegistry, engine) -> MetricsRegistry:
         ("asd_admission_pressure",
          "live verification demand over the round budget",
          lambda w: w._admission_context(0.0).budget_pressure),
+        ("asd_branch_accept_depth",
+         "mean accepted prefix per round over retired chains "
+         "(branched speculation: deeper at B > 1 when branches help)",
+         lambda w: w.stats.branch_accept_depth()),
+        ("asd_wasted_draft_frac",
+         "fraction of drafted verification points (all branches) that "
+         "never committed — 1 - accept_rate at B = 1",
+         lambda w: w.stats.wasted_draft_frac()),
         ("asd_draining", "1 while the shard is draining (no admits)",
          lambda w: int(getattr(w, "draining", False))),
     ]

@@ -34,11 +34,16 @@ rows either way.
 while the maps keep the ``budget`` width; lanes past the granted total are
 padding, dropped at the commit scatter.
 
+``num_branches`` B > 1 runs the branched round (``_branched_packed_round``):
+a slot's demand is ``b_live`` windows, a grant sheds branches before it
+trims the window, the maps are branch-major over the (S * B * theta)-row
+branch stacks, the same kernels move the rows, and each slot commits its
+longest accepted prefix.  B = 1 is the round above.
+
 The JAX package's ``pack_impl`` and ``grs_impl`` are not ported: the
 tensors' device picks the plain versions (CPU) or the kernels (CUDA).
 Nothing here reads a device value on the host, so a superstep of R rounds
-is one queue of launches.  Branched rounds (``_branched_packed_round``)
-and ``sharded_packed_superstep`` are not ported yet.
+is one queue of launches.  ``sharded_packed_superstep`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -47,16 +52,19 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.asd import ModelFn, _clamp_theta, commit_round, plan_round
-from repro_torch.core.controller import StaticTheta, ThetaController
+from repro_torch.core.asd import (ModelFn, _clamp_theta, commit_round, plan_round,
+                                  select_longest)
+from repro_torch.core.controller import (BranchController, StaticBranches, StaticTheta,
+                                         ThetaController)
 from repro_torch.core.grs import bcast_right
 from repro_torch.core.schedules import Schedule
 from repro_torch.kernels.grs.ops import grs
 from repro_torch.kernels.pack.ops import gather_rows, scatter_rows
 from repro_torch.kernels.superstep.ops import fused_gather, fused_verify_commit
-from repro_torch.serving.packing.plan import build_pack_maps
+from repro_torch.serving.packing.plan import build_branched_pack_maps, build_pack_maps
 
 _STATIC = StaticTheta()
+_STATIC_B = StaticBranches()
 ROUND_IMPLS = ("packed", "fused")
 
 
@@ -66,16 +74,25 @@ def packed_round(model_fn: ModelFn, schedule: Schedule, states,
                  keep_trajectory: bool = False,
                  controller: ThetaController = _STATIC,
                  round_impl: str = "packed", budget_data=None,
-                 noise_mode: str = "buffer"):
+                 noise_mode: str = "buffer", num_branches: int = 1,
+                 branch_controller: BranchController = _STATIC_B):
     """One packed verification round over all slots; returns the new state.
 
     ``states`` is the slot batch (``ASDChainState``, leading S axis),
     ``conds`` (S, d_cond) or None, ``weights`` (S,) float32 allocator
     priorities.  ``model_fn(t, y)``, or ``model_fn(t, y, cond)`` with one
     condition row per point when ``conds`` is given: each model call of
-    the round is one batched call."""
+    the round is one batched call.  ``num_branches`` > 1 runs the branched
+    round."""
     if round_impl not in ROUND_IMPLS:
         raise ValueError(f"unknown round_impl {round_impl!r}; have {ROUND_IMPLS}")
+    if num_branches > 1:
+        return _branched_packed_round(
+            model_fn, schedule, states, conds, weights, theta=theta, budget=budget,
+            allocator=allocator, eager_head=eager_head, keep_trajectory=keep_trajectory,
+            controller=controller, round_impl=round_impl, budget_data=budget_data,
+            noise_mode=noise_mode, num_branches=num_branches,
+            branch_controller=branch_controller)
     K = schedule.K
     theta = _clamp_theta(theta, K)
     S = states.a.shape[0]
@@ -159,13 +176,125 @@ def packed_round(model_fn: ModelFn, schedule: Schedule, states,
                         theta, eager_head, keep_trajectory, controller)
 
 
+def _branched_packed_round(model_fn: ModelFn, schedule: Schedule, states,
+                           conds: Optional[torch.Tensor], weights: torch.Tensor, *,
+                           theta: int, budget: int, allocator, eager_head: bool,
+                           keep_trajectory: bool, controller: ThetaController,
+                           round_impl: str, budget_data, noise_mode: str,
+                           num_branches: int, branch_controller: BranchController):
+    """The branched packed round: plan -> pack -> verify -> commit with a
+    branch axis through every stage.
+
+    Demand is ``b_live * min(theta_live, K - a)`` a slot.  A grant sheds
+    branches before it trims the window: below one window it runs one
+    trimmed branch (the single-draft trimmed round on the canonical
+    stream); past it, whole extra branches ride along (a partial branch
+    could not beat branch 0's prefix).  The maps are branch-major over the
+    (S * NB * theta)-row stacks, and with ``eager_head`` every (slot,
+    branch) has a head lane after the budget's, S * NB in all."""
+    K = schedule.K
+    theta = _clamp_theta(theta, K)
+    NB = num_branches
+    S = states.a.shape[0]
+    ev = tuple(states.v_cache.shape[1:])
+    ev_ndim = len(ev)
+    rows = torch.arange(S, device=states.a.device)
+
+    # --- 1. plan: proposal call + the rollout of every branch ---------------
+    plan = plan_round(model_fn, schedule, states, theta, eager_head, keep_trajectory,
+                      conds, noise_mode, NB)
+
+    # --- 2. pack: branched demand, branch-shedding grants, gather -----------
+    n1 = plan.n_valid  # live points a branch
+    b_live = torch.clamp(states.b_live, 1, NB)
+    demand = torch.where(states.a < K, b_live * n1, 0)
+    grants = allocator.allocate(demand, budget if budget_data is None else budget_data,
+                                weights)
+    grants = torch.minimum(grants, demand)
+    covered = grants >= n1
+    # whole windows only: clip(grants // n1, 1, b_live)
+    b_r = torch.minimum(torch.clamp(grants // torch.clamp(n1, min=1), min=1), b_live)
+    theta_r = torch.where(covered, plan.theta_live, grants)
+    pts1 = torch.where(covered, n1, grants)  # == min(theta_r, K - a)
+    maps = build_branched_pack_maps(pts1, b_r, budget)
+    src_rows = torch.where(maps.valid,
+                           (maps.slot_id * NB + maps.branch_id) * theta + maps.step_id, 0)
+
+    def flatb(x):  # (S, NB, theta, ...) -> (S * NB * theta, ...)
+        return x.reshape((S * NB * theta,) + tuple(x.shape[3:]))
+
+    def btile(x):  # a slot's (S, theta) scalar window, the same for each branch
+        return x[:, None, :].expand(S, NB, theta)
+
+    if round_impl == "fused":
+        scal_tbl = torch.stack(
+            [flatb(btile(plan.t_w1[:, :theta])), flatb(plan.u_w_b), flatb(btile(plan.A_w)),
+             flatb(btile(plan.B_w)), flatb(btile(plan.sig_w))], dim=-1).float()
+        y_pt, xi_pt, mh_pt, scal_pt = fused_gather(
+            flatb(plan.y_prev_b), flatb(plan.xi_w_b), flatb(plan.m_hats_b), scal_tbl,
+            src_rows)
+        t_pt, u_pt, A_pt, B_pt, sig_pt = scal_pt.unbind(-1)
+    else:
+        y_pt = gather_rows(flatb(plan.y_prev_b), src_rows)
+        xi_pt = gather_rows(flatb(plan.xi_w_b), src_rows)
+        mh_pt = gather_rows(flatb(plan.m_hats_b), src_rows)
+        t_pt, A_pt, B_pt, sig_pt = (
+            tbl[maps.slot_id, maps.step_id]
+            for tbl in (plan.t_w1[:, :theta], plan.A_w, plan.B_w, plan.sig_w))
+        u_pt = plan.u_w_b[maps.slot_id, maps.branch_id, maps.step_id]
+
+    if eager_head:
+        # a head lane per (slot, branch); a zero grant's index -1 reads the
+        # last row, as in the single-branch round
+        y_head = plan.y_props_b[rows[:, None], torch.arange(NB, device=rows.device),
+                                (theta_r - 1)[:, None]]
+        t_head = plan.t_w1[rows, theta_r]
+        ts_all = torch.cat([t_pt, t_head.repeat_interleave(NB)])
+        ys_all = torch.cat([y_pt, y_head.reshape((S * NB,) + ev)])
+        conds_all = (None if conds is None
+                     else torch.cat([conds[maps.slot_id], conds.repeat_interleave(NB, 0)]))
+    else:
+        ts_all, ys_all = t_pt, y_pt
+        conds_all = None if conds is None else conds[maps.slot_id]
+
+    # --- 3. verify: ONE budget-shaped model call ----------------------------
+    g_all = model_fn(ts_all, ys_all) if conds is None else model_fn(ts_all, ys_all,
+                                                                   conds_all)
+    g_pt = g_all[:budget] if eager_head else g_all
+
+    n_rows = S * NB * theta
+    drop_rows = maps.row_id(NB, theta)
+    if round_impl == "fused":
+        z_tbl, acc_tbl = fused_verify_commit(y_pt, g_pt, xi_pt, mh_pt, A_pt, B_pt, u_pt,
+                                             sig_pt, drop_rows, n_rows)
+    else:
+        m_tgt_pt = (bcast_right(A_pt, ev_ndim + 1) * y_pt
+                    + bcast_right(B_pt, ev_ndim + 1) * g_pt)
+        z_pt, acc_pt = grs(u_pt, xi_pt, mh_pt, m_tgt_pt, sig_pt, event_ndim=ev_ndim)
+        z_tbl = scatter_rows(z_pt, drop_rows, n_rows)
+        acc_tbl = torch.zeros((n_rows + 1,), dtype=torch.bool, device=acc_pt.device)
+        acc_tbl[drop_rows] = acc_pt
+        acc_tbl = acc_tbl[:n_rows]
+    z_seg = z_tbl.reshape((S, NB, theta) + ev)
+    acc_seg = acc_tbl.reshape(S, NB, theta)
+
+    # --- 4. commit each slot's longest accepted prefix -----------------------
+    best, acc_m, gain = select_longest(acc_seg, torch.minimum(theta_r, K - plan.a), b_r)
+    g_head = g_all[budget:].reshape((S, NB) + ev)[rows, best] if eager_head else None
+    return commit_round(schedule, states, plan, z_seg[rows, best], acc_m[rows, best],
+                        theta_r, g_head, theta, eager_head, keep_trajectory, controller,
+                        b_r=b_r, gain=gain, num_branches=NB,
+                        branch_controller=branch_controller)
+
+
 def packed_superstep(model_fn: ModelFn, schedule: Schedule, states,
                      conds: Optional[torch.Tensor], weights: torch.Tensor, *,
                      rounds: int, theta: int, budget: int, allocator,
                      eager_head: bool = True, keep_trajectory: bool = False,
                      controller: ThetaController = _STATIC,
                      round_impl: str = "packed", budget_data=None,
-                     noise_mode: str = "buffer"):
+                     noise_mode: str = "buffer", num_branches: int = 1,
+                     branch_controller: BranchController = _STATIC_B):
     """``rounds`` packed rounds in a row on the device-resident slot state
     (the JAX package's ``lax.scan``): each re-allocates the budget from that
     round's windows, and retired slots stay frozen.  ``weights`` and
@@ -176,5 +305,6 @@ def packed_superstep(model_fn: ModelFn, schedule: Schedule, states,
             model_fn, schedule, states, conds, weights, theta=theta, budget=budget,
             allocator=allocator, eager_head=eager_head,
             keep_trajectory=keep_trajectory, controller=controller,
-            round_impl=round_impl, budget_data=budget_data, noise_mode=noise_mode)
+            round_impl=round_impl, budget_data=budget_data, noise_mode=noise_mode,
+            num_branches=num_branches, branch_controller=branch_controller)
     return states

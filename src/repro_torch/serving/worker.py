@@ -22,8 +22,7 @@ PyTorch runs eagerly, so there is no executable cache to keep, and the
 JAX package's ``donate``, ``pipelined``, ``pack_impl`` and ``grs_impl``
 have no counterpart: the device picks the plain versions (CPU) or the
 kernels (CUDA).  Not ported yet: ``model_mesh``, ``param_specs``,
-``state_sharding``, ``collective_payloads``, ``adopt_programs`` and
-branched speculation.
+``state_sharding``, ``collective_payloads`` and ``adopt_programs``.
 
 Every chain draws from its key as the JAX worker's does: a request's own
 ``key``, or else ``fold_in(serve key, rid)`` (the serve key is
@@ -50,7 +49,8 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.asd import (ASDChainState, asd_superstep, chain_sample,
                                   init_chain_state)
-from repro_torch.core.controller import StaticTheta, ThetaController
+from repro_torch.core.controller import (BranchController, StaticBranches, StaticTheta,
+                                         ThetaController)
 from repro_torch.core.schedules import Schedule
 from repro_torch.core.sequential import init_y0
 from repro_torch.device import resolve_device
@@ -62,9 +62,7 @@ from repro_torch.serving.scheduler import (AdmissionContext, SchedulingPolicy,
 log = logging.getLogger("repro_torch.serving.worker")
 
 # sync-packet rows: the (9, S) int32 array each superstep leaves beside the
-# new slot state.  With one branch, b_live is 1 and draft_points equals
-# proposals (the JAX commit_round with b_eff = 1); the port fills them so
-# instead of carrying the fields.
+# new slot state
 _SYNC_ROWS = ("a", "theta_live", "rounds", "head_calls", "model_evals",
               "accepts", "proposals", "b_live", "draft_points")
 
@@ -127,6 +125,14 @@ class ShardWorker:
       keep_trajectory: keep each chain's whole trajectory (else the live
         window only).
       controller: per-chain window controller (default StaticTheta).
+      num_branches: branched speculation cap B: each round rolls up to B
+        draft branches a chain from the same proposal output and commits
+        the longest accepted prefix (1: the single-draft round).  Packed
+        demand is ``b_live * min(theta_live, K - a)`` a slot, so the
+        covering budget, the budget ladder and the default allocator's
+        ``theta_max`` scale by B.
+      branch_controller: per-chain live branch count (default
+        StaticBranches: always the cap).
       policy: admission policy of the queue (default FCFS).
       execution: "unpacked" (theta-shaped windows per slot) or "packed"
         (each round verifies only the live points, at most ``round_budget``).
@@ -153,6 +159,8 @@ class ShardWorker:
                  eager_head: bool = True, noise_mode: str = "buffer",
                  keep_trajectory: bool = False,
                  seed: int = 0, controller: Optional[ThetaController] = None,
+                 num_branches: int = 1,
+                 branch_controller: Optional[BranchController] = None,
                  policy: Optional[SchedulingPolicy] = None,
                  execution: str = "unpacked", round_budget=None, allocator=None,
                  round_impl: str = "packed", rounds_per_sync=1,
@@ -171,6 +179,9 @@ class ShardWorker:
         self._tracer = tracer
         self.draining = False
         self.controller = controller if controller is not None else StaticTheta()
+        self.num_branches = max(int(num_branches), 1)
+        self.branch_controller = (branch_controller if branch_controller is not None
+                                  else StaticBranches())
         self._model_fn = model_fn
         if execution not in ("unpacked", "packed"):
             raise ValueError(f"unknown execution mode {execution!r}")
@@ -185,7 +196,9 @@ class ShardWorker:
             raise ValueError(f"overcommit must be >= 1, got {overcommit}")
         self.overcommit = float(overcommit)
         self.budget_hysteresis = float(budget_hysteresis)
-        self._budget_ladder = _pow2_ladder(num_slots, num_slots * self.theta)
+        # up to full coverage: slots * theta * branches
+        covering = num_slots * self.theta * self.num_branches
+        self._budget_ladder = _pow2_ladder(num_slots, covering)
         if round_budget == "auto":
             if execution != "packed":
                 raise ValueError('round_budget="auto" requires execution="packed" '
@@ -194,8 +207,7 @@ class ShardWorker:
             self.round_budget = self._budget_ladder[-1]  # open at the covering tier
         else:
             self._budget_auto = False
-            self.round_budget = (num_slots * self.theta if round_budget is None
-                                 else int(round_budget))
+            self.round_budget = covering if round_budget is None else int(round_budget)
         if execution == "packed" and self.round_budget < num_slots:
             raise ValueError(
                 f"round_budget {self.round_budget} < num_slots {num_slots}: every "
@@ -223,10 +235,15 @@ class ShardWorker:
         self._live_demand = 0
         self._demand_ewma = 0.0
         # a fresh chain's opening demand: the controller's initial window
-        self._points_open = int(self.controller.init(self.theta, 1, "cpu")[1][0])
+        # times the opening branch count
+        self._theta_open = int(self.controller.init(self.theta, 1, "cpu")[1][0])
+        self._b_open = int(self.branch_controller.init(self.num_branches, 1, "cpu")[1][0])
+        self._points_open = self._theta_open * max(self._b_open, 1)
         if execution == "packed":
-            self.allocator = (allocator if allocator is not None
-                              else WaterfillingAllocator(theta_max=self.theta))
+            # the waterfill level scan must reach a slot's largest demand,
+            # theta * branches
+            self.allocator = (allocator if allocator is not None else
+                              WaterfillingAllocator(theta_max=self.theta * self.num_branches))
         else:
             self.allocator = allocator
         self._weights = np.ones((num_slots,), np.float32)
@@ -245,7 +262,8 @@ class ShardWorker:
             self.schedule, torch.zeros((num_slots,) + self.event_shape, device=dev),
             self.theta, keep_trajectory, self.controller,
             key=prng.split(prng.PRNGKey(seed), num_slots).to(dev),
-            noise_mode=noise_mode, **bufs)
+            noise_mode=noise_mode, num_branches=self.num_branches,
+            branch_controller=self.branch_controller, **bufs)
         self._states.a.fill_(K)
         self._conds = (torch.zeros((num_slots, d_cond), device=dev) if d_cond
                        else None)
@@ -261,7 +279,9 @@ class ShardWorker:
         """R rounds over the slot batch, launched with no host read."""
         statics = dict(eager_head=self.eager_head,
                        keep_trajectory=self.keep_trajectory,
-                       controller=self.controller, noise_mode=self.noise_mode)
+                       controller=self.controller, noise_mode=self.noise_mode,
+                       num_branches=self.num_branches,
+                       branch_controller=self.branch_controller)
         with torch.no_grad():
             if self.execution == "packed":
                 fused = self.round_impl == "fused"
@@ -279,9 +299,7 @@ class ShardWorker:
         the slot tensors; on the card the counters start their copy to the
         host at once, and an event marks when they are there."""
         with torch.no_grad():
-            info = torch.stack([st.a, st.theta_live, st.rounds, st.head_calls,
-                                st.model_evals, st.accepts, st.proposals,
-                                torch.ones_like(st.a), st.proposals]).to(torch.int32)
+            info = torch.stack([getattr(st, name) for name in _SYNC_ROWS]).to(torch.int32)
             samples = chain_sample(st, self.schedule.K, self.keep_trajectory).clone()
         if self.device.type != "cuda":
             return info, None, samples
@@ -316,7 +334,8 @@ class ShardWorker:
             self.controller, None,
             None if req.u_buf is None else _as_tensor(req.u_buf, self.device)[None],
             None if req.xi_buf is None else _as_tensor(req.xi_buf, self.device)[None],
-            key=key[None].to(self.device), noise_mode=self.noise_mode)
+            key=key[None].to(self.device), noise_mode=self.noise_mode,
+            num_branches=self.num_branches, branch_controller=self.branch_controller)
 
     def _admission_context(self, now: float) -> AdmissionContext:
         return AdmissionContext(
@@ -496,7 +515,10 @@ class ShardWorker:
         occupied = np.zeros((self.num_slots,), bool)
         occupied[self.scheduler.active_slots()] = True
         live = occupied & (a < K)
-        self._live_demand = int(np.minimum(theta_live[live], (K - a)[live]).sum())
+        # each live branch wants its own copy of the window
+        b_live = np.maximum(row["b_live"], 1)
+        self._live_demand = int(
+            (b_live[live] * np.minimum(theta_live[live], (K - a)[live])).sum())
         if self._live_demand == 0:
             self._demand_ewma *= 0.5
         else:
@@ -531,6 +553,7 @@ class ShardWorker:
                     model_evals=int(row["model_evals"][slot]),
                     accepts=int(row["accepts"][slot]),
                     proposals=int(row["proposals"][slot]),
+                    draft_points=int(row["draft_points"][slot]),
                     deadline=deadline,
                     slo_met=None if deadline is None else now <= deadline)
                 self.stats.observe(rm)

@@ -247,31 +247,33 @@ def init_lm_params(cfg: ModelConfig, seed: int, device=None):
     return _random_tree(lm_param_shapes(cfg), leaf)
 
 
-# the JAX ASDChainState leaves the port carries, with their dtypes (the
-# keys' uint32 words are held in int64); the others (b_live, bctrl,
-# draft_points: branched speculation) are dropped
+# the JAX ASDChainState leaves, with the dtypes the port holds them in (the
+# keys' uint32 words in int64)
 _STATE_DTYPES = {
     "y": torch.float32, "a": torch.int64, "v_cache": torch.float32,
     "v_valid": torch.bool, "rounds": torch.int64, "head_calls": torch.int64,
     "model_evals": torch.int64, "accepts": torch.int64, "proposals": torch.int64,
     "theta_live": torch.int64, "ctrl": torch.float32, "k_u": torch.int64,
     "k_xi": torch.int64, "u_buf": torch.float32, "xi_buf": torch.float32,
+    "b_live": torch.int64, "bctrl": torch.float32, "draft_points": torch.int64,
 }
 
 
 def from_jax_chain_state(state, K: int, theta: int, device=None) -> ASDChainState:
     """A slot batch of the JAX package's ``ASDChainState`` (leaves as numpy
-    arrays with a leading slot axis B, buffer noise mode, one branch) as
-    the port's ``ASDChainState`` on ``device`` (None means "cuda").
+    arrays with a leading slot axis B) as the port's ``ASDChainState`` on
+    ``device`` (None means "cuda"), branch fields included.  A counter-mode
+    state holds no noise buffers (``u_buf`` and ``xi_buf`` None).
 
-    ``bctrl``, ``b_live`` and ``draft_points`` are dropped.  Shapes are
-    checked against K and theta (the clamped cap that shaped the buffers):
-    y (B, K+theta+1 or theta+1, *event), u_buf (B, K+theta+1), xi_buf
-    (B, K+theta+1, *event), ctrl (B, n), k_u and k_xi (B, 2), the rest
-    (B,)."""
+    Shapes are checked against K and theta (the clamped cap that shaped the
+    buffers): y (B, K+theta+1 or theta+1, *event), u_buf (B, K+theta+1),
+    xi_buf (B, K+theta+1, *event), ctrl and bctrl (B, n), k_u and k_xi
+    (B, 2), the rest (B,)."""
     dev = resolve_device(device)
     get = state.get if isinstance(state, dict) else (lambda k: getattr(state, k))
-    arrs = {k: np.asarray(get(k)) for k in _STATE_DTYPES}
+    counter = get("u_buf") is None and get("xi_buf") is None
+    arrs = {k: np.asarray(get(k)) for k in _STATE_DTYPES
+            if not (counter and k in ("u_buf", "xi_buf"))}
     for k in ("k_u", "k_xi"):
         arrs[k] = arrs[k].astype(np.int64)
     B = arrs["a"].shape[0] if arrs["a"].ndim == 1 else -1
@@ -280,16 +282,17 @@ def from_jax_chain_state(state, K: int, theta: int, device=None) -> ASDChainStat
     y_len = arrs["y"].shape[1] if arrs["y"].ndim >= 2 else -1
     want = {"y": (B, y_len) + ev, "v_cache": (B,) + ev, "u_buf": (B, n),
             "xi_buf": (B, n) + ev, "ctrl": (B,) + arrs["ctrl"].shape[1:2],
-            "k_u": (B, 2), "k_xi": (B, 2)}
-    for name in _STATE_DTYPES:
+            "bctrl": (B,) + arrs["bctrl"].shape[1:2], "k_u": (B, 2), "k_xi": (B, 2)}
+    for name in arrs:
         shape = want.get(name, (B,))
         if B < 0 or arrs[name].shape != shape or (
-                name == "ctrl" and arrs[name].ndim != 2):
+                name in ("ctrl", "bctrl") and arrs[name].ndim != 2):
             raise ValueError(f"chain state {name}: expected {shape} (B slots, "
                              f"K={K}, theta={theta}), got {arrs[name].shape}")
     if y_len not in (n, theta + 1):
         raise ValueError(f"chain state y: length {y_len} is neither K+theta+1 = {n} "
                          f"nor theta+1 = {theta + 1}")
-    return ASDChainState(**{
-        k: torch.from_numpy(np.array(arrs[k], order="C")).to(dev, _STATE_DTYPES[k])
-        for k in _STATE_DTYPES})
+    leaves = dict(u_buf=None, xi_buf=None)
+    leaves.update({k: torch.from_numpy(np.array(v, order="C")).to(dev, _STATE_DTYPES[k])
+                   for k, v in arrs.items()})
+    return ASDChainState(**leaves)

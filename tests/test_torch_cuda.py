@@ -520,6 +520,86 @@ def test_packed_superstep_on_card_matches_cpu(dev, round_impl):
     torch.testing.assert_close(card.y.cpu(), cpu.y, atol=2e-3, rtol=2e-3)
 
 
+@pytest.mark.parametrize("round_impl", ["packed", "fused", "unpacked"])
+def test_branched_superstep_on_card_matches_cpu(dev, round_impl):
+    """Branched rounds (B 3, gain controller, counter noise) of the smoke
+    denoiser on the card and on the CPU from the same keys: counters,
+    branch counts and drafted points equal, states close; B1-B6 launched
+    once a round as the round says, over (S x B x theta)-row tables."""
+    from repro_torch.core import prng
+    from repro_torch.core.controller import GainBranches
+
+    dc = paper_diffusion_policy_smoke()
+    K, theta, S, R, budget, nb = 12, 4, 4, 5, 20, 3
+    sched = t_sch.sl_geometric(K, 0.05, 10.0)
+    y0 = torch.randn(S, dc.seq_len, dc.d_data, generator=torch.Generator().manual_seed(1))
+    keys = prng.split(prng.PRNGKey(4), S)
+    out = {}
+    counters = (pack_ops.gather_rows, pack_ops.scatter_rows, fused_ops.fused_gather,
+                fused_ops.fused_verify_commit, grs)
+    for where in ("cpu", dev):
+        st = t_asd.init_chain_state(sched.to(where), y0.to(where), theta, False,
+                                    key=keys.to(where), noise_mode="counter",
+                                    num_branches=nb, branch_controller=GainBranches())
+        fn = make_sl_model_fn(init_denoiser_params(dc, 0, out_scale=1.0, device=where), dc)
+        before = tuple(c.launches for c in counters)
+        with torch.no_grad():
+            if round_impl == "unpacked":
+                out[str(where)] = t_asd.asd_superstep(
+                    fn, sched.to(where), st, theta, R, eager_head=True, keep_trajectory=False,
+                    noise_mode="counter", num_branches=nb, branch_controller=GainBranches())
+            else:
+                out[str(where)] = packed_superstep(
+                    fn, sched.to(where), st, None, torch.ones(S, device=where), rounds=R,
+                    theta=theta, budget=budget,
+                    allocator=WaterfillingAllocator(theta_max=theta * nb),
+                    round_impl=round_impl, noise_mode="counter", num_branches=nb,
+                    branch_controller=GainBranches())
+        after = tuple(c.launches for c in counters)
+    per_round = {"packed": (3, 1, 0, 0, 1), "fused": (0, 0, 1, 1, 0),
+                 "unpacked": (0, 0, 0, 0, 1)}[round_impl]
+    assert tuple(b - a for a, b in zip(before, after)) == tuple(R * n for n in per_round)
+    cpu, card = out["cpu"], out[str(dev)]
+    for name in ("a", "rounds", "head_calls", "model_evals", "accepts", "proposals",
+                 "theta_live", "v_valid", "b_live", "draft_points"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), name
+    assert torch.equal(card.bctrl.cpu(), cpu.bctrl)
+    assert bool((cpu.draft_points > cpu.proposals).any())
+    torch.testing.assert_close(card.y.cpu(), cpu.y, atol=2e-3, rtol=2e-3)
+
+
+def test_branched_superstep_makes_no_host_sync(dev):
+    """A branched superstep (both noise modes' branch draws, the selection,
+    the branch controller) reads nothing back on the host."""
+    from repro_torch.core import prng
+    from repro_torch.core.controller import GainBranches
+
+    dc = paper_diffusion_policy_smoke()
+    K, theta, S, nb = 16, 4, 3, 2
+    sched = t_sch.sl_geometric(K, 0.05, 50.0).to(dev)
+    fn = make_sl_model_fn(init_denoiser_params(dc, 0, out_scale=1.0, device=dev), dc)
+    st = t_asd.init_chain_state(sched, torch.zeros((S, dc.seq_len, dc.d_data), device=dev),
+                                theta, False, key=prng.split(prng.PRNGKey(1), S).to(dev),
+                                noise_mode="counter", num_branches=nb,
+                                branch_controller=GainBranches())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            t_asd.asd_superstep(fn, sched, st, theta, 2, eager_head=True,
+                                keep_trajectory=False, noise_mode="counter",
+                                num_branches=nb, branch_controller=GainBranches())
+            for impl in ("packed", "fused"):
+                packed_superstep(fn, sched, st, None, torch.ones(S, device=dev), rounds=2,
+                                 theta=theta, budget=5,
+                                 allocator=WaterfillingAllocator(theta_max=theta * nb),
+                                 round_impl=impl, noise_mode="counter", num_branches=nb,
+                                 branch_controller=GainBranches())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 def test_packed_and_fused_serving_agree_bit_for_bit_on_card(dev):
     """The same requests through the packed and the fused engine on the
     card: the same counters and the same sample bits."""

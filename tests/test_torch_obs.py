@@ -23,8 +23,7 @@ from repro_torch.serving import scheduler as t_sched
 from repro_torch.serving.engine import ContinuousASDEngine, Request
 
 # the JAX catalog's families the port's engine has no feature for yet
-_NOT_PORTED = ("asd_branch_accept_depth", "asd_wasted_draft_frac", "asd_collective_seconds",
-               "asd_collective_kind_seconds")
+_NOT_PORTED = ("asd_collective_seconds", "asd_collective_kind_seconds")
 
 
 def _record(rec, t0):
@@ -94,7 +93,7 @@ def _stub_engine(metrics, sched_mod):
                                             (0.02, 1.5, 12, 30, 44)]):
         stats.observe(metrics.RequestMetrics(rid=rid, queue_latency=q, service_time=s,
                                              rounds=r, head_calls=r // 2, model_evals=a + r,
-                                             accepts=a, proposals=p))
+                                             accepts=a, proposals=p, draft_points=2 * p))
     stats.observe_drop()
     sched = sched_mod.SlotScheduler(3)
     for i in range(5):

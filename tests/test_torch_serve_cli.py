@@ -1,6 +1,6 @@
 """The port's serve CLI, ``python -m repro_torch.launch.serve``, on the CPU
 with the smoke model: every engine and option prints the JAX CLI's lines
-with ``finite=True``; every flag the port has no counterpart for exits with
+with ``finite=True`` (branched runs with its ``branch depth`` clause); every flag the port has no counterpart for exits with
 status 2 and names its ROADMAP.md item; without ``--device cpu`` and with
 no card it raises instead of running on the CPU."""
 
@@ -30,6 +30,8 @@ RUNS = {
         "--execution", "packed", "--round-budget", "24", "--round-impl", "fused",
         "--theta-controller", "accept-rate", "--rounds-per-sync", "4",
         "--trace-out", "{tmp}/trace.json"],
+    "num-branches-2": ["--num-branches", "2"],
+    "branch-controller-gain": ["--num-branches", "2", "--branch-controller", "gain"],
 }
 
 
@@ -65,11 +67,14 @@ def test_the_cli_serves_on_the_cpu(run, tmp_path):
         assert {"dispatch", "device_wait", "harvest", "request"} <= names
         assert "[trace]" in out
         assert "R=4" in line and "controller=accept-rate" in line
+    if "--num-branches" in RUNS[run]:
+        # the JAX CLI's clause: mean accepted prefix a round, wasted drafts
+        assert "branch depth " in line and "(waste " in line and "B=2)" in line
+    else:
+        assert "branch depth" not in line
 
 
 REFUSED = {
-    "--num-branches 2": ("A5", ["--num-branches", "2"]),
-    "--branch-controller gain": ("A5", ["--branch-controller", "gain"]),
     "--shards 2": ("A7", ["--shards", "2"]),
     "--router": ("A7", ["--router", "least-loaded"]),
     "--dispatch fused": ("A7", ["--dispatch", "fused"]),
@@ -94,8 +99,8 @@ def test_flags_without_a_counterpart_exit_2(what, capsys):
 
 
 def test_a_refusal_is_the_process_exit_status(tmp_path):
-    proc = _cli(["--num-branches", "2"], tmp_path)
-    assert proc.returncode == 2 and "ROADMAP.md A5" in proc.stderr
+    proc = _cli(["--shards", "2"], tmp_path)
+    assert proc.returncode == 2 and "ROADMAP.md A7" in proc.stderr
     assert "finite" not in proc.stdout
 
 
