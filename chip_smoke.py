@@ -46,7 +46,10 @@ Phases, each printing one JSON line and raising on any failure:
               kernel per round, equal counters and samples in the two runs;
               then one superstep of each round_impl profiled, and one of
               each (in buffer and in counter noise, and an unpacked one in
-              counter noise) with host syncs made errors.
+              counter noise) with host syncs made errors, eagerly and as a
+              warm replay of an engine's graph.  On the card every engine
+              superstep is a captured CUDA graph (``serving/programs.py``),
+              here and in every phase below that serves.
      branched the same denoiser with B 2 draft branches (counter noise):
               ``asd_sample_batched`` (4 chains, theta 8, K 64) at B 1 and 2
               from one key, and one round from the same states (the
@@ -58,6 +61,21 @@ Phases, each printing one JSON line and raising on any failure:
               kernel per round; one superstep of each round with host
               syncs made errors; and B 1 asked for explicitly against the
               serve phase: the same bits, counters and launches.
+     serve_graphs
+              the superstep programs as graphs against their eager bodies
+              in the same run: pixel-dit (6 keyed requests, 4 slots, theta
+              8, K 64, R 4, counter noise) at budgets 16 and 64, both
+              round_impls, B 1 and 2, and with both auto ladders: one
+              capture per key within the ladders' bound, capture ms, peak
+              memory, wall, samples/s (at B 1 below budget 64 beside an
+              eager engine serving the same requests: equal sample bits,
+              counters, launches and keys); a warm replay against the
+              eager body from the same states with host syncs made errors,
+              and one profiled superstep of each (idle share); a planted
+              fault (the fused tier baked into the graph as an int,
+              replayed at another tier) must fail that gate.  Then the serve CLI's model the same way, and
+              ``serve.main`` with 8 profiled supersteps with graphs and
+              eagerly: round ms, samples/s, idle share.
      serve_reference
               the same engine on a small denoiser, on the card and on the
               CPU with the same noise, in both round_impls.
@@ -1261,7 +1279,7 @@ def run_serve(torch, dev, model_fn, sched, dc):
     round_impls on the same requests."""
     from repro_torch.core import prng
     from repro_torch.core.asd import asd_superstep, init_chain_state
-    from repro_torch.serving.engine import ContinuousASDEngine
+    from repro_torch.serving.engine import ContinuousASDEngine, Request
     from repro_torch.serving.packing import WaterfillingAllocator, packed_superstep
 
     counters = _counters()
@@ -1344,10 +1362,20 @@ def run_serve(torch, dev, model_fn, sched, dc):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
+        # and a warm replay of the engine's graph of the same superstep
+        kw = (dict(execution="unpacked") if impl == "unpacked" else
+              dict(execution="packed", round_budget=BUDGET, round_impl=impl))
+        eng = ContinuousASDEngine(model_fn, sched, event, num_slots=SLOTS, theta=THETA,
+                                  rounds_per_sync=1, seed=SEED, noise_mode=mode,
+                                  keep_trajectory=False, device=dev, **kw)
+        _warm_replay_no_sync(torch, eng, [Request(i, key=prng.PRNGKey(SEED + 40 + i))
+                                          for i in range(SLOTS)], f"serve {mode} {impl}")
+        del eng
     emit("serve_no_host_sync", rounds=RPS,
          supersteps=["buffer packed", "buffer fused", "counter packed", "counter fused",
                      "counter unpacked"],
-         note="one superstep each under torch.cuda.set_sync_debug_mode('error')")
+         note="one superstep each under torch.cuda.set_sync_debug_mode('error'), and a "
+              "warm replay of each one's graph in an engine (one round)")
 
     # one warm superstep of the engine under the profiler, per round_impl
     for impl in ("packed", "fused"):
@@ -1529,9 +1557,20 @@ def run_branched(torch, dev, model_fn, sched, dc, serve_runs):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    for impl in ("unpacked", "packed", "fused"):
+        kw = (dict(execution="unpacked") if impl == "unpacked" else
+              dict(execution="packed", round_budget=BRANCHED_BUDGETS[0], round_impl=impl))
+        eng = ContinuousASDEngine(model_fn, sched, event, num_slots=SLOTS, theta=THETA,
+                                  rounds_per_sync=1, seed=SEED, noise_mode="counter",
+                                  keep_trajectory=False, num_branches=BRANCHES,
+                                  branch_controller=GainBranches(), device=dev, **kw)
+        _warm_replay_no_sync(torch, eng, [Request(i, key=prng.PRNGKey(SEED + 50 + i))
+                                          for i in range(SLOTS)], f"branched {impl}")
+        del eng
     emit("branched_no_host_sync", branches=BRANCHES, rounds=RPS,
          supersteps=["unpacked", "packed", "fused"], branch_controller="gain",
-         note="one superstep each under torch.cuda.set_sync_debug_mode('error')")
+         note="one superstep each under torch.cuda.set_sync_debug_mode('error'), and a "
+              "warm replay of each one's graph in an engine (one round)")
 
     # B 1 asked for explicitly: the serve phase's bits, counters and launches
     serve_reqs = _serve_requests(torch, dev, dc, K, THETA, REQUESTS, SEED + 100)
@@ -1559,6 +1598,346 @@ def run_branched(torch, dev, model_fn, sched, dc, serve_runs):
     emit("branched_b1", round_impls=["packed", "fused"], requests=REQUESTS,
          note="num_branches=1 with a gain branch controller against the serve phase: "
               "equal sample bits, counters and launches")
+    return by_run
+
+
+# ---------------------------------------------------------------- graphs
+
+
+class _Eager:
+    """A superstep program's body run eagerly at every call: what the
+    graphs are held against (on the card an engine replays graphs)."""
+
+    def __init__(self, prog):
+        self.prog, self.calls = prog, 0
+
+    def __call__(self):
+        self.calls += 1
+        self.prog.body()
+        return self.calls == 1
+
+
+def _eager_engine():
+    """``ContinuousASDEngine`` with every superstep run as its eager body."""
+    from repro_torch.serving.engine import ContinuousASDEngine
+
+    class EagerEngine(ContinuousASDEngine):
+        def _make_superstep(self, R, budget):
+            return _Eager(super()._make_superstep(R, budget))
+
+    return EagerEngine
+
+
+def _slots(eng):
+    """A copy of every slot tensor of an engine, by field."""
+    st = eng._states
+    return {f.name: getattr(st, f.name).clone() for f in dataclasses.fields(st)
+            if getattr(st, f.name) is not None}
+
+
+def _set_slots(eng, snap):
+    for name, v in snap.items():
+        getattr(eng._states, name).copy_(v)
+
+
+def _same_slots(torch, a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _key_args(eng):
+    """The (R, budget) the engine's last superstep ran at."""
+    return eng._rps, (eng.round_budget if eng.execution == "packed" else None)
+
+
+def _replay_no_sync(torch, eng, R, B):
+    """One call of the engine's superstep with every host sync an error;
+    returns whether it was cold."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cold = eng._launch_superstep(R, B)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return cold
+
+
+def _warm_replay_no_sync(torch, eng, requests, what):
+    """Fill the slots, run two supersteps (the first captures), then one
+    warm replay with every host sync an error."""
+    for r in requests:
+        eng.submit(r)
+    eng.step()
+    eng.step()
+    if _replay_no_sync(torch, eng, *_key_args(eng)):
+        fail(f"{what}: the third call of a program was cold")
+
+
+def _graph_vs_eager(torch, eng, R, B, counters):
+    """From the slot states as they stand: one warm replay (host syncs made
+    errors), then from the same states one run of the eager body.  Returns
+    (cold, equal bits in every slot field, replay launches, eager
+    launches); the engine is left where the replay left it."""
+    prog = eng._get_superstep(R, B)
+    saved = _slots(eng)
+    _zero_counters(torch, counters)
+    cold = _replay_no_sync(torch, eng, R, B)
+    replay = _launches(counters)
+    got = _slots(eng)
+    _set_slots(eng, saved)
+    _zero_counters(torch, counters)
+    prog.body()
+    torch.cuda.synchronize()
+    eager = _launches(counters)
+    same = _same_slots(torch, got, _slots(eng))
+    _set_slots(eng, got)
+    return cold, same, replay, eager
+
+
+def _check_programs(eng, what):
+    """One capture per key, and no more programs than the ladders allow;
+    returns the capture ms by key."""
+    progs = eng._superstep_fns
+    if (any(p.captures != 1 or p.graph is None for p in progs.values())
+            or eng._compiled_supersteps != len(progs) or len(progs) > eng._program_bound()):
+        fail(f"{what}: captures {[(k, p.captures) for k, p in progs.items()]}, "
+             f"{eng._compiled_supersteps} programs, bound {eng._program_bound()}")
+    return {str(k): p.capture_ms for k, p in progs.items()}
+
+
+def _fresh_memory(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+# the graph cell (pixel-dit-graphs): the serve engine at budgets 16 and 64,
+# both round_impls, B 1 and 2, counter noise, graphs against eager bodies;
+# and one run with both auto ladders
+GRAPH_BUDGETS = (16, 64)
+GRAPH_AUTO = dict(round_budget="auto", rounds_per_sync="auto")
+GRAPH_CLI_PROFILE = 8  # warm CLI supersteps profiled, graphs and eager
+
+
+def run_serve_graphs(torch, dev, model_fn, sched, dc):
+    """The worker's superstep programs as captured CUDA graphs, held against
+    their eager bodies in the same run.
+
+    pixel-dit (6 keyed requests on 4 slots, theta 8, K 64, R 4, counter
+    noise) at budgets 16 and 64 in both round_impls at B 1 and 2, and once
+    with both auto ladders: one capture per key within the ladders' bound,
+    capture ms, peak memory, wall and samples/s; at B 1 below budget 64 the
+    engine that runs every superstep's eager body serves the same requests
+    (equal sample bits, counters and launches).  Then, mid-flight, one warm
+    replay (no host sync) against the eager body from the same states, and
+    one superstep of each profiled.  The planted fault, a fused superstep
+    captured with its tier as an int (the covering 64) and replayed at the
+    ladder's lowest, must fail the same gate.  Last the serve CLI's
+    paper-diffusion-policy: replay against eager body from the same states,
+    and ``serve.main`` with 8 profiled supersteps with graphs and eagerly."""
+    from repro_torch.core import prng
+    from repro_torch.core.schedules import ddpm
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import ContinuousASDEngine, Request
+
+    Eager = _eager_engine()
+    counters = _counters()
+    event = (dc.seq_len, dc.d_data)
+    reqs = [Request(i, key=prng.PRNGKey(4000 + i)) for i in range(REQUESTS)]
+    mid = [Request(100 + i, key=prng.PRNGKey(4100 + i)) for i in range(SLOTS)]
+    configs = [dict(num_branches=nb, round_budget=b, round_impl=impl, rounds_per_sync=RPS)
+               for nb in (1, BRANCHES) for b in GRAPH_BUDGETS for impl in ("packed", "fused")]
+    configs.append(dict(num_branches=1, round_impl="packed", **GRAPH_AUTO))
+    by_run = {}
+    for cfg in configs:
+        name = (f"nb{cfg['num_branches']}_{cfg['round_impl']}_b{cfg['round_budget']}"
+                f"_r{cfg['rounds_per_sync']}")
+
+        def engine(cls):
+            return cls(model_fn, sched, event, num_slots=SLOTS, theta=THETA,
+                       execution="packed", seed=SEED, noise_mode="counter",
+                       keep_trajectory=False, device=dev, **cfg)
+
+        # the eager engine serves the same requests at B 1 where its wall is
+        # short (budget 16, the auto ladders); every configuration holds
+        # the replay against the eager body from the same states below
+        kinds = (("graph", ContinuousASDEngine),) + (
+            (("eager", Eager),) if cfg["num_branches"] == 1 and cfg["round_budget"] != 64
+            else ())
+        runs = {}
+        for kind, cls in kinds:
+            base = _fresh_memory(torch)
+            eng = engine(cls)
+            _zero_counters(torch, counters)
+            t0 = time.perf_counter()
+            out = eng.serve(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            per_req = {m.rid: (m.rounds, m.head_calls, m.model_evals, m.accepts,
+                               m.proposals, m.draft_points) for m in eng.stats.per_request}
+            runs[kind] = dict(out=out, per_req=per_req, launches=_launches(counters),
+                              rounds=eng.stats.rounds_total, wall_s=wall,
+                              peak_bytes=torch.cuda.max_memory_allocated() - base,
+                              reserved_bytes=torch.cuda.memory_reserved(),
+                              keys=sorted(map(str, eng._superstep_fns)))
+            if kind == "graph":
+                capture_ms = _check_programs(eng, f"serve_graphs {name}")
+            del eng
+        g, e = runs["graph"], runs.get("eager")
+        if sorted(g["out"]) != list(range(REQUESTS)) or not all(
+                np.isfinite(v).all() for v in g["out"].values()):
+            fail(f"serve_graphs {name}: samples missing or not finite")
+        if e is not None:
+            bits = all(np.array_equal(g["out"][r].view(np.int32),
+                                      e["out"][r].view(np.int32)) for r in range(REQUESTS))
+            if (not bits or g["per_req"] != e["per_req"] or g["launches"] != e["launches"]
+                    or g["keys"] != e["keys"]):
+                fail(f"serve_graphs {name}: graphs against eager: bits equal {bits}, "
+                     f"counters equal {g['per_req'] == e['per_req']}, launches "
+                     f"{g['launches']} against {e['launches']}, keys {g['keys']} against "
+                     f"{e['keys']}")
+        # mid-flight: a warm replay against the eager body from the same
+        # states; then from one state a superstep of each profiled (the
+        # engine's program swapped for its eager body for the second)
+        eng = engine(ContinuousASDEngine)
+        for r in mid:
+            eng.submit(r)
+        eng.step()  # the cold dispatch: the eager body, then the capture
+        key_args = _key_args(eng)
+        cold, same, replay, eager = _graph_vs_eager(torch, eng, *key_args, counters)
+        if cold or not same or replay != eager or not any(replay.values()):
+            fail(f"serve_graphs {name}: replay against eager body from the same states: "
+                 f"cold {cold}, bits equal {same}, launches {replay} against {eager}")
+        # the profiled steps run the key just replayed (an auto ladder
+        # would re-pick it, and a new key's capture is not a replay)
+        eng._auto_rps, eng._rps = False, key_args[0]
+        if eng._budget_auto:
+            eng._budget_auto, eng.round_budget = False, key_args[1]
+        saved, profiles, built = _slots(eng), {}, eng._compiled_supersteps
+        for kind in ("graph", "eager"):
+            if kind == "eager":
+                _set_slots(eng, saved)
+                key = next(k for k, p in eng._superstep_fns.items()
+                           if p is eng._get_superstep(*key_args))
+                eng._superstep_fns[key] = _Eager(eng._superstep_fns[key])
+            torch.cuda.synchronize()
+            wall_ms, kernels = _profiled(torch, eng.step)
+            busy = sum(ms for _, ms, _ in kernels)
+            if busy <= 0 or eng._compiled_supersteps != built:
+                fail(f"serve_graphs {name} {kind}: profiled busy {busy} ms, "
+                     f"{eng._compiled_supersteps - built} programs built in the window")
+            profiles[kind] = dict(wall_ms=wall_ms, busy_ms=busy,
+                                  idle_share=max(0.0, 1.0 - busy / wall_ms))
+        del eng
+        emit("serve_graphs", model=dc.backbone.name, run=name, requests=REQUESTS,
+             slots=SLOTS, theta=THETA, K=K, noise_mode="counter", **cfg,
+             keys=g["keys"], capture_ms=capture_ms, rounds=g["rounds"],
+             launches_per_round={k: v / g["rounds"] for k, v in g["launches"].items() if v},
+             graph=dict(wall_s=g["wall_s"], samples_per_s=REQUESTS / g["wall_s"],
+                        round_wall_ms=g["wall_s"] / g["rounds"] * 1e3,
+                        peak_bytes=g["peak_bytes"], reserved_bytes=g["reserved_bytes"],
+                        superstep_profile=profiles["graph"]),
+             eager=dict(superstep_profile=profiles["eager"], **({} if e is None else dict(
+                 wall_s=e["wall_s"], samples_per_s=REQUESTS / e["wall_s"],
+                 round_wall_ms=e["wall_s"] / e["rounds"] * 1e3,
+                 peak_bytes=e["peak_bytes"], reserved_bytes=e["reserved_bytes"]))),
+             gate="equal sample bits, counters, launches and keys; replay equal to the "
+                  "eager body from the same states, no host sync")
+        by_run[f"serve_graphs_{name}"] = g["launches"]
+
+    # the planted fault: a fused superstep with its tier an int, baked into
+    # the graph at the covering tier and replayed at a binding one
+    eng = ContinuousASDEngine(model_fn, sched, event, num_slots=SLOTS, theta=THETA,
+                              execution="packed", round_impl="fused", round_budget="auto",
+                              rounds_per_sync=1, seed=SEED, noise_mode="counter",
+                              keep_trajectory=False, num_branches=BRANCHES, device=dev)
+    for r in mid:
+        eng.submit(r)
+    eng.step()
+    top, low = eng._budget_ladder[-1], eng._budget_ladder[0]
+    st = eng._states
+    demand = int((st.b_live * torch.minimum(st.theta_live, K - st.a))[st.a < K].sum())
+    if demand <= low:
+        fail(f"serve_graphs planted fault: a demand of {demand} points does not bind tier {low}")
+    cold, same, _, _ = _graph_vs_eager(torch, eng, 1, low, counters)
+    if cold or not same:
+        fail(f"serve_graphs planted fault: the real program at tier {low}: bits equal {same}")
+    saved = _slots(eng)
+    baked = eng._make_superstep(1, top)  # the tier as an int, not the 0-d tensor
+    baked()  # runs at the top tier and captures it
+    _set_slots(eng, saved)
+    eng._budget_dev.fill_(low)
+    baked()
+    torch.cuda.synchronize()
+    faulty = _slots(eng)
+    _set_slots(eng, saved)
+    eng._budget_dev.fill_(low)
+    eng._get_superstep(1, low).body()
+    torch.cuda.synchronize()
+    caught = not _same_slots(torch, faulty, _slots(eng))
+    if not caught:
+        fail("serve_graphs: a graph with the tier baked in passed the gate")
+    emit("serve_graphs_planted_fault", branches=BRANCHES, captured_tier=top, replayed_tier=low,
+         demand=demand, caught=caught, proposals_faulty=faulty["proposals"].tolist(),
+         proposals_right=eng._states.proposals.tolist(),
+         note="a fused superstep captured with its tier as a Python int and replayed at "
+              "another tier must differ from the eager body there")
+    del eng, baked
+
+    # the serve CLI's model: replay against eager body from the same states
+    # in the CLI's engine, then the CLI with graphs and eagerly, profiled
+    args = serve.parser().parse_args([])
+    _, cdc, cfn = serve._build(args)
+    eng = ContinuousASDEngine(cfn, ddpm(args.K), (cdc.seq_len, cdc.d_data), num_slots=4,
+                              theta=args.theta, eager_head=True, noise_mode="counter",
+                              keep_trajectory=False, device=dev)
+    for i in range(4):
+        eng.submit(Request(i, key=prng.PRNGKey(1000 + i)))
+    eng.step()
+    eng.step()
+    cold, same, replay, eager = _graph_vs_eager(torch, eng, 1, None, counters)
+    if cold or not same or replay != eager:
+        fail(f"serve_graphs cli: replay against eager body: bits equal {same}, launches "
+             f"{replay} against {eager}")
+    cli_capture = _check_programs(eng, "serve_graphs cli")
+    del eng, cfn
+    summaries = {}
+    argv = ["--profile-supersteps", str(GRAPH_CLI_PROFILE),
+            "--profile-dir", str(ROOT / "build" / "serve_graphs_profile")]
+    for kind in ("graph", "eager"):
+        _zero_counters(torch, counters)
+        base = _fresh_memory(torch)
+        if kind == "eager":
+            serve.ContinuousASDEngine = Eager
+        try:
+            summary = serve.main(argv)
+        finally:
+            serve.ContinuousASDEngine = ContinuousASDEngine
+        torch.cuda.synchronize()
+        prof = summary["profile"]
+        if not summary["finite"] or prof["programs_built"] or not prof["device_busy_ms"]:
+            fail(f"serve_graphs cli {kind}: finite {summary['finite']}, profile {prof}")
+        summaries[kind] = dict(
+            samples_per_s=SERVE_CLI_REQUESTS / summary["wall_time_s"],
+            round_ms=prof["wall_ms"] / prof["supersteps"],
+            device_busy_ms_per_round=prof["device_busy_ms"] / prof["supersteps"],
+            device_idle_share=prof["device_idle_share"], rounds=summary["rounds_total"],
+            accept_rate=summary["accept_rate"], peak_bytes=torch.cuda.max_memory_allocated()
+            - base, launches=_launches(counters))
+        if kind == "graph":  # the eager run is the comparison, not the main path
+            by_run["serve_graphs_cli"] = summaries[kind]["launches"]
+    g, e = summaries["graph"], summaries["eager"]
+    if (g["rounds"], g["accept_rate"], g["launches"]) != (e["rounds"], e["accept_rate"],
+                                                           e["launches"]):
+        fail(f"serve_graphs cli: graphs {g} against eager {e}")
+    emit("serve_graphs_cli", model="paper-diffusion-policy", argv=argv,
+         capture_ms=cli_capture, graph=g, eager=e,
+         round_ms_ratio=e["round_ms"] / g["round_ms"],
+         samples_per_s_ratio=g["samples_per_s"] / e["samples_per_s"])
     return by_run
 
 
@@ -1954,8 +2333,9 @@ def run_serve_cli(torch, dev, runs=SERVE_CLI_RUNS, phase="serve_cli", reference=
             extra["trace"] = summary["trace"]
         if "--profile-supersteps" in argv:
             prof = summary["profile"]
-            if prof["device_idle_share"] is None or prof["supersteps"] != SERVE_CLI_PROFILE:
-                fail(f"{phase} {name}: profile {prof}")
+            if (prof["device_idle_share"] is None or prof["supersteps"] != SERVE_CLI_PROFILE
+                    or prof["programs_built"]):
+                fail(f"{phase} {name}: profile {prof} (the window must hold replays only)")
             extra["profile"] = prof
         if reference is not None:
             numbers = _cli_numbers(summary)
@@ -2232,7 +2612,7 @@ def _zero_counters(torch, counters):
     for fn in counters.values():
         fn.launches = 0
         if hasattr(fn, "launches_by_design"):
-            fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
+            fn.launches_by_design.update(dict.fromkeys(fn.launches_by_design, 0))
 
 
 def _launches(counters):
@@ -3128,6 +3508,7 @@ def main() -> None:
     by_run = {"asd": asd_launches, **serve_launches}
     by_run.update(run_branched(torch, dev, flash_fn, sched, dc, serve_runs))
     del serve_runs
+    by_run.update(run_serve_graphs(torch, dev, flash_fn, sched, dc))
     check_serve_reference(torch, dev)
     check_branched_reference(torch, dev)
     window_device_ms = check_prng(torch, dev)

@@ -38,6 +38,11 @@ Observability: ``--metrics-port`` serves /metrics, /metrics.json and
 ``--profile-supersteps N`` brackets N warm supersteps in ``torch.profiler``
 and writes its Chrome trace into ``--profile-dir``.
 
+On the card every superstep program is a CUDA graph, captured at its first
+call and replayed after (``repro_torch.serving.programs``): the
+``[continuous]`` line's time includes the captures, as the JAX CLI's
+includes its compiles.  With ``--device cpu`` the supersteps run eagerly.
+
 ``main(argv)`` returns the engine's ``summary()`` (continuous) or the
 sampler's numbers (fused), with ``finite``, so a script can drive it in
 process.
@@ -143,16 +148,19 @@ def run_fused(args) -> dict:
 
 def _profile_supersteps(eng, args, slots, dev) -> dict:
     """Bracket N warm supersteps in ``torch.profiler``.  A warm pool fills
-    the slots and runs its first superstep before the bracket opens; its
-    results are discarded (its work does land in the stats).  Returns the
-    window's host wall time and the device's busy time (the kernels' own
-    times, one stream), and writes the Chrome trace."""
+    the slots and runs its first superstep before the bracket opens (on the
+    card: the capture, so the window replays); its results are discarded
+    (its work does land in the stats).  Returns the window's host wall
+    time, the device's busy time (the kernels' own times, one stream) and
+    the programs built inside the window (0 unless an auto ladder moved),
+    and writes the Chrome trace."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(slots):
         eng.submit(Request(-1 - i, key=prng.PRNGKey(10**6 + i)))
     eng.step()
     _sync(dev)
+    built = eng._compiled_supersteps
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if dev.type == "cuda" else [])
     with profile(activities=activities) as prof:
@@ -163,6 +171,7 @@ def _profile_supersteps(eng, args, slots, dev) -> dict:
             n += 1
         _sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
+    built = eng._compiled_supersteps - built
     while eng.step():
         pass
     eng.drain_results()
@@ -175,9 +184,10 @@ def _profile_supersteps(eng, args, slots, dev) -> dict:
     print(f"[profile] {n} warm supersteps -> {path} (view in Perfetto): wall "
           f"{wall_ms:.1f}ms, device busy "
           + (f"{busy:.1f}ms, idle share {idle:.3f}" if idle is not None
-             else "not measured (no device kernels traced)"))
+             else "not measured (no device kernels traced)")
+          + f", {built} programs built in the window")
     return {"supersteps": n, "wall_ms": wall_ms, "device_busy_ms": busy,
-            "device_idle_share": idle, "trace": path}
+            "device_idle_share": idle, "programs_built": built, "trace": path}
 
 
 def run_continuous(args) -> dict:
@@ -223,7 +233,8 @@ def run_continuous(args) -> dict:
         print(f"[continuous] served {s.retired} requests on {slots} slots "
               f"({exec_desc}, K={args.K}, policy={args.policy}, "
               f"controller={args.theta_controller}, grs={grs}, "
-              f"R={args.rounds_per_sync}) in {dt:.1f}s (includes compile): "
+              f"R={args.rounds_per_sync}) in {dt:.1f}s "
+              f"({'includes capture' if dev.type == 'cuda' else 'eager'}): "
               f"{s.rounds_total} fused rounds in {s.supersteps} supersteps, "
               f"accept rate {s.accept_rate():.2f}, "
               f"mean live window {s.mean_window():.1f}/{args.theta}, "

@@ -10,7 +10,12 @@ superstep s+1 before it harvests superstep s's sync packet, so the host's
 bookkeeping overlaps the card's rounds; while requests queue for a slot it
 harvests first, so a freed slot refills at the next boundary.  A chain
 that commits its last step retires at the next boundary and its slot is
-refilled from the queue (FCFS by default, see ``scheduler.py``).
+refilled from the queue (FCFS by default, see ``scheduler.py``).  On the
+card a superstep is the replay of a captured CUDA graph
+(``programs.py``); what a harvest reads (the counters and the samples) is
+copied off the slot tensors after the replay, eagerly and outside the
+graph's memory pool, so the next replay, dispatched before that harvest,
+cannot overwrite it.
 
 ``ASDServingEngine``, the chunked static baseline: requests are padded into
 fixed-size batches, and each batch runs the batched sampler to its slowest

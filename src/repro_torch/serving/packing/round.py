@@ -30,9 +30,12 @@ rows either way.
             tables and the (t, u, A, B, sigma) scalar table; the target
             mean, GRS and the commit scatter of z and accept are the fused
             verify-commit kernels (B6).
-``budget_data`` (an int <= ``budget``) is the tier the allocator splits
-while the maps keep the ``budget`` width; lanes past the granted total are
-padding, dropped at the commit scatter.
+``budget_data`` (an int <= ``budget``, or a 0-d int64 tensor on the
+slots' device) is the tier the allocator splits while the maps keep the
+``budget`` width; lanes past the granted total are padding, dropped at the
+commit scatter.  The serving worker passes the tensor, filled before each
+call, so a captured superstep reads the tier it is replayed at instead of
+the one it was captured at.
 
 ``num_branches`` B > 1 runs the branched round (``_branched_packed_round``):
 a slot's demand is ``b_live`` windows, a grant sheds branches before it

@@ -14,15 +14,20 @@ A ``ShardWorker`` owns what one shard of a deployment needs:
   * the budget state (per-slot priority weights, the live-demand EWMA and,
     with ``round_budget="auto"``, the power-of-two budget tier).
 
-Where the JAX package donates the slot pytree to a cached jitted superstep,
-the port updates the slot tensors in place: admission writes a new chain's
-rows into the slot tensors, and a superstep rebinds the round fields to the
-tensors it produced (the keys and noise buffers are never copied).
-PyTorch runs eagerly, so there is no executable cache to keep, and the
-JAX package's ``donate``, ``pipelined``, ``pack_impl`` and ``grs_impl``
-have no counterpart: the device picks the plain versions (CPU) or the
-kernels (CUDA).  Not ported yet: ``model_mesh``, ``param_specs``,
-``state_sharding``, ``collective_payloads`` and ``adopt_programs``.
+Where the JAX package donates the slot pytree to a jitted superstep cached
+per ``(R, budget)``, the port keeps one ``SuperstepProgram``
+(``repro_torch.serving.programs``) per key: on the card a captured CUDA
+graph, replayed once a superstep, on the CPU the same body run eagerly.
+The slot tensors are made once and never rebound: admission writes a new
+chain's rows into them and a superstep writes every round field back into
+them (the keys and noise buffers are never copied), so a graph replays on
+the addresses it was captured on.  The fused round's budget tier is a 0-d
+device tensor filled before each call, so one program a R serves every
+tier, as the JAX worker's budget-as-data does.  The JAX package's
+``donate``, ``pipelined``, ``pack_impl`` and ``grs_impl`` have no
+counterpart: the device picks the plain versions (CPU) or the kernels
+(CUDA).  Not ported yet: ``model_mesh``, ``param_specs``,
+``state_sharding`` and ``collective_payloads``.
 
 Every chain draws from its key as the JAX worker's does: a request's own
 ``key``, or else ``fold_in(serve key, rid)`` (the serve key is
@@ -56,6 +61,7 @@ from repro_torch.core.sequential import init_y0
 from repro_torch.device import resolve_device
 from repro_torch.serving.metrics import EngineStats, RequestMetrics
 from repro_torch.serving.packing import (WaterfillingAllocator, packed_superstep)
+from repro_torch.serving.programs import SuperstepProgram
 from repro_torch.serving.scheduler import (AdmissionContext, SchedulingPolicy,
                                            SlotScheduler)
 
@@ -212,8 +218,9 @@ class ShardWorker:
             raise ValueError(
                 f"round_budget {self.round_budget} < num_slots {num_slots}: every "
                 "live chain needs at least one verification point per round")
-        # the fused round's pack width: the tier granted arrives per
-        # superstep as data
+        # budget-as-data (fused round): the pack width is this cap, and the
+        # tier granted arrives at each call in _budget_dev
+        self._budget_as_data = round_impl == "fused"
         self._budget_cap = (self._budget_ladder[-1] if self._budget_auto
                             else self.round_budget)
         if rounds_per_sync == "auto":
@@ -249,6 +256,14 @@ class ShardWorker:
         self._weights = np.ones((num_slots,), np.float32)
         self._weights_dev = torch.ones((num_slots,), dtype=torch.float32,
                                        device=self.device)
+        self._budget_dev = torch.zeros((), dtype=torch.int64, device=self.device)
+        # one program per (R, budget) key; the auto modes draw both
+        # coordinates from power-of-two ladders, so this stays O(log * log)
+        self._superstep_fns: dict[tuple, SuperstepProgram] = {}
+        self._compiled_supersteps = 0  # this worker's own cache misses
+        # the memory pool every graph of this worker captures into
+        self._graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
+                            else None)
 
         # every slot starts as an already finished dummy chain, frozen by
         # the rounds until a request is admitted over it (zero buffers in
@@ -258,12 +273,19 @@ class ShardWorker:
         bufs = {} if noise_mode == "counter" else dict(
             u_buf=torch.zeros((num_slots, n), device=dev),
             xi_buf=torch.zeros((num_slots, n) + self.event_shape, device=dev))
-        self._states = init_chain_state(
+        states = init_chain_state(
             self.schedule, torch.zeros((num_slots,) + self.event_shape, device=dev),
             self.theta, keep_trajectory, self.controller,
             key=prng.split(prng.PRNGKey(seed), num_slots).to(dev),
             noise_mode=noise_mode, num_branches=self.num_branches,
             branch_controller=self.branch_controller, **bufs)
+        # a tensor of its own for every field (init_chain_state hands the
+        # counters one zero tensor): the programs write each field back in
+        # place, and these tensors are never rebound
+        self._states = dataclasses.replace(states, **{
+            f.name: getattr(states, f.name).clone()
+            for f in dataclasses.fields(ASDChainState)
+            if getattr(states, f.name) is not None})
         self._states.a.fill_(K)
         self._conds = (torch.zeros((num_slots, d_cond), device=dev) if d_cond
                        else None)
@@ -293,6 +315,54 @@ class ShardWorker:
                     allocator=self.allocator, round_impl=self.round_impl, **statics)
             return asd_superstep(self._model_fn, self.schedule, states, self.theta,
                                  R, conds=self._conds, **statics)
+
+    def _make_superstep(self, R: int, budget) -> SuperstepProgram:
+        """The program of one ``(R, budget)`` key: R rounds over the slot
+        tensors, every field the rounds change written back into them.
+        ``budget`` "data" (the fused round) reads the tier from
+        ``_budget_dev``, which ``_launch_superstep`` fills before each call."""
+        states = self._states
+        tier = self._budget_dev if budget == "data" else budget
+
+        def body():
+            new = self._run_rounds(states, R, tier)
+            with torch.no_grad():
+                for f in dataclasses.fields(ASDChainState):
+                    dst, src = getattr(states, f.name), getattr(new, f.name)
+                    if src is not dst:  # the keys and noise buffers come back as is
+                        dst.copy_(src)
+
+        return SuperstepProgram(body, self.device, self._graph_pool)
+
+    def _get_superstep(self, R: int, budget) -> SuperstepProgram:
+        # budget-as-data: one program per R serves every tier, the budget
+        # coordinate collapses to "data"
+        key = (R, "data" if self._budget_as_data else budget)
+        fn = self._superstep_fns.get(key)
+        if fn is None:
+            fn = self._superstep_fns[key] = self._make_superstep(R, key[1])
+            self._compiled_supersteps += 1
+            assert self._compiled_supersteps <= self._program_bound(), (
+                f"worker built more superstep programs than its ladders allow: "
+                f"{sorted(self._superstep_fns)}")
+        return fn
+
+    def _program_bound(self) -> int:
+        """The most programs this worker's ladders allow: O(log R * log
+        budget), one R coordinate when budget is data."""
+        max_r = _AUTO_MAX_R.bit_length() if self._auto_rps else 1
+        max_b = (1 if self._budget_as_data
+                 else len(self._budget_ladder) if self._budget_auto else 1)
+        return max_r * max_b + 1
+
+    def _launch_superstep(self, R: int, budget) -> bool:
+        """Run the superstep of ``(R, budget)`` on the slot tensors; returns
+        True when it was the program's cold dispatch (on the card, the
+        capture)."""
+        prog = self._get_superstep(R, budget)
+        if self._budget_as_data:
+            self._budget_dev.fill_(budget)
+        return prog()
 
     def _sync_packet(self, st: ASDChainState):
         """The (9, S) int32 counters and the (S, *event) samples, copied off
@@ -440,6 +510,7 @@ class ShardWorker:
             self._weights_dev[slot] = w
 
     def _observe_round_time(self, dt: float) -> None:
+        # cold dispatches (captures) never reach here, see _harvest
         self._spr_ewma = dt if self._spr_ewma == 0.0 else 0.7 * self._spr_ewma + 0.3 * dt
 
     def _collect_admissions(self, now: float):
@@ -477,25 +548,29 @@ class ShardWorker:
         R = self._pick_rounds()
         B = self._pick_budget()
         t0 = time.perf_counter()
-        self._states = self._run_rounds(self._states, R, B)
+        # a cold dispatch pays the capture: keep it out of dispatch_s and
+        # the seconds-per-round EWMA, as the JAX worker keeps its compiles
+        cold = self._launch_superstep(R, B)
         sync = self._sync_packet(self._states)
         t1 = time.perf_counter()
-        self.stats.dispatch_s += t1 - t0
+        if not cold:
+            self.stats.dispatch_s += t1 - t0
         self.stats.rounds_total += R
         self.stats.supersteps += 1
         tr = self._tracer
         if tr is not None and tr.enabled:
             tr.add_span("dispatch", t0, t1, pid=self.shard_id, tid=self.num_slots,
                         pname=f"shard-{self.shard_id}", tname="dispatch",
-                        args={"superstep": self.stats.supersteps, "R": R, "budget": B})
-        return sync, self.stats.rounds_total, R, t0
+                        args={"superstep": self.stats.supersteps, "R": R, "budget": B,
+                              "cold": cold})
+        return sync, self.stats.rounds_total, R, t0, cold
 
     def _harvest(self, pending) -> None:
         """Read one superstep's sync packet: retire every chain that finished
         in it, refresh the budget-pressure signal, update the EWMAs.  Slots
         admitted at or after the packet's round count hold chains the packet
         does not show yet and are not retired against it."""
-        (info_host, ready, samples_dev), snapshot_rounds, R, t_dispatch = pending
+        (info_host, ready, samples_dev), snapshot_rounds, R, t_dispatch, cold = pending
         tr = self._tracer
         if tr is not None and not tr.enabled:
             tr = None
@@ -506,7 +581,8 @@ class ShardWorker:
         self.stats.device_s += t1 - t0
         if tr is not None:
             tr.add_span("device_wait", t0, t1, pid=self.shard_id, tid=self.num_slots + 1,
-                        pname=f"shard-{self.shard_id}", tname="device", args={"R": R})
+                        pname=f"shard-{self.shard_id}", tname="device",
+                        args={"R": R, "cold": cold})
         info = info_host.numpy()
         row = {name: info[i] for i, name in enumerate(_SYNC_ROWS)}
         a, theta_live = row["a"], row["theta_live"]
@@ -570,8 +646,35 @@ class ShardWorker:
                         tname="harvest", args={"retired": len(finished),
                                                "live_demand": self._live_demand})
         self._refresh_health()
-        self._observe_round_time((time.perf_counter() - t_dispatch) / R)
+        if not cold:
+            self._observe_round_time((time.perf_counter() - t_dispatch) / R)
 
     def drain_results(self) -> dict:
         out, self._results = self._results, {}
         return out
+
+    def _program_statics(self) -> tuple:
+        """What shapes a superstep program besides its key."""
+        return (self.device, self.schedule.K, self.event_shape, self.num_slots, self.theta,
+                self.d_cond, self.eager_head, self.noise_mode, self.keep_trajectory,
+                self.controller, self.num_branches, self.branch_controller,
+                self.execution, self.round_impl, self._budget_ladder, self._budget_cap,
+                self.allocator)
+
+    def adopt_programs(self, warm: "ShardWorker") -> "ShardWorker":
+        """Share a warm worker's program build (same statics and shapes).
+
+        A JAX executable takes the slot pytree as an argument, so the JAX
+        worker hands its siblings the executables themselves.  A CUDA graph
+        binds the slot tensors it was captured on and cannot serve another
+        worker's slots, so here each worker still captures its own programs
+        against its own slot tensors.  What is shared is the graph memory
+        pool (sibling graphs take their transients from the same memory;
+        they replay one at a time on the stream they are called on) and
+        the kernels the donor built and set up, which are the process's.
+        Raises ValueError where the statics differ, which the JAX callers
+        assume never happens."""
+        if self._program_statics() != warm._program_statics():
+            raise ValueError("adopt_programs: the workers' statics or shapes differ")
+        self._graph_pool = warm._graph_pool
+        return self

@@ -849,3 +849,169 @@ def test_serve_cli_on_card(dev):
     after = (fused_ops.fused_verify_commit.launches, flash_f32.launches)
     assert after[0] - before[0] == summary["rounds_total"]
     assert after[1] > before[1]
+
+
+# ---- the worker's superstep programs as captured CUDA graphs
+
+
+class _Eager:
+    """A program's body, run eagerly at every call: the engine the graphs
+    are held against."""
+
+    def __init__(self, prog):
+        self.prog, self.calls = prog, 0
+
+    def __call__(self):
+        self.calls += 1
+        self.prog.body()
+        return self.calls == 1
+
+
+class EagerEngine(ContinuousASDEngine):
+    def _make_superstep(self, R, budget):
+        return _Eager(super()._make_superstep(R, budget))
+
+
+def _launch_counts():
+    from repro_torch.serving import programs
+
+    return [holder[key] for holder, key in programs._counters()]
+
+
+def _slot_fields(eng):
+    st = eng._states
+    return {f: getattr(st, f) for f in st.__dataclass_fields__ if getattr(st, f) is not None}
+
+
+def _program_engine(dev, cls=ContinuousASDEngine, *, round_impl, noise, branches, controller,
+                    R=2, budget=6):
+    from repro_torch.core.controller import make_branch_controller, make_controller
+
+    dc = paper_diffusion_policy_smoke()
+    fn = make_sl_model_fn(init_denoiser_params(dc, 0, out_scale=1.0, device=dev), dc)
+    kw = (dict(execution="unpacked") if round_impl == "unpacked" else
+          dict(execution="packed", round_impl=round_impl, round_budget=budget))
+    return cls(fn, t_sch.sl_geometric(16, 0.05, 50.0), (dc.seq_len, dc.d_data), num_slots=4,
+               theta=4, noise_mode=noise, keep_trajectory=False, rounds_per_sync=R,
+               controller=make_controller(controller), num_branches=branches,
+               branch_controller=make_branch_controller("gain" if branches > 1 else "static"),
+               seed=5, device=dev, **kw)
+
+
+@pytest.mark.parametrize("controller", ["static", "aimd", "accept-rate"])
+@pytest.mark.parametrize("branches", [1, 2])
+@pytest.mark.parametrize("noise", ["buffer", "counter"])
+@pytest.mark.parametrize("round_impl", ["unpacked", "packed", "fused"])
+def test_graph_replay_equals_the_eager_body(dev, round_impl, noise, branches, controller):
+    """From the same slot states, one replay of a superstep's graph and one
+    run of its eager body: the same bits in every field and the same
+    launches of every kernel.  The replay makes no host sync."""
+    eng = _program_engine(dev, round_impl=round_impl, noise=noise, branches=branches,
+                          controller=controller)
+    for i in range(5):
+        eng.submit(Request(i, key=np.array([0, 40 + i], np.uint32)))
+    eng.step()  # the cold dispatch: eager body, then the capture
+    ((R, budget), prog), = eng._superstep_fns.items()
+    assert prog.graph is not None and prog.calls == 1
+    B = eng.round_budget if budget is not None else None
+    saved = {k: v.clone() for k, v in _slot_fields(eng).items()}
+    torch.cuda.synchronize()
+    before = _launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert eng._launch_superstep(R, B) is False  # a warm replay
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    replayed = {k: v.clone() for k, v in _slot_fields(eng).items()}
+    graph_launches = [b - a for a, b in zip(before, _launch_counts())]
+    for k, v in _slot_fields(eng).items():
+        v.copy_(saved[k])
+    before = _launch_counts()
+    prog.body()
+    torch.cuda.synchronize()
+    eager_launches = [b - a for a, b in zip(before, _launch_counts())]
+    for k, v in _slot_fields(eng).items():
+        assert torch.equal(replayed[k], v), k
+    assert graph_launches == eager_launches == prog.launches and sum(graph_launches) > 0
+    assert not torch.equal(replayed["a"], saved["a"])  # the superstep moved the chains
+
+
+def test_pipelined_serve_with_graphs_equals_the_eager_engine(dev):
+    """Six requests on four slots, one round a superstep, so chains retire
+    in consecutive supersteps while the next one is already dispatched:
+    the graphs give the eager engine's samples and counters, bit for bit."""
+    out, counts = {}, {}
+    for name, cls in (("graph", ContinuousASDEngine), ("eager", EagerEngine)):
+        eng = _program_engine(dev, cls, round_impl="fused", noise="counter", branches=1,
+                              controller="aimd", R=1)
+        out[name] = eng.serve([Request(i, key=np.array([0, 7 + i], np.uint32))
+                               for i in range(6)])
+        counts[name] = {m.rid: (m.rounds, m.accepts, m.proposals)
+                        for m in eng.stats.per_request}
+    assert counts["graph"] == counts["eager"]
+    assert sorted(out["graph"]) == list(range(6))
+    for rid in range(6):
+        assert np.array_equal(out["graph"][rid], out["eager"][rid]), rid
+    assert len({rounds for rounds, _, _ in counts["graph"].values()}) > 1
+
+
+def test_a_failed_capture_raises(dev):
+    """A body that cannot be captured (a host read) raises at its cold
+    dispatch, and again at the next call: there is no eager fallback.  In a
+    process of its own, since a failed capture may leave the context
+    unusable."""
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from repro_torch.serving.programs import SuperstepProgram\n"
+        "x = torch.ones(4, device='cuda')\n"
+        "prog = SuperstepProgram(lambda: x.add_(x.sum().item()), 'cuda')\n"
+        "for _ in range(2):\n"
+        "    try:\n"
+        "        prog()\n"
+        "    except RuntimeError as e:\n"
+        "        print('raised', type(e).__name__)\n"
+        "print('graph', prog.graph)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert res.stdout.count("raised") == 2, res.stdout + res.stderr
+    assert "graph None" in res.stdout
+
+
+def test_no_garbage_is_collected_during_a_capture(dev):
+    """The cycle collector is held off while a graph is captured (a graph
+    it destroyed there would void the capture) and runs again after."""
+    import gc
+
+    from repro_torch.serving.programs import SuperstepProgram
+
+    x = torch.zeros(4, device=dev)
+    seen = []
+    prog = SuperstepProgram(lambda: (seen.append(gc.isenabled()), x.add_(1.0)), dev)
+    assert prog() is True and prog() is False
+    torch.cuda.synchronize()
+    assert seen == [True, False] and gc.isenabled()
+    assert torch.equal(x.cpu(), torch.full((4,), 2.0))
+
+
+def test_one_pool_per_worker(dev):
+    """Every graph of a worker, and of a worker that adopted it, captures
+    into one memory pool; each key is captured once."""
+    eng = _program_engine(dev, round_impl="packed", noise="counter", branches=1,
+                          controller="accept-rate", R=1, budget="auto")
+    for tier in eng._budget_ladder:
+        eng._launch_superstep(1, tier)
+        eng._launch_superstep(1, tier)
+    progs = list(eng._superstep_fns.values())
+    assert len(progs) == len(eng._budget_ladder) > 1
+    assert all(p.pool is eng._graph_pool and p.graph is not None and p.calls == 2
+               for p in progs)
+    sibling = _program_engine(dev, round_impl="packed", noise="counter", branches=1,
+                              controller="accept-rate", R=1, budget="auto").adopt_programs(eng)
+    sibling._launch_superstep(1, eng._budget_ladder[0])
+    (prog,) = sibling._superstep_fns.values()
+    assert prog.pool is eng._graph_pool and prog.graph is not None
+
