@@ -39,6 +39,9 @@ Phases, each printing one JSON line and raising on any failure:
      reference
               the same sampler on a small denoiser, on the card and on the
               CPU with the same noise: counters equal, samples close.
+     Both samplers (here and in every phase below) replay a captured CUDA
+     graph of one round (one step), reading the positions on the host once
+     per bound of rounds.
   5. serve    ``ContinuousASDEngine`` on the same denoiser, packed
               execution (6 requests on 4 slots, theta 8, K 64, budget 16,
               4 rounds a superstep), once with round_impl "packed" and once
@@ -61,6 +64,19 @@ Phases, each printing one JSON line and raising on any failure:
               kernel per round; one superstep of each round with host
               syncs made errors; and B 1 asked for explicitly against the
               serve phase: the same bits, counters and launches.
+     sampler_graphs
+              the sampler's loop and the K-step baseline as replayed CUDA
+              graphs (one round, one step) against the eager loops written
+              out in this script, at pixel-dit (4 chains, theta 8, K 64) in
+              buffer and counter noise at B 1 and 2 (the asd and branched
+              phases' calls, and buffer B 2 here): sample and trajectory
+              bits, counters, launches and rounds run equal, host reads at
+              most the rounds, a warm replay with host syncs made errors;
+              capture ms, walls, peak memory, and one profiled call of two
+              configurations (idle share).  A planted fault, the first
+              bound one round too long on the serve CLI's model (every
+              proposal accepted, so that bound is the whole run), must fail
+              the rounds gate.
      serve_graphs
               the superstep programs as graphs against their eager bodies
               in the same run: pixel-dit (6 keyed requests, 4 slots, theta
@@ -73,9 +89,13 @@ Phases, each printing one JSON line and raising on any failure:
               eager body from the same states with host syncs made errors,
               and one profiled superstep of each (idle share); a planted
               fault (the fused tier baked into the graph as an int,
-              replayed at another tier) must fail that gate.  Then the serve CLI's model the same way, and
-              ``serve.main`` with 8 profiled supersteps with graphs and
-              eagerly: round ms, samples/s, idle share.
+              replayed at another tier) must fail that gate.  Then the
+              serve CLI's model the same way, the in-program sync packet
+              and the admission programs (widths 1, 2, 4) against the eager
+              versions kept here (serve_graphs_boundary), and
+              ``serve.main`` with 8 profiled supersteps with graphs at R 1
+              and R 4 and eagerly at R 1: round ms, samples/s, idle share,
+              and the host ms of admission, launch, packet and harvest.
      serve_reference
               the same engine on a small denoiser, on the card and on the
               CPU with the same noise, in both round_impls.
@@ -126,7 +146,11 @@ Phases, each printing one JSON line and raising on any failure:
               decode logits against forward logits; warm times; one
               profiled prefill, decode step and mamba mixer.
               Two planted decode faults (window ignored, SSM state one
-              token stale): the gate must see the first.
+              token stale): the gate must see the first.  The greedy decode
+              again as one captured step (token and position on the card,
+              the argmax written inside the graph) replayed 16 times: the
+              eager decode's tokens and logit bits, ms a step, idle share
+              (hymba_decode_graph).
      hymba_f32
               the same full-width run in float32 (B2's float32 kernel in
               its tensor-core design): decode against forward within a
@@ -1083,6 +1107,7 @@ def run_slice(torch, dev):
 
         g = torch.Generator(device=dev).manual_seed(SEED + 1)
         counters = _counters()
+        base = _fresh_memory(torch)
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.synchronize()
@@ -1092,13 +1117,18 @@ def run_slice(torch, dev):
         torch.cuda.synchronize()
         asd_s = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
+        asd_memory = _memory(torch, base)
 
         g = torch.Generator(device=dev).manual_seed(SEED + 2)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        seq = sequential_sample_batched(flash_fn, sched, y0, generator=g, device=dev)
-        torch.cuda.synchronize()
-        seq_s = time.perf_counter() - t0
+        base = _fresh_memory(torch)
+        _zero_counters(torch, counters)
+        with _CaptureLog() as seq_captures:
+            t0 = time.perf_counter()
+            seq = sequential_sample_batched(flash_fn, sched, y0, generator=g, device=dev)
+            torch.cuda.synchronize()
+            seq_s = time.perf_counter() - t0
+        seq_launches = _launches(counters)
+        seq_memory = _memory(torch, base)
 
     rounds = res.rounds.tolist()
     head_calls = res.head_calls.tolist()
@@ -1123,13 +1153,25 @@ def run_slice(torch, dev):
          accepts=accepts, proposals=proposals, model_calls=model_calls,
          launches=launches, asd_wall_s=asd_s, sequential_wall_s=seq_s,
          sequential_model_calls=K, finite=finite,
-         samples_per_s_asd=CHAINS / asd_s, samples_per_s_sequential=CHAINS / seq_s)
+         samples_per_s_asd=CHAINS / asd_s, samples_per_s_sequential=CHAINS / seq_s,
+         asd_capture_ms=res.loop.capture_ms, sequential_capture_ms=seq_captures.ms,
+         loop_rounds_run=res.loop.rounds, host_reads=res.loop.host_reads,
+         note="both samplers replay captured CUDA graphs (one round, one step); each "
+              "wall includes its capture")
+    if res.loop.rounds != loop_rounds or res.loop.host_reads > loop_rounds:
+        fail(f"asd: the loop ran {res.loop.rounds} rounds with {res.loop.host_reads} host "
+             f"reads for {loop_rounds} rounds")
     emit("where_time_goes", round_wall_ms=asd_s / loop_rounds * 1e3,
          verification_call_ms=verify_ms, proposal_call_ms=propose_ms,
          note="each call timed alone (CUDA events around 3 calls back to back); the "
               "kernels' own times are in the kernel lines")
     profile_round(torch, dev, flash_fn, sched, y0)
-    return launches, flash_fn, sched, dc
+    graph_runs = {
+        "buffer_b1": dict(res=res, launches=launches, wall_s=asd_s, memory=asd_memory,
+                          noise=dict(generator_seed=SEED + 1)),
+        "sequential": dict(out=seq, launches=seq_launches, wall_s=seq_s, memory=seq_memory,
+                           capture_ms=seq_captures.ms, generator_seed=SEED + 2)}
+    return launches, flash_fn, sched, dc, graph_runs
 
 
 # device kernels by what they do, matched on their names (the first group
@@ -1433,9 +1475,10 @@ def run_branched(torch, dev, model_fn, sched, dc, serve_runs):
     sched_dev = sched.to(dev)
     key = prng.PRNGKey(SEED + 30)
     y0 = torch.zeros((CHAINS,) + event, device=dev)
-    by_run, sampled = {}, {}
+    by_run, sampled, graph_runs = {}, {}, {}
     with torch.no_grad():
         for nb in (1, BRANCHES):
+            base = _fresh_memory(torch)
             _zero_counters(torch, counters)
             t0 = time.perf_counter()
             res = asd_sample_batched(model_fn, sched, y0, THETA, eager_head=False, device=dev,
@@ -1444,6 +1487,9 @@ def run_branched(torch, dev, model_fn, sched, dc, serve_runs):
             wall = time.perf_counter() - t0
             launches = _launches(counters)
             loops = int(res.rounds.max())
+            graph_runs[f"counter_b{nb}"] = dict(res=res, launches=launches, wall_s=wall,
+                                                memory=_memory(torch, base),
+                                                noise=dict(key=SEED + 30))
             want = dict.fromkeys(launches, 0)
             want.update(grs=loops, flash_attention=2 * n_layers * loops)
             if launches != want:
@@ -1461,7 +1507,8 @@ def run_branched(torch, dev, model_fn, sched, dc, serve_runs):
                  branch_accept_depth=accept_depth, wasted_draft_frac=waste,
                  draft_points=int(res.draft_points.sum()),
                  proposals=int(res.proposals.sum()), loop_rounds=loops, wall_s=wall,
-                 round_wall_ms=wall / loops * 1e3, launches=launches,
+                 round_wall_ms=wall / loops * 1e3, capture_ms=res.loop.capture_ms,
+                 host_reads=res.loop.host_reads, launches=launches,
                  launches_per_round={k: v / loops for k, v in launches.items() if v},
                  grs_rows=CHAINS * nb * THETA,
                  flash_verify_points=CHAINS * nb * THETA)
@@ -1598,18 +1645,20 @@ def run_branched(torch, dev, model_fn, sched, dc, serve_runs):
     emit("branched_b1", round_impls=["packed", "fused"], requests=REQUESTS,
          note="num_branches=1 with a gain branch controller against the serve phase: "
               "equal sample bits, counters and launches")
-    return by_run
+    return by_run, graph_runs
 
 
 # ---------------------------------------------------------------- graphs
 
 
 class _Eager:
-    """A superstep program's body run eagerly at every call: what the
-    graphs are held against (on the card an engine replays graphs)."""
+    """A program's body (a superstep's or an admission's) run eagerly at
+    every call: what the graphs are held against (on the card an engine
+    replays graphs)."""
 
     def __init__(self, prog):
         self.prog, self.calls = prog, 0
+        self.stage = getattr(prog, "stage", None)  # an admission's staging tensors
 
     def __call__(self):
         self.calls += 1
@@ -1618,12 +1667,20 @@ class _Eager:
 
 
 def _eager_engine():
-    """``ContinuousASDEngine`` with every superstep run as its eager body."""
+    """``ContinuousASDEngine`` with every superstep (its sync packet
+    included) and every admission run as its eager body: the engine as it
+    ran before any boundary was a graph."""
     from repro_torch.serving.engine import ContinuousASDEngine
 
     class EagerEngine(ContinuousASDEngine):
         def _make_superstep(self, R, budget):
             return _Eager(super()._make_superstep(R, budget))
+
+        def _get_admit(self, width):
+            prog = self._admit_fns.get(width)
+            if prog is None:
+                prog = self._admit_fns[width] = _Eager(super()._get_admit(width))
+            return prog
 
     return EagerEngine
 
@@ -1715,12 +1772,329 @@ def _fresh_memory(torch):
     return torch.cuda.memory_allocated()
 
 
+def _memory(torch, base):
+    """Peak allocated bytes above ``base`` since ``_fresh_memory``, and the
+    bytes reserved now."""
+    torch.cuda.synchronize()
+    return dict(peak_bytes=torch.cuda.max_memory_allocated() - base,
+                reserved_bytes=torch.cuda.memory_reserved())
+
+
+class _CaptureLog:
+    """The host ms of every program capture made while it is open (each
+    program's own ``capture_ms``, collected), and of each whole capture
+    call, its counter bookkeeping included."""
+
+    def __enter__(self):
+        from repro_torch import programs
+
+        self.ms, self.call_ms = [], []
+        self._orig = programs.SuperstepProgram._capture
+        orig, log, log_call = self._orig, self.ms, self.call_ms
+
+        def capture(prog):
+            t0 = time.perf_counter()
+            orig(prog)
+            log_call.append((time.perf_counter() - t0) * 1e3)
+            log.append(prog.capture_ms)
+
+        programs.SuperstepProgram._capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch import programs
+
+        programs.SuperstepProgram._capture = self._orig
+
+
+# the sampler graph cell (pixel-dit-sampler-graphs): asd_sample_batched at
+# 4 chains, theta 8, K 64 in buffer and counter noise at B 1 and 2, and the
+# sequential baseline, each a replayed graph held against the eager loop;
+# one call of the first and the last configuration is profiled (a cut:
+# each profiled call costs a sampler call and more)
+SAMPLER_CONFIGS = ("buffer_b1", "buffer_b2", "counter_b1", "counter_b2")
+SAMPLER_PROFILED = ("buffer_b1", "counter_b2")
+_COUNTER_FIELDS = ("rounds", "head_calls", "model_evals", "accepts", "proposals",
+                   "draft_points")
+
+
+def _bits(torch, a, b):
+    """Equal shapes and equal float32 bits."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _eager_sampler(model_fn, sched, y0, theta, noise, nb, eager_head=False, keep=True,
+                   generator=None, keys=None, conds=None):
+    """The sampler's loop as it ran before it became a program, written out
+    here: ``init_chain_state``, then ``asd_round`` with a host check after
+    every round.  Returns (final state, rounds run)."""
+    from repro_torch.core.asd import asd_round, chain_done, init_chain_state
+
+    st = init_chain_state(sched, y0, theta, keep, generator=generator, key=keys,
+                          noise_mode=noise, num_branches=nb)
+    rounds = 0
+    while not bool(chain_done(st, sched.K).all()):
+        st = asd_round(model_fn, sched, st, theta, eager_head, keep, conds=conds,
+                       noise_mode=noise, num_branches=nb)
+        rounds += 1
+    return st, rounds
+
+
+def _eager_sequential(model_fn, sched, y, xi, conds=None):
+    """The K-step loop as it ran before it became a program."""
+    for i in range(sched.K):
+        t = sched.t_model[i].expand(y.shape[0])
+        g = model_fn(t, y) if conds is None else model_fn(t, y, conds)
+        y = sched.A[i] * y + sched.B[i] * g + sched.sigma[i] * xi[i]
+    return y
+
+
+def run_sampler_graphs(torch, dev, model_fn, sched, dc, graph_runs):
+    """The sampler's loop and the K-step baseline as replayed graphs against
+    the eager loops written out above, on pixel-dit (4 chains, theta 8, K
+    64).  The graph calls of ``buffer_b1`` and ``sequential`` are the asd
+    phase's, those of ``counter_b1`` and ``counter_b2`` the branched
+    phase's (each with its wall, launches and peak memory); ``buffer_b2`` is
+    run here.  Gates in each: sample and trajectory bits, every counter,
+    launches and the rounds run equal to the eager loop's, host reads at
+    most the rounds, and a warm replay of a fresh loop's round with host
+    syncs made errors.  Then the planted fault: on the serve CLI's model,
+    whose proposals are all accepted (its zero out_proj), the first bound
+    is the whole run, and one round more must fail the rounds gate."""
+    from repro_torch.core import asd as asd_mod
+    from repro_torch.core import prng
+    from repro_torch.core.asd import SamplerLoop, asd_sample_batched, chain_sample, init_chain_state
+    from repro_torch.core.schedules import ddpm
+    from repro_torch.launch import serve
+
+    counters = _counters()
+    event = (dc.seq_len, dc.d_data)
+    sched_dev = sched.to(dev)
+    y0 = torch.zeros((CHAINS,) + event, device=dev)
+    key = prng.PRNGKey(SEED + 30)
+    keys = prng.split(prng.as_key(key, dev), CHAINS)
+
+    def noise_of(name):
+        return (dict(generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+                if name == "buffer_b1" else dict(keys=keys))
+
+    def graph_call(name):
+        noise, nb = name.split("_b")
+        kw = (dict(generator=noise_of(name)["generator"]) if name == "buffer_b1"
+              else dict(key=key))
+        return asd_sample_batched(model_fn, sched, y0, THETA, eager_head=False, device=dev,
+                                  noise_mode=noise, num_branches=int(nb), **kw)
+
+    by_run = {}
+    with torch.no_grad():
+        base = _fresh_memory(torch)
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        res = graph_call("buffer_b2")
+        torch.cuda.synchronize()
+        graph_runs["buffer_b2"] = dict(res=res, launches=_launches(counters),
+                                       wall_s=time.perf_counter() - t0,
+                                       memory=_memory(torch, base))
+        by_run["sampler_graphs_buffer_b2"] = graph_runs["buffer_b2"]["launches"]
+        for name in SAMPLER_CONFIGS:
+            run, (noise, nb) = graph_runs[name], name.split("_b")
+            nb = int(nb)
+            base = _fresh_memory(torch)
+            _zero_counters(torch, counters)
+            t0 = time.perf_counter()
+            st, rounds = _eager_sampler(model_fn, sched_dev, y0, THETA, noise, nb,
+                                        **noise_of(name))
+            torch.cuda.synchronize()
+            eager = dict(wall_s=time.perf_counter() - t0, launches=_launches(counters),
+                         memory=_memory(torch, base))
+            res = run["res"]
+            same = {"sample": _bits(torch, res.sample, chain_sample(st, K, True)),
+                    "trajectory": _bits(torch, res.trajectory, st.y[:, :K + 1])}
+            same.update({f: torch.equal(getattr(res, f), getattr(st, f))
+                         for f in _COUNTER_FIELDS})
+            if (not all(same.values()) or run["launches"] != eager["launches"]
+                    or res.loop.rounds != rounds or res.loop.host_reads > rounds
+                    or res.loop.capture_ms is None):
+                fail(f"sampler_graphs {name}: equal {same}, launches {run['launches']} "
+                     f"against {eager['launches']}, rounds {res.loop.rounds} against "
+                     f"{rounds}, host reads {res.loop.host_reads}, capture "
+                     f"{res.loop.capture_ms}")
+            # a warm replay of a fresh loop's round, host syncs made errors
+            loop = SamplerLoop(model_fn, sched_dev, init_chain_state(
+                sched_dev, y0, THETA, generator=noise_of(name).get("generator"),
+                key=None if name == "buffer_b1" else keys, noise_mode=noise,
+                num_branches=nb), THETA, noise_mode=noise, num_branches=nb)
+            loop.program()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                loop.program()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            if loop.program.graph is None:
+                fail(f"sampler_graphs {name}: the round was not captured")
+            del loop
+            profile = None
+            if name in SAMPLER_PROFILED:
+                torch.cuda.synchronize()
+                wall_ms, kernels = _profiled(torch, lambda name=name: graph_call(name))
+                busy = sum(ms for _, ms, _ in kernels)
+                profile = dict(wall_ms=wall_ms, busy_ms=busy,
+                               idle_share=max(0.0, 1.0 - busy / wall_ms) if busy else None,
+                               round_busy_ms=busy / rounds)
+            emit("sampler_graphs", model=dc.backbone.name, run=name, noise_mode=noise,
+                 branches=nb, chains=CHAINS, theta=THETA, K=K, keep_trajectory=True,
+                 rounds=rounds, host_reads=res.loop.host_reads,
+                 capture_ms=res.loop.capture_ms,
+                 graph=dict(wall_s=run["wall_s"], round_wall_ms=run["wall_s"] / rounds * 1e3,
+                            **run["memory"], profiled_call=profile),
+                 eager=dict(wall_s=eager["wall_s"],
+                            round_wall_ms=eager["wall_s"] / rounds * 1e3, **eager["memory"]),
+                 launches=run["launches"], equal=same,
+                 gate="sample and trajectory bits, counters, launches and rounds equal to "
+                      "the eager loop's; host reads <= rounds; a warm replay makes no host "
+                      "sync")
+
+        # the K-step baseline
+        seq = graph_runs["sequential"]
+        g = torch.Generator(device=dev).manual_seed(seq["generator_seed"])
+        xi = torch.randn((K,) + tuple(y0.shape), generator=g, device=dev)
+        base = _fresh_memory(torch)
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        want = _eager_sequential(model_fn, sched_dev, y0, xi)
+        torch.cuda.synchronize()
+        eager_s, eager_launches = time.perf_counter() - t0, _launches(counters)
+        eager_memory = _memory(torch, base)
+        if not _bits(torch, seq["out"], want) or seq["launches"] != eager_launches:
+            fail(f"sampler_graphs sequential: bits equal {_bits(torch, seq['out'], want)}, "
+                 f"launches {seq['launches']} against {eager_launches}")
+        emit("sampler_graphs", model=dc.backbone.name, run="sequential", chains=CHAINS, K=K,
+             capture_ms=seq["capture_ms"],
+             graph=dict(wall_s=seq["wall_s"], step_wall_ms=seq["wall_s"] / K * 1e3,
+                        **seq["memory"]),
+             eager=dict(wall_s=eager_s, step_wall_ms=eager_s / K * 1e3, **eager_memory),
+             launches=seq["launches"], gate="sample bits and launches equal to the eager loop's")
+        del want, xi
+
+        # the planted fault: the first bound one round too long
+        args = serve.parser().parse_args([])
+        _, cdc, cfn = serve._build(args)
+        csched = ddpm(args.K).to(dev)
+        cy0 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (SLOTS, cdc.seq_len, cdc.d_data), np.float32)).to(dev)
+        ckey = prng.PRNGKey(1)
+        ckw = dict(eager_head=True, keep_trajectory=False, device=dev, key=ckey,
+                   noise_mode="counter")
+        _, eager_rounds = _eager_sampler(cfn, csched, cy0, args.theta, "counter", 1, True,
+                                         False, keys=prng.split(prng.as_key(ckey, dev), SLOTS))
+        right = asd_sample_batched(cfn, csched, cy0, args.theta, **ckw)
+        bound, first = asd_mod._rounds_bound, []
+
+        def too_long(a, K_, theta):
+            n = bound(a, K_, theta)
+            if not first:
+                first.append(n)
+                return n + 1
+            return n
+
+        asd_mod._rounds_bound = too_long
+        try:
+            wrong = asd_sample_batched(cfn, csched, cy0, args.theta, **ckw)
+        finally:
+            asd_mod._rounds_bound = bound
+        torch.cuda.synchronize()
+        caught = wrong.loop.rounds != eager_rounds
+        counters_same = all(torch.equal(getattr(wrong, f), getattr(right, f))
+                            for f in _COUNTER_FIELDS)
+        if right.loop.rounds != eager_rounds or not caught:
+            fail(f"sampler_graphs planted fault: rounds {right.loop.rounds} and, one round "
+                 f"too long, {wrong.loop.rounds} against the eager loop's {eager_rounds} "
+                 f"(first bound {first})")
+        emit("sampler_graphs_planted_fault", model="paper-diffusion-policy", K=args.K,
+             theta=args.theta, chains=SLOTS, first_bound=first[0], eager_rounds=eager_rounds,
+             rounds_right=right.loop.rounds, rounds_faulty=wrong.loop.rounds, caught=caught,
+             counters_equal_despite_fault=counters_same,
+             note="every proposal is accepted (zero out_proj), so the first bound is the "
+                  "whole run; replaying one round more before the first read must fail the "
+                  "rounds gate (finished chains are frozen, so bits and counters cannot)")
+        del cfn
+    return by_run
+
+
 # the graph cell (pixel-dit-graphs): the serve engine at budgets 16 and 64,
 # both round_impls, B 1 and 2, counter noise, graphs against eager bodies;
 # and one run with both auto ladders
 GRAPH_BUDGETS = (16, 64)
 GRAPH_AUTO = dict(round_budget="auto", rounds_per_sync="auto")
 GRAPH_CLI_PROFILE = 8  # warm CLI supersteps profiled, graphs and eager
+
+
+def _eager_admit(torch, eng, placed):
+    """Admission as it ran before it became a program, written out here: one
+    ``init_chain_state`` a request, every field written into its slot, then
+    its condition row."""
+    from repro_torch.core import prng
+    from repro_torch.core.asd import init_chain_state
+    from repro_torch.core.sequential import init_y0
+
+    for slot, req in placed:
+        key = prng.as_key(req.key) if req.key is not None else eng._request_key(req.rid)
+        key, k0 = prng.split(key, 2).unbind(0)
+        y0 = init_y0(eng.schedule, eng.event_shape, device=eng.device, key=k0.to(eng.device))
+        new = init_chain_state(eng.schedule, y0[None], eng.theta, eng.keep_trajectory,
+                               eng.controller, key=key[None].to(eng.device),
+                               noise_mode=eng.noise_mode, num_branches=eng.num_branches,
+                               branch_controller=eng.branch_controller)
+        for f in dataclasses.fields(new):
+            if getattr(new, f.name) is not None:
+                getattr(eng._states, f.name)[slot] = getattr(new, f.name)[0]
+        if eng.d_cond:
+            eng._conds[slot] = 0.0 if req.cond is None else torch.as_tensor(req.cond)
+
+
+def _eager_packet(torch, eng):
+    """The sync packet as it was built before it moved into the program."""
+    from repro_torch.core.asd import chain_sample
+    from repro_torch.serving.worker import _SYNC_ROWS
+
+    st = eng._states
+    return (torch.stack([getattr(st, n) for n in _SYNC_ROWS]).to(torch.int32).cpu(),
+            chain_sample(st, eng.schedule.K, eng.keep_trajectory).clone())
+
+
+class _HostSplit:
+    """Host wall time of each call of the worker's boundary parts while
+    open: admission, the superstep launch (a replay, or a cold dispatch),
+    the packet copies and the harvest (which waits for the packet)."""
+
+    PARTS = ("_admit_pending", "_launch_superstep", "_sync_packet", "_harvest")
+
+    def __enter__(self):
+        from repro_torch.serving.worker import ShardWorker
+
+        self.ms = {p: [] for p in self.PARTS}
+        self._orig = {p: getattr(ShardWorker, p) for p in self.PARTS}
+        for part, orig in self._orig.items():
+            def timed(eng, *a, _orig=orig, _log=self.ms[part]):
+                t0 = time.perf_counter()
+                out = _orig(eng, *a)
+                _log.append((time.perf_counter() - t0) * 1e3)
+                return out
+            setattr(ShardWorker, part, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving.worker import ShardWorker
+
+        for part, orig in self._orig.items():
+            setattr(ShardWorker, part, orig)
+
+    def summary(self, rounds):
+        return {p.lstrip("_"): dict(calls=len(v), median_ms=statistics.median(v) if v else None,
+                                    total_ms=sum(v), per_round_ms=sum(v) / max(rounds, 1))
+                for p, v in self.ms.items()}
 
 
 def run_serve_graphs(torch, dev, model_fn, sched, dc):
@@ -1903,41 +2277,119 @@ def run_serve_graphs(torch, dev, model_fn, sched, dc):
     if cold or not same or replay != eager:
         fail(f"serve_graphs cli: replay against eager body: bits equal {same}, launches "
              f"{replay} against {eager}")
+    # the packet each replay leaves, against the eager packet, twice (the
+    # two buffers); the buffers are the ones made at start-up
+    pinned = [h.data_ptr() for h in eng._info_out]
+    packet_same = []
+    for _ in range(2):
+        eng._launch_superstep(1, None)
+        host, ready, samples = eng._sync_packet()
+        want_info, want_samples = _eager_packet(torch, eng)
+        ready.synchronize()
+        packet_same.append(torch.equal(host, want_info) and _bits(torch, samples, want_samples))
+    if not all(packet_same) or [h.data_ptr() for h in eng._info_out] != pinned:
+        fail(f"serve_graphs cli: packet equal to the eager packet {packet_same}")
     cli_capture = _check_programs(eng, "serve_graphs cli")
-    del eng, cfn
+    del eng
+    # admission at widths 1, 2 and 4 (3 padded), each a program, against the
+    # per-field writes, on a fresh engine
+    eng = ContinuousASDEngine(cfn, ddpm(args.K), (cdc.seq_len, cdc.d_data), num_slots=4,
+                              theta=args.theta, eager_head=True, noise_mode="counter",
+                              keep_trajectory=False, device=dev)
+    admit_same, rid = {}, 0
+    for n in (1, 2, 3):
+        placed = [(slot, Request(rid + slot, key=prng.PRNGKey(1200 + rid + slot)))
+                  for slot in range(n)]
+        rid += n
+        saved = _slots(eng)
+        eng._admit(placed)
+        got = _slots(eng)
+        _set_slots(eng, saved)
+        _eager_admit(torch, eng, placed)
+        admit_same[n] = _same_slots(torch, got, _slots(eng))
+    admit_progs = {w: p.graph is not None for w, p in eng._admit_fns.items()}
+    if not all(admit_same.values()) or sorted(admit_progs) != [1, 2, 4] or not all(
+            admit_progs.values()) or len(admit_progs) > eng._admit_bound():
+        fail(f"serve_graphs cli: admission equal to the per-field writes {admit_same}, "
+             f"programs {admit_progs}")
+    admit_capture = {w: p.capture_ms for w, p in eng._admit_fns.items()}
+    del eng
+    # a warm serve, unprofiled: the CLI's engine serves its 8 requests once
+    # (the captures), then 8 more timed, with the host split of that serve
+    warm = {}
+    for kind, R in (("graph", 1), ("eager", 1), ("graph", 4)):
+        cls = Eager if kind == "eager" else ContinuousASDEngine
+        eng = cls(cfn, ddpm(args.K), (cdc.seq_len, cdc.d_data), num_slots=4,
+                  theta=args.theta, eager_head=True, noise_mode="counter",
+                  keep_trajectory=False, rounds_per_sync=R, device=dev)
+        eng.serve([Request(i, key=prng.PRNGKey(1000 + i)) for i in range(SERVE_CLI_REQUESTS)])
+        rounds0 = eng.stats.rounds_total
+        torch.cuda.synchronize()
+        with _HostSplit() as split:
+            t0 = time.perf_counter()
+            out = eng.serve([Request(100 + i, key=prng.PRNGKey(1100 + i))
+                             for i in range(SERVE_CLI_REQUESTS)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rounds = eng.stats.rounds_total - rounds0
+        if len(out) != SERVE_CLI_REQUESTS:
+            fail(f"serve_graphs cli warm {kind} R {R}: {len(out)} samples")
+        warm[kind if R == 1 else f"{kind}_r{R}"] = dict(
+            rounds_per_sync=R, wall_s=wall, rounds=rounds, round_ms=wall / rounds * 1e3,
+            samples_per_s=SERVE_CLI_REQUESTS / wall, host_split=split.summary(rounds))
+        del eng
+    emit("serve_graphs_cli_warm", model="paper-diffusion-policy", requests=SERVE_CLI_REQUESTS,
+         slots=4, theta=args.theta, K=args.K, **warm,
+         note="a second serve of 8 requests by a warm engine, no profiler: wall over its "
+              "rounds; host_split is each boundary part's host ms in that serve (the "
+              "harvest includes its wait for the packet)")
+    del cfn
+    emit("serve_graphs_boundary", model="paper-diffusion-policy",
+         packet_equal=packet_same, admission_equal=admit_same,
+         admission_capture_ms=admit_capture,
+         gate="the in-program packet bit-equal to the eager packet in both buffers, no "
+              "pinned buffer made after start-up; admission programs at widths 1, 2 and 4 "
+              "bit-equal to one init_chain_state a request written field by field")
     summaries = {}
     argv = ["--profile-supersteps", str(GRAPH_CLI_PROFILE),
             "--profile-dir", str(ROOT / "build" / "serve_graphs_profile")]
-    for kind in ("graph", "eager"):
+    for kind, R in (("graph", 1), ("eager", 1), ("graph", 4)):
         _zero_counters(torch, counters)
         base = _fresh_memory(torch)
         if kind == "eager":
             serve.ContinuousASDEngine = Eager
         try:
-            summary = serve.main(argv)
+            with _HostSplit() as split:
+                summary = serve.main(argv + ["--rounds-per-sync", str(R)])
         finally:
             serve.ContinuousASDEngine = ContinuousASDEngine
         torch.cuda.synchronize()
         prof = summary["profile"]
         if not summary["finite"] or prof["programs_built"] or not prof["device_busy_ms"]:
-            fail(f"serve_graphs cli {kind}: finite {summary['finite']}, profile {prof}")
-        summaries[kind] = dict(
-            samples_per_s=SERVE_CLI_REQUESTS / summary["wall_time_s"],
-            round_ms=prof["wall_ms"] / prof["supersteps"],
-            device_busy_ms_per_round=prof["device_busy_ms"] / prof["supersteps"],
+            fail(f"serve_graphs cli {kind} R {R}: finite {summary['finite']}, profile {prof}")
+        rounds_profiled = prof["supersteps"] * R
+        name = kind if R == 1 else f"{kind}_r{R}"
+        summaries[name] = dict(
+            rounds_per_sync=R, samples_per_s=SERVE_CLI_REQUESTS / summary["wall_time_s"],
+            round_ms=prof["wall_ms"] / rounds_profiled,
+            device_busy_ms_per_round=prof["device_busy_ms"] / rounds_profiled,
             device_idle_share=prof["device_idle_share"], rounds=summary["rounds_total"],
             accept_rate=summary["accept_rate"], peak_bytes=torch.cuda.max_memory_allocated()
-            - base, launches=_launches(counters))
+            - base, launches=_launches(counters),
+            host_split=split.summary(summary["rounds_total"]))
         if kind == "graph":  # the eager run is the comparison, not the main path
-            by_run["serve_graphs_cli"] = summaries[kind]["launches"]
+            by_run[f"serve_graphs_cli_r{R}"] = summaries[name]["launches"]
     g, e = summaries["graph"], summaries["eager"]
     if (g["rounds"], g["accept_rate"], g["launches"]) != (e["rounds"], e["accept_rate"],
                                                            e["launches"]):
         fail(f"serve_graphs cli: graphs {g} against eager {e}")
     emit("serve_graphs_cli", model="paper-diffusion-policy", argv=argv,
-         capture_ms=cli_capture, graph=g, eager=e,
+         capture_ms=cli_capture, graph=g, eager=e, graph_r4=summaries["graph_r4"],
          round_ms_ratio=e["round_ms"] / g["round_ms"],
-         samples_per_s_ratio=g["samples_per_s"] / e["samples_per_s"])
+         samples_per_s_ratio=g["samples_per_s"] / e["samples_per_s"],
+         note="host_split: host ms of each boundary part over the whole serve.main run "
+              "(warm pool, profiled window and timed serve); the harvest includes its wait "
+              "for the packet")
     return by_run
 
 
@@ -2701,6 +3153,7 @@ def run_hymba(torch, dev):
     finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
     rel = _rel_l2(dec, ref)
     agree = (dec.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    graph_decode = _captured_decode(torch, dev, cp, cfg, prefilled, steps, seq, counters)
     with torch.no_grad():
         planted = _planted_decode_faults(torch, cp, cfg, prompt, seq, prefilled, dec[:, 0],
                                          ref)
@@ -2711,6 +3164,9 @@ def run_hymba(torch, dev):
         fail(f"hymba: finite={finite}, forward {tuple(full.shape)}, decode vs forward "
              f"relative L2 {rel}, planted faults {planted} (the gate {HYMBA_BF16_GATE} "
              f"must hold the first and not {HYMBA_BF16_SEES})")
+    emit("hymba_decode_graph", model=cfg.name, batch=B, prompt=P, decode_steps=T,
+         **graph_decode, gate="tokens equal and logits bit-equal to the eager greedy decode; "
+         "no kernel of the port launched")
     emit("hymba", model=cfg.name, batch=B, prompt=P, decode_steps=T, cache_len=P + T,
          launches=runs, finite=finite, decode_vs_forward_relative_l2=rel,
          decode_vs_forward_max_abs_err=(dec - ref).abs().max().item(),
@@ -2758,6 +3214,77 @@ def run_hymba(torch, dev):
                       "matmul includes the C readout", scan_elements=B * P * cfg.d_inner
                       * cfg.ssm_state)
     return runs
+
+
+def _captured_decode(torch, dev, cp, cfg, prefilled, steps, seq, counters):
+    """The greedy decode as one captured ``lm_decode_step``: the token and
+    ``pos`` are device tensors, the argmax is written into the token inside
+    the graph, and the graph is replayed for the decode's T steps from the
+    ``prefilled`` caches.  Its tokens and logits must equal the eager
+    decode's (``steps``: the prefill's logits row, then one a step; ``seq``:
+    the prompt and the eager tokens) bit for bit.  Then T warm replays
+    timed by CUDA events and T profiled (the position reset to P between
+    runs, so the same cache rows are written again)."""
+    from repro_torch import pytree
+    from repro_torch.models.lm import lm_decode_step
+    from repro_torch.programs import SuperstepProgram
+
+    B, P, T = HYMBA_BATCH, HYMBA_PROMPT, HYMBA_DECODE
+    with torch.no_grad():
+        caches = pytree.map(torch.clone, prefilled)
+        tok = steps[0].argmax(-1)
+        pos = torch.tensor(P, device=dev)
+        logits = torch.empty((T, B, cfg.vocab_size), device=dev)
+        tokens = torch.empty((T, B), dtype=tok.dtype, device=dev)
+
+        def body():
+            row = (pos - P).view(1)
+            tokens.index_copy_(0, row, tok[None])
+            lg, _ = lm_decode_step(cp, tok, caches, pos, cfg)
+            lg = lg[:, 0].float()
+            logits.index_copy_(0, row, lg[None])
+            tok.copy_(lg.argmax(-1))
+            pos.add_(1)
+
+        prog = SuperstepProgram(body, dev)
+        _zero_counters(torch, counters)
+        for _ in range(T):
+            prog()
+        torch.cuda.synchronize()
+        launches = _launches(counters)
+        same_tokens = torch.equal(tokens.T, seq[:, P:])
+        same_logits = all(_bits(torch, logits[i], steps[i + 1]) for i in range(T))
+        if not (same_tokens and same_logits) or any(launches.values()) or int(pos) != P + T:
+            fail(f"hymba decode graph: tokens equal {same_tokens}, logits bit-equal "
+                 f"{same_logits}, launches {launches}, pos {int(pos)}")
+
+        def replay_all():
+            pos.fill_(P)
+            tok.copy_(steps[0].argmax(-1))
+            for _ in range(T):
+                prog()
+
+        replay_all()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        replay_all()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        event_ms = start.elapsed_time(end)
+        prof_ms, kernels = _profiled(torch, replay_all)
+    busy = sum(ms for _, ms, _ in kernels)
+    # the profiler slows the host around each replay; the unprofiled idle
+    # share is one minus the profiled busy time over the event-timed steps
+    return dict(capture_ms=prog.capture_ms, ms_per_step=event_ms / T,
+                idle_share_unprofiled=max(0.0, 1.0 - busy / event_ms) if busy else None,
+                host_ms_per_step=wall_ms / T, tokens_per_s=B * T / event_ms * 1e3,
+                profiled=dict(wall_ms=prof_ms, busy_ms=busy, busy_ms_per_step=busy / T,
+                              idle_share=max(0.0, 1.0 - busy / prof_ms) if busy else None,
+                              kernel_launches=sum(n for _, _, n in kernels)),
+                tokens_equal=same_tokens, logits_bit_equal=same_logits)
 
 
 def _rel_l2(a, b):
@@ -3156,10 +3683,14 @@ def train_standin(torch, dev, kind):
     return params, dc, data, losses, wall
 
 
-def _sample_runs(torch, dev, model_fn, sched, dc, B, runs, conds=None, seed=SEED):
+def _sample_runs(torch, dev, model_fn, sched, dc, B, runs, conds=None, seed=SEED,
+                 eager_ref=False):
     """Sequential and ASD on the same B chains (zeros at t 0, buffer noise
     from seeded generators), with the launch counts of B1 and B2 in each
-    ASD run checked per round.  ``runs``: (name, theta, eager)."""
+    ASD run checked per round.  ``runs``: (name, theta, eager).  With
+    ``eager_ref`` the sequential call and the first ASD run are also run
+    as the eager loops written out in this script: equal sample bits, and
+    their walls beside the graphs'."""
     from repro_torch.core.asd import asd_sample_batched
     from repro_torch.core.sequential import sequential_sample_batched
 
@@ -3170,26 +3701,32 @@ def _sample_runs(torch, dev, model_fn, sched, dc, B, runs, conds=None, seed=SEED
     out, launches_by_run = {}, {}
     with torch.no_grad():
         _zero_counters(torch, counters)
-        t0 = time.perf_counter()
-        seq = sequential_sample_batched(model_fn, sched, y0, device=dev, conds=conds,
-                                        generator=torch.Generator(device=dev).manual_seed(seed))
-        torch.cuda.synchronize()
-        seq_s = time.perf_counter() - t0
+        with _CaptureLog() as captures:
+            t0 = time.perf_counter()
+            seq = sequential_sample_batched(
+                model_fn, sched, y0, device=dev, conds=conds,
+                generator=torch.Generator(device=dev).manual_seed(seed))
+            torch.cuda.synchronize()
+            seq_s = time.perf_counter() - t0
         got, designs = _launches(counters), _f32_designs()
         if (got != {"grs": 0, "flash_attention": 0, "flash_attention_f32": n_layers * K}
                 or designs["packed"] != n_layers * K):
             fail(f"sequential: launches {got}, designs {designs}, expected {n_layers} x {K} "
                  "float32 flash, packed")
-        out["sequential"] = dict(depth=K, wall_s=seq_s, sample=seq, launches=got)
+        out["sequential"] = dict(depth=K, wall_s=seq_s, capture_ms=captures.ms,
+                                 capture_call_ms=captures.call_ms, sample=seq,
+                                 launches=got)
         designs_by_run = {"sequential": designs}
         for name, theta, eager in runs:
             _zero_counters(torch, counters)
-            t0 = time.perf_counter()
-            res = asd_sample_batched(model_fn, sched, y0, theta, eager_head=eager,
-                                     generator=torch.Generator(device=dev).manual_seed(seed + 1),
-                                     device=dev, conds=conds)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            with _CaptureLog() as captures:
+                t0 = time.perf_counter()
+                res = asd_sample_batched(
+                    model_fn, sched, y0, theta, eager_head=eager,
+                    generator=torch.Generator(device=dev).manual_seed(seed + 1), device=dev,
+                    conds=conds)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
             got, designs = _launches(counters), _f32_designs()
             loop_rounds = int(res.rounds.max())
             want = {"grs": loop_rounds, "flash_attention": 0,
@@ -3199,12 +3736,18 @@ def _sample_runs(torch, dev, model_fn, sched, dc, B, runs, conds=None, seed=SEED
                      f"{loop_rounds} rounds, packed")
             if not bool(torch.isfinite(res.sample).all()):
                 fail(f"{name}: samples not finite")
+            if res.loop.rounds != loop_rounds or res.loop.host_reads > loop_rounds:
+                fail(f"{name}: the loop ran {res.loop.rounds} rounds with "
+                     f"{res.loop.host_reads} host reads for {loop_rounds} rounds")
             depth = (res.rounds + res.head_calls).double()
             accepts, proposals = int(res.accepts.sum()), int(res.proposals.sum())
             out[name] = dict(theta=theta, eager_head=eager, depth=depth.mean().item(),
                              depth_per_chain=depth.tolist(), K_over_depth=K / depth.mean().item(),
                              accept_rate=accepts / max(proposals, 1), accepts=accepts,
                              proposals=proposals, loop_rounds=loop_rounds, wall_s=wall,
+                             capture_ms=res.loop.capture_ms,
+                             capture_call_ms=captures.call_ms,
+                             host_reads=res.loop.host_reads,
                              speedup_vs_sequential_wall=seq_s / wall, sample=res.sample,
                              launches=got, launches_per_round={
                                  "grs": got["grs"] / loop_rounds,
@@ -3212,6 +3755,29 @@ def _sample_runs(torch, dev, model_fn, sched, dc, B, runs, conds=None, seed=SEED
             launches_by_run[name] = got
             designs_by_run[name] = designs
         launches_by_run["sequential"] = out["sequential"]["launches"]
+        if eager_ref:
+            sched_dev = sched.to(dev)
+            xi = torch.randn((K,) + tuple(y0.shape),
+                             generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = _eager_sequential(model_fn, sched_dev, y0, xi, conds)
+            torch.cuda.synchronize()
+            out["sequential"]["eager_wall_s"] = time.perf_counter() - t0
+            name, theta, eager = runs[0]
+            t0 = time.perf_counter()
+            st, rounds = _eager_sampler(model_fn, sched_dev, y0, theta, "buffer", 1, eager,
+                                        generator=torch.Generator(device=dev).manual_seed(
+                                            seed + 1), conds=conds)
+            torch.cuda.synchronize()
+            out[name]["eager_wall_s"] = time.perf_counter() - t0
+            from repro_torch.core.asd import chain_sample
+
+            if not (_bits(torch, out["sequential"]["sample"], want)
+                    and _bits(torch, out[name]["sample"], chain_sample(st, K, True))
+                    and rounds == out[name]["loop_rounds"]):
+                fail(f"{name} and sequential: the graphs' samples differ from the eager "
+                     "loops'")
     return out, launches_by_run, designs_by_run
 
 
@@ -3237,7 +3803,7 @@ def run_standin_policy(torch, dev):
     runs = [(f"asd_theta{t}", t, False) for t in POLICY_THETAS] + [
         (f"asd_theta{POLICY_THETAS[-1]}_eager", POLICY_THETAS[-1], True)]
     out, launches, designs = _sample_runs(torch, dev, model_fn, sched, dc, POLICY_CHAINS,
-                                          runs, conds)
+                                          runs, conds, eager_ref=True)
 
     episodes = POLICY_EPISODES
     obs = torch.from_numpy(data.batch_at(555)[1][:episodes]).to(dev)
@@ -3275,7 +3841,7 @@ def run_standin_pixel(torch, dev):
     sched = sl_geometric(K, T_MIN, T_MAX)
     out, launches, designs = _sample_runs(
         torch, dev, make_sl_model_fn(params, dc), sched, dc, PIXEL_CHAINS,
-        [(f"asd_theta{PIXEL_THETA}", PIXEL_THETA, False)])
+        [(f"asd_theta{PIXEL_THETA}", PIXEL_THETA, False)], eager_ref=True)
     emit("standin_pixel", model=dc.backbone.name, layers=dc.backbone.n_layers,
          d_model=dc.backbone.d_model, heads=dc.backbone.n_heads,
          head_dim=dc.backbone.d_model // dc.backbone.n_heads, seq_len=dc.seq_len,
@@ -3342,8 +3908,12 @@ def run_standin_branched(torch, dev, params, dc):
                             K_over_depth=K / depth.mean().item(),
                             accept_rate=int(res.accepts.sum()) / int(res.proposals.sum()),
                             branch_accept_depth=accept_depth, wasted_draft_frac=waste,
-                            loop_rounds=loops, wall_s=wall,
+                            loop_rounds=loops, wall_s=wall, capture_ms=res.loop.capture_ms,
+                            host_reads=res.loop.host_reads,
                             launches_per_round={k: v / loops for k, v in got.items() if v})
+            if res.loop.rounds != loops:
+                fail(f"standin_branched B {nb}: the loop ran {res.loop.rounds} rounds for "
+                     f"{loops}")
             by_run[f"standin_branched_b{nb}"] = got
             designs_by_run[f"standin_branched_b{nb}"] = designs
     for nb in STANDIN_BRANCHES[1:]:
@@ -3502,12 +4072,17 @@ def main() -> None:
     kernels = [check_grs(torch, dev), check_flash(torch, dev), check_flash_f32(torch, dev),
                *check_pack(torch, dev), *check_fused_round(torch, dev),
                check_ssm_scan(torch, dev)]
-    asd_launches, flash_fn, sched, dc = run_slice(torch, dev)
+    asd_launches, flash_fn, sched, dc, graph_runs = run_slice(torch, dev)
     check_reference(torch, dev)
     serve_launches, serve_runs = run_serve(torch, dev, flash_fn, sched, dc)
     by_run = {"asd": asd_launches, **serve_launches}
-    by_run.update(run_branched(torch, dev, flash_fn, sched, dc, serve_runs))
+    branched_launches, branched_graph_runs = run_branched(torch, dev, flash_fn, sched, dc,
+                                                          serve_runs)
+    by_run.update(branched_launches)
     del serve_runs
+    graph_runs.update(branched_graph_runs)
+    by_run.update(run_sampler_graphs(torch, dev, flash_fn, sched, dc, graph_runs))
+    del graph_runs, branched_graph_runs
     by_run.update(run_serve_graphs(torch, dev, flash_fn, sched, dc))
     check_serve_reference(torch, dev)
     check_branched_reference(torch, dev)

@@ -25,9 +25,13 @@ A chain started from a key draws what the JAX package draws from it, in
 either mode.
 
 The JAX package writes one chain and ``vmap``s it; here every state tensor
-carries the batch of chains on its leading axis, and the ``while_loop`` is a
-Python loop that runs until every chain has a >= K.  A round leaves a
-finished chain's state, counters included, exactly as it was.
+carries the batch of chains on its leading axis.  Its ``while_loop`` is a
+``SamplerLoop``: one round as a program (``repro_torch.programs``; on the
+card a captured CUDA graph), replayed until every chain has a >= K.  A
+round leaves a finished chain's state, counters included, exactly as it
+was, and the host reads the positions only once per bound of rounds (see
+``_rounds_bound``), so the loop runs exactly the rounds of a loop that
+checked after every round.
 
 ``eager_head`` ("ASD+"): the verification call also evaluates the model at
 the last live proposal point; after a fully accepted round that evaluation
@@ -64,6 +68,7 @@ from repro_torch.core.sequential import init_y0
 from repro_torch.core.verifier import leading_true_count
 from repro_torch.device import resolve_device
 from repro_torch.kernels.grs.ops import grs
+from repro_torch.programs import SuperstepProgram
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -77,6 +82,18 @@ _BRANCH_SALT = 0x5D5_0000
 
 
 @dataclasses.dataclass
+class LoopStats:
+    """What a sampler call's loop did: the rounds it ran (every chain's
+    ``rounds`` counter is at most this), its reads of the positions on the
+    host, and the host ms of its capture (None where nothing was captured:
+    on the CPU, or on a warm loop)."""
+
+    rounds: int = 0
+    host_reads: int = 0
+    capture_ms: Optional[float] = None
+
+
+@dataclasses.dataclass
 class ASDResult:
     sample: torch.Tensor  # (*batch, *event) final sample y_K
     trajectory: torch.Tensor  # (*batch, K+1, *event), or the final window
@@ -86,6 +103,7 @@ class ASDResult:
     accepts: torch.Tensor  # (*batch,) accepted speculations
     proposals: torch.Tensor  # (*batch,) verified slots
     draft_points: torch.Tensor  # (*batch,) verified points of every branch
+    loop: Optional[LoopStats] = None  # the call's loop, shared by its chains
 
     def parallel_depth(self):
         """Sequential model-call depth: rounds + proposal calls."""
@@ -606,14 +624,120 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
                    num_branches, branch_controller)
 
 
+def _rounds_bound(a: torch.Tensor, K: int, theta: int) -> int:
+    """The fewest rounds in which every chain at host positions ``a`` (B,)
+    could be done: 0 when all are.
+
+    A round advances a chain by at most theta: ``commit_round`` advances by
+    ``lead + rejected <= n_valid = min(theta_r, K - a)``, and theta_r is
+    the live window clamped to [1, theta] (``plan_round``), theta itself
+    clamped to K (``_clamp_theta``).  That holds for every theta
+    controller (they only move theta_live inside the clamp), for branches
+    (the selected branch's prefix is masked to the same n_valid) and for
+    the eager head (it changes which call is made, not the advance).  So a
+    chain at a < K needs at least ceil((K - a) / theta) more rounds, and a
+    loop that checked after every round would run at least the largest of
+    these before it stopped."""
+    left = K - a[a < K]
+    return -(-int(left.max()) // theta) if left.numel() else 0
+
+
+class SamplerLoop:
+    """The sampler's ``while_loop``: one ``asd_round`` over a batch of
+    chains as a program (``repro_torch.programs``), replayed until every
+    chain is done.  On the card the first round runs eagerly and is
+    captured as a CUDA graph, and every later round replays it; on the CPU
+    each round runs eagerly through the same code.
+
+    The loop owns the round fields of its chain state (a tensor of its own
+    for each: ``init_chain_state`` hands the counters one zero tensor) and
+    writes every round back into them in place.  The keys, noise buffers,
+    condition rows, schedule and weights are read where they are and must
+    not be rebound; ``load`` copies a fresh batch of chains into all of
+    them, so one loop serves batch after batch of the same shapes with no
+    second capture.  No round draws from a generator: buffers are drawn
+    by ``init_chain_state``, before the loop.
+
+    ``run`` replays the round ``_rounds_bound`` times back to back, then
+    reads the positions (one small copy to the host) and repeats until
+    every chain is done.  The bound never exceeds the rounds a loop
+    checking after every round would still run, and finished chains are
+    frozen, so the result is that loop's, bit for bit and counter for
+    counter, with one host read per bound of rounds."""
+
+    def __init__(self, model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
+                 theta: int, eager_head: bool = False, keep_trajectory: bool = True,
+                 controller: ThetaController = _STATIC, conds=None,
+                 noise_mode: str = "buffer", num_branches: int = 1,
+                 branch_controller: BranchController = _STATIC_B):
+        self.K = schedule.K
+        self.theta = theta = _clamp_theta(theta, self.K)
+        self.keep_trajectory = keep_trajectory
+        self.state = state = dataclasses.replace(
+            st, **{name: getattr(st, name).clone() for name in _ROUND_FIELDS})
+        self.conds = conds
+
+        # the body holds locals, not self: a loop that holds its program
+        # through a closure over itself would be a cycle, and its graph and
+        # pool would outlive the call until the next collection
+        def body():
+            with torch.no_grad():
+                new = asd_round(model_fn, schedule, state, theta, eager_head,
+                                keep_trajectory, controller, conds, noise_mode,
+                                num_branches, branch_controller)
+                for name in _ROUND_FIELDS:
+                    dst, src = getattr(state, name), getattr(new, name)
+                    if src is not dst:
+                        dst.copy_(src)
+
+        self.program = SuperstepProgram(body, st.a.device)
+
+    def load(self, st: ASDChainState, conds=None) -> None:
+        """Copy fresh chains ``st`` (and their condition rows) into the
+        loop's tensors, in place."""
+        with torch.no_grad():
+            for f in dataclasses.fields(ASDChainState):
+                src = getattr(st, f.name)
+                if src is not None:
+                    getattr(self.state, f.name).copy_(src)
+            if conds is not None:
+                self.conds.copy_(conds)
+
+    def run(self) -> LoopStats:
+        """Run the loaded chains, fresh at a = 0 (which the host knows
+        without a read), until every one is done."""
+        stats = LoopStats()
+        cold = self.program.calls == 0
+        a = torch.zeros(self.state.a.shape, dtype=torch.int64)
+        while n := _rounds_bound(a, self.K, self.theta):
+            for _ in range(n):
+                self.program()
+            stats.rounds += n
+            a = self.state.a.cpu()
+            stats.host_reads += 1
+        if cold:
+            stats.capture_ms = self.program.capture_ms
+        return stats
+
+    def result(self, stats: LoopStats) -> ASDResult:
+        """The loop's chains as a result; its tensors are views of the
+        loop's, which the next ``load`` overwrites."""
+        st, keep = self.state, self.keep_trajectory
+        return ASDResult(
+            sample=chain_sample(st, self.K, keep),
+            trajectory=st.y[:, : self.K + 1] if keep else st.y,
+            rounds=st.rounds, head_calls=st.head_calls,
+            model_evals=st.model_evals, accepts=st.accepts,
+            proposals=st.proposals, draft_points=st.draft_points, loop=stats)
+
+
 def _sample(model_fn, schedule, y0, theta, eager_head, keep_trajectory, controller,
             generator, u_buf, xi_buf, conds, keys, noise_mode, num_branches=1,
             branch_controller=_STATIC_B) -> ASDResult:
     """Chains y0 (B, *event) on y0's device, each from its own key of
-    ``keys`` (B, 2) or else from the buffers or the generator, run to K."""
+    ``keys`` (B, 2) or else from the buffers or the generator, run to K by
+    a ``SamplerLoop`` of their own (each call captures anew)."""
     dev = y0.device
-    K = schedule.K
-    theta = _clamp_theta(theta, K)
     schedule = schedule.to(dev)
     st = init_chain_state(schedule, y0, theta, keep_trajectory, controller, generator,
                           u_buf, xi_buf, keys, noise_mode, num_branches, branch_controller)
@@ -621,16 +745,9 @@ def _sample(model_fn, schedule, y0, theta, eager_head, keep_trajectory, controll
         conds = conds.to(dev)
         if conds.shape[0] != y0.shape[0]:
             raise ValueError(f"conds: {conds.shape[0]} rows for {y0.shape[0]} chains")
-    while not bool(chain_done(st, K).all()):
-        st = asd_round(model_fn, schedule, st, theta, eager_head,
-                       keep_trajectory, controller, conds, noise_mode, num_branches,
-                       branch_controller)
-    return ASDResult(
-        sample=chain_sample(st, K, keep_trajectory),
-        trajectory=st.y[:, : K + 1] if keep_trajectory else st.y,
-        rounds=st.rounds, head_calls=st.head_calls,
-        model_evals=st.model_evals, accepts=st.accepts,
-        proposals=st.proposals, draft_points=st.draft_points)
+    loop = SamplerLoop(model_fn, schedule, st, theta, eager_head, keep_trajectory,
+                       controller, conds, noise_mode, num_branches, branch_controller)
+    return loop.result(loop.run())
 
 
 def asd_sample(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
@@ -656,7 +773,8 @@ def asd_sample(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
         None if key is None else prng.as_key(key, dev)[None], noise_mode, num_branches,
         branch_controller)
     return ASDResult(**{f.name: getattr(res, f.name)[0]
-                        for f in dataclasses.fields(ASDResult)})
+                        for f in dataclasses.fields(ASDResult) if f.name != "loop"},
+                     loop=res.loop)
 
 
 def asd_init_y0(schedule: Schedule, key, event_shape, dtype=torch.float32):

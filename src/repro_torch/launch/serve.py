@@ -39,7 +39,7 @@ Observability: ``--metrics-port`` serves /metrics, /metrics.json and
 and writes its Chrome trace into ``--profile-dir``.
 
 On the card every superstep program is a CUDA graph, captured at its first
-call and replayed after (``repro_torch.serving.programs``): the
+call and replayed after (``repro_torch.programs``): the
 ``[continuous]`` line's time includes the captures, as the JAX CLI's
 includes its compiles.  With ``--device cpu`` the supersteps run eagerly.
 

@@ -6,7 +6,7 @@
     step(params, x1, cache, pos, cfg, desc, window)      -> (x1, cache)
 
 ``ctx``: dict(causal, impl).  ``window`` is the layer's Python
-int window (0 = full).  ``prefill`` and ``step`` update the cache in place
+int window (0 = full); ``pos`` is a 0-d integer tensor or a Python int.  ``prefill`` and ``step`` update the cache in place
 and return it.  Ported: the ``attn`` block (forward only; the denoiser's
 block) and the ``hymba`` block (all four).
 """
@@ -80,8 +80,11 @@ def hymba_block_prefill(params, x, cache, cfg: ModelConfig, desc: BlockDesc, ctx
     return _maybe_ffn(params, x + 0.5 * (a + m)), cache
 
 
-def hymba_block_step(params, x1, cache, pos: int, cfg: ModelConfig, desc: BlockDesc,
+def hymba_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
                      window: int):
+    """One decode step at ``pos`` (a 0-d integer tensor, or a Python int):
+    the attention half writes its cache at ``pos``; the mamba half takes no
+    position."""
     h = rmsnorm_apply(params["mix_norm"], x1)
     a, _ = attn.attn_step(params["attn"], h, cache["kv"], pos, cfg, window=window)
     m, state = ssm.mamba_step(params["mamba"], h, cache["ssm"], cfg)

@@ -96,8 +96,9 @@ def decoder_prefill(params, x, caches, cfg: ModelConfig, ctx):
     return x, caches
 
 
-def decoder_step(params, x1, caches, pos: int, cfg: ModelConfig):
-    """Single-token decode through the whole stack, caches updated in place."""
+def decoder_step(params, x1, caches, pos, cfg: ModelConfig):
+    """Single-token decode through the whole stack at ``pos`` (a 0-d
+    integer tensor, or a Python int), caches updated in place."""
     for r, g, step, desc, window in _layers(cfg, "step"):
         x1, _ = step(_layer(params[g], r), x1, _layer(caches[g], r), pos, cfg, desc, window)
     return x1, caches

@@ -73,9 +73,13 @@ def lm_prefill(params, tokens, caches, cfg: ModelConfig):
     return _head(params, rmsnorm_apply(params["final_norm"], x[:, -1:]), cfg), caches
 
 
-def lm_decode_step(params, token, caches, pos: int, cfg: ModelConfig):
-    """token: (B,) int ids at position ``pos`` (a Python int).  Returns
-    (logits (B, 1, vocab), caches)."""
+def lm_decode_step(params, token, caches, pos, cfg: ModelConfig):
+    """token: (B,) int ids at position ``pos``, a 0-d integer tensor on the
+    params' device as the JAX package's ``pos: () int32`` (a Python int is
+    made one).  Nothing reads ``pos`` or the token on the host, so the step
+    can be captured as a CUDA graph and replayed with both advanced in
+    place.  Returns (logits (B, 1, vocab), caches)."""
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=token.device)
     x = _embed(params, token[:, None], cfg)
     x, caches = decoder_step(params["decoder"], x, caches, pos, cfg)
     return _head(params, rmsnorm_apply(params["final_norm"], x), cfg), caches

@@ -30,10 +30,11 @@ def _repeat_heads(t, reps: int):
     return torch.repeat_interleave(t, reps, dim=2) if reps > 1 else t
 
 
-def _project_qkv(params, x, cfg: ModelConfig, start: int = 0, repeat_kv: bool = True):
+def _project_qkv(params, x, cfg: ModelConfig, start=0, repeat_kv: bool = True):
     """x: (B, L, d) at positions start..start+L-1 -> q (B, L, H, hd), k, v
     (B, L, H or KV, hd): RoPE where the config has it, KV repeated to all
-    heads unless ``repeat_kv`` is False (the caches keep the raw KV heads)."""
+    heads unless ``repeat_kv`` is False (the caches keep the raw KV heads).
+    ``start`` is a Python int or a 0-d integer tensor on x's device."""
     B, L, d = x.shape
     h, kv = cfg.n_heads, cfg.n_kv_heads
     cdt = x.dtype
@@ -49,7 +50,7 @@ def _project_qkv(params, x, cfg: ModelConfig, start: int = 0, repeat_kv: bool = 
     k = proj(params["wk"], params.get("bk"))
     v = proj(params["wv"], params.get("bv"))
     if cfg.pos_embed == "rope":
-        positions = torch.arange(start, start + L, device=x.device)
+        positions = start + torch.arange(L, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if repeat_kv:
@@ -129,19 +130,24 @@ def attn_prefill(params, x, cache, cfg: ModelConfig, *, window: int = 0):
     return _out(params, o, x.dtype), cache
 
 
-def attn_step(params, x1, cache, pos: int, cfg: ModelConfig, *, window: int = 0):
+def attn_step(params, x1, cache, pos, cfg: ModelConfig, *, window: int = 0):
     """One-token decode at position ``pos``: grouped-query attention
     against the raw KV-head cache (written in place at ``pos``), keys at or
     before ``pos`` and, for ``window`` > 0, within the window.  Scores and
     probabilities are in the compute dtype, the softmax in float32, as in
-    the JAX package.  x1: (B, 1, d).  Returns (out (B, 1, d), cache)."""
+    the JAX package.  ``pos`` is a 0-d integer tensor on x1's device (the
+    JAX package's ``pos: () int32``; a Python int is made one), never read
+    on the host, so a decode step can be captured.  x1: (B, 1, d).
+    Returns (out (B, 1, d), cache)."""
     B = x1.shape[0]
     S = cache["k"].shape[1]
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     G = cfg.n_heads // kv
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=x1.device)
     q, k, v = _project_qkv(params, x1, cfg, pos, repeat_kv=False)
-    cache["k"][:, pos] = k[:, 0]
-    cache["v"][:, pos] = v[:, 0]
+    at = pos.view(1)
+    cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
     kv_pos = torch.arange(S, device=x1.device)
     valid = kv_pos <= pos
     if window > 0:
@@ -152,8 +158,7 @@ def attn_step(params, x1, cache, pos: int, cfg: ModelConfig, *, window: int = 0)
     scores = torch.einsum("bkgh,bskh->bkgs", qg, kf) / torch.tensor(
         math.sqrt(hd), dtype=q.dtype)
     scores = softcap(scores, cfg.attn_softcap)
-    scores = torch.where(valid, scores, torch.tensor(NEG_INF, dtype=scores.dtype,
-                                                     device=scores.device))
+    scores = torch.where(valid, scores, NEG_INF)  # NEG_INF in scores' dtype
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     o = torch.einsum("bkgs,bskh->bkgh", probs, vf).reshape(B, 1, kv * G, hd)
     return _out(params, o, x1.dtype), cache

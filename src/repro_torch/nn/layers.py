@@ -7,6 +7,7 @@ Functional, on plain dicts of tensors in the JAX package's layout.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -67,11 +68,18 @@ def rope_freqs(head_dim: int, theta: float = 1e4):
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` as float32 on ``device``, made once: a captured
+    decode step reads it where it is (a copy from the host cannot be
+    captured)."""
+    return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32, device=device)
+
+
 def apply_rope(x, positions, theta: float = 1e4):
     """Rotary positions in float32, split-halves layout, cast back.
     x: (..., L, n_heads, head_dim); positions: (..., L) int."""
-    freqs = torch.as_tensor(rope_freqs(x.shape[-1], theta), dtype=torch.float32,
-                            device=x.device)
+    freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs  # (..., L, hd/2)
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]

@@ -1,10 +1,17 @@
-"""Superstep programs: the port's counterpart of the JAX worker's cached
-``jax.jit`` executables, one per ``(R, budget)`` key.
+"""Programs: the port's counterpart of the JAX package's compiled loops and
+boundaries (``jax.jit``, ``lax.while_loop``, ``lax.scan``).
 
-A ``SuperstepProgram`` wraps a worker's superstep body: R rounds that read
-the slot tensors in place and write every round field they change back
-into them in place (the counterpart of ``donate_argnums``).  A field the
-rounds hand back as the very tensor they read (the keys, ``u_buf``,
+A ``SuperstepProgram`` wraps a body that reads a fixed set of tensors and
+writes what it changes back into them in place (the counterpart of
+``donate_argnums``).  Its users:
+
+  * the serving worker's supersteps, one per ``(R, budget)`` key, and its
+    admissions, one per power-of-two width (``serving/worker.py``);
+  * the sampler's round, replayed until every chain is done
+    (``core/asd.py``, ``SamplerLoop``);
+  * the K-step baseline's step, replayed K times (``core/sequential.py``).
+
+A field a body hands back as the very tensor it read (the keys, ``u_buf``,
 ``xi_buf``) is not copied onto itself.
 
 On the CPU a call runs the body.  On the card:
@@ -19,13 +26,17 @@ On the CPU a call runs the body.  On the card:
 
 No garbage is collected during a capture: a graph that the cycle
 collector destroys there (a dropped worker's, say) makes CUDA calls that
-the capturing stream refuses, which voids the capture.  So a capture first
-collects, then holds the collector off until it ends.
+the capturing stream refuses, which voids the capture.  So a capture holds
+the collector off until it ends.  It does not collect first: a full
+collection costs hundreds of ms in a process that holds many objects, and
+a sampler call captures anew each time.  The sampler's bodies close over
+no object that holds their program, so a finished call's graph and pool
+are freed by reference counting, not left to the collector.
 
 A graph binds the addresses it was captured on: every tensor the body
-reads (slot tensors, condition rows, allocator weights, the budget tier,
-weights and schedule) must be written in place and never rebound, and
-every tensor it makes comes from the pool.  Nothing inside may copy from
+reads (slot or chain state, condition rows, allocator weights, the budget
+tier, a step index, weights and schedule) must be written in place and
+never rebound, and every tensor it makes comes from the pool.  Nothing inside may copy from
 the host: the capture refuses it.
 
 The kernel wrappers count their launches in Python.  A capture runs their
@@ -33,6 +44,9 @@ Python code (the counters go up) but launches nothing, and a replay does
 not run it at all, so a program takes the captured launches back off and
 adds them once for each replay: launches per round are the same with and
 without graphs.
+
+A body may not draw from a ``torch.Generator``: a replay would reuse the
+draws of the capture.
 """
 
 from __future__ import annotations
@@ -59,12 +73,14 @@ def _counters() -> list:
 
 
 class SuperstepProgram:
-    """One superstep, built from ``(R, budget key)`` and a worker's statics.
+    """One body run as a program (a superstep, an admission, a round, a
+    step).
 
-    ``body()`` runs the superstep eagerly and leaves its result in the slot
-    tensors.  ``pool`` is the graph memory pool (a
-    ``torch.cuda.graph_pool_handle()``) the capture allocates from; None on
-    the CPU.  ``__call__`` returns True when the call was the program's
+    ``body()`` runs it eagerly and leaves its result in the tensors it
+    writes.  ``pool`` is the graph memory pool (a
+    ``torch.cuda.graph_pool_handle()``) the capture allocates from, which a
+    worker's programs share; None gives the capture a pool of its own (and
+    the CPU has none).  ``__call__`` returns True when the call was the program's
     cold dispatch (its first: on the card, the one that captured)."""
 
     def __init__(self, body: Callable[[], None], device: torch.device, pool=None):
@@ -96,7 +112,6 @@ class SuperstepProgram:
         counters = _counters()
         before = [holder[key] for holder, key in counters]
         graph = torch.cuda.CUDAGraph()
-        gc.collect()
         t0 = time.perf_counter()
         collecting = gc.isenabled()
         gc.disable()

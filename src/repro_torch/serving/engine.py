@@ -12,14 +12,15 @@ harvests first, so a freed slot refills at the next boundary.  A chain
 that commits its last step retires at the next boundary and its slot is
 refilled from the queue (FCFS by default, see ``scheduler.py``).  On the
 card a superstep is the replay of a captured CUDA graph
-(``programs.py``); what a harvest reads (the counters and the samples) is
-copied off the slot tensors after the replay, eagerly and outside the
-graph's memory pool, so the next replay, dispatched before that harvest,
-cannot overwrite it.
+(``repro_torch.programs``) that ends by writing the sync packet; what a
+harvest reads (the counters and the samples) is copied from it into the
+next of two buffers made once, so the next replay, dispatched before that
+harvest, cannot overwrite it.
 
 ``ASDServingEngine``, the chunked static baseline: requests are padded into
 fixed-size batches, and each batch runs the batched sampler to its slowest
 chain (padded lanes burn compute), the waste the continuous engine removes.
+It keeps its sampler program across batches, so only the first captures.
 
 The sharded front end is not ported yet.
 """
@@ -35,15 +36,17 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.asd import _sample
+from repro_torch.core.asd import SamplerLoop, init_chain_state
 from repro_torch.core.controller import StaticTheta
 from repro_torch.core.schedules import Schedule
-from repro_torch.core.sequential import sequential_sample_batched
+from repro_torch.core.sequential import SequentialProgram
 from repro_torch.device import resolve_device
 from repro_torch.serving.metrics import EngineStats
 from repro_torch.serving.worker import Request, ShardWorker
 
 log = logging.getLogger("repro_torch.serving.engine")
+
+_STATIC = StaticTheta()
 
 __all__ = ["ASDServingEngine", "ContinuousASDEngine", "Request"]
 
@@ -130,22 +133,35 @@ class ASDServingEngine:
         self.eager_head = eager_head
         self.d_cond = d_cond
         self.stats = EngineStats()
+        self._program = None  # the mode's sampler program, built by the first chunk
 
     def _batch(self, conds: Optional[torch.Tensor], keys: torch.Tensor):
         """(samples, rounds, head calls) of one padded chunk; ``keys``
-        (batch_size, 2) on the device."""
+        (batch_size, 2) on the device.  The first chunk builds the mode's
+        program (``SamplerLoop`` or ``SequentialProgram``) on its tensors;
+        every later chunk copies its chains in and replays it, as the JAX
+        engine's one ``jax.jit`` of its batch function serves every chunk."""
         sched, ev, n = self.schedule, self.event_shape, self.batch_size
         y0 = torch.zeros((n,) + ev, device=self.device)
         if sched.y0_mode == "std_normal":
             y0 = prng.normal(prng.split(keys[0], n), ev)
         with torch.no_grad():
             if self.mode == "asd":
-                res = _sample(self.model_fn, sched, y0, self.theta, self.eager_head, True,
-                              StaticTheta(), None, None, None, conds, keys, "buffer")
+                st = init_chain_state(sched, y0, self.theta, True, _STATIC, key=keys)
+                if self._program is None:
+                    self._program = SamplerLoop(self.model_fn, sched, st, self.theta,
+                                                self.eager_head, True, _STATIC, conds)
+                else:
+                    self._program.load(st, conds)
+                res = self._program.result(self._program.run())
                 return res.sample, res.rounds, res.head_calls
             xi = prng.normal(keys, (sched.K,) + ev).transpose(0, 1)
-            out = sequential_sample_batched(self.model_fn, sched, y0, xi=xi,
-                                            device=self.device, conds=conds)
+            if self._program is None:
+                self._program = SequentialProgram(self.model_fn, sched, y0, xi.contiguous(),
+                                                  conds)
+            else:
+                self._program.load(y0, xi, conds)
+            out = self._program.run()
         steps = torch.full((n,), sched.K, dtype=torch.int64)
         return out, steps, steps
 
@@ -164,7 +180,8 @@ class ASDServingEngine:
             conds = torch.from_numpy(rows).to(self.device)
         keys = prng.split(prng.as_key(key, self.device), self.batch_size)
         samples, rounds, heads = self._batch(conds, keys)
-        samples = samples.cpu().numpy()
+        # a copy: the samples are the program's tensors, which the next batch overwrites
+        samples = samples.to("cpu", copy=True).numpy()
         self.stats.requests += n
         self.stats.batches += 1
         # the batch runs to its slowest chain: its depth is the max

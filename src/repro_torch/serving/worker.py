@@ -8,18 +8,22 @@ A ``ShardWorker`` owns what one shard of a deployment needs:
   * the superstep that drives it: ``rounds_per_sync`` rounds launched in a
     row with no read on the host (``asd_superstep`` unpacked,
     ``packed_superstep`` packed or fused),
-  * the boundary sync packet (retire flags, counters and samples, read by
-    the host in one transfer per superstep),
+  * the boundary sync packet (retire flags, counters and samples), which
+    each superstep program writes into tensors the worker owns and the
+    host copies into one of two buffers made once (pinned host memory for
+    the counters, one transfer a superstep),
+  * its admission programs, one per power-of-two width: a boundary's new
+    chains initialised and written into their slots in one program,
   * its own ``SlotScheduler`` admission queue and ``EngineStats``, and
   * the budget state (per-slot priority weights, the live-demand EWMA and,
     with ``round_budget="auto"``, the power-of-two budget tier).
 
 Where the JAX package donates the slot pytree to a jitted superstep cached
 per ``(R, budget)``, the port keeps one ``SuperstepProgram``
-(``repro_torch.serving.programs``) per key: on the card a captured CUDA
-graph, replayed once a superstep, on the CPU the same body run eagerly.
-The slot tensors are made once and never rebound: admission writes a new
-chain's rows into them and a superstep writes every round field back into
+(``repro_torch.programs``) per key: on the card a captured CUDA graph,
+replayed once a superstep, on the CPU the same body run eagerly.  The slot
+tensors are made once and never rebound: an admission program writes new
+chains' rows into them and a superstep writes every round field back into
 them (the keys and noise buffers are never copied), so a graph replays on
 the addresses it was captured on.  The fused round's budget tier is a 0-d
 device tensor filled before each call, so one program a R serves every
@@ -33,8 +37,10 @@ Every chain draws from its key as the JAX worker's does: a request's own
 ``key``, or else ``fold_in(serve key, rid)`` (the serve key is
 ``PRNGKey(seed)`` until ``serve(key=...)`` replaces it), split once for y0
 when the request brings none.  ``noise_mode="counter"`` keeps two keys a
-chain in place of the (K+theta+1)-step buffers.  Keys are handled on the
-host and copied to the device, so admission reads nothing back from it.
+chain in place of the (K+theta+1)-step buffers.  Keys are split on the
+host and copied to the device, and each y0 is drawn there, outside the
+admission program (as the JAX worker draws them outside its jit), so
+admission reads nothing back from the device.
 
 Budget auto-tiering (``round_budget="auto"``, packed execution, with
 ``budget_hysteresis``), auto ``rounds_per_sync``, ``overcommit`` and the
@@ -59,9 +65,9 @@ from repro_torch.core.controller import (BranchController, StaticBranches, Stati
 from repro_torch.core.schedules import Schedule
 from repro_torch.core.sequential import init_y0
 from repro_torch.device import resolve_device
+from repro_torch.programs import SuperstepProgram
 from repro_torch.serving.metrics import EngineStats, RequestMetrics
 from repro_torch.serving.packing import (WaterfillingAllocator, packed_superstep)
-from repro_torch.serving.programs import SuperstepProgram
 from repro_torch.serving.scheduler import (AdmissionContext, SchedulingPolicy,
                                            SlotScheduler)
 
@@ -289,6 +295,21 @@ class ShardWorker:
         self._states.a.fill_(K)
         self._conds = (torch.zeros((num_slots, d_cond), device=dev) if d_cond
                        else None)
+        # the sync packet every superstep program leaves behind, and the two
+        # buffers it is copied into after each replay (the pipelined serve
+        # reads packet s after it dispatches s + 1): the counters to pinned
+        # host memory, the samples on the device; all made once, here
+        cuda = dev.type == "cuda"
+        self._packet_info = torch.zeros((len(_SYNC_ROWS), num_slots), dtype=torch.int32,
+                                        device=dev)
+        self._packet_samples = torch.zeros((num_slots,) + self.event_shape, device=dev)
+        self._info_out = [torch.empty(self._packet_info.shape, dtype=torch.int32,
+                                      pin_memory=cuda) for _ in range(2)]
+        self._samples_out = [torch.empty_like(self._packet_samples) for _ in range(2)]
+        self._ready = [torch.cuda.Event() for _ in range(2)] if cuda else [None, None]
+        self._packet_turn = 0
+        # one admission program per power-of-two width
+        self._admit_fns: dict[int, SuperstepProgram] = {}
         log.debug("shard %d worker up: slots=%d theta=%d execution=%s budget=%s "
                   "R=%s policy=%s device=%s", shard_id, num_slots, self.theta,
                   execution, "auto" if self._budget_auto else self.round_budget,
@@ -331,8 +352,16 @@ class ShardWorker:
                     dst, src = getattr(states, f.name), getattr(new, f.name)
                     if src is not dst:  # the keys and noise buffers come back as is
                         dst.copy_(src)
+                self._pack_sync(states)
 
         return SuperstepProgram(body, self.device, self._graph_pool)
+
+    def _pack_sync(self, st: ASDChainState) -> None:
+        """The sync packet, written into the worker's packet tensors at the
+        end of every superstep program (the JAX worker's ``_pack_sync``):
+        the (9, S) int32 rows of ``_SYNC_ROWS`` and every slot's sample."""
+        self._packet_info.copy_(torch.stack([getattr(st, name) for name in _SYNC_ROWS]))
+        self._packet_samples.copy_(chain_sample(st, self.schedule.K, self.keep_trajectory))
 
     def _get_superstep(self, R: int, budget) -> SuperstepProgram:
         # budget-as-data: one program per R serves every tier, the budget
@@ -364,19 +393,18 @@ class ShardWorker:
             self._budget_dev.fill_(budget)
         return prog()
 
-    def _sync_packet(self, st: ASDChainState):
-        """The (9, S) int32 counters and the (S, *event) samples, copied off
-        the slot tensors; on the card the counters start their copy to the
-        host at once, and an event marks when they are there."""
-        with torch.no_grad():
-            info = torch.stack([getattr(st, name) for name in _SYNC_ROWS]).to(torch.int32)
-            samples = chain_sample(st, self.schedule.K, self.keep_trajectory).clone()
-        if self.device.type != "cuda":
-            return info, None, samples
-        host = torch.empty(info.shape, dtype=torch.int32, pin_memory=True)
-        host.copy_(info, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(self.device))
+    def _sync_packet(self):
+        """The packet the superstep left, copied into the next of the two
+        buffers: the counters to the host (asynchronously on the card, with
+        an event that marks when they are there) and the samples on the
+        device.  Two copies, no allocation."""
+        k = self._packet_turn
+        self._packet_turn ^= 1
+        host, samples, ready = self._info_out[k], self._samples_out[k], self._ready[k]
+        host.copy_(self._packet_info, non_blocking=True)
+        samples.copy_(self._packet_samples)
+        if ready is not None:
+            ready.record(torch.cuda.current_stream(self.device))
         return host, ready, samples
 
     # -- request lifecycle ---------------------------------------------------
@@ -387,25 +415,62 @@ class ShardWorker:
         admission order, slot or re-admission, as in the JAX worker."""
         return prng.fold_in(self._key, int(rid) & 0xFFFFFFFF)
 
-    def _new_chain(self, req: Request) -> ASDChainState:
-        """A fresh one-chain state for ``req`` on the device: its key split
-        once for y0 where the request brings none, as the JAX worker does
-        (on the host, then copied over)."""
+    def _admit_record(self, req: Request):
+        """The (key, y0) a request's chain starts from: its key split once
+        for y0 where the request brings none, as the JAX worker does
+        outside its jit (the key on the host, y0 drawn on the device)."""
+        if self.noise_mode == "counter" and (req.u_buf is not None or req.xi_buf is not None):
+            raise ValueError("counter noise draws from the chains' keys: pass key "
+                             "and no u_buf / xi_buf")
         key = (prng.as_key(req.key) if req.key is not None
                else self._request_key(req.rid))
         if req.y0 is not None:
-            y0 = _as_tensor(req.y0, self.device)
-        else:
-            key, k0 = prng.split(key, 2).unbind(0)
-            y0 = init_y0(self.schedule, self.event_shape, device=self.device,
-                         key=k0.to(self.device))
-        return init_chain_state(
-            self.schedule, y0[None], self.theta, self.keep_trajectory,
-            self.controller, None,
-            None if req.u_buf is None else _as_tensor(req.u_buf, self.device)[None],
-            None if req.xi_buf is None else _as_tensor(req.xi_buf, self.device)[None],
-            key=key[None].to(self.device), noise_mode=self.noise_mode,
-            num_branches=self.num_branches, branch_controller=self.branch_controller)
+            return key, _as_tensor(req.y0, self.device)
+        key, k0 = prng.split(key, 2).unbind(0)
+        return key, init_y0(self.schedule, self.event_shape, device=self.device,
+                            key=k0.to(self.device, non_blocking=True))
+
+    def _admit_bound(self) -> int:
+        """The most admission programs: one per power of two up to the
+        first at or above num_slots."""
+        return (self.num_slots - 1).bit_length() + 1
+
+    def _get_admit(self, width: int) -> SuperstepProgram:
+        """The admission program of ``width`` chains (the JAX worker's
+        ``_admit_fn`` at one padded width): ``init_chain_state`` over the
+        staged y0 rows and keys, every field written into the slot tensors
+        at the staged slot indices, and the staged condition rows too.  Its
+        staging tensors are ``prog.stage``."""
+        prog = self._admit_fns.get(width)
+        if prog is not None:
+            return prog
+        dev, states = self.device, self._states
+        stage = dict(y0=torch.zeros((width,) + self.event_shape, device=dev),
+                     keys=torch.zeros((width, 2), dtype=torch.int64, device=dev),
+                     slots=torch.zeros((width,), dtype=torch.int64, device=dev))
+        if self.d_cond:
+            stage["conds"] = torch.zeros((width, self.d_cond), device=dev)
+
+        def body():
+            with torch.no_grad():
+                new = init_chain_state(
+                    self.schedule, stage["y0"], self.theta, self.keep_trajectory,
+                    self.controller, key=stage["keys"], noise_mode=self.noise_mode,
+                    num_branches=self.num_branches, branch_controller=self.branch_controller)
+                # a padded lane repeats the first record: the same rows
+                # written twice into one slot
+                for f in dataclasses.fields(ASDChainState):
+                    rows = getattr(new, f.name)
+                    if rows is not None:  # counter mode holds no buffers
+                        getattr(states, f.name).index_copy_(0, stage["slots"], rows)
+                if self.d_cond:
+                    self._conds.index_copy_(0, stage["slots"], stage["conds"])
+
+        prog = self._admit_fns[width] = SuperstepProgram(body, dev, self._graph_pool)
+        prog.stage = stage
+        assert len(self._admit_fns) <= self._admit_bound(), (
+            f"worker built more admission programs than widths: {sorted(self._admit_fns)}")
+        return prog
 
     def _admission_context(self, now: float) -> AdmissionContext:
         return AdmissionContext(
@@ -530,17 +595,39 @@ class ShardWorker:
         return placed
 
     def _admit_pending(self) -> None:
-        """Admit at the boundary: each new chain's rows are written into the
-        slot tensors in place."""
-        for slot, req in self._collect_admissions(time.perf_counter()):
-            new = self._new_chain(req)
-            for f in dataclasses.fields(ASDChainState):
-                rows = getattr(new, f.name)
-                if rows is not None:  # counter mode holds no buffers
-                    getattr(self._states, f.name)[slot] = rows[0]
+        """Admit at the boundary (see ``_admit``)."""
+        placed = self._collect_admissions(time.perf_counter())
+        if placed:
+            self._admit(placed)
+
+    def _admit(self, placed) -> None:
+        """Write the chains of the placed [(slot, request)] into the slot
+        tensors: padded to a power of two by repeating the first, staged,
+        and written by one admission program.  Noise a request injects
+        (buffer mode) is written over its rows after the program."""
+        records = [self._admit_record(req) for _, req in placed]
+        width = 1 << (len(placed) - 1).bit_length()
+        pad = width - len(placed)
+        prog = self._get_admit(width)
+        stage = prog.stage
+        with torch.no_grad():
+            torch.stack([y0 for _, y0 in records] + [records[0][1]] * pad, out=stage["y0"])
+            stage["keys"].copy_(torch.stack([key for key, _ in records] + [records[0][0]] * pad),
+                                non_blocking=True)
+            slots = [slot for slot, _ in placed]
+            stage["slots"].copy_(torch.tensor(slots + slots[:1] * pad), non_blocking=True)
             if self.d_cond:
-                self._conds[slot] = (0.0 if req.cond is None
-                                     else _as_tensor(req.cond, self.device))
+                rows = np.zeros((width, self.d_cond), np.float32)
+                for i, (_, req) in enumerate(placed + placed[:1] * pad):
+                    if req.cond is not None:
+                        rows[i] = req.cond
+                stage["conds"].copy_(torch.from_numpy(rows), non_blocking=True)
+            prog()
+            for slot, req in placed:
+                for name in ("u_buf", "xi_buf"):
+                    if getattr(req, name) is not None:
+                        getattr(self._states, name)[slot] = _as_tensor(getattr(req, name),
+                                                                       self.device)
 
     def _dispatch_superstep(self):
         """Admit, launch one superstep, and return its pending harvest."""
@@ -551,7 +638,7 @@ class ShardWorker:
         # a cold dispatch pays the capture: keep it out of dispatch_s and
         # the seconds-per-round EWMA, as the JAX worker keeps its compiles
         cold = self._launch_superstep(R, B)
-        sync = self._sync_packet(self._states)
+        sync = self._sync_packet()
         t1 = time.perf_counter()
         if not cold:
             self.stats.dispatch_s += t1 - t0
@@ -668,8 +755,9 @@ class ShardWorker:
         worker hands its siblings the executables themselves.  A CUDA graph
         binds the slot tensors it was captured on and cannot serve another
         worker's slots, so here each worker still captures its own programs
-        against its own slot tensors.  What is shared is the graph memory
-        pool (sibling graphs take their transients from the same memory;
+        (supersteps and admissions) against its own slot tensors.  What is
+        shared is the graph memory pool that all of them capture into
+        (sibling graphs take their transients from the same memory;
         they replay one at a time on the stream they are called on) and
         the kernels the donor built and set up, which are the process's.
         Raises ValueError where the statics differ, which the JAX callers

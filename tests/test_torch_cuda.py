@@ -860,6 +860,7 @@ class _Eager:
 
     def __init__(self, prog):
         self.prog, self.calls = prog, 0
+        self.stage = getattr(prog, "stage", None)
 
     def __call__(self):
         self.calls += 1
@@ -871,9 +872,15 @@ class EagerEngine(ContinuousASDEngine):
     def _make_superstep(self, R, budget):
         return _Eager(super()._make_superstep(R, budget))
 
+    def _get_admit(self, width):
+        prog = self._admit_fns.get(width)
+        if prog is None:
+            prog = self._admit_fns[width] = _Eager(super()._get_admit(width))
+        return prog
+
 
 def _launch_counts():
-    from repro_torch.serving import programs
+    from repro_torch import programs
 
     return [holder[key] for holder, key in programs._counters()]
 
@@ -966,7 +973,7 @@ def test_a_failed_capture_raises(dev):
 
     code = (
         "import torch\n"
-        "from repro_torch.serving.programs import SuperstepProgram\n"
+        "from repro_torch.programs import SuperstepProgram\n"
         "x = torch.ones(4, device='cuda')\n"
         "prog = SuperstepProgram(lambda: x.add_(x.sum().item()), 'cuda')\n"
         "for _ in range(2):\n"
@@ -986,7 +993,7 @@ def test_no_garbage_is_collected_during_a_capture(dev):
     it destroyed there would void the capture) and runs again after."""
     import gc
 
-    from repro_torch.serving.programs import SuperstepProgram
+    from repro_torch.programs import SuperstepProgram
 
     x = torch.zeros(4, device=dev)
     seen = []
@@ -1015,3 +1022,195 @@ def test_one_pool_per_worker(dev):
     (prog,) = sibling._superstep_fns.values()
     assert prog.pool is eng._graph_pool and prog.graph is not None
 
+
+
+# ------------------------------------------------ sampler and admission graphs
+
+
+def _smoke_fn(dev):
+    dc = paper_diffusion_policy_smoke()
+    return dc, make_sl_model_fn(init_denoiser_params(dc, 0, out_scale=1.0, device=dev), dc)
+
+
+def _eager_sampler(model_fn, sched, y0, theta, keys, **kw):
+    """The loop that checks every round on the host: (state, rounds)."""
+    st = t_asd.init_chain_state(sched, y0, theta, kw["keep_trajectory"], key=keys,
+                                noise_mode=kw["noise_mode"], num_branches=kw["num_branches"])
+    rounds = 0
+    while not bool(t_asd.chain_done(st, sched.K).all()):
+        st = t_asd.asd_round(model_fn, sched, st, theta, kw["eager_head"], kw["keep_trajectory"],
+                             noise_mode=kw["noise_mode"], num_branches=kw["num_branches"])
+        rounds += 1
+    return st, rounds
+
+
+@pytest.mark.parametrize("branches", [1, 2])
+@pytest.mark.parametrize("noise", ["buffer", "counter"])
+def test_sampler_graph_equals_the_eager_loop(dev, noise, branches):
+    """``asd_sample_batched`` replays one captured round: the eager loop's
+    sample bits, counters, rounds and launches, with host reads at most the
+    rounds and a capture time; a warm replay makes no host sync."""
+    from repro_torch import programs
+
+    dc, fn = _smoke_fn(dev)
+    sched = t_sch.sl_geometric(16, 0.05, 50.0).to(dev)
+    y0 = torch.zeros((3, dc.seq_len, dc.d_data), device=dev)
+    kw = dict(eager_head=True, keep_trajectory=True, noise_mode=noise, num_branches=branches)
+    keys = t_asd.prng.split(t_asd.prng.PRNGKey(8), 3).to(dev)
+    with torch.no_grad():
+        before = _launch_counts()
+        st, rounds = _eager_sampler(fn, sched, y0, 4, keys, **kw)
+        torch.cuda.synchronize()
+        eager = [b - a for a, b in zip(before, _launch_counts())]
+        before = _launch_counts()
+        res = t_asd.asd_sample_batched(fn, sched, y0, 4, device=dev, key=t_asd.prng.PRNGKey(8),
+                                       **kw)
+        torch.cuda.synchronize()
+        graph = [b - a for a, b in zip(before, _launch_counts())]
+    assert res.loop.rounds == rounds and res.loop.host_reads <= rounds
+    assert res.loop.capture_ms is not None and graph == eager and sum(graph) > 0
+    for name in ("rounds", "head_calls", "model_evals", "accepts", "proposals",
+                 "draft_points"):
+        assert torch.equal(getattr(res, name), getattr(st, name)), name
+    assert torch.equal(res.trajectory, st.y[:, :17])
+    # a warm replay of a fresh loop's round makes no host sync
+    loop = t_asd.SamplerLoop(fn, sched, t_asd.init_chain_state(
+        sched, y0, 4, key=keys, noise_mode=noise, num_branches=branches), 4, True,
+        noise_mode=noise, num_branches=branches)
+    loop.program()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loop.program()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert loop.program.graph is not None and len(programs._counters()) > 0
+
+
+def test_sequential_graph_equals_the_eager_steps(dev):
+    """The K-step program (one captured step, K replays, the step index on
+    the device) gives the eager loop's bits, trajectory included."""
+    from repro_torch.core import sequential as t_seq
+
+    dc, fn = _smoke_fn(dev)
+    sched = t_sch.sl_geometric(12, 0.05, 50.0).to(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    y0 = torch.randn((2, dc.seq_len, dc.d_data), generator=g, device=dev)
+    xi = torch.randn((12,) + tuple(y0.shape), generator=g, device=dev)
+    with torch.no_grad():
+        y, traj = y0, [y0]
+        for i in range(12):
+            y = sched.A[i] * y + sched.B[i] * fn(sched.t_model[i].expand(2), y) \
+                + sched.sigma[i] * xi[i]
+            traj.append(y)
+        prog = t_seq.SequentialProgram(fn, sched, y0, xi, keep_trajectory=True)
+        out = prog.run()
+        torch.cuda.synchronize()
+    assert prog.program.graph is not None and prog.program.calls == 12
+    assert torch.equal(out, y) and torch.equal(prog.trajectory, torch.stack(traj))
+
+
+@pytest.mark.parametrize("mode", ["asd", "ddpm"])
+def test_static_engine_captures_once(dev, mode):
+    """``ASDServingEngine`` keeps one program across chunks: the second
+    serve captures nothing and gives the first's bits."""
+    from repro_torch.serving.engine import ASDServingEngine
+
+    dc, fn = _smoke_fn(dev)
+    eng = ASDServingEngine(fn, t_sch.sl_geometric(12, 0.05, 50.0), (dc.seq_len, dc.d_data),
+                           theta=4, batch_size=3, mode=mode, device=dev)
+    reqs = [Request(i) for i in range(5)]
+    first = eng.serve(reqs, t_asd.prng.PRNGKey(4))
+    prog = eng._program
+    second = eng.serve(reqs, t_asd.prng.PRNGKey(4))
+    assert eng._program is prog and prog.program.captures == 1
+    for rid in range(5):
+        assert np.array_equal(first[rid], second[rid])
+
+
+@pytest.mark.parametrize("noise", ["buffer", "counter"])
+def test_admission_and_packet_graphs_equal_the_eager_versions(dev, noise):
+    """Admissions at widths 1, 2 and 4 (3 padded) as captured programs,
+    against one ``init_chain_state`` a request written field by field; the
+    packet each superstep leaves against the eager stack; the packet's
+    pinned buffers are the two made at start-up."""
+    import dataclasses
+
+    from repro_torch.core.sequential import init_y0
+    from repro_torch.serving.worker import _SYNC_ROWS
+
+    eng = _program_engine(dev, round_impl="packed", noise=noise, branches=1,
+                          controller="aimd", R=1)
+    pinned = [h.data_ptr() for h in eng._info_out]
+    assert all(h.is_pinned() for h in eng._info_out)
+    rid = 0
+    for n in (1, 2, 3, 3):
+        placed = [(slot, Request(rid + slot, key=np.array([0, 70 + rid + slot], np.uint32)))
+                  for slot in range(n)]
+        rid += n
+        saved = {k: v.clone() for k, v in _slot_fields(eng).items()}
+        eng._admit(placed)
+        torch.cuda.synchronize()
+        got = {k: v.clone() for k, v in _slot_fields(eng).items()}
+        for k, v in _slot_fields(eng).items():
+            v.copy_(saved[k])
+        for slot, req in placed:
+            key, k0 = t_asd.prng.split(t_asd.prng.as_key(req.key), 2).unbind(0)
+            y0 = init_y0(eng.schedule, eng.event_shape, device=dev, key=k0.to(dev))
+            new = t_asd.init_chain_state(eng.schedule, y0[None], eng.theta, False,
+                                         eng.controller, key=key[None].to(dev), noise_mode=noise)
+            for f in dataclasses.fields(t_asd.ASDChainState):
+                if getattr(new, f.name) is not None:
+                    getattr(eng._states, f.name)[slot] = getattr(new, f.name)[0]
+        for k, v in _slot_fields(eng).items():
+            assert torch.equal(got[k], v), (n, k)
+    assert sorted(eng._admit_fns) == [1, 2, 4]
+    assert all(p.graph is not None for p in eng._admit_fns.values())
+    for _ in range(3):
+        eng._launch_superstep(1, eng.round_budget)
+        host, ready, samples = eng._sync_packet()
+        st = eng._states
+        want = torch.stack([getattr(st, n) for n in _SYNC_ROWS]).to(torch.int32)
+        ready.synchronize()
+        assert torch.equal(host, want.cpu())
+        assert torch.equal(samples, t_asd.chain_sample(st, eng.schedule.K, False))
+    assert [h.data_ptr() for h in eng._info_out] == pinned
+
+
+def test_captured_decode_equals_the_eager_decode(dev):
+    """reduced(hymba-1.5b), bf16: a greedy ``lm_decode_step`` captured with
+    the token and ``pos`` as device tensors, the argmax written into the
+    token inside the graph, replayed 6 times: the eager decode's tokens and
+    logit bits."""
+    from repro_torch.programs import SuperstepProgram
+
+    cfg = reduced(get_config("hymba-1.5b"))
+    params = t_lm.lm_compute_params(init_lm_params(cfg, 0, device=dev), cfg)
+    B, P, T = 2, 40, 6
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        caches = t_lm.lm_cache_init(params, cfg, B, P + T)
+        first, caches = t_lm.lm_prefill(params, tokens.to(dev), caches, cfg)
+        start = {g: {k: {n: t.clone() for n, t in v.items()} for k, v in c.items()}
+                 for g, c in caches.items()}
+        tok, eager = first[:, 0].float().argmax(-1), []
+        for i in range(T):
+            lg, caches = t_lm.lm_decode_step(params, tok, caches, P + i, cfg)
+            eager.append(lg[:, 0].float())
+            tok = eager[-1].argmax(-1)
+        tok = first[:, 0].float().argmax(-1)
+        pos = torch.tensor(P, device=dev)
+        out = torch.empty((T, B, cfg.vocab_size), device=dev)
+
+        def body():
+            lg, _ = t_lm.lm_decode_step(params, tok, start, pos, cfg)
+            out.index_copy_(0, (pos - P).view(1), lg[:, 0].float()[None])
+            tok.copy_(lg[:, 0].float().argmax(-1))
+            pos.add_(1)
+
+        prog = SuperstepProgram(body, dev)
+        for _ in range(T):
+            prog()
+        torch.cuda.synchronize()
+    assert prog.graph is not None and int(pos) == P + T
+    assert torch.equal(out, torch.stack(eager))

@@ -307,6 +307,30 @@ def test_lm_prefill_and_decode_match(cfgs, tree, tokens, jax_logits):
     assert tuple(g0["ssm"]["ssm"].shape) == (2, B, 64, 8)
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_decode_with_pos_as_device_data(cfgs, tree, tokens, jax_logits, dtype):
+    """``pos`` as a 0-d tensor (JAX's ``pos: () int32``, traced in the
+    jitted JAX step of ``jax_logits``), advanced in place as a captured
+    decode advances it: the JAX decode logits within 2e-4, and the int
+    ``pos`` decode's logits and caches bit for bit."""
+    params = from_jax_lm_params(tree, cfgs[1], device="cpu")
+    want_pre, want_dec, want_caches = _port_decode(params, tokens, cfgs[1])
+    caches = t_lm.lm_cache_init(params, cfgs[1], B, L, dtype=torch.float32)
+    _, caches = t_lm.lm_prefill(params, _t(tokens[:, :P]), caches, cfgs[1])
+    pos = torch.tensor(P, dtype=dtype)
+    dec = []
+    for i in range(P, L):
+        lg, caches = t_lm.lm_decode_step(params, _t(tokens[:, i]), caches, pos, cfgs[1])
+        pos.add_(1)
+        dec.append(_np(lg[:, 0]))
+    dec = np.stack(dec, 1)
+    np.testing.assert_allclose(dec, jax_logits[2], atol=2e-4, rtol=0)
+    assert np.array_equal(dec.view(np.int32), want_dec.view(np.int32))
+    for a, b in zip(jax.tree_util.tree_leaves(caches), jax.tree_util.tree_leaves(want_caches)):
+        assert torch.equal(a, b)
+    assert int(pos) == L
+
+
 def test_port_decode_matches_port_forward(cfgs, tokens):
     """decode == forward at every position, the invariant of the JAX
     package's test_decode_matches_forward, on the port's own init."""

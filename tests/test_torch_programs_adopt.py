@@ -18,7 +18,7 @@ from repro_torch.models.diffusion import make_sl_model_fn
 from repro_torch.serving import packing as t_pack
 from repro_torch.serving.engine import ContinuousASDEngine, Request
 from repro_torch.serving.obs import TraceRecorder
-from repro_torch.serving.programs import SuperstepProgram
+from repro_torch.programs import SuperstepProgram
 from repro_torch.weights import init_denoiser_params
 from tests.test_torch_packed_round import K as ROUND_K
 from tests.test_torch_packed_round import SLOTS as ROUND_SLOTS
