@@ -96,6 +96,23 @@ Phases, each printing one JSON line and raising on any failure:
               ``serve.main`` with 8 profiled supersteps with graphs at R 1
               and R 4 and eagerly at R 1: round ms, samples/s, idle share,
               and the host ms of admission, launch, packet and harvest.
+     sharded_serve
+              the same denoiser behind ``ShardedASDEngine`` (2 shards of 2
+              slots, budget 16 a shard, 6 keyed requests, counter noise,
+              R 4), per-shard dispatch with packed rounds and fused
+              dispatch (one captured graph a boundary, a side-stream
+              branch a shard) with fused rounds: shards 1 equal to
+              ``ContinuousASDEngine`` in bits, shards 2 equal to shards 1
+              (4 slots, the covering 32) in bits, fused equal to
+              per-shard (served, and every slot field after 2 boundaries,
+              where a planted fused body that skips the last shard's
+              write-back must fail), graph replays a warm boundary (1
+              fused, 2 per shard) with host syncs made errors; warm round
+              ms, samples/s, the idle share over 8 profiled boundaries,
+              capture ms, peak memory, the fused boundary's busy ms
+              against the shards' bodies one after another, and whether a
+              model call's rows (and its parts') are the same bits at 36
+              and 18 points.
      serve_reference
               the same engine on a small denoiser, on the card and on the
               CPU with the same noise, in both round_impls.
@@ -133,6 +150,14 @@ Phases, each printing one JSON line and raising on any failure:
               controller, and at 2 with packed fused rounds, each profiled:
               samples/s, round ms, idle share, branch depth and waste
               beside the B 1 profiled run.
+     sharded_serve_cli
+              ``serve.main`` at 8 slots and 16 keyed requests, unsharded
+              (unpacked, and packed fused rounds at R 2), at 2 shards
+              round-robin, 2 shards with fused dispatch and packed fused
+              rounds at R 2, and 4 shards, each with 8 profiled warm
+              supersteps: sample bits, retired, depth, window and accept
+              rate equal to the unsharded run with the same round flags;
+              launches of every kernel per round, round ms, idle share.
      serve_keys_reference
               the counter-noise engine on a small denoiser, on the card
               and on the CPU from the same keys (keyed and unkeyed
@@ -4040,6 +4065,395 @@ def check_standin_reference(torch, dev, params, dc):
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- the sharded front end
+
+# the sharded cell (pixel-dit-sharded): 2 shards of 2 slots, the per-shard
+# budget 16 (covering: 2 slots x theta 8), 6 keyed requests, counter noise
+SHARDS, SHARD_SLOTS = 2, 2
+SHARD_BUDGET = SHARD_SLOTS * THETA
+SHARD_PROFILE = 8  # warm boundaries under torch.profiler
+SHARD_GATE_STEPS = 2  # boundaries of the step-drive bits gate (and its planted fault)
+
+
+def _device_intervals(prof):
+    """(start, end) us of every device kernel the profiler recorded."""
+    import torch
+
+    return sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.time_range.end > e.time_range.start)
+
+
+def _union_us(intervals):
+    total, end = 0.0, None
+    for a, b in intervals:
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _profile_kernels(torch, fn):
+    """Wall ms of ``fn`` (ended by a synchronize) under torch.profiler, the
+    device's busy ms (the union of its kernels' intervals: kernels that
+    overlap count once) and the kernels' summed ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    iv = _device_intervals(prof)
+    busy, summed = _union_us(iv) / 1e3, sum(b - a for a, b in iv) / 1e3
+    return dict(wall_ms=wall_ms, busy_ms=busy, kernels_ms=summed, kernels=len(iv),
+                idle_share=max(0.0, 1.0 - busy / wall_ms) if busy > 0 else None)
+
+
+def _shard_slots(eng):
+    """A copy of every worker's slot tensors, by shard and field."""
+    return [_slots(w) for w in eng.workers]
+
+
+def _replays(torch):
+    """Counts CUDAGraph.replay calls while open."""
+
+    class Count:
+        def __enter__(self):
+            self.n, self._orig = 0, torch.cuda.CUDAGraph.replay
+            orig = self._orig
+
+            def replay(graph):
+                self.n += 1
+                return orig(graph)
+
+            torch.cuda.CUDAGraph.replay = replay
+            return self
+
+        def __exit__(self, *exc):
+            torch.cuda.CUDAGraph.replay = self._orig
+
+    return Count()
+
+
+def _faulty_fused_engine():
+    """The planted fault: a fused body that runs the last shard's rounds but
+    skips their write-back (its packet comes from the old state)."""
+    from repro_torch.serving.sharded import ShardedASDEngine
+
+    class Faulty(ShardedASDEngine):
+        def _shard_body(self, w, R, budget):
+            if w is not self.workers[-1]:
+                return super()._shard_body(w, R, budget)
+            w._run_rounds(w._states, R, w._budget_dev if budget == "data" else budget)
+            w._pack_sync(w._states)
+
+    return Faulty
+
+
+def _capture_ms(eng):
+    """Host ms of every capture a sharded engine made (its workers' programs
+    and, in fused dispatch, its own)."""
+    progs = [p for w in eng.workers
+             for p in list(w._superstep_fns.values()) + list(w._admit_fns.values())]
+    if eng.dispatch == "fused":
+        progs += list(eng._fused_fns.values()) + list(eng._fused_admit_fns.values())
+    return sum(p.capture_ms or 0.0 for p in progs)
+
+
+def _batch_invariance(torch, dev, model_fn, dc):
+    """Whether a point's row of the model call is the same bits at 36 points
+    (one 4-slot shard at budget 32) and at 18 (a 2-slot shard at 16), and
+    the same for parts of it: the time MLP's two float32 products (M =
+    points), a bf16 token product (M = points x tokens) and B2."""
+    from repro_torch.kernels.flash_attention.ops import flash_mha
+    from repro_torch.nn.layers import sinusoidal_embed
+
+    cfg, n, h = dc.backbone, 18, 36
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def rows_same(fn, *xs):
+        return torch.equal(fn(*xs)[:n], fn(*(x[:n] for x in xs)))
+
+    t, y = torch.rand(h, generator=g, device=dev) * 50.0, rnd(h, dc.seq_len, dc.d_data)
+    w1, w2 = rnd(dc.time_dim, cfg.d_model), rnd(cfg.d_model, cfg.d_model)
+    w = rnd(cfg.d_model, cfg.d_model, dtype=torch.bfloat16)
+    qkv = [rnd(h, dc.seq_len, cfg.n_heads, cfg.d_model // cfg.n_heads, dtype=torch.bfloat16)
+           for _ in range(3)]
+    with torch.no_grad():
+        emb = sinusoidal_embed(t * 100.0, dc.time_dim)
+        return dict(model_call=rows_same(model_fn, t, y),
+                    time_mlp1_f32=rows_same(lambda e: e @ w1, emb),
+                    time_mlp2_f32=rows_same(lambda e: torch.tanh(e @ w1) @ w2, emb),
+                    token_product_bf16=rows_same(lambda x: x @ w,
+                                                 rnd(h, dc.seq_len, cfg.d_model,
+                                                     dtype=torch.bfloat16)),
+                    flash_attention=rows_same(
+                        lambda q, k, v: flash_mha(q, k, v, causal=False), *qkv))
+
+
+# (run, dispatch, round_impl): the per-shard dispatch with the per-phase
+# kernels (B1, B3, B4), the fused dispatch with the fused round (B5, B6);
+# the two rounds give equal bits (the serve phase's gate)
+SHARDED_RUNS = (("per_shard_packed", "per-shard", "packed"),
+                ("fused_fused", "fused", "fused"))
+
+
+def run_sharded_serve(torch, dev, model_fn, sched, dc):
+    """pixel-dit behind ``ShardedASDEngine``: 2 shards of 2 slots, packed, the
+    per-shard budget 16 (covering), counter noise, 6 keyed requests, K 64,
+    R 4; per-shard dispatch with packed rounds and fused dispatch with fused
+    rounds.  Gates: shards 1 equals ``ContinuousASDEngine`` in bits; shards
+    2 equals shards 1 (4 slots, the covering 32) per request in bits and
+    counters, which needs a point's row of the model call to be the same
+    bits at 36 points as at 18 (probed first); fused equals per-shard in
+    bits and counters, also at every slot field after 2 boundaries from the
+    same requests in the fused round (a planted fused body that skips the
+    last shard's write-back must fail that gate); a warm boundary replays 1
+    graph fused and 2 per shard, with host syncs made errors.  Numbers: warm round ms and samples/s, the idle share over 8 profiled
+    boundaries, capture ms, peak memory, and for fused dispatch one profiled
+    boundary's busy ms against the per-shard bodies' sum."""
+    from repro_torch.core import prng
+    from repro_torch.serving.engine import ContinuousASDEngine, Request
+    from repro_torch.serving.router import make_router
+    from repro_torch.serving.sharded import ShardedASDEngine
+
+    t_phase = time.perf_counter()
+    counters = _counters()
+    event = (dc.seq_len, dc.d_data)
+    reqs = [Request(i, key=prng.PRNGKey(6000 + i)) for i in range(REQUESTS)]
+    wave = SHARDS * SHARD_SLOTS
+    warm = [Request(100 + i, key=prng.PRNGKey(6100 + i)) for i in range(wave)]
+    common = dict(theta=THETA, execution="packed", rounds_per_sync=RPS, seed=SEED,
+                  noise_mode="counter", keep_trajectory=False, device=dev)
+
+    def sharded(shards, impl, dispatch="per-shard", cls=ShardedASDEngine):
+        return cls(model_fn, sched, event, num_slots=wave, shards=shards,
+                   round_budget=SHARD_BUDGET * SHARDS // shards, round_impl=impl,
+                   dispatch=dispatch, router=make_router("round-robin"), **common)
+
+    def served(eng, requests=reqs):
+        out = eng.serve(requests)
+        torch.cuda.synchronize()
+        return out, {m.rid: (m.rounds, m.head_calls, m.model_evals, m.accepts, m.proposals)
+                     for m in eng.stats.per_request}
+
+    def same(a, b):
+        return sorted(a) == sorted(b) and all(
+            np.array_equal(a[r].view(np.int32), b[r].view(np.int32)) for r in a)
+
+    # a point's row of the model call at 36 points and at 18: the shards-2
+    # gate below holds only where these are the same bits
+    invariance = _batch_invariance(torch, dev, model_fn, dc)
+    emit("sharded_serve_batch_invariance", points=(36, 18), same_bits=invariance)
+    # shards 1 against the continuous engine (4 slots, the covering 32)
+    ref, ref_req = served(ContinuousASDEngine(model_fn, sched, event, num_slots=wave,
+                                              round_budget=wave * THETA, round_impl="packed",
+                                              **common))
+    s1, s1_req = served(sharded(1, "packed"))
+    if not same(s1, ref) or s1_req != ref_req:
+        fail("sharded_serve: shards 1 differs from ContinuousASDEngine")
+    by_run, runs = {}, {}
+    for name, dispatch, impl in SHARDED_RUNS:
+        base = _fresh_memory(torch)
+        eng = sharded(SHARDS, impl, dispatch)
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        out, per_req = served(eng)
+        cold_wall = time.perf_counter() - t0
+        launches = _launches(counters)
+        mem = _memory(torch, base)
+        if not same(out, s1) or per_req != s1_req:
+            err = max(float(np.abs(out[r] - s1[r]).max()) for r in s1)
+            fail(f"sharded_serve {name}: against shards 1 at its covering budget: max abs "
+                 f"sample difference {err}, counters equal for "
+                 f"{sum(per_req[r] == s1_req[r] for r in s1_req)} of {len(s1_req)} requests")
+        # warm and unprofiled: one more wave of requests
+        done = max(w.stats.supersteps for w in eng.workers)
+        t0 = time.perf_counter()
+        eng.serve(warm)
+        torch.cuda.synchronize()
+        warm_wall = time.perf_counter() - t0
+        warm_boundaries = max(w.stats.supersteps for w in eng.workers) - done
+        capture = _capture_ms(eng)
+        # a warm boundary mid-flight: the graphs it replays, host syncs made
+        # errors (no admission: one boundary after the admitting one no
+        # chain can have finished, 4 rounds of at most theta + 1 steps < K);
+        # then 8 boundaries profiled (two waves hold the slots; the second
+        # is never drained, the engine goes)
+        for r in [Request(200 + i, key=prng.PRNGKey(6200 + i)) for i in range(2 * wave)]:
+            eng.submit(r)
+        eng.step()
+        torch.cuda.synchronize()
+        with _replays(torch) as rep:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = (eng._dispatch_fused() if dispatch == "fused"
+                           else [w._dispatch_superstep() for w in eng.workers])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        want = 1 if dispatch == "fused" else SHARDS
+        if rep.n != want:
+            fail(f"sharded_serve {name}: a warm boundary replayed {rep.n} graphs, "
+                 f"expected {want}")
+        if dispatch == "fused":
+            eng._harvest_fused(pending)
+        else:
+            for w, p in zip(eng.workers, pending):
+                w._harvest(p)
+        prof = _profile_kernels(torch, lambda: [eng.step() for _ in range(SHARD_PROFILE)])
+        if not prof["busy_ms"] or not eng.has_work():
+            fail(f"sharded_serve {name}: the profiled boundaries ran dry or traced "
+                 f"nothing: {prof}")
+        extra = {}
+        if dispatch == "fused":
+            # one warm boundary's program alone, against the shards' bodies
+            # run one after another
+            budget = eng.workers[0].round_budget
+            one = _profile_kernels(torch, eng._get_fused(RPS, budget))
+            bodies = [_profile_kernels(torch, lambda w=w: eng._shard_body(w, RPS, budget))
+                      for w in eng.workers]
+            extra = dict(fused_boundary=one,
+                         per_shard_bodies_busy_ms=[b["busy_ms"] for b in bodies],
+                         per_shard_bodies_sum_ms=sum(b["busy_ms"] for b in bodies),
+                         branches_overlap=one["busy_ms"] < one["kernels_ms"])
+        torch.cuda.synchronize()
+        runs[name] = dict(out=out, per_req=per_req)
+        by_run[f"sharded_serve_{name}"] = launches
+        emit("sharded_serve", run=name, model=dc.backbone.name, shards=SHARDS,
+             slots_per_shard=SHARD_SLOTS, round_budget_per_shard=SHARD_BUDGET,
+             round_impl=impl, dispatch=dispatch, requests=REQUESTS, K=K, theta=THETA,
+             rounds_per_sync=RPS, noise_mode="counter", launches=launches,
+             cold_wall_s=cold_wall, warm_wall_s=warm_wall, warm_requests=len(warm),
+             warm_samples_per_s=len(warm) / warm_wall, warm_boundaries=warm_boundaries,
+             warm_round_ms=warm_wall / (warm_boundaries * RPS) * 1e3,
+             capture_ms=capture, graph_replays_a_boundary=rep.n, **mem,
+             profile_8_boundaries=prof, **extra)
+        del eng, pending, extra
+    a, b = (runs[name] for name, _, _ in SHARDED_RUNS)
+    if not same(a["out"], b["out"]) or a["per_req"] != b["per_req"]:
+        fail("sharded_serve: fused dispatch differs from per-shard dispatch")
+
+    # the step-drive bits gate: every slot field of every shard after the
+    # same boundaries, fused against per-shard dispatch in the fused round;
+    # the planted fault must fail it
+    def stepped(eng):
+        for r in reqs[:wave]:
+            eng.submit(r)
+        for _ in range(SHARD_GATE_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        return _shard_slots(eng)
+
+    def slots_equal(x, y):
+        return all(_same_slots(torch, p, q) for p, q in zip(x, y))
+
+    want = stepped(sharded(SHARDS, "fused", "per-shard"))
+    held = slots_equal(stepped(sharded(SHARDS, "fused", "fused")), want)
+    caught = not slots_equal(stepped(sharded(SHARDS, "fused", "fused", _faulty_fused_engine())),
+                             want)
+    if not held or not caught:
+        fail(f"sharded_serve step gate: fused equal to per-shard {held}, planted fault "
+             f"caught {caught}")
+    missing = [k for k in ("grs", "flash_attention", "gather_rows", "scatter_rows",
+                           "fused_gather", "fused_verify_commit")
+               if not any(r.get(k) for r in by_run.values())]
+    if missing:
+        fail(f"sharded_serve: {missing} launched in no sharded run")
+    emit("sharded_serve_gates", shards_1_equals_continuous=True,
+         shards_2_equals_shards_1=True, fused_equals_per_shard=True,
+         step_gate_held=held, planted_fault_caught=caught,
+         planted_fault="the fused body skips the last shard's write-back",
+         phase_wall_s=time.perf_counter() - t_phase)
+    return by_run
+
+
+SHARDED_CLI = ("--slots", "8", "--chains", "16",
+               "--profile-supersteps", str(SERVE_CLI_PROFILE))
+SHARDED_CLI_FUSED = ("--execution", "packed", "--round-impl", "fused",
+                     "--rounds-per-sync", "2")
+# (name, argv, reference run)
+SHARDED_CLI_RUNS = (
+    ("unsharded", [], None),
+    ("unsharded_packed_fused_r2", list(SHARDED_CLI_FUSED), None),
+    ("shards_2_round_robin", ["--shards", "2", "--router", "round-robin"], "unsharded"),
+    ("shards_2_dispatch_fused", ["--shards", "2", "--dispatch", "fused",
+                                 *SHARDED_CLI_FUSED], "unsharded_packed_fused_r2"),
+    ("shards_4", ["--shards", "4"], "unsharded"),
+)
+
+
+def run_sharded_serve_cli(torch, dev):
+    """``repro_torch.launch.serve.main`` at its defaults (full-width
+    paper-diffusion-policy, K 100) with 8 slots and 16 keyed requests,
+    unsharded and sharded (2 shards round-robin, 2 shards fused dispatch
+    with packed fused rounds at R 2, 4 shards), each with 8 profiled warm
+    supersteps: per-request samples equal to the unsharded run's with the
+    same round flags in bits, and retired, per-request depth, live window
+    and accept rate equal; launches of every kernel per round."""
+    from repro_torch.configs.registry import get_denoiser_config
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    n_layers = get_denoiser_config("paper-diffusion-policy").backbone.n_layers
+    counters = _counters()
+    by_run, summaries = {}, {}
+    for name, argv, reference in SHARDED_CLI_RUNS:
+        argv = [*SHARDED_CLI, *argv,
+                "--profile-dir", str(ROOT / "build" / f"sharded_cli_{name}_profile")]
+        base = _fresh_memory(torch)
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        summary = serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mem = _memory(torch, base)
+        launches = _launches(counters)
+        impl = None if "--execution" not in argv else "fused"
+        R = int(argv[argv.index("--rounds-per-sync") + 1]) if "--rounds-per-sync" in argv else 1
+        rounds = summary["rounds_total"]
+        want = {k: 0 for k in launches}
+        want.update({k: n * rounds for k, n in _cli_per_round(n_layers, impl).items()})
+        if launches != want:
+            fail(f"sharded_serve_cli {name}: launches {launches}, expected {want} for "
+                 f"{rounds} rounds")
+        if not summary["finite"] or len(summary["samples"]) != 16:
+            fail(f"sharded_serve_cli {name}: samples missing or not finite")
+        prof = summary["profile"]
+        if prof["device_idle_share"] is None or prof["programs_built"]:
+            fail(f"sharded_serve_cli {name}: profile {prof}")
+        agree = None
+        if reference is not None:
+            ref = summaries[reference]
+            keys = ("retired", "mean_parallel_depth", "mean_window", "accept_rate")
+            bits = all(np.array_equal(summary["samples"][r].view(np.int32),
+                                      ref["samples"][r].view(np.int32)) for r in range(16))
+            agree = {k: summary[k] == ref[k] for k in keys}
+            if not bits or not all(agree.values()):
+                fail(f"sharded_serve_cli {name}: against {reference}: sample bits {bits}, "
+                     f"{agree}")
+        emit("sharded_serve_cli", variant=name, argv=argv, model="paper-diffusion-policy",
+             reference=reference, samples_equal_bits=reference is not None or None,
+             agree=agree, retired=summary["retired"], rounds_summed_over_shards=rounds,
+             mean_parallel_depth=summary["mean_parallel_depth"],
+             accept_rate=summary["accept_rate"], samples_per_s=16 / summary["wall_time_s"],
+             warm_round_ms=summary["wall_time_s"] * 1e3 / (summary["serve_boundaries"] * R),
+             profiled_round_ms=prof["wall_ms"] / (prof["supersteps"] * R),
+             device_idle_share=prof["device_idle_share"], profile=prof, wall_s=wall,
+             launches=launches, **mem)
+        by_run[f"sharded_serve_cli_{name}"] = launches
+        summaries[name] = summary
+    emit("sharded_serve_cli_done", phase_wall_s=time.perf_counter() - t_phase)
+    return by_run
+
+
 def main() -> None:
     import torch
 
@@ -4084,6 +4498,7 @@ def main() -> None:
     by_run.update(run_sampler_graphs(torch, dev, flash_fn, sched, dc, graph_runs))
     del graph_runs, branched_graph_runs
     by_run.update(run_serve_graphs(torch, dev, flash_fn, sched, dc))
+    by_run.update(run_sharded_serve(torch, dev, flash_fn, sched, dc))
     check_serve_reference(torch, dev)
     check_branched_reference(torch, dev)
     window_device_ms = check_prng(torch, dev)
@@ -4094,6 +4509,7 @@ def main() -> None:
     by_run.update(cli_launches)
     by_run.update(run_serve_cli(torch, dev, SERVE_CLI_BRANCHED_RUNS, "serve_cli_branched",
                                 reference=cli_summaries["profile"])[0])
+    by_run.update(run_sharded_serve_cli(torch, dev))
     check_serve_keys_reference(torch, dev)
     by_run.update(run_hymba(torch, dev))
     hymba_f32_launches, designs_by_run = check_hymba_f32(torch, dev)

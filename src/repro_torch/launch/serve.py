@@ -1,9 +1,11 @@
-"""The ASD server on one device: batched diffusion sampling from the command
-line, the port's counterpart of the JAX package's ``repro.launch.serve``.
+"""The ASD server: batched diffusion sampling from the command line, the
+port's counterpart of the JAX package's ``repro.launch.serve``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --model paper-diffusion-policy-smoke --K 20
+    PYTHONPATH=src python -m repro_torch.launch.serve --shards 2 \\
+        --router round-robin --dispatch fused --execution packed --round-impl fused
 
 Two serving modes, both with counter noise and the live window only
 (``noise_mode="counter"``, ``keep_trajectory=False``), as the JAX CLI runs
@@ -15,6 +17,11 @@ them:
   --engine continuous  ``ContinuousASDEngine`` over --slots slots; request i
                        carries ``PRNGKey(1000 + i)``, finished chains retire
                        at superstep boundaries and their slots are refilled.
+                       With ``--shards`` N > 1, ``ShardedASDEngine``: N
+                       workers of --slots / N slots behind ``--router``,
+                       dispatched per shard or, with ``--dispatch fused``,
+                       as one program a boundary; ``--round-budget`` is then
+                       per shard (default slots / N * theta * B).
 
 The flags, their names and defaults are the JAX CLI's, with two
 differences: ``--mesh`` takes only ``1x1`` (its default here), and
@@ -26,11 +33,10 @@ prefix committed; ``--branch-controller`` static or gain), and the summary
 line then gives the mean accepted prefix a round and the wasted share of
 the drafted points; as in the JAX CLI, the fused engine runs one branch.
 What the port has no counterpart for yet is refused with exit status 2 and
-the ROADMAP.md item that brings it, never ignored: sharded serving
-(``--shards`` > 1, ``--router``, ``--dispatch fused``: A7), model
-parallelism and MoE models (``--model-shards``, ``--seq-shards``,
-``--expert-parallel``: A9), and ``--grs-impl`` / ``--pack-impl``, since the
-device picks the plain version (CPU) or the CUDA kernel (card).
+the ROADMAP.md item that brings it, never ignored: model parallelism and
+MoE models (``--model-shards``, ``--seq-shards``, ``--expert-parallel``, a
+``--mesh`` other than ``1x1``: A9), and ``--grs-impl`` / ``--pack-impl``,
+since the device picks the plain version (CPU) or the CUDA kernel (card).
 
 Observability: ``--metrics-port`` serves /metrics, /metrics.json and
 /healthz on 127.0.0.1 and scrapes itself once after the run;
@@ -73,31 +79,28 @@ from repro_torch.serving.engine import ContinuousASDEngine, Request
 from repro_torch.serving.obs import (MetricsRegistry, MetricsServer, TraceRecorder,
                                      instrument_engine)
 from repro_torch.serving.packing import ALLOCATORS, make_allocator
+from repro_torch.serving.router import ROUTERS, make_router
 from repro_torch.serving.scheduler import POLICIES, make_policy
+from repro_torch.serving.sharded import ShardedASDEngine
 from repro_torch.weights import denoiser_init_params
 
-# the JAX CLI's choices for the flags the port refuses
-_ROUTERS = ("deadline", "least-loaded", "round-robin")
+log = logging.getLogger("repro_torch.serving.serve")
+
 # the JAX registry's MoE denoisers
 _MOE_MODELS = ("qwen3-moe-a3b-smoke",)
 
 
 def _refusal(args):
     """The message for a flag the port cannot honour yet, or None."""
-    if args.shards > 1:
-        return f"--shards {args.shards}: sharded serving is ROADMAP.md A7"
-    if args.router is not None:
-        return f"--router {args.router}: the request router is ROADMAP.md A7"
-    if args.dispatch == "fused":
-        return "--dispatch fused: the fused sharded front end is ROADMAP.md A7"
     if args.model_shards != 1 or args.seq_shards != 1 or args.expert_parallel:
         return ("--model-shards / --seq-shards / --expert-parallel: model parallelism "
                 "is ROADMAP.md A9")
     if args.model in _MOE_MODELS:
         return f"--model {args.model}: MoE denoisers are ROADMAP.md A9"
     if args.mesh != "1x1":
-        return (f"--mesh {args.mesh}: one device only (1x1); meshes and sharding are "
-                "ROADMAP.md A7 and A9")
+        return (f"--mesh {args.mesh}: only 1x1 (shards live on the card, or one a card "
+                "with several); a mesh of more devices is data or model parallelism, "
+                "ROADMAP.md A9")
     for flag, value in (("--grs-impl", args.grs_impl), ("--pack-impl", args.pack_impl)):
         if value is not None:
             return (f"{flag} {value}: no counterpart in the port, whose device picks "
@@ -105,12 +108,17 @@ def _refusal(args):
     return None
 
 
+def _model_fn(dc, dev):
+    """The model function with the weights drawn on ``dev`` at seed 0 (the
+    same weights on every card: one seed, one counter-based generator)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return make_ddpm_model_fn(denoiser_init_params(dc, gen, device=dev), dc)
+
+
 def _build(args):
     dev = resolve_device(args.device)
     dc = get_denoiser_config(args.model)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = denoiser_init_params(dc, gen, device=dev)
-    return dev, dc, make_ddpm_model_fn(params, dc)
+    return dev, dc, _model_fn(dc, dev)
 
 
 def _sync(dev):
@@ -194,17 +202,21 @@ def run_continuous(args) -> dict:
     dev, dc, model_fn = _build(args)
     sched = ddpm_schedule(args.K)
     slots = args.slots or max(args.chains // 2, 1)
+    if args.shards > 1 and slots % args.shards:
+        raise SystemExit(f"--slots {slots} must divide evenly over --shards {args.shards}")
+    # with shards the budget is per shard: each shard's round is one
+    # budget-shaped call over its own slots
+    slots_local = slots // max(args.shards, 1)
     budget = allocator = None
     if args.execution == "packed":
         budget = ("auto" if args.round_budget == "auto"
-                  else int(args.round_budget) or slots * args.theta * args.num_branches)
+                  else int(args.round_budget) or slots_local * args.theta * args.num_branches)
         # a slot's largest demand is theta * branches: the waterfill level
         # scan must reach it
         allocator = make_allocator(args.allocator, theta_max=args.theta * args.num_branches)
     tracer = TraceRecorder(capacity=args.trace_capacity) if args.trace_out else None
-    eng = ContinuousASDEngine(
-        model_fn, sched, (dc.seq_len, dc.d_data), num_slots=slots, theta=args.theta,
-        eager_head=True, noise_mode="counter", keep_trajectory=False,
+    common = dict(
+        theta=args.theta, eager_head=True, noise_mode="counter", keep_trajectory=False,
         controller=make_controller(args.theta_controller), policy=make_policy(args.policy),
         num_branches=args.num_branches,
         branch_controller=make_branch_controller(args.branch_controller),
@@ -213,6 +225,15 @@ def run_continuous(args) -> dict:
         rounds_per_sync=(args.rounds_per_sync if args.rounds_per_sync == "auto"
                          else int(args.rounds_per_sync)),
         overcommit=args.overcommit, device=dev, tracer=tracer)
+    if args.shards > 1:
+        # shards on other cards draw the same weights there
+        eng = ShardedASDEngine(
+            model_fn, sched, (dc.seq_len, dc.d_data), num_slots=slots, shards=args.shards,
+            router=make_router(args.router), dispatch=args.dispatch,
+            model_fn_for=lambda d: model_fn if d == dev else _model_fn(dc, d), **common)
+    else:
+        eng = ContinuousASDEngine(model_fn, sched, (dc.seq_len, dc.d_data), num_slots=slots,
+                                  **common)
     server = None
     if args.metrics_port >= 0:
         registry = instrument_engine(MetricsRegistry(), eng)
@@ -223,15 +244,23 @@ def run_continuous(args) -> dict:
         profiled = (_profile_supersteps(eng, args, slots, dev)
                     if args.profile_supersteps > 0 else None)
         reqs = [Request(i, key=prng.PRNGKey(1000 + i)) for i in range(args.chains)]
+        workers = getattr(eng, "workers", [eng])
+        before = [w.stats.supersteps for w in workers]
         t0 = time.perf_counter()
         out = eng.serve(reqs)
         dt = time.perf_counter() - t0
+        # the serve's superstep boundaries (a shard's supersteps: they run
+        # side by side)
+        boundaries = max(w.stats.supersteps - b for w, b in zip(workers, before))
         s = eng.stats
-        exec_desc = (f"packed B={budget}/{slots * args.theta} alloc={args.allocator}"
+        exec_desc = (f"packed B={budget}/{slots_local * args.theta} alloc={args.allocator}"
                      if args.execution == "packed" else "unpacked")
+        shard_desc = (f", shards={args.shards} router={args.router}"
+                      + (" dispatch=fused" if args.dispatch == "fused" else "")
+                      if args.shards > 1 else "")
         grs = "cuda" if dev.type == "cuda" else "plain"
         print(f"[continuous] served {s.retired} requests on {slots} slots "
-              f"({exec_desc}, K={args.K}, policy={args.policy}, "
+              f"({exec_desc}{shard_desc}, K={args.K}, policy={args.policy}, "
               f"controller={args.theta_controller}, grs={grs}, "
               f"R={args.rounds_per_sync}) in {dt:.1f}s "
               f"({'includes capture' if dev.type == 'cuda' else 'eager'}): "
@@ -244,10 +273,17 @@ def run_continuous(args) -> dict:
               + f"mean queue latency {s.mean_queue_latency() * 1e3:.0f}ms, "
               f"SLO attainment {s.slo_attainment():.2f}, "
               f"{s.throughput():.2f} samples/s")
+        if args.shards > 1:
+            for w, n in zip(eng.workers, eng.routed_counts):
+                log.info("shard %d: %d routed, %d retired, %d rounds, budget %s, device %s",
+                         w.shard_id, n, w.stats.retired, w.stats.rounds_total,
+                         w.round_budget, w.device)
         sample = next(iter(out.values()))
         finite = all(bool(np.isfinite(v).all()) for v in out.values())
         print(f"output {sample.shape} per request, finite={finite}")
-        summary = dict(s.summary(), finite=finite, slots=slots)
+        # the samples by request id too, for a script that drives main()
+        summary = dict(s.summary(), finite=finite, slots=slots, samples=out,
+                       serve_boundaries=boundaries)
         if profiled is not None:
             summary["profile"] = profiled
         if server is not None:
@@ -278,7 +314,7 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--model", default="paper-diffusion-policy")
     ap.add_argument("--mesh", default="1x1",
-                    help="device mesh; one device only here (1x1)")
+                    help="device mesh; only 1x1 here (larger meshes: ROADMAP.md A9)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -319,17 +355,20 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--rounds-per-sync", default="1",
                     help="speculation rounds per superstep: an integer, or 'auto'")
     ap.add_argument("--shards", type=int, default=1,
-                    help="shard-local workers (only 1 here: ROADMAP.md A7)")
+                    help="shard-local workers, --slots / N slots each, behind --router "
+                         "(they share the card, or take one a card with several)")
     ap.add_argument("--model-shards", type=int, default=1,
                     help="tensor parallelism (only 1 here: ROADMAP.md A9)")
     ap.add_argument("--expert-parallel", action="store_true",
                     help="refused: expert parallelism is ROADMAP.md A9")
     ap.add_argument("--seq-shards", type=int, default=1,
                     help="sequence parallelism (only 1 here: ROADMAP.md A9)")
-    ap.add_argument("--router", default=None, choices=_ROUTERS,
-                    help="refused: the sharded request router is ROADMAP.md A7")
+    ap.add_argument("--router", default="least-loaded", choices=sorted(ROUTERS),
+                    help="sharded serving request router")
     ap.add_argument("--dispatch", default="per-shard", choices=("per-shard", "fused"),
-                    help="sharded execution (per-shard only here: ROADMAP.md A7)")
+                    help="sharded execution: per-shard (each worker replays its own "
+                         "programs; per-shard budget tiers) or fused (one program a "
+                         "boundary over every shard's stacked slots)")
     ap.add_argument("--overcommit", type=float, default=1.0,
                     help="BudgetAware admission multiplexing factor (>= 1)")
     ap.add_argument("--metrics-port", type=int, default=-1,

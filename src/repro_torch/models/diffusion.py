@@ -36,6 +36,26 @@ class DenoiserConfig:
     time_dim: int = 256
 
 
+# the row block of the per-point products (one row a point)
+_POINT_ROWS = 16
+
+
+def _point_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (points, k), in blocks of ``_POINT_ROWS`` rows (the
+    last padded with zeros): every block is one product of one shape, so a
+    point's row is the same bits whatever batch it rides in.  cuBLAS picks
+    its kernel, and with it the order of the k-sum, by the number of rows,
+    and at 36 points the time MLP's rows differ from those at 18.  The
+    token products (points x tokens rows) showed no such dependence."""
+    lead = tuple(x.shape[:-1])
+    x = x.reshape(-1, x.shape[-1])
+    pad = -x.shape[0] % _POINT_ROWS
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+    out = torch.cat([blk @ w for blk in x.split(_POINT_ROWS)])
+    return out[:out.shape[0] - pad].reshape(lead + (w.shape[-1],))
+
+
 def compute_dtype(dc: DenoiserConfig) -> torch.dtype:
     return getattr(torch, dc.backbone.compute_dtype)
 
@@ -57,15 +77,15 @@ def denoiser_fwd(params, t, y, dc: DenoiserConfig, cond=None, attn_impl=None):
     if dc.time_log:
         tf = torch.log1p(torch.clamp(tf, min=0.0))
     temb = sinusoidal_embed(tf * 100.0, dc.time_dim)
-    temb = torch.tanh(temb @ params["t_mlp1"].float())
-    temb = temb @ params["t_mlp2"].float()  # (B, d_model)
+    temb = torch.tanh(_point_product(temb, params["t_mlp1"].float()))
+    temb = _point_product(temb, params["t_mlp2"].float())  # (B, d_model)
 
     x = y.to(cdt) @ params["in_proj"].to(cdt)
     pos = torch.arange(dc.seq_len, device=y.device)
     x = x + sinusoidal_embed(pos, cfg.d_model).to(cdt)
     x = x + temb[:, None, :].to(cdt)
     if cond is not None:
-        x = x + (cond.to(cdt) @ params["cond_proj"].to(cdt))[..., None, :]
+        x = x + _point_product(cond.to(cdt), params["cond_proj"].to(cdt))[..., None, :]
     ctx = dict(causal=False, impl=attn_impl or "flash")
     x = decoder_fwd(params["decoder"], x, cfg, ctx)
     x = rmsnorm_apply(params["final_norm"], x)

@@ -22,7 +22,8 @@ fixed-size batches, and each batch runs the batched sampler to its slowest
 chain (padded lanes burn compute), the waste the continuous engine removes.
 It keeps its sampler program across batches, so only the first captures.
 
-The sharded front end is not ported yet.
+The sharded front end, N such workers behind a request router, is
+``ShardedASDEngine`` (``serving/sharded.py``).
 """
 
 from __future__ import annotations

@@ -10,16 +10,18 @@ chain's counters while its slot waits to be retired.
 ``EngineStats`` aggregates across requests and keeps the engine-level counters
 (rounds driven, supersteps, the chunked engine's batches, host wall time)
 and the branched-speculation lanes (``draft_points``,
-``branch_accept_depth``, ``wasted_draft_frac``).  The JAX fields of the
-sharded front end (``merged``, ``fused_dispatch_s``) and of model
-parallelism (``collective_*``) come with the slices that port those.
+``branch_accept_depth``, ``wasted_draft_frac``).  ``merged`` is the sharded
+front end's cross-shard view, and ``fused_dispatch_s`` its fused dispatch
+lane.  The JAX fields of model parallelism (``collective_*``) come with the
+slice that ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+from collections import Counter
+from typing import List, Optional, Sequence
 
 
 @dataclasses.dataclass
@@ -86,7 +88,12 @@ class EngineStats:
     #   device_s     host time blocked on the sync packet's ready event
     #   host_sync_s  host time reading the sync packet + retire/metrics
     #                bookkeeping — the per-boundary tax supersteps amortize
+    #   fused_dispatch_s  the sharded engine's fused dispatch wall a
+    #                boundary (one program covers every shard): a front-end
+    #                lane, on the merged view only, never split across the
+    #                workers' dispatch_s
     dispatch_s: float = 0.0
+    fused_dispatch_s: float = 0.0
     device_s: float = 0.0
     host_sync_s: float = 0.0
     head_calls_total: int = 0
@@ -108,6 +115,47 @@ class EngineStats:
     admission_pressure: float = 0.0  # live demand / round budget (live)
     draining: bool = False  # graceful drain: no new admissions accepted
     per_request: List[RequestMetrics] = dataclasses.field(default_factory=list)
+
+    # every additive counter and timer ``merged`` sums across shards;
+    # wall_time is not one (concurrent shards share one wall clock)
+    _MERGE_SUM = (
+        "requests", "retired", "batches", "rounds_total", "supersteps",
+        "dispatch_s", "fused_dispatch_s", "device_s", "host_sync_s",
+        "head_calls_total", "model_evals_total", "accepts_total", "proposals_total",
+        "draft_points_total", "queue_latency_total", "dropped", "slo_tracked",
+        "slo_met_count", "queue_depth",
+    )
+
+    @classmethod
+    def merged(cls, shards: Sequence["EngineStats"],
+               wall_time: Optional[float] = None) -> "EngineStats":
+        """The cross-shard view: counters and timers sum, per-request
+        metrics concatenate, ``wall_time`` is the caller's one front-end
+        wall (default the max over shards, which run concurrently).  Queue
+        depth sums, its peak and the admission pressure take the worst
+        shard, occupancy averages, draining is any.  A request id served by
+        two shards raises ValueError: every per-request aggregate would
+        count it twice."""
+        m = cls()
+        for s in shards:
+            for f in cls._MERGE_SUM:
+                setattr(m, f, getattr(m, f) + getattr(s, f))
+            m.per_request.extend(s.per_request)
+        counts = Counter(rm.rid for rm in m.per_request)
+        dupes = sorted(rid for rid, n in counts.items() if n > 1)
+        if dupes:
+            raise ValueError(
+                f"duplicate request ids across merged shards: {dupes[:10]}"
+                f"{' ...' if len(dupes) > 10 else ''} — router-assigned rids must be "
+                "globally unique")
+        m.wall_time = (wall_time if wall_time is not None
+                       else max((s.wall_time for s in shards), default=0.0))
+        if shards:
+            m.queue_depth_peak = max(s.queue_depth_peak for s in shards)
+            m.admission_pressure = max(s.admission_pressure for s in shards)
+            m.slot_occupancy = sum(s.slot_occupancy for s in shards) / len(shards)
+            m.draining = any(s.draining for s in shards)
+        return m
 
     def observe(self, rm: RequestMetrics) -> None:
         self.retired += 1
@@ -203,15 +251,18 @@ class EngineStats:
         accounted total, so the fractions never sum past 1 under the
         dispatch/harvest overlap, and a ``step()``-driven loop with no serve
         wall still gets fractions."""
-        accounted = self.dispatch_s + self.device_s + self.host_sync_s
+        accounted = (self.dispatch_s + self.fused_dispatch_s + self.device_s
+                     + self.host_sync_s)
         denom = max(self.wall_time, accounted, 1e-12)
         return {
             "supersteps": self.supersteps,
             "rounds_per_superstep": self.rounds_total / max(self.supersteps, 1),
             "dispatch_s": self.dispatch_s,
+            "fused_dispatch_s": self.fused_dispatch_s,
             "device_s": self.device_s,
             "host_sync_s": self.host_sync_s,
             "dispatch_frac": self.dispatch_s / denom,
+            "fused_dispatch_frac": self.fused_dispatch_s / denom,
             "device_frac": self.device_s / denom,
             "host_sync_frac": self.host_sync_s / denom,
             # the branch lanes ride along (not time components)

@@ -228,13 +228,20 @@ class MetricsRegistry:
 def instrument_engine(registry: MetricsRegistry, engine) -> MetricsRegistry:
     """Register the serving metric catalog against a live engine.
 
-    Every metric is labeled by shard, and all values are read at SCRAPE
-    time from the engine's existing ``EngineStats``/scheduler state
-    (callback gauges), so instrumentation adds nothing to the serve loops.
-    The catalog is the JAX package's less the model-parallel collective
-    gauges, whose engine feature the port does not have yet.
+    Works on both front ends, ``ContinuousASDEngine`` (one worker) and
+    ``ShardedASDEngine`` (one labelled set a worker): every metric is
+    labeled by shard, and all values are read at SCRAPE time from the
+    engine's existing ``EngineStats``/scheduler state (callback gauges), so
+    instrumentation adds nothing to the serve loops.  The catalog is the JAX
+    package's less the model-parallel collective gauges, whose engine
+    feature the port does not have yet (ROADMAP.md A9).
     """
-    w = engine
+    for w in getattr(engine, "workers", None) or [engine]:
+        _instrument_worker(registry, w)
+    return registry
+
+
+def _instrument_worker(registry: MetricsRegistry, w) -> None:
     lab = dict(shard=str(w.shard_id))
     counters = [
         ("asd_requests_total", "requests admitted into the engine",
@@ -295,4 +302,3 @@ def instrument_engine(registry: MetricsRegistry, engine) -> MetricsRegistry:
             fn=(lambda w=w, q=q:
                 w.stats.latency_percentiles((q,))["completion"][f"p{q}"]),
             quantile=f"p{q}", **lab)
-    return registry

@@ -18,8 +18,10 @@ from repro_torch.serving.packing.allocator import (
     make_allocator,
 )
 from repro_torch.serving.packing.plan import (BranchedPackedRoundPlan, PackedRoundPlan,
-                                             build_branched_pack_maps, build_pack_maps)
-from repro_torch.serving.packing.round import packed_round, packed_superstep
+                                             build_branched_pack_maps, build_pack_maps,
+                                             build_sharded_pack_maps)
+from repro_torch.serving.packing.round import (packed_round, packed_superstep,
+                                              sharded_packed_superstep)
 
 __all__ = [
     "ALLOCATORS",
@@ -32,6 +34,8 @@ __all__ = [
     "PackedRoundPlan",
     "build_branched_pack_maps",
     "build_pack_maps",
+    "build_sharded_pack_maps",
     "packed_round",
     "packed_superstep",
+    "sharded_packed_superstep",
 ]

@@ -22,8 +22,8 @@ Three policies, as in the JAX package:
 Ties between slots are broken as the JAX package breaks them: float32 rank
 keys whose slot-index term can vanish, then a STABLE sort (``jnp.argsort``
 is stable; ``torch.argsort`` is only when asked), so the grants are equal
-as integers.  ``allocate_sharded`` is not ported yet (it waits for the
-sharded front end).
+as integers.  ``allocate_sharded`` splits a (shards, S_local) batch row by
+row, each shard under its own budget, as the JAX package's ``vmap`` does.
 """
 
 from __future__ import annotations
@@ -60,6 +60,16 @@ class BudgetAllocator:
         """demand (S,) int >= 0; budget an int or a 0-d int tensor;
         weights (S,) float32 > 0 -> grants (S,) int64."""
         raise NotImplementedError
+
+    def allocate_sharded(self, demand: torch.Tensor, budgets: torch.Tensor,
+                         weights: torch.Tensor) -> torch.Tensor:
+        """demand and weights (shards, S_local), budgets (shards,) -> grants
+        (shards, S_local): ``allocate`` on each row under its own budget, so
+        a shard's grants depend only on its own row.  A loop over the rows
+        (every op of ``allocate`` stays as it is: the stable argsort, the
+        float32 rank keys); it reads nothing on the host."""
+        return torch.stack([self.allocate(d, b, w)
+                            for d, b, w in zip(demand, budgets, weights)])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,7 +13,9 @@ the gather re-reads a harmless row for them and the scatter routes them to
 the drop row.  Built on the device from the grants (a searchsorted over
 their prefix sums), with no read on the host.  A branched round lays each
 slot's ``b_r`` windows of ``pts1`` points out branch-major
-(``build_branched_pack_maps``).
+(``build_branched_pack_maps``).  ``build_sharded_pack_maps`` builds one
+shard's maps a row of a (shards, S_local) grant batch, so every ``slot_id``
+is shard-local.
 """
 
 from __future__ import annotations
@@ -105,3 +107,14 @@ def build_branched_pack_maps(pts1: torch.Tensor, b_r: torch.Tensor,
         slot_id=torch.where(valid, slot_id, 0),
         branch_id=torch.where(valid, torch.div(q, width, rounding_mode="floor"), 0),
         step_id=torch.where(valid, torch.remainder(q, width), 0), valid=valid)
+
+
+def build_sharded_pack_maps(grants: torch.Tensor, budget: int) -> PackedRoundPlan:
+    """grants (shards, S_local) -> a ``PackedRoundPlan`` whose every field
+    carries a leading shard axis.  Each shard's maps are built from its own
+    grant row alone, so ``slot_id`` lies in [0, S_local): a gather driven by
+    them reads only its own shard's window table (the JAX package's ``vmap``
+    of ``build_pack_maps``)."""
+    plans = [build_pack_maps(g, budget) for g in grants]
+    return PackedRoundPlan(**{f.name: torch.stack([getattr(p, f.name) for p in plans])
+                              for f in dataclasses.fields(PackedRoundPlan)})

@@ -46,11 +46,16 @@ longest accepted prefix.  B = 1 is the round above.
 The JAX package's ``pack_impl`` and ``grs_impl`` are not ported: the
 tensors' device picks the plain versions (CPU) or the kernels (CUDA).
 Nothing here reads a device value on the host, so a superstep of R rounds
-is one queue of launches.  ``sharded_packed_superstep`` is not ported yet.
+is one queue of launches.  ``sharded_packed_superstep`` runs every shard's
+``packed_superstep`` on its own block of a stacked (shards, S_local, ...)
+slot batch: the JAX package's ``shard_map`` over a ``slots`` mesh, here a
+loop over the shard axis on one device, which the sharded engine's fused
+program captures (``serving/sharded.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -311,3 +316,39 @@ def packed_superstep(model_fn: ModelFn, schedule: Schedule, states,
             round_impl=round_impl, budget_data=budget_data, noise_mode=noise_mode,
             num_branches=num_branches, branch_controller=branch_controller)
     return states
+
+
+def sharded_packed_superstep(model_fn: ModelFn, schedule: Schedule, states,
+                             conds: Optional[torch.Tensor], weights: torch.Tensor, *,
+                             rounds: int, theta: int, budget: int, allocator,
+                             eager_head: bool = True, keep_trajectory: bool = False,
+                             controller: ThetaController = _STATIC,
+                             round_impl: str = "packed", budget_data=None,
+                             noise_mode: str = "buffer", num_branches: int = 1,
+                             branch_controller: BranchController = _STATIC_B):
+    """Every shard's packed superstep over a stacked slot batch: ``states``
+    has a leading shard axis on every field, ``conds`` is (shards, S_local,
+    d_cond) or None, ``weights`` (shards, S_local).  Shard i runs
+    ``packed_superstep`` on its own (S_local, ...) block alone, so the
+    allocator splits that shard's budget over its own demands and the pack
+    maps address only its own rows; the result is stacked back.
+
+    ``budget`` is the common static cap.  ``budget_data`` (shards,) gives
+    each shard its own tier as data (the fused round's budget-as-data), or
+    None.  Equal, shard by shard, to ``packed_superstep`` on that shard."""
+    out = []
+    for i in range(states.a.shape[0]):
+        st = dataclasses.replace(states, **{
+            f.name: getattr(states, f.name)[i] for f in dataclasses.fields(states)
+            if getattr(states, f.name) is not None})
+        out.append(packed_superstep(
+            model_fn, schedule, st, None if conds is None else conds[i], weights[i],
+            rounds=rounds, theta=theta, budget=budget, allocator=allocator,
+            eager_head=eager_head, keep_trajectory=keep_trajectory, controller=controller,
+            round_impl=round_impl,
+            budget_data=None if budget_data is None else budget_data[i],
+            noise_mode=noise_mode, num_branches=num_branches,
+            branch_controller=branch_controller))
+    return dataclasses.replace(out[0], **{
+        f.name: torch.stack([getattr(o, f.name) for o in out])
+        for f in dataclasses.fields(out[0]) if getattr(out[0], f.name) is not None})

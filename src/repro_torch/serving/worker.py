@@ -30,8 +30,11 @@ device tensor filled before each call, so one program a R serves every
 tier, as the JAX worker's budget-as-data does.  The JAX package's
 ``donate``, ``pipelined``, ``pack_impl`` and ``grs_impl`` have no
 counterpart: the device picks the plain versions (CPU) or the kernels
-(CUDA).  Not ported yet: ``model_mesh``, ``param_specs``,
-``state_sharding`` and ``collective_payloads``.
+(CUDA).  The sharded front end (``serving/sharded.py``) runs N workers
+behind a router; its fused dispatch binds their slot tensors to views of
+one stacked batch.  Model parallelism is not ported yet (ROADMAP.md A9):
+``model_mesh``, ``param_specs``, ``state_sharding`` and
+``collective_payloads``.
 
 Every chain draws from its key as the JAX worker's does: a request's own
 ``key``, or else ``fold_in(serve key, rid)`` (the serve key is
@@ -116,6 +119,71 @@ def _pow2_ladder(lo: int, hi: int) -> tuple:
 def _as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
     return t.to(device, dtype)
+
+
+def admission_program(w: "ShardWorker", width: int, states: ASDChainState,
+                      conds: Optional[torch.Tensor], pool) -> SuperstepProgram:
+    """The admission program of ``width`` chains with worker ``w``'s
+    statics: ``init_chain_state`` over the staged y0 rows and keys, every
+    field written into ``states`` at the staged row indices, and the staged
+    condition rows into ``conds``.  Its staging tensors are ``prog.stage``.
+    The worker passes its own slot tensors; the sharded engine's fused
+    dispatch passes the stacked batch flattened to (shards * S_local) rows."""
+    dev = w.device
+    stage = dict(y0=torch.zeros((width,) + w.event_shape, device=dev),
+                 keys=torch.zeros((width, 2), dtype=torch.int64, device=dev),
+                 slots=torch.zeros((width,), dtype=torch.int64, device=dev))
+    if w.d_cond:
+        stage["conds"] = torch.zeros((width, w.d_cond), device=dev)
+    schedule, theta, keep, controller = w.schedule, w.theta, w.keep_trajectory, w.controller
+    noise_mode, nb, bctl = w.noise_mode, w.num_branches, w.branch_controller
+
+    def body():
+        with torch.no_grad():
+            new = init_chain_state(schedule, stage["y0"], theta, keep, controller,
+                                   key=stage["keys"], noise_mode=noise_mode,
+                                   num_branches=nb, branch_controller=bctl)
+            # a padded lane repeats the first record: the same rows written
+            # twice into one slot
+            for f in dataclasses.fields(ASDChainState):
+                rows = getattr(new, f.name)
+                if rows is not None:  # counter mode holds no buffers
+                    getattr(states, f.name).index_copy_(0, stage["slots"], rows)
+            if "conds" in stage:
+                conds.index_copy_(0, stage["slots"], stage["conds"])
+
+    prog = SuperstepProgram(body, dev, pool)
+    prog.stage = stage
+    return prog
+
+
+def run_admission(prog: SuperstepProgram, rows: list, records: list, reqs: list,
+                  d_cond: int) -> None:
+    """Stage the (key, y0) ``records`` of ``reqs`` for the rows ``rows``,
+    padded to the program's width by repeating the first, and run it."""
+    stage = prog.stage
+    width = stage["slots"].shape[0]
+    pad = width - len(rows)
+    with torch.no_grad():
+        torch.stack([y0 for _, y0 in records] + [records[0][1]] * pad, out=stage["y0"])
+        stage["keys"].copy_(torch.stack([key for key, _ in records] + [records[0][0]] * pad),
+                            non_blocking=True)
+        stage["slots"].copy_(torch.tensor(rows + rows[:1] * pad), non_blocking=True)
+        if d_cond:
+            conds = np.zeros((width, d_cond), np.float32)
+            for i, req in enumerate(reqs + reqs[:1] * pad):
+                if req.cond is not None:
+                    conds[i] = req.cond
+            stage["conds"].copy_(torch.from_numpy(conds), non_blocking=True)
+        prog()
+
+
+def inject_noise(states: ASDChainState, slot: int, req: "Request", device) -> None:
+    """Write the noise a request injects (buffer mode) over its slot's rows,
+    after its admission program."""
+    for name in ("u_buf", "xi_buf"):
+        if getattr(req, name) is not None:
+            getattr(states, name)[slot] = _as_tensor(getattr(req, name), device)
 
 
 class ShardWorker:
@@ -342,19 +410,21 @@ class ShardWorker:
         tensors, every field the rounds change written back into them.
         ``budget`` "data" (the fused round) reads the tier from
         ``_budget_dev``, which ``_launch_superstep`` fills before each call."""
-        states = self._states
         tier = self._budget_dev if budget == "data" else budget
+        return SuperstepProgram(lambda: self._step_slots(R, tier), self.device,
+                                self._graph_pool)
 
-        def body():
-            new = self._run_rounds(states, R, tier)
-            with torch.no_grad():
-                for f in dataclasses.fields(ASDChainState):
-                    dst, src = getattr(states, f.name), getattr(new, f.name)
-                    if src is not dst:  # the keys and noise buffers come back as is
-                        dst.copy_(src)
-                self._pack_sync(states)
-
-        return SuperstepProgram(body, self.device, self._graph_pool)
+    def _step_slots(self, R: int, tier) -> None:
+        """A superstep's body: R rounds over the slot tensors, every field
+        they change written back, and the sync packet."""
+        states = self._states
+        new = self._run_rounds(states, R, tier)
+        with torch.no_grad():
+            for f in dataclasses.fields(ASDChainState):
+                dst, src = getattr(states, f.name), getattr(new, f.name)
+                if src is not dst:  # the keys and noise buffers come back as is
+                    dst.copy_(src)
+            self._pack_sync(states)
 
     def _pack_sync(self, st: ASDChainState) -> None:
         """The sync packet, written into the worker's packet tensors at the
@@ -437,37 +507,12 @@ class ShardWorker:
 
     def _get_admit(self, width: int) -> SuperstepProgram:
         """The admission program of ``width`` chains (the JAX worker's
-        ``_admit_fn`` at one padded width): ``init_chain_state`` over the
-        staged y0 rows and keys, every field written into the slot tensors
-        at the staged slot indices, and the staged condition rows too.  Its
-        staging tensors are ``prog.stage``."""
+        ``_admit_fn`` at one padded width), see ``admission_program``."""
         prog = self._admit_fns.get(width)
         if prog is not None:
             return prog
-        dev, states = self.device, self._states
-        stage = dict(y0=torch.zeros((width,) + self.event_shape, device=dev),
-                     keys=torch.zeros((width, 2), dtype=torch.int64, device=dev),
-                     slots=torch.zeros((width,), dtype=torch.int64, device=dev))
-        if self.d_cond:
-            stage["conds"] = torch.zeros((width, self.d_cond), device=dev)
-
-        def body():
-            with torch.no_grad():
-                new = init_chain_state(
-                    self.schedule, stage["y0"], self.theta, self.keep_trajectory,
-                    self.controller, key=stage["keys"], noise_mode=self.noise_mode,
-                    num_branches=self.num_branches, branch_controller=self.branch_controller)
-                # a padded lane repeats the first record: the same rows
-                # written twice into one slot
-                for f in dataclasses.fields(ASDChainState):
-                    rows = getattr(new, f.name)
-                    if rows is not None:  # counter mode holds no buffers
-                        getattr(states, f.name).index_copy_(0, stage["slots"], rows)
-                if self.d_cond:
-                    self._conds.index_copy_(0, stage["slots"], stage["conds"])
-
-        prog = self._admit_fns[width] = SuperstepProgram(body, dev, self._graph_pool)
-        prog.stage = stage
+        prog = self._admit_fns[width] = admission_program(
+            self, width, self._states, self._conds, self._graph_pool)
         assert len(self._admit_fns) <= self._admit_bound(), (
             f"worker built more admission programs than widths: {sorted(self._admit_fns)}")
         return prog
@@ -602,32 +647,14 @@ class ShardWorker:
 
     def _admit(self, placed) -> None:
         """Write the chains of the placed [(slot, request)] into the slot
-        tensors: padded to a power of two by repeating the first, staged,
-        and written by one admission program.  Noise a request injects
-        (buffer mode) is written over its rows after the program."""
+        tensors, by one admission program (``run_admission``)."""
         records = [self._admit_record(req) for _, req in placed]
         width = 1 << (len(placed) - 1).bit_length()
-        pad = width - len(placed)
-        prog = self._get_admit(width)
-        stage = prog.stage
+        run_admission(self._get_admit(width), [slot for slot, _ in placed], records,
+                      [req for _, req in placed], self.d_cond)
         with torch.no_grad():
-            torch.stack([y0 for _, y0 in records] + [records[0][1]] * pad, out=stage["y0"])
-            stage["keys"].copy_(torch.stack([key for key, _ in records] + [records[0][0]] * pad),
-                                non_blocking=True)
-            slots = [slot for slot, _ in placed]
-            stage["slots"].copy_(torch.tensor(slots + slots[:1] * pad), non_blocking=True)
-            if self.d_cond:
-                rows = np.zeros((width, self.d_cond), np.float32)
-                for i, (_, req) in enumerate(placed + placed[:1] * pad):
-                    if req.cond is not None:
-                        rows[i] = req.cond
-                stage["conds"].copy_(torch.from_numpy(rows), non_blocking=True)
-            prog()
             for slot, req in placed:
-                for name in ("u_buf", "xi_buf"):
-                    if getattr(req, name) is not None:
-                        getattr(self._states, name)[slot] = _as_tensor(getattr(req, name),
-                                                                       self.device)
+                inject_noise(self._states, slot, req, self.device)
 
     def _dispatch_superstep(self):
         """Admit, launch one superstep, and return its pending harvest."""
@@ -652,11 +679,15 @@ class ShardWorker:
                               "cold": cold})
         return sync, self.stats.rounds_total, R, t0, cold
 
-    def _harvest(self, pending) -> None:
+    def _harvest(self, pending, done_at: Optional[float] = None) -> None:
         """Read one superstep's sync packet: retire every chain that finished
         in it, refresh the budget-pressure signal, update the EWMAs.  Slots
         admitted at or after the packet's round count hold chains the packet
-        does not show yet and are not retired against it."""
+        does not show yet and are not retired against it.  ``done_at`` is
+        the sharded fused front end's one completion stamp for the whole
+        boundary (a ready event of None: it has waited already), so a later
+        shard's seconds-per-round EWMA does not take in its siblings'
+        harvests."""
         (info_host, ready, samples_dev), snapshot_rounds, R, t_dispatch, cold = pending
         tr = self._tracer
         if tr is not None and not tr.enabled:
@@ -734,11 +765,19 @@ class ShardWorker:
                                                "live_demand": self._live_demand})
         self._refresh_health()
         if not cold:
-            self._observe_round_time((time.perf_counter() - t_dispatch) / R)
+            end = done_at if done_at is not None else time.perf_counter()
+            self._observe_round_time((end - t_dispatch) / R)
 
     def drain_results(self) -> dict:
         out, self._results = self._results, {}
         return out
+
+    def chain_state(self, slot: int) -> ASDChainState:
+        """One slot's resumable state: views into the slot tensors."""
+        return dataclasses.replace(self._states, **{
+            f.name: getattr(self._states, f.name)[slot]
+            for f in dataclasses.fields(ASDChainState)
+            if getattr(self._states, f.name) is not None})
 
     def _program_statics(self) -> tuple:
         """What shapes a superstep program besides its key."""

@@ -1,8 +1,10 @@
 """The port's serve CLI, ``python -m repro_torch.launch.serve``, on the CPU
 with the smoke model: every engine and option prints the JAX CLI's lines
-with ``finite=True`` (branched runs with its ``branch depth`` clause); every flag the port has no counterpart for exits with
-status 2 and names its ROADMAP.md item; without ``--device cpu`` and with
-no card it raises instead of running on the CPU."""
+with ``finite=True`` (branched runs with its ``branch depth`` clause,
+sharded runs with its ``shards=2 router=...`` clause); every flag the port
+has no counterpart for exits with status 2 and names its ROADMAP.md item;
+without ``--device cpu`` and with no card it raises instead of running on
+the CPU."""
 
 import json
 import os
@@ -32,6 +34,10 @@ RUNS = {
         "--trace-out", "{tmp}/trace.json"],
     "num-branches-2": ["--num-branches", "2"],
     "branch-controller-gain": ["--num-branches", "2", "--branch-controller", "gain"],
+    "shards-2": ["--shards", "2"],
+    "shards-2-round-robin": ["--shards", "2", "--router", "round-robin"],
+    "shards-2-dispatch-fused": ["--shards", "2", "--dispatch", "fused", "--execution",
+                                "packed", "--round-impl", "fused"],
 }
 
 
@@ -67,6 +73,14 @@ def test_the_cli_serves_on_the_cpu(run, tmp_path):
         assert {"dispatch", "device_wait", "harvest", "request"} <= names
         assert "[trace]" in out
         assert "R=4" in line and "controller=accept-rate" in line
+    if "--shards" in RUNS[run]:
+        router = "round-robin" if "--router" in RUNS[run] else "least-loaded"
+        assert f", shards=2 router={router}" in line
+        assert ("dispatch=fused" in line) == ("--dispatch" in RUNS[run])
+        assert "packed B=16/16" in line if "--execution" in RUNS[run] else "unpacked" in line
+        assert "shard 1: 4 routed, 4 retired" in proc.stderr
+    else:
+        assert "shards=" not in line
     if "--num-branches" in RUNS[run]:
         # the JAX CLI's clause: mean accepted prefix a round, wasted drafts
         assert "branch depth " in line and "(waste " in line and "B=2)" in line
@@ -75,14 +89,11 @@ def test_the_cli_serves_on_the_cpu(run, tmp_path):
 
 
 REFUSED = {
-    "--shards 2": ("A7", ["--shards", "2"]),
-    "--router": ("A7", ["--router", "least-loaded"]),
-    "--dispatch fused": ("A7", ["--dispatch", "fused"]),
     "--model-shards 2": ("A9", ["--model-shards", "2"]),
     "--seq-shards 2": ("A9", ["--seq-shards", "2"]),
     "--expert-parallel": ("A9", ["--expert-parallel"]),
     "MoE model": ("A9", ["--model", "qwen3-moe-a3b-smoke"]),
-    "--mesh 2x4": ("A7", ["--mesh", "2x4"]),
+    "--mesh 2x4": ("A9", ["--mesh", "2x4"]),
     "--grs-impl": ("A8", ["--grs-impl", "core"]),
     "--pack-impl": ("A8", ["--pack-impl", "kernel"]),
 }
@@ -99,8 +110,8 @@ def test_flags_without_a_counterpart_exit_2(what, capsys):
 
 
 def test_a_refusal_is_the_process_exit_status(tmp_path):
-    proc = _cli(["--shards", "2"], tmp_path)
-    assert proc.returncode == 2 and "ROADMAP.md A7" in proc.stderr
+    proc = _cli(["--model-shards", "2"], tmp_path)
+    assert proc.returncode == 2 and "ROADMAP.md A9" in proc.stderr
     assert "finite" not in proc.stdout
 
 
