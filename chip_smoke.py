@@ -184,6 +184,30 @@ Phases, each printing one JSON line and raising on any failure:
      hymba_reference
               the reduced hymba in float32 on the card and on the CPU with
               the same params: greedy tokens equal, logits close.
+ 6b. flash_attention_lm
+              B2 (bf16) against its plain version at the lm-zoo prefill
+              shapes (head dims 64, 128 and 256; gemma2's softcap 50 with
+              window 4096 and full; llama-vision's 4096 x 6400 cross
+              attention), timed as in phase 3, SDPA where no softcap is on.
+     lm_weights, lm_arch, lm_profile
+              for each of tinyllama-1.1b, yi-6b, gemma2-9b, qwen2.5-14b
+              (all 48 layers), llama-3.2-vision-11b (stub vision
+              embeddings 2 x 6400) and musicgen-medium (stub frames) at
+              full width: the parameter count, prefill of 2 x 4096 tokens
+              (gemma2: 1 x 8192, twice its window), 16 greedy decode
+              steps eagerly and as one captured step replayed (tokens and
+              logit bits equal), the forward over prompt and generated
+              positions; B2 once a layer in the prefill and the forward,
+              never in a decode step; decode against forward within the
+              hymba bf16 gate (not llama-vision: the JAX package's xattn
+              forward ropes, its prefill and step do not); warm ms, peak
+              memory, idle share, one profiled prefill.
+     lm_reference
+              each arch's reduced config in float32 on the card and on
+              the CPU with the same params (greedy tokens equal, logits
+              within 2e-4), and reduced gemma2 at head dim 256 in bf16
+              (B2's four-chunk kernel in a model; a planted ignored window
+              must exceed the gate).
   7. train_full_width
               the full-width ``paper-pixel-dit`` trained through
               ``repro_torch.training.loop.run`` (5 steps of sl_denoiser_loss
@@ -594,8 +618,10 @@ def _flash_inputs(torch, dev, B, L, S, H, hd, seed, dtype=None):
 
 
 def _wgmma_build():
-    """The wgmma kernel's launch configuration at dh 64 and, from the
-    -Xptxas -v build log, each instance's registers and spills."""
+    """The wgmma kernel's launch configuration at dh 64, 128, 192 and 256
+    (one instance each: one to four 64-column chunks) and, from the -Xptxas
+    -v build log, each instance's registers and spills; fails where an
+    instance spills."""
     import re
 
     from repro_torch.kernels import _build
@@ -609,7 +635,12 @@ def _wgmma_build():
         nch, bk, stack, st, ld, regs = (int(x) for x in m.groups())
         instances[f"dh<={64 * nch}, BK {bk}"] = dict(registers=regs, spill_store_bytes=st,
                                                        spill_load_bytes=ld, stack_bytes=stack)
-    return dict(launch_at_dh64=wgmma_launch_info(64), ptxas=instances,
+    launch = {hd: wgmma_launch_info(hd) for hd in (64, 128, 192, 256)}
+    if (len(instances) != 4 or any(i["spill_store_bytes"] or i["spill_load_bytes"]
+                                   for i in instances.values())
+            or any(info["local_bytes"] for info in launch.values())):
+        fail(f"flash wgmma build: instances {instances}, launch {launch} (no spills)")
+    return dict(launch_by_head_dim=launch, ptxas=instances,
                 setmaxnreg={"consumer": 240, "producer": 24})
 
 
@@ -685,6 +716,22 @@ def check_flash(torch, dev):
         "q, k, v views of one qkv": compare(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
                                             causal=True),
     }
+    # head dims past two chunks (gemma2's 256: 64-row query tiles whose
+    # warpgroups split O's columns), with the options the archs use
+    edges.update({
+        "dh=136 causal window 40": compare(*inputs(2, 300, 300, 4, 136, 16), causal=True,
+                                           window=40),
+        "dh=192 causal softcap 50": compare(*inputs(2, 300, 300, 4, 192, 17), causal=True,
+                                            softcap=50.0),
+        "dh=256 causal window 100 softcap 50": compare(*inputs(2, 300, 300, 4, 256, 18),
+                                                       causal=True, window=100,
+                                                       softcap=50.0),
+        "dh=256 L=300 S=200": compare(*inputs(2, 300, 200, 4, 256, 19), causal=False),
+    })
+    for n in (1, 127, 128, 129, 255):
+        for causal in (False, True):
+            edges[f"dh=256 L=S={n}{' causal' if causal else ''}"] = compare(
+                *inputs(2, n, n, 3, 256, 20 + n), causal=causal)
     # hymba-1.5b: 25 heads (KV repeated from 5), ragged last tile of the
     # L + 16 forward, KV tiles skipped outside the 1024 band
     edges["hymba L=4112 window 1024"] = compare(*inputs(2, 4112, 4112, 25, 64, 8),
@@ -3178,7 +3225,7 @@ def run_hymba(torch, dev):
     finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
     rel = _rel_l2(dec, ref)
     agree = (dec.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    graph_decode = _captured_decode(torch, dev, cp, cfg, prefilled, steps, seq, counters)
+    graph_decode = _captured_decode(torch, dev, cp, cfg, prefilled, steps, P, counters)
     with torch.no_grad():
         planted = _planted_decode_faults(torch, cp, cfg, prompt, seq, prefilled, dec[:, 0],
                                          ref)
@@ -3241,20 +3288,23 @@ def run_hymba(torch, dev):
     return runs
 
 
-def _captured_decode(torch, dev, cp, cfg, prefilled, steps, seq, counters):
+def _captured_decode(torch, dev, cp, cfg, prefilled, steps, P, counters, frames=None):
     """The greedy decode as one captured ``lm_decode_step``: the token and
     ``pos`` are device tensors, the argmax is written into the token inside
     the graph, and the graph is replayed for the decode's T steps from the
-    ``prefilled`` caches.  Its tokens and logits must equal the eager
-    decode's (``steps``: the prefill's logits row, then one a step; ``seq``:
-    the prompt and the eager tokens) bit for bit.  Then T warm replays
-    timed by CUDA events and T profiled (the position reset to P between
-    runs, so the same cache rows are written again)."""
+    ``prefilled`` caches (at positions P .. P + T - 1).  With ``frames`` (B,
+    P + T, d_model) the step reads its input frame at ``pos`` inside the
+    graph instead, and the argmax is only recorded.  Its tokens and logits
+    must equal the eager decode's (``steps``: the prefill's logits row,
+    then one a step, each step fed the argmax of the row before) bit for
+    bit.  Then T warm replays timed by CUDA events and T profiled (the
+    position reset to P between runs, so the same cache rows are written
+    again)."""
     from repro_torch import pytree
     from repro_torch.models.lm import lm_decode_step
     from repro_torch.programs import SuperstepProgram
 
-    B, P, T = HYMBA_BATCH, HYMBA_PROMPT, HYMBA_DECODE
+    B, T = steps[0].shape[0], len(steps) - 1
     with torch.no_grad():
         caches = pytree.map(torch.clone, prefilled)
         tok = steps[0].argmax(-1)
@@ -3265,7 +3315,8 @@ def _captured_decode(torch, dev, cp, cfg, prefilled, steps, seq, counters):
         def body():
             row = (pos - P).view(1)
             tokens.index_copy_(0, row, tok[None])
-            lg, _ = lm_decode_step(cp, tok, caches, pos, cfg)
+            x = tok if frames is None else frames.index_select(1, pos.view(1))
+            lg, _ = lm_decode_step(cp, x, caches, pos, cfg)
             lg = lg[:, 0].float()
             logits.index_copy_(0, row, lg[None])
             tok.copy_(lg.argmax(-1))
@@ -3277,10 +3328,10 @@ def _captured_decode(torch, dev, cp, cfg, prefilled, steps, seq, counters):
             prog()
         torch.cuda.synchronize()
         launches = _launches(counters)
-        same_tokens = torch.equal(tokens.T, seq[:, P:])
+        same_tokens = torch.equal(tokens, torch.stack([st.argmax(-1) for st in steps[:T]]))
         same_logits = all(_bits(torch, logits[i], steps[i + 1]) for i in range(T))
         if not (same_tokens and same_logits) or any(launches.values()) or int(pos) != P + T:
-            fail(f"hymba decode graph: tokens equal {same_tokens}, logits bit-equal "
+            fail(f"{cfg.name} decode graph: tokens equal {same_tokens}, logits bit-equal "
                  f"{same_logits}, launches {launches}, pos {int(pos)}")
 
         def replay_all():
@@ -3308,7 +3359,10 @@ def _captured_decode(torch, dev, cp, cfg, prefilled, steps, seq, counters):
                 host_ms_per_step=wall_ms / T, tokens_per_s=B * T / event_ms * 1e3,
                 profiled=dict(wall_ms=prof_ms, busy_ms=busy, busy_ms_per_step=busy / T,
                               idle_share=max(0.0, 1.0 - busy / prof_ms) if busy else None,
-                              kernel_launches=sum(n for _, _, n in kernels)),
+                              kernel_launches=sum(n for _, _, n in kernels),
+                              top_kernels_ms_per_step=[
+                                  {"name": k[:80], "ms": ms / T, "count": n // T}
+                                  for k, ms, n in sorted(kernels, key=lambda e: -e[1])[:6]]),
                 tokens_equal=same_tokens, logits_bit_equal=same_logits)
 
 
@@ -3459,6 +3513,368 @@ def check_hymba_reference(torch, dev):
     emit("hymba_reference", model=cfg.name, prompt=P, decode_steps=T, max_abs_err=err,
          tolerance=2e-4, tokens=t_cpu.tolist(), logits_abs_max=f_cpu.abs().max().item(),
          card_launches={k: v for k, v in card.items() if v})
+
+
+# ---------------------------------------------------------------- phase 6b
+
+# The LM zoo's attention archs (the lm-zoo cells), each at the widths the
+# JAX package publishes (src/repro/configs/archs.py:57-116), random weights
+# from SEED: prompts, prompt length, and the full-width parameter count
+# (jax.eval_shape of the JAX package's lm_init; qwen2.5's QKV biases and
+# llama-vision's one gate a xattn layer included).  gemma2's prompt is twice
+# its local window, so the band cuts in the kernel and in the decode step.
+LM_ARCHS = {
+    "tinyllama-1.1b": (2, 4096, 1_100_048_384),
+    "yi-6b": (2, 4096, 6_061_035_520),
+    "gemma2-9b": (1, 8192, 9_241_404_928),
+    "qwen2.5-14b": (2, 4096, 14_770_033_664),
+    "llama-3.2-vision-11b": (2, 4096, 9_775_157_256),
+    "musicgen-medium": (2, 4096, 1_362_249_216),
+}
+LM_DECODE = 16
+# The JAX package's xattn forward ropes its queries and the vision keys and
+# its prefill and decode step do not (src/repro/models/blocks.py:128-197),
+# so llama-vision's decode logits are not its forward's: no decode gate.
+LM_NO_DECODE_GATE = ("llama-3.2-vision-11b",)
+
+
+def _cast_leaf_by_leaf(torch, tree, cfg):
+    """``lm_compute_params`` one leaf at a time, in place: each float32 leaf
+    is dropped as soon as its compute-dtype copy exists, so the peak is the
+    float32 tree and one leaf (the whole-tree cast holds both trees, 88.6 GB
+    for qwen2.5-14b: more than the card has)."""
+    from repro_torch.models.lm import lm_compute_params
+
+    for key in list(tree):
+        if isinstance(tree[key], dict):
+            _cast_leaf_by_leaf(torch, tree[key], cfg)
+        else:
+            tree[key] = lm_compute_params({key: tree[key]}, cfg)[key]
+    return tree
+
+
+def _lm_inputs(torch, dev, cfg, B, n, seed):
+    """(token ids (B, n), or the EnCodec stub's frames (B, n, d_model) in
+    bf16; the vision stub's patch embeddings (B, Nv, d_model) in bf16 or
+    None), drawn on the card from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.embed_inputs:
+        inputs = torch.randint(0, cfg.vocab_size, (B, n), generator=g, device=dev)
+    else:
+        inputs = torch.randn(B, n, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    vision = None
+    if cfg.n_vision_tokens:
+        vision = torch.randn(B, cfg.n_vision_tokens, cfg.d_model, generator=g,
+                             device=dev).to(torch.bfloat16)
+    return inputs, vision
+
+
+def run_lm_arch(torch, dev, name):
+    """One lm-zoo cell: ``name`` at full width (bf16, bf16 KV cache) through
+    lm_prefill, LM_DECODE greedy lm_decode_step calls (musicgen: fed the
+    stub's next frames), the same steps as one captured step replayed, and
+    lm_fwd over the prompt and the generated positions.  B2 runs once a
+    layer (self-attention or xattn) in the prefill and the forward and never
+    in a decode step; decode logits against forward logits within the
+    hymba gate (but llama-vision); warm times, peak memory and one
+    profiled prefill."""
+    from repro_torch import pytree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import lm_cache_init, lm_decode_step, lm_fwd, lm_prefill
+    from repro_torch.weights import init_lm_params
+
+    cfg = get_config(name)
+    B, P, want_params = LM_ARCHS[name]
+    T = LM_DECODE
+    base = _fresh_memory(torch)
+    t0 = time.perf_counter()
+    cp = init_lm_params(cfg, SEED, device=dev)
+    n_params = sum(p.numel() for p in pytree.leaves(cp))
+    _cast_leaf_by_leaf(torch, cp, cfg)
+    torch.cuda.synchronize()
+    weights = dict(seconds=time.perf_counter() - t0,
+                   peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                   resident_gb=(torch.cuda.memory_allocated() - base) / 1e9)
+    if n_params != want_params:
+        fail(f"{name}: {n_params} params, expected {want_params}")
+    emit("lm_weights", model=name, params=n_params, **weights, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, ffn=cfg.ffn_kind,
+         vocab=cfg.vocab_size, group=[(d.kind, d.window) for d in cfg.group],
+         seed=SEED, compute_dtype=cfg.compute_dtype, kv_cache_dtype="bfloat16",
+         note="float32 init cast to bf16 leaf by leaf (chip_smoke's _cast_leaf_by_leaf)")
+
+    counters = _counters()
+    inputs, vision = _lm_inputs(torch, dev, cfg, B, P + T, SEED + 21)
+    frames = None if cfg.embed_inputs else inputs
+    prompt = inputs[:, :P]
+    per_layer = {n: 0 for n in counters}
+    per_layer["flash_attention"] = cfg.n_layers
+    runs, wall = {}, {}
+    with torch.no_grad():
+        caches = lm_cache_init(cp, cfg, B, P + T)
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        logits, caches = lm_prefill(cp, prompt, caches, cfg, vision=vision)
+        torch.cuda.synchronize()
+        wall["prefill_s"] = time.perf_counter() - t0
+        runs[f"{name}_prefill"] = _launches(counters)
+        prefilled = pytree.map(torch.clone, caches)
+
+        steps, toks = [logits[:, 0].float()], []
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        for i in range(T):
+            toks.append(steps[-1].argmax(-1))
+            x = toks[-1] if frames is None else frames[:, P + i:P + i + 1]
+            logits, caches = lm_decode_step(cp, x, caches, P + i, cfg)
+            steps.append(logits[:, 0].float())
+        torch.cuda.synchronize()
+        wall["decode_s"] = time.perf_counter() - t0
+        runs[f"{name}_decode"] = _launches(counters)
+
+        seq = torch.cat([prompt, torch.stack(toks, 1)], 1) if frames is None else frames
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        full = lm_fwd(cp, seq, cfg, vision=vision)
+        torch.cuda.synchronize()
+        wall["forward_s"] = time.perf_counter() - t0
+        runs[f"{name}_forward"] = _launches(counters)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        ref = full[:, P - 1:].float()
+        shape_ok = tuple(full.shape) == (B, P + T, cfg.vocab_size)
+        finite = bool(torch.isfinite(full).all())
+        del full
+
+    for run, want in ((f"{name}_prefill", per_layer), (f"{name}_forward", per_layer),
+                      (f"{name}_decode", {n: 0 for n in counters})):
+        if runs[run] != want:
+            fail(f"{name}: {run} launched {runs[run]}, expected {want}")
+    dec = torch.stack(steps, dim=1)  # logits at positions P-1 .. P+T-1
+    finite = finite and bool(torch.isfinite(dec).all())
+    rel = _rel_l2(dec, ref)
+    gated = name not in LM_NO_DECODE_GATE
+    if not (finite and shape_ok and (rel <= HYMBA_BF16_GATE or not gated)):
+        fail(f"{name}: finite={finite}, forward shape ok {shape_ok}, decode vs forward "
+             f"relative L2 {rel} (gate {HYMBA_BF16_GATE}, applied: {gated})")
+    graph_decode = _captured_decode(torch, dev, cp, cfg, prefilled, steps, P, counters,
+                                    frames=frames)
+    del prefilled
+
+    with torch.no_grad():
+        x0 = toks[0] if frames is None else frames[:, P:P + 1]
+        prefill_ms = cuda_ms(lambda: lm_prefill(cp, prompt, caches, cfg, vision=vision),
+                             reps=2, warmup=1)
+        decode_ms = cuda_ms(lambda: lm_decode_step(cp, x0, caches, P, cfg), reps=4,
+                            warmup=1)
+        torch.cuda.synchronize()
+        wall_ms, kernels = _profiled(torch, lambda: lm_prefill(cp, prompt, caches, cfg,
+                                                               vision=vision))
+    _emit_profile(torch, "lm_profile", wall_ms, kernels,
+                  f"one warm lm_prefill of {name} ({B} x {P} tokens, {cfg.n_layers} layers) "
+                  "under torch.profiler; 'other' holds norms, RoPE, activations and casts",
+                  model=name, prefill_tokens=B * P)
+    emit("lm_arch", model=name, batch=B, prompt=P, decode_steps=T, cache_len=P + T,
+         inputs="token ids" if frames is None else "stub frames (bf16, from the seed)",
+         vision=None if vision is None else list(vision.shape), launches=runs,
+         finite=finite, decode_vs_forward_relative_l2=rel,
+         decode_vs_forward_max_abs_err=(dec - ref).abs().max().item(),
+         decode_gate=(f"relative L2 {HYMBA_BF16_GATE} (hymba's bf16 gate)" if gated else
+                      "none: the JAX package's xattn forward ropes, its prefill and step "
+                      "do not"),
+         greedy_argmax_agreement=(dec.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+         logits_abs_max=ref.abs().max().item(), peak_memory_gb=peak_gb,
+         first_call_wall=wall, prefill_ms=prefill_ms,
+         prefill_tokens_per_s=B * P / prefill_ms * 1e3, decode_ms_per_step=decode_ms,
+         decode_tokens_per_s=B / decode_ms * 1e3, captured_decode=graph_decode,
+         note="warm times by CUDA events; a decode step is one position of each sequence")
+    return runs
+
+
+# gemma2's reduced config at its published head dim 256 (d_model 64) in
+# bf16: B2's four-chunk wgmma kernel inside a model, card against CPU.
+# Both sides compute the attention core in float32 and every product in
+# bf16 with float32 sums, so they differ where a sum's order flips a bf16
+# rounding; the gate is a relative L2 over the logits, and a planted fault
+# (the local layers' window ignored on the card) must exceed it.  Set
+# between the clean run, 0.0063, and the planted fault, 0.0620 (NVIDIA
+# H100 80GB HBM3, 700.00 W).
+LM_HD256_GATE = 0.02
+
+
+def check_lm_archs_reference(torch, dev):
+    """Each lm-zoo arch's reduced config (2 repeats of the group, d 64, 4
+    heads of 16, windows cut to 32, 16 vision tokens) in float32 with the
+    same params on the card (B2's float32 kernel) and on the CPU (plain
+    versions): prefill of 48 positions, 8 greedy decode steps (musicgen: the
+    stub's frames), the forward over the 56.  Greedy tokens equal; logits
+    within 2e-4 (float32 sums in other orders).  Then gemma2 at head dim 256
+    in bf16 (LM_HD256_GATE)."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import lm_cache_init, lm_decode_step, lm_fwd, lm_prefill
+    from repro_torch.weights import init_lm_params
+
+    B, P, T = 2, 48, 8
+    counters = _counters()
+    results = {}
+    for name in LM_ARCHS:
+        cfg = reduced(get_config(name))
+        params_cpu = init_lm_params(cfg, SEED, device="cpu")
+        g = torch.Generator().manual_seed(SEED + 22)
+        inputs = (torch.randint(0, cfg.vocab_size, (B, P + T), generator=g)
+                  if cfg.embed_inputs else torch.randn(B, P + T, cfg.d_model, generator=g))
+        vision = (torch.randn(B, cfg.n_vision_tokens, cfg.d_model, generator=g)
+                  if cfg.n_vision_tokens else None)
+        out, launched = {}, {}
+        for where in ("cpu", dev):
+            params = pytree.map(lambda t: t.to(where), params_cpu)
+            vis = None if vision is None else vision.to(where)
+            _zero_counters(torch, counters)
+            with torch.no_grad():
+                caches = lm_cache_init(params, cfg, B, P + T, dtype=torch.float32)
+                logits, caches = lm_prefill(params, inputs[:, :P].to(where), caches, cfg,
+                                            vision=vis)
+                steps, toks = [logits[:, 0]], []
+                for i in range(T):
+                    toks.append(steps[-1].argmax(-1))
+                    x = toks[-1] if cfg.embed_inputs else inputs[:, P + i:P + i + 1].to(where)
+                    logits, caches = lm_decode_step(params, x, caches, P + i, cfg)
+                    steps.append(logits[:, 0])
+                seq = (torch.cat([inputs[:, :P].to(where), torch.stack(toks, 1)], 1)
+                       if cfg.embed_inputs else inputs.to(where))
+                full = lm_fwd(params, seq, cfg, vision=vis)
+            out[str(where)] = (torch.stack(toks, 1).cpu(), torch.stack(steps, 1).cpu(),
+                               full.cpu())
+            launched[str(where)] = _launches(counters)
+        (t_cpu, s_cpu, f_cpu), (t_card, s_card, f_card) = out["cpu"], out[str(dev)]
+        err = max((s_card - s_cpu).abs().max().item(), (f_card - f_cpu).abs().max().item())
+        card = launched[str(dev)]
+        if not torch.equal(t_cpu, t_card) or not err <= 2e-4:
+            fail(f"lm_reference {name}: tokens equal {torch.equal(t_cpu, t_card)}, logits "
+                 f"differ by {err} (2e-4)")
+        if card["flash_attention_f32"] != 2 * cfg.n_layers or card["flash_attention"]:
+            fail(f"lm_reference {name}: card launches {card}")
+        results[name] = dict(max_abs_err=err, logits_abs_max=f_cpu.abs().max().item(),
+                             card_launches={k: v for k, v in card.items() if v})
+    results["gemma2-9b head_dim 256 bf16"] = _gemma2_hd256_reference(torch, dev)
+    emit("lm_reference", prompt=P, decode_steps=T, tolerance=2e-4, archs=results)
+
+
+def _gemma2_hd256_reference(torch, dev):
+    """reduced(gemma2-9b) at head dim 256 in bf16: the forward over 56
+    tokens on the card (B2's wgmma kernel, four chunks, window 32 and full,
+    softcap 50) against the CPU (plain versions), relative L2 of the logits
+    within LM_HD256_GATE; the same forward on the card with the local
+    layers' window ignored must exceed it."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import lm_fwd
+    from repro_torch.weights import init_lm_params
+
+    cfg = dataclasses.replace(reduced(get_config("gemma2-9b")), head_dim=256,
+                              compute_dtype="bfloat16")
+    no_window = dataclasses.replace(cfg, group=tuple(
+        dataclasses.replace(d, window=0) for d in cfg.group))
+    params_cpu = init_lm_params(cfg, SEED, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 56),
+                           generator=torch.Generator().manual_seed(SEED + 23))
+    counters = _counters()
+    with torch.no_grad():
+        ref = lm_fwd(params_cpu, tokens, cfg).float()
+        params = pytree.map(lambda t: t.to(dev), params_cpu)
+        _zero_counters(torch, counters)
+        card = lm_fwd(params, tokens.to(dev), cfg).float().cpu()
+        launches = _launches(counters)
+        planted = lm_fwd(params, tokens.to(dev), no_window).float().cpu()
+    rel, rel_planted = _rel_l2(card, ref), _rel_l2(planted, ref)
+    if launches["flash_attention"] != cfg.n_layers or not (
+            rel <= LM_HD256_GATE < rel_planted):
+        fail(f"lm_reference gemma2 hd 256: launches {launches}, relative L2 {rel}, with the "
+             f"window ignored {rel_planted} (gate {LM_HD256_GATE})")
+    return dict(relative_l2=rel, planted_window_ignored_relative_l2=rel_planted,
+                gate=LM_HD256_GATE, max_abs_err=(card - ref).abs().max().item(),
+                greedy_argmax_agreement=(card.argmax(-1) == ref.argmax(-1)).float().mean()
+                .item(), card_launches={k: v for k, v in launches.items() if v})
+
+
+# B2 at the lm-zoo prefill shapes: (row, arch, (B, Lq, S, H, hd), causal,
+# window, softcap, the row's share of the arch's B2 launches)
+LM_FLASH_SHAPES = (
+    ("tinyllama-1.1b", "tinyllama-1.1b", (2, 4096, 4096, 32, 64), True, 0, 0.0, 1.0),
+    ("yi-6b", "yi-6b", (2, 4096, 4096, 32, 128), True, 0, 0.0, 1.0),
+    ("qwen2.5-14b", "qwen2.5-14b", (2, 4096, 4096, 40, 128), True, 0, 0.0, 1.0),
+    ("gemma2-9b local", "gemma2-9b", (1, 8192, 8192, 16, 256), True, 4096, 50.0, 0.5),
+    ("gemma2-9b global", "gemma2-9b", (1, 8192, 8192, 16, 256), True, 0, 50.0, 0.5),
+    ("llama-3.2-vision-11b self", "llama-3.2-vision-11b", (2, 4096, 4096, 32, 128), True,
+     0, 0.0, 0.8),
+    ("llama-3.2-vision-11b cross", "llama-3.2-vision-11b", (2, 4096, 6400, 32, 128),
+     False, 0, 0.0, 0.2),
+    ("musicgen-medium", "musicgen-medium", (2, 4096, 4096, 24, 64), True, 0, 0.0, 1.0),
+)
+
+
+def _attended_pairs(Lq, S, causal, window):
+    """(q, k) pairs the mask keeps (causal over equal lengths, or all)."""
+    return _hymba_pairs(Lq, window) if causal else Lq * S
+
+
+def check_flash_lm_shapes(torch, dev):
+    """B2 (bf16, the wgmma kernel) against its plain version at each
+    lm-zoo prefill shape, timed as in phase 3.  The library call is SDPA
+    (is_causal, or the boolean band mask for a window) where no softcap is
+    on; with gemma2's softcap there is no single call, and SDPA without the
+    softcap is timed beside it for scale only.  Returns kernels-line rows
+    with the runs whose launches are at each shape."""
+    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha, flash_wgmma
+    from repro_torch.nn.attention import attn_mask
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for i, (row, arch, (B, Lq, S, H, hd), causal, window, cap, share) in enumerate(
+            LM_FLASH_SHAPES):
+        q, k, v = _flash_inputs(torch, dev, B, Lq, S, H, hd, SEED + 60 + i)
+        opts = dict(causal=causal, window=window, softcap=cap)
+        ok = flash_mha(q, k, v, **opts)
+        torch.cuda.synchronize()
+        op = attention_plain(q, k, v, **opts)
+        used = _flash_tolerance_used(ok, op)
+        err = (ok.float() - op.float()).abs().max().item()
+        del ok, op
+        if not used <= 1.0:
+            fail(f"flash at the {row} shape: {used} of the tolerance ({FLASH_TOLERANCE})")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = attn_mask(Lq, S, True, window, dev) if window else None
+        no_cap = (lambda: sdpa(qt, kt, vt, attn_mask=mask)) if window else (
+            lambda: sdpa(qt, kt, vt, is_causal=causal))
+        times = kernel_times(lambda: flash_mha(q, k, v, **opts),
+                             lambda: attention_plain(q, k, v, **opts),
+                             None if cap else no_cap, reps=3, wrapper=flash_wgmma)
+        pairs = _attended_pairs(Lq, S, causal, window)
+        flops = 4.0 * B * H * pairs * hd
+        bms, by = bound_ms(2.0 * B * H * hd * (2 * Lq + 2 * S), flops, PEAK_BF16)
+        library = ("none (no single call: softcap)" if cap else
+                   "scaled_dot_product_attention" + (" with the boolean band mask" if window
+                                                     else ""))
+        extra = {}
+        if cap:
+            extra["sdpa_without_softcap_ms"] = cold_ms(no_cap, reps=3)
+        del q, k, v, qt, kt, vt, mask
+        emit("flash_attention_lm", row=row, shape=[B, Lq, S, H, hd], causal=causal,
+             window=window, softcap=cap, max_abs_err=err, tolerance=FLASH_TOLERANCE,
+             tolerance_used=used, **times, library=library, bound_ms=bms, bound_by=by,
+             attended_pairs=pairs, tflops=_tflops(flops, times), **extra)
+        rows.append(dict(name="flash_attention", route="cuda", source=FLASH_WGMMA_SOURCE,
+                         replaces=FLASH_REPLACES, at=f"{row} prefill {[B, Lq, S, H, hd]}"
+                         f"{' causal' if causal else ''}"
+                         f"{f' window {window}' if window else ''}"
+                         f"{f' softcap {cap:g}' if cap else ''}",
+                         max_abs_err=err, **times, library=library, bound_ms=bms,
+                         bound_by=by, **extra,
+                         runs={f"{arch}_prefill": share, f"{arch}_forward": share}))
+    return rows
 
 
 # ---------------------------------------------------------------- phase 7
@@ -4515,6 +4931,10 @@ def main() -> None:
     hymba_f32_launches, designs_by_run = check_hymba_f32(torch, dev)
     by_run.update(hymba_f32_launches)
     check_hymba_reference(torch, dev)
+    lm_rows = check_flash_lm_shapes(torch, dev)
+    for name in LM_ARCHS:
+        by_run.update(run_lm_arch(torch, dev, name))
+    check_lm_archs_reference(torch, dev)
     f32_standins = check_standin_kernels(torch, dev)
     run_train_full_width(torch, dev)
     policy_params, policy_dc, policy_launches, policy_designs = run_standin_policy(torch, dev)
@@ -4556,7 +4976,15 @@ def main() -> None:
                  f"shape: {per}")
         kern["launches"] = sum(per.values())
         kern["launches_by_run"] = per
-    kernels += branched_rows
+    for kern in lm_rows:
+        per = {run: round(by_run[run][kern["name"]] * share)
+               for run, share in kern.pop("runs").items()}
+        if not all(per.values()):
+            fail(f"kernels: {kern['name']} at {kern['at']} was launched in no run at its "
+                 f"shape: {per}")
+        kern["launches"] = sum(per.values())
+        kern["launches_by_run"] = per
+    kernels += branched_rows + lm_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

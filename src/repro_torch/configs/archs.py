@@ -1,6 +1,7 @@
 """The assigned LM architectures the port runs (copied from the JAX
-package's ``configs/archs.py``).  Only ``hymba-1.5b`` so far: the other
-archs come with their blocks."""
+package's ``configs/archs.py``): hymba-1.5b, the dense archs (tinyllama,
+yi, gemma2, qwen2.5), llama-3.2-vision and musicgen.  xlstm-125m (mLSTM
+and sLSTM blocks) and the MoE archs (dbrx, qwen3-moe) are not ported yet."""
 
 from __future__ import annotations
 
@@ -20,4 +21,73 @@ def hymba_1_5b() -> ModelConfig:
     )
 
 
-ARCHS = {"hymba-1.5b": hymba_1_5b}
+def tinyllama_1_1b() -> ModelConfig:
+    # [dense] llama2-arch small [arXiv:2401.02385]
+    return ModelConfig(
+        name="tinyllama-1.1b", family="dense", n_layers=22, d_model=2048,
+        n_heads=32, n_kv_heads=4, d_ff=5632, vocab_size=32000,
+    )
+
+
+def yi_6b() -> ModelConfig:
+    # [dense] llama-arch GQA [arXiv:2403.04652]
+    return ModelConfig(
+        name="yi-6b", family="dense", n_layers=32, d_model=4096,
+        n_heads=32, n_kv_heads=4, d_ff=11008, vocab_size=64000,
+        rope_theta=5e6,
+    )
+
+
+def gemma2_9b() -> ModelConfig:
+    # [dense] local+global alternating, logit softcap [arXiv:2408.00118]
+    return ModelConfig(
+        name="gemma2-9b", family="dense", n_layers=42, d_model=3584,
+        n_heads=16, n_kv_heads=8, head_dim=256, d_ff=14336, vocab_size=256000,
+        group=(BlockDesc("attn", window=4096), BlockDesc("attn", window=0)),
+        attn_softcap=50.0, final_softcap=30.0,
+        embed_scale=3584.0**0.5, tie_embeddings=True,
+    )
+
+
+def qwen2_5_14b() -> ModelConfig:
+    # [dense] GQA, QKV bias [hf:Qwen/Qwen2.5]
+    return ModelConfig(
+        name="qwen2.5-14b", family="dense", n_layers=48, d_model=5120,
+        n_heads=40, n_kv_heads=8, head_dim=128, d_ff=13824, vocab_size=152064,
+        qkv_bias=True, rope_theta=1e6,
+    )
+
+
+def llama32_vision_11b() -> ModelConfig:
+    # [vlm] cross-attn image layers every 5th slot [hf:meta-llama/...-Vision];
+    # vision frontend is a STUB: input_specs() provides patch embeddings.
+    return ModelConfig(
+        name="llama-3.2-vision-11b", family="vlm", n_layers=40, d_model=4096,
+        n_heads=32, n_kv_heads=8, d_ff=14336, vocab_size=128256,
+        group=(
+            BlockDesc("attn"), BlockDesc("attn"), BlockDesc("attn"),
+            BlockDesc("attn"), BlockDesc("xattn"),
+        ),
+        n_vision_tokens=6400, rope_theta=5e5,
+    )
+
+
+def musicgen_medium() -> ModelConfig:
+    # [audio] decoder-only over EnCodec tokens [arXiv:2306.05284]; the
+    # EnCodec frontend is a STUB: inputs are precomputed frame embeddings.
+    return ModelConfig(
+        name="musicgen-medium", family="audio", n_layers=48, d_model=1536,
+        n_heads=24, n_kv_heads=24, d_ff=6144, vocab_size=2048,
+        pos_embed="sinusoidal", ffn_kind="gelu", embed_inputs=False,
+    )
+
+
+ARCHS = {
+    "hymba-1.5b": hymba_1_5b,
+    "tinyllama-1.1b": tinyllama_1_1b,
+    "yi-6b": yi_6b,
+    "gemma2-9b": gemma2_9b,
+    "qwen2.5-14b": qwen2_5_14b,
+    "llama-3.2-vision-11b": llama32_vision_11b,
+    "musicgen-medium": musicgen_medium,
+}

@@ -51,9 +51,16 @@
 // Not done here (later work): ping-pong between the consumer warpgroups,
 // softmax overlapped with the next Q K^T, persistent blocks.
 //
+// Head dims up to 256 (gemma2-9b's) take NCH = ceil(dh / 64) chunks, each
+// its own instance; at NCH 4 the two consumer warpgroups split O's columns
+// (kSplitO below). repro_flash_attention_wgmma_info reports each instance's
+// local (spill) bytes, which chip_smoke.py requires to be 0. Shared memory
+// at NCH 4: Q 32 KiB, K and V 2 x 2 x 32 KiB: 161 KiB of the 227 KiB a
+// block may use.
+//
 // Requires: q, k, v bf16 with dh contiguous, base addresses and the batch,
 // row and head strides multiples of 16 bytes, dh a multiple of 8 and at
-// most 128. The wrapper checks these and raises; this entry refuses them.
+// most 256. The wrapper checks these and raises; this entry refuses them.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -63,10 +70,12 @@
 
 namespace {
 
-constexpr int kBQ = 128;       // query rows per block (two consumer warpgroups)
+constexpr int kBQ = 128;       // query rows per block (two consumer warpgroups; 64 at
+                               // four chunks)
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kThreads = 384;  // consumer warpgroups 0, 1; producer warpgroup 2
 constexpr int kRowBytes = 128; // one 64-column chunk of a bf16 row
+constexpr int kMaxDh = 256;    // four chunks
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskedLog2 = -1e30f * kLog2e;  // the TPU kernel's -1e30, in base 2
 
@@ -127,6 +136,34 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// The descriptor of a tile ``off`` bytes past another's: the start address
+// field is the low 14 bits (address / 16), and no shared address carries
+// out of them.
+__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t off) {
+  return desc + (off >> 4);
+}
+
+// d itself, where kOn through a volatile move the compiler cannot hoist out
+// of a loop. At three and four chunks each KV tile takes its descriptors
+// from one such base: left to itself the compiler computes every (chunk,
+// step) descriptor of both ring stages once, before the loop, and keeps them
+// all in registers, which spilled there. At one and two chunks that hoisting
+// fits and is faster (hymba's shape ran 5 % slower without it).
+template <bool kOn>
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  if constexpr (kOn) asm volatile("mov.b64 %0, %0;\n" : "+l"(d));
+  return d;
+}
+
+// The descriptor of the tile at addr + off: from the opaque base where
+// kBase (three and four chunks), else computed whole (one and two).
+template <bool kBase>
+__device__ __forceinline__ uint64_t tile_desc(uint64_t base, uint32_t addr, uint32_t off,
+                                              uint32_t lbo) {
+  if constexpr (kBase) return desc_at(base, off);
+  return sw128_desc(addr + off, lbo, 1024);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -136,6 +173,7 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+
 
 // d (64 x 128, float32) (+)= A (64 x 16, K-major in shared memory) . B (16 x 128,
 // K-major in shared memory); accumulate = 0 overwrites d.
@@ -224,14 +262,30 @@ struct Args {
   int64_t o_sb, o_sl, o_sh;
 };
 
-// The KV tiles [lo, hi) a query tile starting at q0 visits: the TPU kernel's
-// rule (skip a tile when k0 > q0 + kBQ - 1 under causal, or when
-// q0 - (k0 + BK - 1) >= window). The producer and the consumers both call
-// this, so their mbarrier phases walk the same tiles.
-template <int BK>
+// Four chunks (dh > 192): a block takes 64 query rows, and its two consumer
+// warpgroups split O's columns (two chunks each), each computing the same S
+// and P for itself. With one warpgroup holding O's 128 floats a thread for
+// all 256 columns beside S and P, ptxas spilled 392 bytes a thread (compiled
+// at 168 registers, the count __launch_bounds__(384, 1) allows, although
+// setmaxnreg grants the consumers 240 at run time; 32-key tiles spilled
+// more). This way a consumer holds what it holds at two chunks, for twice
+// the Q K^T products (the tensor cores' work is 8 * BH * L * S * dh, against
+// 6 at fewer chunks).
+template <int NCH>
+constexpr bool kSplitO = NCH == 4;
+template <int NCH>
+constexpr int kRows = kSplitO<NCH> ? 64 : kBQ;      // query rows a block
+template <int NCH>
+constexpr int kOChunks = kSplitO<NCH> ? 2 : NCH;    // O chunks a warpgroup
+
+// The KV tiles [lo, hi) a query tile of ``rows`` rows starting at q0
+// visits: the TPU kernel's rule (skip a tile when k0 > q0 + rows - 1 under
+// causal, or when q0 - (k0 + BK - 1) >= window). The producer and the
+// consumers both call this, so their mbarrier phases walk the same tiles.
+template <int BK, int rows>
 __device__ __forceinline__ int2 kv_tile_range(int q0, const Args& a) {
   int hi = (a.Sk + BK - 1) / BK;
-  if (a.causal) hi = min(hi, (q0 + kBQ - 1) / BK + 1);
+  if (a.causal) hi = min(hi, (q0 + rows - 1) / BK + 1);
   int lo = 0;
   if (a.window) {
     const int first_key = q0 - a.window - BK + 2;  // relevant iff k0 >= first_key
@@ -240,13 +294,13 @@ __device__ __forceinline__ int2 kv_tile_range(int q0, const Args& a) {
   return make_int2(lo, hi);
 }
 
-// Shared memory, from a 1024-byte aligned base: Q (NCH chunks of kBQ rows),
-// then kStages stages of K and of V (NCH chunks of BK rows each), then the
-// mbarriers. Chunk c of a tile holds columns 64c .. 64c + 63, 128-byte
-// swizzled by TMA.
+// Shared memory, from a 1024-byte aligned base: Q (NCH chunks of the
+// block's rows), then kStages stages of K and of V (NCH chunks of BK rows
+// each), then the mbarriers. Chunk c of a tile holds columns 64c .. 64c + 63,
+// 128-byte swizzled by TMA.
 template <int NCH, int BK>
 struct Smem {
-  static constexpr int kQ = NCH * kBQ * kRowBytes;
+  static constexpr int kQ = NCH * kRows<NCH> * kRowBytes;
   static constexpr int kTile = NCH * BK * kRowBytes;  // one K or one V tile
   static constexpr int kK = kQ;
   static constexpr int kV = kK + kStages * kTile;
@@ -255,13 +309,15 @@ struct Smem {
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
 
-// NCH: 64-column chunks of dh (1 for dh <= 64, 2 up to 128). BK: keys per tile.
+// NCH: 64-column chunks of dh (1 for dh <= 64, 2 up to 128, 3 up to 192, 4 up
+// to 256). BK: keys per tile.
 template <int NCH, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map, const Args a) {
   using Lay = Smem<NCH, BK>;
+  constexpr bool kBase = NCH >= 3;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -275,8 +331,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   // heaviest causal tiles first: the last query tile visits the most keys
   const int qt = a.causal ? a.n_q_tiles - 1 - static_cast<int>(blockIdx.y)
                           : static_cast<int>(blockIdx.y);
-  const int q0 = qt * kBQ;
-  const int2 range = kv_tile_range<BK>(q0, a);
+  constexpr int kQRows = kRows<NCH>;
+  const int q0 = qt * kQRows;
+  const int2 range = kv_tile_range<BK, kQRows>(q0, a);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -295,7 +352,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 256) {
       mbar_expect_tx(q_bar, Lay::kQ);
       for (int c = 0; c < NCH; ++c)
-        tma_load_4d(sQ + c * kBQ * kRowBytes, &q_map, 64 * c, h, q0, b, q_bar);
+        tma_load_4d(sQ + c * kQRows * kRowBytes, &q_map, 64 * c, h, q0, b, q_bar);
       for (int t = range.x; t < range.y; ++t) {
         const int i = t - range.x, stage = i % kStages;
         const uint32_t parity = (i / kStages) & 1;
@@ -313,27 +370,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ------------------------------------------------ consumer warpgroups
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-    const int qw0 = q0 + 64 * wg;                  // this warpgroup's first row
+    // this warpgroup's first row, and its first O chunk
+    const int qw0 = kSplitO<NCH> ? q0 : q0 + 64 * wg;
+    const int oc0 = kSplitO<NCH> ? 2 * wg : 0;
     const int row0 = qw0 + 16 * warp + lane / 4;   // rows row0 and row0 + 8
     const int col_in = 2 * (lane % 4);             // + 8 j (+ 1): fragment columns
 
     // scores to the base-2 domain: x * (log2 e / sqrt(dh)) in one product
-    // where sqrt(dh) is a power of two (dh = 16, 64: exact, equal to the
-    // plain version's division), else the division first
+    // where sqrt(dh) is a power of two (dh = 16, 64, 256: exact, equal to
+    // the plain version's division), else the division first. (Each
+    // instance tests only its own head dims: a third runtime test cost the
+    // one- and two-chunk instances 2-8 %.)
     const float sqrt_dh = sqrtf(static_cast<float>(a.dh));
-    const bool pow2 = (a.dh == 16 || a.dh == 64);
+    const bool pow2 = NCH == 4 ? a.dh == 256 : (a.dh == 16 || a.dh == 64);
     const float scale_log2 = kLog2e / sqrt_dh;
 
-    float o[NCH][32];
+    constexpr int kOC = kOChunks<NCH>;
+    float o[kOC][32];
 #pragma unroll
-    for (int c = 0; c < NCH; ++c)
+    for (int c = 0; c < kOC; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY};  // running max (base 2) of rows row0, row0 + 8
     float l_run[2] = {0.f, 0.f};              // this thread's share of the row sums
 
     mbar_wait(q_bar, 0);
-    const uint32_t q_rows = sQ + 64 * wg * kRowBytes;
+    const uint32_t q_rows = kSplitO<NCH> ? sQ : sQ + 64 * wg * kRowBytes;
 
     for (int t = range.x; t < range.y; ++t) {
       const int i = t - range.x, stage = i % kStages;
@@ -343,12 +405,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // ---- S = Q K^T over dh in steps of 16 (4 per 64-column chunk)
       float s[BK / 2];
+      const uint64_t q_desc = opaque<kBase>(sw128_desc(q_rows, 16, 1024));
+      const uint64_t k_desc = opaque<kBase>(sw128_desc(k_tile, 16, 1024));
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4 * NCH; ++kk) {
         const uint32_t koff = (kk % 4) * 32;  // 16 bf16 columns
-        const uint64_t da = sw128_desc(q_rows + (kk / 4) * kBQ * kRowBytes + koff, 16, 1024);
-        const uint64_t db = sw128_desc(k_tile + (kk / 4) * BK * kRowBytes + koff, 16, 1024);
+        const uint64_t da =
+            tile_desc<kBase>(q_desc, q_rows, (kk / 4) * kQRows * kRowBytes + koff, 16);
+        const uint64_t db =
+            tile_desc<kBase>(k_desc, k_tile, (kk / 4) * BK * kRowBytes + koff, 16);
         if constexpr (BK == 128) wgmma_ss_n128(s, da, db, kk > 0);
         else wgmma_ss_n64(s, da, db, kk > 0);
       }
@@ -416,7 +482,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         l_run[r] = l_run[r] * alpha[r] + sum;
       }
 #pragma unroll
-      for (int cc = 0; cc < NCH; ++cc)
+      for (int cc = 0; cc < kOC; ++cc)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           o[cc][4 * j + 0] *= alpha[0];
@@ -429,30 +495,34 @@ __global__ void __launch_bounds__(kThreads, 1)
       // accumulator blocks j = 2 kk and 2 kk + 1. P_hi is p truncated to
       // bf16 (its top 16 bits), P_lo the exact remainder rounded to bf16, so
       // P_hi + P_lo is p within 2^-16 of it.
-      uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
+      auto split_p = [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
 #pragma unroll
         for (int f = 0; f < 4; ++f) {
           // f: (row0, keys +0/1), (row0 + 8, +0/1), (row0, +8/9), (row0 + 8, +8/9)
           const int idx = 8 * kk + 4 * (f >> 1) + 2 * (f & 1);
           const uint32_t b0 = __float_as_uint(s[idx]), b1 = __float_as_uint(s[idx + 1]);
-          p_hi[kk][f] = __byte_perm(b0, b1, 0x7632);
-          p_lo[kk][f] = pack_bf16(s[idx] - __uint_as_float(b0 & 0xffff0000u),
-                                  s[idx + 1] - __uint_as_float(b1 & 0xffff0000u));
+          hi[f] = __byte_perm(b0, b1, 0x7632);
+          lo[f] = pack_bf16(s[idx] - __uint_as_float(b0 & 0xffff0000u),
+                            s[idx + 1] - __uint_as_float(b1 & 0xffff0000u));
         }
-      }
+      };
 
-      // ---- O += P_hi V + P_lo V, V MN-major: 16 keys = 2048 bytes
+      // ---- O += P_hi V + P_lo V, V MN-major: 16 keys = 2048 bytes; this
+      // warpgroup's chunks oc0 .. oc0 + kOC - 1 of V
+      uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
 #pragma unroll
-      for (int cc = 0; cc < NCH; ++cc) fence_operands(o[cc]);
+      for (int kk = 0; kk < BK / 16; ++kk) split_p(kk, p_hi[kk], p_lo[kk]);
+#pragma unroll
+      for (int cc = 0; cc < kOC; ++cc) fence_operands(o[cc]);
+      const uint64_t v_desc = opaque<kBase>(sw128_desc(v_tile, BK * kRowBytes, 1024));
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
-        for (int cc = 0; cc < NCH; ++cc) {
-          const uint64_t dv = sw128_desc(v_tile + cc * BK * kRowBytes + kk * 16 * kRowBytes,
-                                         BK * kRowBytes, 1024);
+        for (int cc = 0; cc < kOC; ++cc) {
+          const uint64_t dv = tile_desc<kBase>(
+              v_desc, v_tile, (oc0 + cc) * BK * kRowBytes + kk * 16 * kRowBytes,
+              BK * kRowBytes);
           wgmma_rs_n64(o[cc], p_hi[kk], dv);
           wgmma_rs_n64(o[cc], p_lo[kk], dv);
         }
@@ -460,7 +530,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
-      for (int cc = 0; cc < NCH; ++cc) fence_operands(o[cc]);
+      for (int cc = 0; cc < kOC; ++cc) fence_operands(o[cc]);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
     }
@@ -481,10 +551,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (row >= a.Lq) continue;
       __nv_bfloat16* orow = a.o + ob + static_cast<int64_t>(row) * a.o_sl;
 #pragma unroll
-      for (int c = 0; c < NCH; ++c)
+      for (int c = 0; c < kOC; ++c)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int col = 64 * c + 8 * j + col_in;
+          const int col = 64 * (oc0 + c) + 8 * j + col_in;
           if (col < a.dh)
             *reinterpret_cast<uint32_t*>(orow + col) =
                 pack_bf16(o[c][4 * j + 2 * r] / l_row[r], o[c][4 * j + 2 * r + 1] / l_row[r]);
@@ -549,7 +619,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, int B, const Arg
                    int64_t k_sh, int64_t v_sb, int64_t v_sl, int64_t v_sh,
                    cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, B, a.H, a.Lq, a.dh, q_sb, q_sl, q_sh, kBQ) ||
+  if (!make_map(&qm, q, B, a.H, a.Lq, a.dh, q_sb, q_sl, q_sh, kRows<NCH>) ||
       !make_map(&km, k, B, a.H, a.Sk, a.dh, k_sb, k_sl, k_sh, BK) ||
       !make_map(&vm, v, B, a.H, a.Sk, a.dh, v_sb, v_sl, v_sh, BK))
     return cudaErrorInvalidValue;
@@ -574,8 +644,9 @@ extern "C" int repro_flash_attention_wgmma(
     int64_t k_sh, int64_t v_sb, int64_t v_sl, int64_t v_sh, int64_t o_sb, int64_t o_sl,
     int64_t o_sh, int causal, int window, float softcap, int seq_k, void* stream) {
   const int64_t BH = static_cast<int64_t>(B) * H;
-  const int64_t n_q_tiles = (static_cast<int64_t>(Lq) + kBQ - 1) / kBQ;
-  if (B <= 0 || H <= 0 || Lq <= 0 || Sk <= 0 || dh <= 0 || dh > 128 || dh % 8 != 0 ||
+  const int rows = dh > 192 ? kRows<4> : kBQ;
+  const int64_t n_q_tiles = (static_cast<int64_t>(Lq) + rows - 1) / rows;
+  if (B <= 0 || H <= 0 || Lq <= 0 || Sk <= 0 || dh <= 0 || dh > kMaxDh || dh % 8 != 0 ||
       BH > 2147483647 || n_q_tiles > 65535 || seq_k <= 0 || seq_k > Sk ||
       !aligned16(q, q_sb, q_sl, q_sh) || !aligned16(k, k_sb, k_sl, k_sh) ||
       !aligned16(v, v_sb, v_sl, v_sh) || reinterpret_cast<uintptr_t>(o) % 4 != 0)
@@ -583,31 +654,40 @@ extern "C" int repro_flash_attention_wgmma(
   Args a{H, Lq, Sk, dh, seq_k, causal, window, softcap, static_cast<int>(n_q_tiles),
          static_cast<__nv_bfloat16*>(o), o_sb, o_sl, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh <= 64)
-    return launch<1, 128>(q, k, v, B, a, q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl,
-                          v_sh, s);
-  return launch<2, 64>(q, k, v, B, a, q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
-                       s);
+#define REPRO_LAUNCH(NCH, BK)                                                             \
+  return launch<NCH, BK>(q, k, v, B, a, q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, \
+                         v_sh, s)
+  if (dh <= 64) REPRO_LAUNCH(1, 128);
+  if (dh <= 128) REPRO_LAUNCH(2, 64);
+  if (dh <= 192) REPRO_LAUNCH(3, 64);
+  REPRO_LAUNCH(4, 64);
+#undef REPRO_LAUNCH
 }
 
-// The launch configuration the kernel takes for head dim ``dh``: keys per
-// tile, threads per block, dynamic shared memory bytes, and the registers
-// a thread is compiled to (setmaxnreg then moves 240 to each consumer
-// thread and leaves 24 to each producer thread).
-extern "C" int repro_flash_attention_wgmma_info(int dh, int* bk, int* threads,
-                                                int* smem_bytes, int* registers) {
+// The launch configuration the kernel takes for head dim ``dh``: query rows
+// and keys per tile, threads per block, dynamic shared memory bytes, the
+// registers a thread is compiled to (setmaxnreg then moves 240 to each
+// consumer thread and leaves 24 to each producer thread), and the local
+// memory bytes a thread spills to (0 unless the instance spills).
+template <int NCH, int BK>
+cudaError_t info(int* rows, int* bk, int* smem_bytes, int* registers, int* local_bytes) {
   cudaFuncAttributes attr;
-  cudaError_t err;
-  if (dh <= 64) {
-    err = cudaFuncGetAttributes(&attr, flash_fwd_wgmma<1, 128>);
-    *bk = 128;
-    *smem_bytes = Smem<1, 128>::kAlloc;
-  } else {
-    err = cudaFuncGetAttributes(&attr, flash_fwd_wgmma<2, 64>);
-    *bk = 64;
-    *smem_bytes = Smem<2, 64>::kAlloc;
-  }
-  *threads = kThreads;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, flash_fwd_wgmma<NCH, BK>);
+  *rows = kRows<NCH>;
+  *bk = BK;
+  *smem_bytes = Smem<NCH, BK>::kAlloc;
   *registers = err == cudaSuccess ? attr.numRegs : 0;
+  *local_bytes = err == cudaSuccess ? static_cast<int>(attr.localSizeBytes) : 0;
   return err;
+}
+
+extern "C" int repro_flash_attention_wgmma_info(int dh, int* rows, int* bk, int* threads,
+                                                int* smem_bytes, int* registers,
+                                                int* local_bytes) {
+  *threads = kThreads;
+  if (dh <= 0 || dh > kMaxDh) return cudaErrorInvalidValue;
+  if (dh <= 64) return info<1, 128>(rows, bk, smem_bytes, registers, local_bytes);
+  if (dh <= 128) return info<2, 64>(rows, bk, smem_bytes, registers, local_bytes);
+  if (dh <= 192) return info<3, 64>(rows, bk, smem_bytes, registers, local_bytes);
+  return info<4, 64>(rows, bk, smem_bytes, registers, local_bytes);
 }

@@ -8,8 +8,8 @@ _flash_kernel``.  The dtype picks the kernel, explicitly:
   TMA-fed tiles and wgmma for both products, P split into two bf16 terms.
   It reads q, k, v in place through TMA and refuses, with ``ValueError``,
   a tensor it cannot map: a base address or a batch, row or head stride
-  that is not a multiple of 16 bytes, hd not a multiple of 8 or above 128,
-  or a grid too large.
+  that is not a multiple of 16 bytes, hd not a multiple of 8 or above 256
+  (four 64-column chunks: gemma2-9b's head dim), or a grid too large.
 - float32 goes to ``csrc/flash_attention.cu`` (``flash_f32``), in one of
   two designs that ``f32_design`` picks by shape: ``"packed"`` where the
   query and key counts are both at most 64 (a (batch, head) pair's whole
@@ -17,7 +17,8 @@ _flash_kernel``.  The dtype picks the kernel, explicitly:
   ``"tensor_core"`` (64-row query tiles, 3xTF32 ``mma.sync`` for both
   products, which holds the float32 gate where one TF32 pass does not).
   It reads q, k and v in place with 16-byte copies where every row starts
-  on a 16-byte boundary and 4-byte copies otherwise (``vec_loads``).
+  on a 16-byte boundary and 4-byte copies otherwise (``vec_loads``), and
+  takes hd up to 128.
 
 The plain PyTorch version is ``attention_plain``.  ``flash_mha`` takes it
 only for tensors on the CPU; for CUDA tensors it launches a kernel or
@@ -43,11 +44,12 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p])
 # the wgmma kernel's limits: 16-byte TMA addresses and strides, hd in
-# 64-column chunks (at most two), B*H blocks on grid x, 128-row query tiles
-# on grid y
+# 64-column chunks (at most four), B*H blocks on grid x, 128-row query tiles
+# on grid y (64-row above 192 columns); the float32 kernel's hd limit
 _TMA_ALIGN = 16
-_MAX_HD = 128
-_MAX_GRID_X, _MAX_GRID_Y, _BQ = 2 ** 31 - 1, 65535, 128
+_MAX_HD = 256
+_MAX_HD_F32 = 128
+_MAX_GRID_X, _MAX_GRID_Y, _BQ, _BQ_SPLIT = 2 ** 31 - 1, 65535, 128, 64
 # the float32 kernel's designs (the C entry's design argument is the index)
 # and the longest query and key counts the packed design takes; the tensor
 # core design's query tiles are 64 rows on grid y
@@ -139,7 +141,8 @@ def flash_wgmma(q, k, v, *, causal: bool, window: int, softcap: float,
     if hd % 8 or hd > _MAX_HD:
         raise ValueError(f"flash wgmma kernel: hd {hd} is not a multiple of 8 "
                          f"at most {_MAX_HD}")
-    if B * H > _MAX_GRID_X or -(-Lq // _BQ) > _MAX_GRID_Y:
+    rows = _BQ_SPLIT if hd > 192 else _BQ
+    if B * H > _MAX_GRID_X or -(-Lq // rows) > _MAX_GRID_Y:
         raise ValueError(f"flash wgmma kernel: B*H {B * H} or Lq {Lq} over the grid limit")
     strides = [s for name, t in (("q", q), ("k", k), ("v", v))
                for s in _tma_strides(t, name)]
@@ -175,8 +178,8 @@ def flash_f32(q, k, v, *, causal: bool, window: int, softcap: float,
     B, Lq, H, hd = q.shape
     if q.dtype != torch.float32:
         raise ValueError(f"flash f32 kernel: takes float32, not {q.dtype}")
-    if hd > _MAX_HD:
-        raise ValueError(f"flash f32 kernel: hd {hd} > {_MAX_HD}")
+    if hd > _MAX_HD_F32:
+        raise ValueError(f"flash f32 kernel: hd {hd} > {_MAX_HD_F32}")
     design = f32_design(Lq, k.shape[1])
     if B * H > _MAX_GRID_X or (design == "tensor_core" and -(-Lq // _BQ_F32) > _MAX_GRID_Y):
         raise ValueError(f"flash f32 kernel: B*H {B * H} or Lq {Lq} over the grid limit")
@@ -189,14 +192,16 @@ def flash_f32(q, k, v, *, causal: bool, window: int, softcap: float,
 
 
 def wgmma_launch_info(hd: int) -> dict:
-    """The wgmma kernel's launch configuration for head dim ``hd``: keys per
-    tile, threads, dynamic shared memory bytes and compiled registers."""
+    """The wgmma kernel's launch configuration for head dim ``hd`` (its
+    instance has ceil(hd / 64) chunks): query rows and keys per tile,
+    threads, dynamic shared memory bytes, compiled registers and local
+    (spill) bytes a thread."""
     fn = _build.function("repro_flash_attention_wgmma_info",
-                         [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4)
-    out = [ctypes.c_int() for _ in range(4)]
+                         [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 6)
+    out = [ctypes.c_int() for _ in range(6)]
     _build.check(fn(hd, *out), "flash wgmma kernel attributes")
-    return dict(zip(("keys_per_tile", "threads", "dynamic_smem_bytes", "registers"),
-                    (v.value for v in out)))
+    return dict(zip(("query_rows", "keys_per_tile", "threads", "dynamic_smem_bytes",
+                     "registers", "local_bytes"), (v.value for v in out)))
 
 
 _KERNELS = {torch.bfloat16: flash_wgmma, torch.float32: flash_f32}

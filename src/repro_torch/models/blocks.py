@@ -5,10 +5,13 @@
     prefill(params, x, cache, cfg, desc, ctx, window)    -> (x, cache)
     step(params, x1, cache, pos, cfg, desc, window)      -> (x1, cache)
 
-``ctx``: dict(causal, impl).  ``window`` is the layer's Python
-int window (0 = full); ``pos`` is a 0-d integer tensor or a Python int.  ``prefill`` and ``step`` update the cache in place
-and return it.  Ported: the ``attn`` block (forward only; the denoiser's
-block) and the ``hymba`` block (all four).
+``ctx``: dict(causal, impl, vision).  ``window`` is the layer's Python
+int window (0 = full); ``pos`` is a 0-d integer tensor or a Python int.
+``prefill`` and ``step`` update the cache in place and return it.  Ported,
+all four functions each: the ``attn`` block (the dense archs' and the
+denoiser's), the ``xattn`` block (llama-3.2-vision's cross-attention to the
+vision stub) and the ``hymba`` block.  The ``mlstm`` and ``slstm`` blocks
+(xlstm) and MoE FFNs are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 from repro_torch.configs.base import BlockDesc, ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.nn import attention as attn
 from repro_torch.nn import ssm
 from repro_torch.nn.ffn import ffn_apply
@@ -30,7 +34,8 @@ class Block(NamedTuple):
 
 
 def _maybe_ffn(params, x):
-    """The pre-norm SwiGLU FFN added to the stream, where the block has one."""
+    """The pre-norm FFN (SwiGLU or GELU) added to the stream, where the block
+    has one."""
     if "ffn" in params:
         x = x + ffn_apply(params["ffn"], rmsnorm_apply(params["ffn_norm"], x))
     return x
@@ -38,12 +43,93 @@ def _maybe_ffn(params, x):
 
 def attn_block_fwd(params, x, cfg: ModelConfig, desc: BlockDesc, ctx, window: int):
     """Pre-norm self-attention, then the FFN: x (B, L, d) -> (B, L, d)."""
-    if desc.moe:
-        raise NotImplementedError("MoE blocks are not ported yet")
     h = rmsnorm_apply(params["attn_norm"], x)
     x = x + attn.attn_fwd(params["attn"], h, cfg, window=window,
                           causal=ctx.get("causal", True), impl=ctx.get("impl", "flash"))
     return _maybe_ffn(params, x)
+
+
+def attn_block_cache_init(params, cfg: ModelConfig, desc: BlockDesc, batch: int,
+                          max_len: int, dtype):
+    return attn.init_kv_cache(cfg, batch, max_len, dtype,
+                              device=params["attn_norm"]["scale"].device)
+
+
+def attn_block_prefill(params, x, cache, cfg: ModelConfig, desc: BlockDesc, ctx,
+                       window: int):
+    h = rmsnorm_apply(params["attn_norm"], x)
+    a, _ = attn.attn_prefill(params["attn"], h, cache, cfg, window=window)
+    return _maybe_ffn(params, x + a), cache
+
+
+def attn_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
+                    window: int):
+    h = rmsnorm_apply(params["attn_norm"], x1)
+    a, _ = attn.attn_step(params["attn"], h, cache, pos, cfg, window=window)
+    return _maybe_ffn(params, x1 + a), cache
+
+
+# ------------------------------------------------------------------ xattn
+# gated cross-attention to the vision stub's patch embeddings (B, Nv, d),
+# then the FFN.  The three paths reproduce the JAX package's blocks, quirks
+# included: the forward ropes q at 0..L-1 and the vision keys at 0..Nv-1;
+# the prefill and the step rope neither (its ``positions=None``), so the
+# forward and prefill + decode give different logits.
+
+
+def _vision(ctx):
+    vision = ctx.get("vision")
+    if vision is None:
+        raise ValueError("an xattn block needs the vision embeddings (B, Nv, d_model): "
+                         "pass vision= to lm_fwd or lm_prefill")
+    return vision
+
+
+def xattn_block_fwd(params, x, cfg: ModelConfig, desc: BlockDesc, ctx, window: int):
+    h = rmsnorm_apply(params["attn_norm"], x)
+    x = x + attn.attn_fwd(params["attn"], h, cfg, causal=False,
+                          impl=ctx.get("impl", "flash"), kv_x=_vision(ctx).to(x.dtype))
+    return _maybe_ffn(params, x)
+
+
+def xattn_block_cache_init(params, cfg: ModelConfig, desc: BlockDesc, batch: int,
+                           max_len: int, dtype):
+    """The vision tokens' KV (n_vision_tokens rows, whatever ``max_len``)."""
+    return attn.init_kv_cache(cfg, batch, max(cfg.n_vision_tokens, 1), dtype,
+                              device=params["attn_norm"]["scale"].device)
+
+
+def xattn_block_prefill(params, x, cache, cfg: ModelConfig, desc: BlockDesc, ctx,
+                        window: int):
+    """Writes the vision tokens' raw KV heads into the cache once; the core
+    (non-causal, no RoPE) is the flash kernel on KV repeated to all heads."""
+    h = rmsnorm_apply(params["attn_norm"], x)
+    q, k_raw, v_raw = attn._project_qkv(params["attn"], h, cfg, repeat_kv=False,
+                                        kv_x=_vision(ctx).to(x.dtype), rope=False)
+    cache["k"].copy_(k_raw)
+    cache["v"].copy_(v_raw)
+    reps = cfg.n_heads // cfg.n_kv_heads
+    o = flash_mha(q, attn._repeat_heads(k_raw, reps), attn._repeat_heads(v_raw, reps),
+                  causal=False, softcap=cfg.attn_softcap)
+    return _maybe_ffn(params, x + attn._out(params["attn"], o, x.dtype)), cache
+
+
+def xattn_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
+                     window: int):
+    """Reads the vision KV and writes nothing: q without RoPE against every
+    cached key, in the naive core (as the JAX package's step)."""
+    h = rmsnorm_apply(params["attn_norm"], x1)
+    p = params["attn"]
+    cdt = x1.dtype
+    B, _, d = h.shape
+    q = (h @ p["wq"].reshape(d, -1).to(cdt)).view(B, 1, cfg.n_heads, -1)
+    if "bq" in p:
+        q = q + p["bq"].to(cdt)
+    reps = cfg.n_heads // cfg.n_kv_heads
+    k = attn._repeat_heads(cache["k"].to(cdt), reps)
+    v = attn._repeat_heads(cache["v"].to(cdt), reps)
+    o = attn.attn_core_naive(q, k, v, None, cfg.attn_softcap)
+    return _maybe_ffn(params, x1 + attn._out(p, o, cdt)), cache
 
 
 # ------------------------------------------------------------------ hymba
@@ -93,7 +179,10 @@ def hymba_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
 
 
 BLOCKS = {
-    "attn": Block(attn_block_fwd),
+    "attn": Block(attn_block_fwd, attn_block_cache_init, attn_block_prefill,
+                  attn_block_step),
+    "xattn": Block(xattn_block_fwd, xattn_block_cache_init, xattn_block_prefill,
+                   xattn_block_step),
     "hymba": Block(hymba_block_fwd, hymba_block_cache_init, hymba_block_prefill,
                    hymba_block_step),
 }

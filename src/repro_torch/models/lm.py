@@ -5,9 +5,11 @@ package's ``repro/models/lm.py``.
 Params are a plain dict of tensors in the JAX package's tree layout (see
 ``repro_torch.weights.lm_param_shapes``); every function runs on the device
 of its params.  The caches are updated in place and returned.  Ported: token
-inputs with rotary or no positions, an untied head, final softcap.  The
-loss, frame and vision inputs, sinusoidal positions, embedding scales and
-tied embeddings are not ported yet.
+inputs, and the frame stub ((B, L, d_model) embeddings, musicgen's); rotary,
+sinusoidal or no positions; embedding scales (gemma2's); an untied or tied
+head, final softcap; the vision stub's patch embeddings (B, Nv, d_model)
+that xattn layers attend to (llama-3.2-vision's), given in the compute
+dtype.  The loss (``lm_loss``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.decoder import (decoder_cache_init, decoder_fwd, decoder_prefill,
                                         decoder_step)
-from repro_torch.nn.layers import cast_leaves, embedding_apply, rmsnorm_apply, softcap
+from repro_torch.nn.layers import (cast_leaves, embedding_apply, rmsnorm_apply,
+                                   sinusoidal_embed, softcap, unembed_apply)
 
 # leaves used only in the compute dtype (everything else -- norms, the
 # conv, x_proj, dt, A and D of the mamba mixer -- enters float32 math in
@@ -38,23 +41,44 @@ def lm_compute_params(params, cfg: ModelConfig):
     return cast_leaves(params, _COMPUTE_LEAVES, compute_dtype(cfg))
 
 
-def _embed(params, tokens, cfg: ModelConfig):
-    if not cfg.embed_inputs or cfg.embed_scale != 1.0 or cfg.pos_embed == "sinusoidal":
-        raise NotImplementedError(f"{cfg.name}: frame inputs, embedding scales and "
-                                  "sinusoidal positions are not ported yet")
-    return embedding_apply(params["embed"], tokens, compute_dtype(cfg))
+def _embed(params, inputs, cfg: ModelConfig, pos=None):
+    """Token ids (B, L), or frames (B, L, d_model) where ``cfg.embed_inputs``
+    is False, -> (B, L, d_model) in the compute dtype: scaled by
+    ``embed_scale`` rounded to the compute dtype first (as the JAX package's
+    ``jnp.asarray(scale, cdt)``: gemma2's sqrt(3584) is 59.75 in bf16), plus
+    sinusoidal positions 0..L-1, or ``pos`` (a 0-d device tensor) for one
+    decode step."""
+    cdt = compute_dtype(cfg)
+    if cfg.embed_inputs:
+        x = embedding_apply(params["embed"], inputs, cdt)
+    else:
+        x = inputs.to(cdt)
+    if cfg.embed_scale != 1.0:
+        x = x * float(torch.tensor(cfg.embed_scale, dtype=cdt))
+    if cfg.pos_embed == "sinusoidal":
+        positions = (torch.arange(x.shape[1], device=x.device) if pos is None
+                     else pos.view(1))
+        x = x + sinusoidal_embed(positions, cfg.d_model).to(cdt)
+    return x
 
 
 def _head(params, x, cfg: ModelConfig):
-    if cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: tied embeddings are not ported yet")
-    return softcap(x @ params["head"]["w"].to(x.dtype), cfg.final_softcap)
+    """Logits from ``head.w``, or from ``embed.table`` where the embeddings
+    are tied (a tied arch with frame inputs has a head), then the final
+    softcap."""
+    if cfg.tie_embeddings and cfg.embed_inputs:
+        logits = unembed_apply(params["embed"], x)
+    else:
+        logits = x @ params["head"]["w"].to(x.dtype)
+    return softcap(logits, cfg.final_softcap)
 
 
-def lm_fwd(params, tokens, cfg: ModelConfig):
-    """tokens: (B, L) int ids -> logits (B, L, vocab) in the compute dtype."""
+def lm_fwd(params, tokens, cfg: ModelConfig, vision=None):
+    """tokens: (B, L) int ids, or (B, L, d_model) frames -> logits (B, L,
+    vocab) in the compute dtype.  ``vision``: (B, Nv, d_model) patch
+    embeddings for the xattn layers."""
     x = _embed(params, tokens, cfg)
-    x = decoder_fwd(params["decoder"], x, cfg, dict(causal=True))
+    x = decoder_fwd(params["decoder"], x, cfg, dict(causal=True, vision=vision))
     return _head(params, rmsnorm_apply(params["final_norm"], x), cfg)
 
 
@@ -65,21 +89,25 @@ def lm_cache_init(params, cfg: ModelConfig, batch: int, max_len: int,
     return decoder_cache_init(params["decoder"], cfg, batch, max_len, dtype)
 
 
-def lm_prefill(params, tokens, caches, cfg: ModelConfig):
-    """Fills the caches with positions 0..L-1 of tokens (B, L).  Returns
-    (last-position logits (B, 1, vocab), caches)."""
+def lm_prefill(params, tokens, caches, cfg: ModelConfig, vision=None):
+    """Fills the caches with positions 0..L-1 of tokens (B, L) (or frames
+    (B, L, d_model)), and the xattn layers' caches with the keys and values
+    of ``vision`` (B, Nv, d_model).  Returns (last-position logits (B, 1,
+    vocab), caches)."""
     x = _embed(params, tokens, cfg)
-    x, caches = decoder_prefill(params["decoder"], x, caches, cfg, dict(causal=True))
+    x, caches = decoder_prefill(params["decoder"], x, caches, cfg,
+                                dict(causal=True, vision=vision))
     return _head(params, rmsnorm_apply(params["final_norm"], x[:, -1:]), cfg), caches
 
 
 def lm_decode_step(params, token, caches, pos, cfg: ModelConfig):
-    """token: (B,) int ids at position ``pos``, a 0-d integer tensor on the
-    params' device as the JAX package's ``pos: () int32`` (a Python int is
-    made one).  Nothing reads ``pos`` or the token on the host, so the step
-    can be captured as a CUDA graph and replayed with both advanced in
-    place.  Returns (logits (B, 1, vocab), caches)."""
+    """token: (B,) int ids (or a (B, 1, d_model) frame) at position ``pos``,
+    a 0-d integer tensor on the params' device as the JAX package's ``pos:
+    () int32`` (a Python int is made one).  Nothing reads ``pos`` or the
+    token on the host, so the step can be captured as a CUDA graph and
+    replayed with both advanced in place.  Returns (logits (B, 1, vocab),
+    caches)."""
     pos = torch.as_tensor(pos, dtype=torch.int64, device=token.device)
-    x = _embed(params, token[:, None], cfg)
+    x = _embed(params, token[:, None] if cfg.embed_inputs else token, cfg, pos)
     x, caches = decoder_step(params["decoder"], x, caches, pos, cfg)
     return _head(params, rmsnorm_apply(params["final_norm"], x), cfg), caches

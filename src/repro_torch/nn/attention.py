@@ -1,7 +1,9 @@
-"""Self-attention with the JAX package's weight layout at the boundary:
-``wq``, ``wk``, ``wv`` are (d, heads, head_dim) and ``wo`` is (heads,
-head_dim, d).  GQA, rotary positions, sliding windows, logit softcap and a
-KV cache of the raw KV heads.
+"""Self- and cross-attention with the JAX package's weight layout at the
+boundary: ``wq``, ``wk``, ``wv`` are (d, heads, head_dim) and ``wo`` is
+(heads, head_dim, d); optional QKV biases ``bq``, ``bk``, ``bv`` (qwen2.5)
+and a scalar ``gate`` whose tanh scales the output (the xattn layers of
+llama-3.2-vision).  GQA, rotary positions, sliding windows, logit softcap
+and a KV cache of the raw KV heads.
 
 Two cores for the full-sequence forms: ``impl="flash"`` routes to
 ``repro_torch.kernels.flash_attention`` (the CUDA kernel on the card, its
@@ -30,29 +32,33 @@ def _repeat_heads(t, reps: int):
     return torch.repeat_interleave(t, reps, dim=2) if reps > 1 else t
 
 
-def _project_qkv(params, x, cfg: ModelConfig, start=0, repeat_kv: bool = True):
-    """x: (B, L, d) at positions start..start+L-1 -> q (B, L, H, hd), k, v
-    (B, L, H or KV, hd): RoPE where the config has it, KV repeated to all
-    heads unless ``repeat_kv`` is False (the caches keep the raw KV heads).
-    ``start`` is a Python int or a 0-d integer tensor on x's device."""
-    B, L, d = x.shape
+def _project_qkv(params, x, cfg: ModelConfig, start=0, repeat_kv: bool = True,
+                 kv_x=None, rope: bool = True):
+    """x: (B, L, d) at positions start..start+L-1 -> q (B, L, H, hd); k, v
+    (B, S, H or KV, hd) from ``kv_x`` (B, S, d) at positions start..start+S-1
+    (x where None).  RoPE where the config has it and ``rope`` is set (the
+    xattn prefill and step pass False, as the JAX package's
+    ``positions=None`` does), KV repeated to all heads unless ``repeat_kv``
+    is False (the caches keep the raw KV heads).  ``start`` is a Python int
+    or a 0-d integer tensor on x's device."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
     cdt = x.dtype
+    xkv = x if kv_x is None else kv_x
 
-    def proj(w, bias):
+    def proj(inp, w, bias):
+        B, n_in, d = inp.shape
         n, hd = w.shape[1], w.shape[2]
-        y = (x @ w.reshape(d, n * hd).to(cdt)).view(B, L, n, hd)
+        y = (inp @ w.reshape(d, n * hd).to(cdt)).view(B, n_in, n, hd)
         if bias is not None:
             y = y + bias.to(cdt)
         return y
 
-    q = proj(params["wq"], params.get("bq"))
-    k = proj(params["wk"], params.get("bk"))
-    v = proj(params["wv"], params.get("bv"))
-    if cfg.pos_embed == "rope":
-        positions = start + torch.arange(L, device=x.device)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q = proj(x, params["wq"], params.get("bq"))
+    k = proj(xkv, params["wk"], params.get("bk"))
+    v = proj(xkv, params["wv"], params.get("bv"))
+    if rope and cfg.pos_embed == "rope":
+        q = apply_rope(q, start + torch.arange(q.shape[1], device=x.device), cfg.rope_theta)
+        k = apply_rope(k, start + torch.arange(k.shape[1], device=x.device), cfg.rope_theta)
     if repeat_kv:
         k, v = _repeat_heads(k, h // kv), _repeat_heads(v, h // kv)
     return q, k, v
@@ -85,23 +91,32 @@ def attn_core_naive(q, k, v, mask, cap: float):
 
 
 def _out(params, o, dtype):
-    """The output projection of o (B, L, H, hd) -> (B, L, d)."""
+    """The output projection of o (B, L, H, hd) -> (B, L, d), times
+    tanh(gate) (in float32, cast to ``dtype``) where the params have a
+    gate."""
     B, L, H, hd = o.shape
-    return o.reshape(B, L, H * hd) @ params["wo"].reshape(H * hd, -1).to(dtype)
+    out = o.reshape(B, L, H * hd) @ params["wo"].reshape(H * hd, -1).to(dtype)
+    if "gate" in params:
+        out = torch.tanh(params["gate"].float()).to(dtype) * out
+    return out
 
 
 def attn_fwd(params, x, cfg: ModelConfig, *, window: int = 0,
-             causal: bool = True, impl: str = "flash"):
-    """Full-sequence self-attention over positions 0..L-1: x (B, L, d) ->
-    (B, L, d).  ``window`` is a Python int (0 = full)."""
+             causal: bool = True, impl: str = "flash", kv_x=None):
+    """Full-sequence attention over positions 0..L-1: x (B, L, d) -> (B, L,
+    d).  ``window`` is a Python int (0 = full).  With ``kv_x`` (B, S, d) it
+    is cross-attention to kv_x, non-causal and unmasked, with RoPE (where
+    the config has it) on q at 0..L-1 and on k at 0..S-1, as the JAX
+    package's ``attn_fwd`` applies it."""
     B, L, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg)
+    q, k, v = _project_qkv(params, x, cfg, kv_x=kv_x)
+    cross = kv_x is not None
     if impl == "flash":
-        o = flash_mha(q, k, v, causal=causal, window=window,
+        o = flash_mha(q, k, v, causal=causal and not cross, window=window,
                       softcap=cfg.attn_softcap)
     elif impl == "naive":
         mask = attn_mask(L, L, causal, window, x.device) if (
-            causal or window > 0) else None
+            not cross and (causal or window > 0)) else None
         o = attn_core_naive(q, k, v, mask, cfg.attn_softcap)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")

@@ -17,8 +17,15 @@ with n the layer count (the stacked ``layers`` axis).  The LM tree
     decoder.g0.mamba.{in_proj (n, d, 2 din), conv_w (n, ck, din), conv_b,
         x_proj (n, din, dt_rank + 2 N), dt_proj (n, dt_rank, din), dt_bias,
         A_log (n, din, N), D, out_proj (n, din, d)}
-    decoder.g0.ffn_norm, decoder.g0.ffn as above
+    decoder.g0.ffn_norm, decoder.g0.ffn as above (``w_up`` and ``w_down``
+        only for the GELU FFN)
     embed.table (vocab, d)    head.w (d, vocab)    final_norm.scale (d,)
+
+and for the other archs the ``attn`` block's leaves (``attn_norm``,
+``attn`` with ``bq``, ``bk``, ``bv`` (heads or kv, hd) where the config
+has QKV biases, the FFN), the ``xattn`` block's (the same, plus
+``attn.gate`` (n,)), one ``g<i>`` a group member; no ``embed`` for frame
+inputs, no ``head`` where the embeddings are tied.
 
 ``from_jax_params`` and ``from_jax_lm_params`` convert the JAX package's
 unboxed params (as numpy arrays) and need no JAX, and ``from_jax_opt_state``
@@ -47,13 +54,16 @@ def _block_shapes(cfg: ModelConfig, desc) -> dict:
     """Leaf shapes of one group member, stacked over the n repeats."""
     d, h, kv, hd, n = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.resolved_head_dim, cfg.n_repeats)
-    if desc.kind not in ("attn", "hymba") or desc.moe:
-        raise NotImplementedError(f"block {desc} is not ported yet")
+    if desc.kind not in ("attn", "xattn", "hymba") or desc.moe:
+        raise NotImplementedError(f"block {desc} is not ported yet (the mlstm and slstm "
+                                  "blocks and MoE FFNs remain)")
     attn = {"wq": (n, d, h, hd), "wk": (n, d, kv, hd), "wv": (n, d, kv, hd),
             "wo": (n, h, hd, d)}
     if cfg.qkv_bias:
         attn.update(bq=(n, h, hd), bk=(n, kv, hd), bv=(n, kv, hd))
-    if desc.kind == "attn":
+    if desc.kind == "xattn":
+        attn["gate"] = (n,)  # one scalar a layer
+    if desc.kind in ("attn", "xattn"):
         block = {"attn_norm": {"scale": (n, d)}, "attn": attn}
     else:
         din, N, ck, dt_rank = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv, max(1, d // 16)
@@ -63,11 +73,12 @@ def _block_shapes(cfg: ModelConfig, desc) -> dict:
             "dt_bias": (n, din), "A_log": (n, din, N), "D": (n, din),
             "out_proj": (n, din, d)}}
     if cfg.d_ff:
-        if cfg.ffn_kind != "swiglu":
-            raise NotImplementedError(f"ffn {cfg.ffn_kind!r} is not ported yet")
+        if cfg.ffn_kind not in ("swiglu", "gelu"):
+            raise NotImplementedError(f"ffn {cfg.ffn_kind!r} is not ported")
+        # the key order is the order random inits draw the leaves in
+        gate = {"w_gate": (n, d, cfg.d_ff)} if cfg.ffn_kind == "swiglu" else {}
         block["ffn_norm"] = {"scale": (n, d)}
-        block["ffn"] = {"w_gate": (n, d, cfg.d_ff), "w_up": (n, d, cfg.d_ff),
-                        "w_down": (n, cfg.d_ff, d)}
+        block["ffn"] = {**gate, "w_up": (n, d, cfg.d_ff), "w_down": (n, cfg.d_ff, d)}
     return block
 
 
@@ -96,13 +107,12 @@ def param_shapes(dc: DenoiserConfig) -> dict:
 
 def lm_param_shapes(cfg: ModelConfig) -> dict:
     """The tree of leaf shapes of ``repro_torch.models.lm`` for ``cfg``, as
-    the JAX package's ``lm_init`` makes it (token inputs; ``head`` unless
-    the embeddings are tied)."""
-    if not cfg.embed_inputs:
-        raise NotImplementedError(f"{cfg.name}: frame inputs are not ported yet")
-    shapes = {"decoder": _decoder_shapes(cfg), "final_norm": {"scale": (cfg.d_model,)},
-              "embed": {"table": (cfg.vocab_size, cfg.d_model)}}
-    if not cfg.tie_embeddings:
+    the JAX package's ``lm_init`` makes it: ``embed`` for token inputs (not
+    for frames), ``head`` unless the embeddings are tied to token inputs."""
+    shapes = {"decoder": _decoder_shapes(cfg), "final_norm": {"scale": (cfg.d_model,)}}
+    if cfg.embed_inputs:
+        shapes["embed"] = {"table": (cfg.vocab_size, cfg.d_model)}
+    if not cfg.tie_embeddings or not cfg.embed_inputs:
         shapes["head"] = {"w": (cfg.d_model, cfg.vocab_size)}
     return shapes
 
@@ -222,9 +232,11 @@ def init_lm_params(cfg: ModelConfig, seed: int, device=None):
     As the JAX init: products lecun-normal, ``embed.table`` and ``head.w``
     normal * 0.02, the mamba ``conv_w`` and ``dt_proj`` normal * 0.1,
     ``A_log`` = log(1..N) in every row and ``D`` = 1, so the decays are
-    those of a real mamba.  Unlike it, the norm scales and the ``conv_b``
-    and ``dt_bias`` biases are nonzero (normal * 0.1): zero leaves would
-    hide a missing term.
+    those of a real mamba.  Unlike it, the norm scales, the ``conv_b`` and
+    ``dt_bias`` biases and the QKV biases ``bq``, ``bk``, ``bv`` (qwen2.5)
+    are nonzero (normal * 0.1), and so is each xattn layer's ``gate``
+    (normal; the JAX init's 0 would make the layer a no-op): zero leaves
+    would hide a missing term.
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -235,13 +247,13 @@ def init_lm_params(cfg: ModelConfig, seed: int, device=None):
             return row.expand(shape).contiguous()
         if name == "D":
             return torch.ones(shape, dtype=torch.float32, device=dev)
-        if name in ("bq", "bk", "bv"):
-            return torch.zeros(shape, dtype=torch.float32, device=dev)
         a = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
         if name in ("table", "w"):
             return a.mul_(0.02)
-        if name in ("scale", "conv_w", "conv_b", "dt_proj", "dt_bias"):
+        if name in ("scale", "conv_w", "conv_b", "dt_proj", "dt_bias", "bq", "bk", "bv"):
             return a.mul_(0.1)
+        if name == "gate":
+            return a
         return a.mul_(1.0 / math.sqrt(_fan_in(shape, stacked)))
 
     return _random_tree(lm_param_shapes(cfg), leaf)

@@ -165,13 +165,50 @@ def test_flash_kernel_masks_keys_past_true_seq_k(dev, dtype, seq_k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 24, 32, 64, 72, 80, 128])
+@pytest.mark.parametrize("hd", [16, 24, 32, 64, 72, 80, 128, 136, 192, 256])
 def test_flash_kernel_head_dims(dev, dtype, hd):
-    """dh below one 64-column chunk, across two, and at the 128 limit; TMA
-    zero-fills the columns past dh."""
+    """dh below one 64-column chunk, across two, three and four (bf16, up
+    to gemma2's 256; the float32 kernel stops at 128 and refuses above);
+    TMA zero-fills the columns past dh."""
     q, k, v = _flash_inputs(dev, dtype, 2, 150, 150, 3, hd, hd)
+    if dtype == torch.float32 and hd > 128:
+        with pytest.raises(ValueError, match="hd"):
+            flash_mha(q, k, v, causal=False)
+        return
     for opts in ({"causal": False}, {"causal": True, "window": 40}):
         _assert_flash_close(flash_mha(q, k, v, **opts), attention_plain(q, k, v, **opts))
+
+
+@pytest.mark.parametrize("causal,window,softcap", [(False, 0, 0.0), (True, 0, 0.0),
+                                                   (True, 50, 50.0)])
+@pytest.mark.parametrize("L", TILE_EDGES)
+def test_flash_wgmma_tile_edges_at_hd_256(dev, L, causal, window, softcap):
+    """Four chunks: 64-row query tiles whose two warpgroups split O's
+    columns; query and key counts on both sides of the tiles."""
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 2, L, L, 3, 256, 3 * L + window)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    _assert_flash_close(flash_mha(q, k, v, **opts), attention_plain(q, k, v, **opts))
+
+
+@pytest.mark.parametrize("window", [4096, 0])
+def test_flash_kernel_at_the_gemma2_shape(dev, window):
+    """gemma2-9b's prefill: (1, 8192, 16, 256) bf16, causal, softcap 50, the
+    local layers' window 4096 and the global layers' full attention."""
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 1, 8192, 8192, 16, 256, window + 1)
+    opts = dict(causal=True, window=window, softcap=50.0)
+    ok = flash_mha(q, k, v, **opts)
+    torch.cuda.synchronize()
+    _assert_flash_close(ok, attention_plain(q, k, v, **opts))
+
+
+def test_flash_wgmma_instances_do_not_spill(dev):
+    """Each instance (one to four 64-column chunks) compiles without local
+    memory; four chunks take 64-row query tiles."""
+    from repro_torch.kernels.flash_attention.ops import wgmma_launch_info
+
+    infos = {hd: wgmma_launch_info(hd) for hd in (64, 128, 192, 256)}
+    assert all(info["local_bytes"] == 0 for info in infos.values()), infos
+    assert [info["query_rows"] for info in infos.values()] == [128, 128, 128, 64]
 
 
 def test_flash_wgmma_reads_qkv_views_in_place(dev):
@@ -192,7 +229,7 @@ def test_flash_wgmma_refuses_what_tma_cannot_map(dev):
     shifted.copy_(q)
     with pytest.raises(ValueError):
         flash_mha(shifted, k, v, causal=False)
-    for hd in (12, 136):
+    for hd in (12, 264):
         q, k, v = _flash_inputs(dev, torch.bfloat16, 1, 32, 32, 2, hd, hd)
         with pytest.raises(ValueError):
             flash_mha(q, k, v, causal=False)
@@ -701,6 +738,41 @@ def test_small_hymba_on_card_matches_cpu(dev):
     torch.testing.assert_close(out["card"][0], out["cpu"][0], atol=2e-4, rtol=0)
     torch.testing.assert_close(out["card"][1], out["cpu"][1], atol=2e-4, rtol=0)
     torch.testing.assert_close(out["card"][1], out["card"][0][:, P - 1:], atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "yi-6b", "gemma2-9b", "qwen2.5-14b",
+                                  "llama-3.2-vision-11b", "musicgen-medium"])
+def test_small_lm_archs_on_card_match_cpu(dev, name):
+    """reduced(arch) in float32 with the same params: forward, prefill and
+    greedy decode on the card (B2's float32 kernel) against the CPU (plain
+    versions) within 2e-4; B2 once per attention and xattn layer in the
+    forward and the prefill."""
+    cfg = reduced(get_config(name))
+    params = init_lm_params(cfg, 0, device="cpu")
+    card = _to(params, dev)
+    B, P, T = 2, 40, 6
+    g = torch.Generator().manual_seed(2)
+    inputs = (torch.randint(0, cfg.vocab_size, (B, P + T), generator=g) if cfg.embed_inputs
+              else torch.randn(B, P + T, cfg.d_model, generator=g))
+    vision = (torch.randn(B, cfg.n_vision_tokens, cfg.d_model, generator=g)
+              if cfg.n_vision_tokens else None)
+    f0 = flash_mha.launches
+    out = {}
+    for where, p in (("cpu", params), ("card", card)):
+        dv = "cpu" if where == "cpu" else dev
+        vis = None if vision is None else vision.to(dv)
+        full = t_lm.lm_fwd(p, inputs.to(dv), cfg, vision=vis)
+        caches = t_lm.lm_cache_init(p, cfg, B, P + T, dtype=torch.float32)
+        lg, caches = t_lm.lm_prefill(p, inputs[:, :P].to(dv), caches, cfg, vision=vis)
+        steps = [lg[:, 0]]
+        for i in range(P, P + T):
+            tok = inputs[:, i] if cfg.embed_inputs else inputs[:, i:i + 1]
+            lg, caches = t_lm.lm_decode_step(p, tok.to(dv), caches, i, cfg)
+            steps.append(lg[:, 0])
+        out[where] = (full.cpu(), torch.stack(steps, 1).cpu())
+    assert flash_mha.launches - f0 == 2 * cfg.n_layers
+    torch.testing.assert_close(out["card"][0], out["cpu"][0], atol=2e-4, rtol=0)
+    torch.testing.assert_close(out["card"][1], out["cpu"][1], atol=2e-4, rtol=0)
 
 
 def test_flash_mha_refuses_autograd_on_the_card(dev):

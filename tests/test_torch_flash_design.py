@@ -3,8 +3,9 @@ emulated in plain PyTorch on the CPU and held against the plain version and
 the JAX package's reference.
 
 The emulation follows the kernel step by step: 128-row query tiles in two
-64-row halves (the consumer warpgroups), BK-key tiles (128 for dh <= 64,
-else 64) visited by the TPU kernel's band rule, scores moved to the base-2
+64-row halves (the consumer warpgroups; above dh 192 64-row tiles, whose
+warpgroups split O's columns and compute the same rows), BK-key tiles (128
+for dh <= 64, else 64) visited by the TPU kernel's band rule, scores moved to the base-2
 domain (the scale folded into the exponent on interior tiles, the mask
 applied only on tiles that cut the band edge, seq_k or the ragged end),
 the online softmax with the -1e30 mask and the -inf starting max, and
@@ -32,11 +33,17 @@ def _keys_per_tile(dh):
     return 128 if dh <= 64 else 64
 
 
-def _tile_range(q0, S, BK, causal, window):
-    """The kernel's kv_tile_range: tiles [lo, hi) a query tile at q0 visits."""
+def _query_rows(dh):
+    """Query rows a block: 128 (two 64-row halves), 64 above dh 192."""
+    return 64 if dh > 192 else BQ
+
+
+def _tile_range(q0, S, BK, causal, window, rows=BQ):
+    """The kernel's kv_tile_range: tiles [lo, hi) a query tile of ``rows``
+    rows at q0 visits."""
     hi = -(-S // BK)
     if causal:
-        hi = min(hi, (q0 + BQ - 1) // BK + 1)
+        hi = min(hi, (q0 + rows - 1) // BK + 1)
     lo = 0
     if window:
         first_key = q0 - window - BK + 2
@@ -74,10 +81,10 @@ def emulate(q, k, v, *, causal, window=0, softcap=0.0, true_seq_k=None):
     B, Lq, H, dh = q.shape
     S = k.shape[1]
     seq_k = S if true_seq_k is None else true_seq_k
-    BK = _keys_per_tile(dh)
+    BK, rows_a_block = _keys_per_tile(dh), _query_rows(dh)
     qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))  # (B, H, n, dh)
     sqrt_dh = torch.tensor(math.sqrt(dh), dtype=torch.float32)
-    pow2 = dh in (16, 64)
+    pow2 = dh in (16, 64, 256)
     scale_log2 = LOG2E / sqrt_dh
     out = torch.zeros(B, H, Lq, dh)
 
@@ -85,9 +92,9 @@ def emulate(q, k, v, *, causal, window=0, softcap=0.0, true_seq_k=None):
         part = x[:, :, start:start + n]
         return torch.nn.functional.pad(part, (0, 0, 0, n - part.shape[2]))
 
-    for q0 in range(0, Lq, BQ):
-        lo, hi = _tile_range(q0, S, BK, causal, window)
-        for qw0 in (q0, q0 + 64):
+    for q0 in range(0, Lq, rows_a_block):
+        lo, hi = _tile_range(q0, S, BK, causal, window, rows_a_block)
+        for qw0 in range(q0, q0 + rows_a_block, 64):
             rows = torch.arange(qw0, qw0 + 64)
             Q = rows_of(qf, qw0, 64)
             m = torch.full((B, H, 64, 1), -math.inf)
@@ -137,6 +144,11 @@ CASES = {
     "dh=16": (2, 150, 150, 2, 16, dict(causal=True)),
     "dh=72": (2, 150, 150, 2, 72, dict(causal=False)),
     "dh=72 causal window 40": (1, 200, 200, 2, 72, dict(causal=True, window=40)),
+    "dh=136 causal window 40": (1, 200, 200, 2, 136, dict(causal=True, window=40)),
+    "dh=192 causal softcap 50": (1, 150, 150, 2, 192, dict(causal=True, softcap=50.0)),
+    "dh=256 causal window 70 softcap 50 (64-row tiles)": (
+        1, 200, 200, 2, 256, dict(causal=True, window=70, softcap=50.0)),
+    "dh=256 ragged causal L=S=130": (1, 130, 130, 2, 256, dict(causal=True)),
 }
 
 
@@ -163,8 +175,10 @@ def test_emulated_kernel_holds_the_gate_against_the_plain_version(case):
 def test_emulated_kernel_matches_the_jax_reference(case):
     """Before the output rounding, the emulation against the JAX package's
     attention_ref in float32 on the same bf16 values, within the 1e-5 of
-    tests/test_torch_attention.py.  Keys past true_seq_k are cut off for
-    the reference, which has no such option."""
+    tests/test_torch_attention.py; above 128 columns, where more elements
+    come near it, plus the P split's own bound, 2^-16 max |v| (P_hi + P_lo
+    is p within 2^-16 p).  Keys past true_seq_k are cut off for the
+    reference, which has no such option."""
     q, k, v, opts = _inputs(case)
     got = emulate(q, k, v, **opts)
     B, L, H, dh = q.shape
@@ -174,7 +188,8 @@ def test_emulated_kernel_matches_the_jax_reference(case):
                           causal=opts["causal"], window=opts.get("window", 0),
                           softcap=opts.get("softcap", 0.0))
     ref = np.asarray(ref).reshape(B, H, L, dh).transpose(0, 2, 1, 3)
-    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+    atol = 1e-5 if dh <= 128 else 1e-5 + 2.0 ** -16 * v.float().abs().max().item()
+    np.testing.assert_allclose(got.numpy(), ref, atol=atol, rtol=0)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -185,18 +200,18 @@ def test_tile_schedule_visits_every_unmasked_pair(case):
     B, L, S, H, dh, opts = CASES[case]
     causal, window = opts["causal"], opts.get("window", 0)
     seq_k = opts.get("true_seq_k", S)
-    BK = _keys_per_tile(dh)
+    BK, rows_a_block = _keys_per_tile(dh), _query_rows(dh)
     n_kv = -(-S // BK)
-    for q0 in range(0, L, BQ):
-        lo, hi = _tile_range(q0, S, BK, causal, window)
-        rows = torch.arange(q0, min(q0 + BQ, L))
+    for q0 in range(0, L, rows_a_block):
+        lo, hi = _tile_range(q0, S, BK, causal, window, rows_a_block)
+        rows = torch.arange(q0, min(q0 + rows_a_block, L))
         for t in range(n_kv):
             cols = torch.arange(t * BK, min((t + 1) * BK, S))
             kept = _pair_mask(rows, cols, seq_k, causal, window)
             if not lo <= t < hi:
                 assert not kept.any(), (q0, t)
                 continue
-            for qw0 in (q0, q0 + 64):
+            for qw0 in range(q0, q0 + rows_a_block, 64):
                 if not _is_edge(t * BK, BK, qw0, seq_k, causal, window):
                     wg_rows = torch.arange(qw0, qw0 + 64)
                     assert _pair_mask(wg_rows, torch.arange(t * BK, (t + 1) * BK), seq_k,

@@ -97,9 +97,17 @@ def _acts(seed, shape):
 
 
 def test_the_configs_are_the_jax_packages(cfgs):
+    """hymba, and every other ported arch, full and reduced."""
+    from repro_torch.configs.archs import ARCHS
+
     full_j, full_t = j_get_config(NAME), get_config(NAME)
     assert dataclasses.asdict(full_t) == dataclasses.asdict(full_j)
     assert dataclasses.asdict(cfgs[1]) == dataclasses.asdict(cfgs[0])
+    assert len(ARCHS) == 7
+    for name in ARCHS:
+        assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(j_get_config(name))
+        assert (dataclasses.asdict(reduced(get_config(name)))
+                == dataclasses.asdict(j_reduced(j_get_config(name))))
     assert full_t.d_inner == full_j.d_inner == 1600
     assert cfgs[1].group[0].window_per_repeat == (0, 32)
 
@@ -536,9 +544,19 @@ def test_lm_entry_points_run_on_cuda_unless_asked(cfgs, tree, monkeypatch):
         from_jax_lm_params(tree, cfgs[1])
 
 
-@pytest.mark.parametrize("change", [dict(embed_scale=2.0), dict(pos_embed="sinusoidal"),
-                                    dict(embed_inputs=False), dict(tie_embeddings=True)])
+def _group(*descs):
+    from repro_torch.configs.base import BlockDesc
+
+    return dict(group=tuple(BlockDesc(*d) for d in descs))
+
+
+@pytest.mark.parametrize("change", [_group(("mlstm",)), _group(("slstm",)),
+                                    _group(("attn", 0, None, True)),
+                                    _group(("hymba", 0, None, True))])
 def test_lm_refuses_what_is_not_ported(cfgs, tokens, change):
+    """The xlstm blocks and MoE FFNs (embedding scales, sinusoidal
+    positions, frames and tied embeddings are ported since; see
+    test_torch_lm_dense.py and test_torch_lm_xattn_frames.py)."""
     params = init_lm_params(cfgs[1], 0, device="cpu")
     with pytest.raises(NotImplementedError):
         t_lm.lm_fwd(params, _t(tokens), dataclasses.replace(cfgs[1], **change))
@@ -550,9 +568,9 @@ def test_decoder_refuses_missing_parts_and_window_lists(cfgs):
 
     cfg = cfgs[1]
     params = init_lm_params(cfg, 0, device="cpu")
-    dense = dataclasses.replace(cfg, group=(BlockDesc("attn"),))
+    xlstm = dataclasses.replace(cfg, group=(BlockDesc("mlstm"),))
     with pytest.raises(NotImplementedError, match="cache_init"):
-        decoder_cache_init(params["decoder"], dense, B, 8)
+        decoder_cache_init(params["decoder"], xlstm, B, 8)
     three = dataclasses.replace(cfg, group=(BlockDesc("hymba", window_per_repeat=(0, 4, 4)),))
     with pytest.raises(ValueError, match="per-repeat windows"):
         decoder_fwd(params["decoder"], torch.zeros(B, 4, 64), three, dict(causal=True))
