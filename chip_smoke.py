@@ -190,24 +190,49 @@ Phases, each printing one JSON line and raising on any failure:
               window 4096 and full; llama-vision's 4096 x 6400 cross
               attention), timed as in phase 3, SDPA where no softcap is on.
      lm_weights, lm_arch, lm_profile
-              for each of tinyllama-1.1b, yi-6b, gemma2-9b, qwen2.5-14b
+              for each of xlstm-125m (mLSTM and sLSTM blocks, plain
+              PyTorch), tinyllama-1.1b, yi-6b, gemma2-9b, qwen2.5-14b
               (all 48 layers), llama-3.2-vision-11b (stub vision
               embeddings 2 x 6400) and musicgen-medium (stub frames) at
               full width: the parameter count, prefill of 2 x 4096 tokens
               (gemma2: 1 x 8192, twice its window), 16 greedy decode
               steps eagerly and as one captured step replayed (tokens and
               logit bits equal), the forward over prompt and generated
-              positions; B2 once a layer in the prefill and the forward,
-              never in a decode step; decode against forward within the
-              hymba bf16 gate (not llama-vision: the JAX package's xattn
-              forward ropes, its prefill and step do not); warm ms, peak
-              memory, idle share, one profiled prefill.
+              positions; B2 once an attention layer in the prefill and
+              the forward (xlstm: never), never in a decode step; decode
+              against forward within the hymba bf16 gate (not
+              llama-vision: the JAX package's xattn forward ropes, its
+              prefill and step do not); warm ms (xlstm's prefill: its
+              first call), peak memory, idle share, one profiled prefill
+              (xlstm: of 128 positions).
+     xlstm_mixers
+              one mLSTM and one sLSTM layer of xlstm-125m at the prefill's
+              shape: event ms, device busy ms and idle share (the sLSTM
+              loop profiled over 128 positions).
      lm_reference
               each arch's reduced config in float32 on the card and on
               the CPU with the same params (greedy tokens equal, logits
-              within 2e-4), and reduced gemma2 at head dim 256 in bf16
-              (B2's four-chunk kernel in a model; a planted ignored window
-              must exceed the gate).
+              within 2e-4), reduced gemma2 at head dim 256 in bf16 (B2's
+              four-chunk kernel in a model; a planted ignored window must
+              exceed the gate), and reduced xlstm in bf16: decode logits
+              from ``lm_compute_params`` (cast leaf by leaf by path) equal
+              in bits to those of the uncast params.
+     ssm_scan_backward
+              B7 under autograd at hymba-1.5b's training shape (8, 128,
+              25,600): h, da and db against autograd through the plain
+              loop (1e-5 of each tensor's scale), the backward timed as
+              in phase 3, with its bound.
+     lm_train ``python -m repro_torch.launch.train --scale full --steps 20
+              --batch 8 --seq 128`` in process for tinyllama-1.1b (the
+              CLI's default), xlstm-125m (--seq 32) and hymba-1.5b (B7
+              forward, recomputed and backward): losses finite, ms a step
+              without the host's MarkovLM time, tokens/s, peak memory,
+              launches; a second xlstm call resumed from the first's
+              step-10 checkpoint equal to it within 1e-5.
+     lm_train_reference
+              one lm_loss gradient of every ported arch's reduced config
+              in float32, card against CPU: loss within 1e-5, each leaf's
+              gradient within 1e-4 of its scale.
   7. train_full_width
               the full-width ``paper-pixel-dit`` trained through
               ``repro_torch.training.loop.run`` (5 steps of sl_denoiser_loss
@@ -243,7 +268,8 @@ Phases, each printing one JSON line and raising on any failure:
               B1-B6 against their plain versions at the branched rounds'
               shapes (rows of S x B x theta), timed as in phase 3.
   8. kernels  one JSON line with every ported kernel's numbers, and rows
-              at the branched shapes (``at``) with their launches there.
+              at the branched shapes, the lm-zoo shapes and B7's backward
+              (``at``) with their launches there.
   9. the last line: {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, where there is no CUDA device or
@@ -3524,6 +3550,7 @@ def check_hymba_reference(torch, dev):
 # llama-vision's one gate a xattn layer included).  gemma2's prompt is twice
 # its local window, so the band cuts in the kernel and in the decode step.
 LM_ARCHS = {
+    "xlstm-125m": (2, 4096, 172_980_528),
     "tinyllama-1.1b": (2, 4096, 1_100_048_384),
     "yi-6b": (2, 4096, 6_061_035_520),
     "gemma2-9b": (1, 8192, 9_241_404_928),
@@ -3536,20 +3563,34 @@ LM_DECODE = 16
 # its prefill and decode step do not (src/repro/models/blocks.py:128-197),
 # so llama-vision's decode logits are not its forward's: no decode gate.
 LM_NO_DECODE_GATE = ("llama-3.2-vision-11b",)
+# xlstm's prefill and forward loop over positions in its sLSTM layers (a
+# Python loop of ~22 small kernels a position, host-bound at ~0.35 ms a
+# position a layer on the card): its prefill is timed once (the first
+# call), and the profiled prefill cut to XLSTM_PROFILE_PROMPT positions (a
+# 4096-token one records ~0.5 M kernel events, and the profiler's
+# post-processing of them takes longer than the run)
+LM_RECURRENT = ("xlstm-125m",)
+XLSTM_PROFILE_PROMPT = 128
 
 
-def _cast_leaf_by_leaf(torch, tree, cfg):
+def _attention_layers(cfg):
+    """The layers that run B2 once in a prefill or a forward."""
+    return cfg.n_repeats * sum(d.kind in ("attn", "xattn", "hymba") for d in cfg.group)
+
+
+def _cast_leaf_by_leaf(torch, tree, cfg, path=()):
     """``lm_compute_params`` one leaf at a time, in place: each float32 leaf
     is dropped as soon as its compute-dtype copy exists, so the peak is the
     float32 tree and one leaf (the whole-tree cast holds both trees, 88.6 GB
-    for qwen2.5-14b: more than the card has)."""
+    for qwen2.5-14b: more than the card has).  Each leaf is cast by the rule
+    of its path (xlstm's cells keep their gates' weights float32)."""
     from repro_torch.models.lm import lm_compute_params
 
     for key in list(tree):
         if isinstance(tree[key], dict):
-            _cast_leaf_by_leaf(torch, tree[key], cfg)
+            _cast_leaf_by_leaf(torch, tree[key], cfg, path + (key,))
         else:
-            tree[key] = lm_compute_params({key: tree[key]}, cfg)[key]
+            tree[key] = lm_compute_params({key: tree[key]}, cfg, path)[key]
     return tree
 
 
@@ -3609,7 +3650,7 @@ def run_lm_arch(torch, dev, name):
     frames = None if cfg.embed_inputs else inputs
     prompt = inputs[:, :P]
     per_layer = {n: 0 for n in counters}
-    per_layer["flash_attention"] = cfg.n_layers
+    per_layer["flash_attention"] = _attention_layers(cfg)  # xlstm: none
     runs, wall = {}, {}
     with torch.no_grad():
         caches = lm_cache_init(cp, cfg, B, P + T)
@@ -3661,19 +3702,23 @@ def run_lm_arch(torch, dev, name):
                                     frames=frames)
     del prefilled
 
+    recurrent = name in LM_RECURRENT
     with torch.no_grad():
         x0 = toks[0] if frames is None else frames[:, P:P + 1]
-        prefill_ms = cuda_ms(lambda: lm_prefill(cp, prompt, caches, cfg, vision=vision),
-                             reps=2, warmup=1)
+        prefill_ms = wall["prefill_s"] * 1e3 if recurrent else cuda_ms(
+            lambda: lm_prefill(cp, prompt, caches, cfg, vision=vision), reps=2, warmup=1)
         decode_ms = cuda_ms(lambda: lm_decode_step(cp, x0, caches, P, cfg), reps=4,
                             warmup=1)
         torch.cuda.synchronize()
-        wall_ms, kernels = _profiled(torch, lambda: lm_prefill(cp, prompt, caches, cfg,
-                                                               vision=vision))
+        Pp = XLSTM_PROFILE_PROMPT if recurrent else P
+        wall_ms, kernels = _profiled(torch, lambda: lm_prefill(cp, prompt[:, :Pp], caches,
+                                                               cfg, vision=vision))
     _emit_profile(torch, "lm_profile", wall_ms, kernels,
-                  f"one warm lm_prefill of {name} ({B} x {P} tokens, {cfg.n_layers} layers) "
+                  f"one warm lm_prefill of {name} ({B} x {Pp} tokens, {cfg.n_layers} layers) "
                   "under torch.profiler; 'other' holds norms, RoPE, activations and casts",
-                  model=name, prefill_tokens=B * P)
+                  model=name, prefill_tokens=B * Pp)
+    if recurrent:
+        _xlstm_mixer_profiles(torch, dev, cp, cfg, B, P)
     emit("lm_arch", model=name, batch=B, prompt=P, decode_steps=T, cache_len=P + T,
          inputs="token ids" if frames is None else "stub frames (bf16, from the seed)",
          vision=None if vision is None else list(vision.shape), launches=runs,
@@ -3685,10 +3730,56 @@ def run_lm_arch(torch, dev, name):
          greedy_argmax_agreement=(dec.argmax(-1) == ref.argmax(-1)).float().mean().item(),
          logits_abs_max=ref.abs().max().item(), peak_memory_gb=peak_gb,
          first_call_wall=wall, prefill_ms=prefill_ms,
+         prefill_timing="the first call's wall (host-bound)" if recurrent else
+         "warm, CUDA events",
          prefill_tokens_per_s=B * P / prefill_ms * 1e3, decode_ms_per_step=decode_ms,
          decode_tokens_per_s=B / decode_ms * 1e3, captured_decode=graph_decode,
          note="warm times by CUDA events; a decode step is one position of each sequence")
     return runs
+
+
+def _xlstm_mixer_profiles(torch, dev, cp, cfg, B, P):
+    """xlstm_mixers: one mLSTM and one sLSTM cell (layer 0 of each) on a
+    (B, P, d_model) bf16 input, as in the prefill: the mLSTM's chunks
+    profiled whole; the sLSTM's loop timed by CUDA events at P positions
+    and profiled at XLSTM_PROFILE_PROMPT (device busy ms and idle share),
+    with the prefill's share estimated from them (its layers times one)."""
+    from repro_torch.nn.ssm import mlstm_fwd, slstm_fwd
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    x = torch.randn(B, P, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    from repro_torch import pytree
+
+    cells = {kind: pytree.map(lambda t: t[0], cp["decoder"][f"g{i}"]["cell"])
+             for i, kind in enumerate(("mlstm", "slstm"))}
+    layers = cfg.n_repeats
+    out = {}
+    with torch.no_grad():
+        for kind, fwd, short in (("mlstm", mlstm_fwd, P), ("slstm", slstm_fwd,
+                                                           XLSTM_PROFILE_PROMPT)):
+            p = cells[kind]
+            event_ms = cuda_ms(lambda: fwd(p, x, cfg), reps=1, warmup=0)  # warm: the prefill ran it
+            torch.cuda.synchronize()
+            wall_ms, kernels = _profiled(torch, lambda: fwd(p, x[:, :short], cfg))
+            busy = sum(ms for _, ms, _ in kernels)
+            out[kind] = dict(
+                event_ms_at_prompt=event_ms, prompt=P, profiled_positions=short,
+                profiled_wall_ms=wall_ms, device_busy_ms=busy or "not measured",
+                device_idle_share=max(0.0, 1.0 - busy / wall_ms) if busy else None,
+                kernel_launches=sum(n for _, _, n in kernels),
+                prefill_layers=layers, prefill_event_ms_estimate=layers * event_ms,
+                top_kernels=[{"name": k[:80], "ms": ms, "count": n} for k, ms, n in
+                             sorted(kernels, key=lambda e: -e[1])[:5]])
+            if kind == "slstm" and busy:
+                out[kind]["device_busy_ms_per_position"] = busy / short
+                out[kind]["prefill_device_ms_estimate"] = layers * P * busy / short
+            elif busy:
+                out[kind]["prefill_device_ms_estimate"] = layers * busy
+    emit("xlstm_mixers", model=cfg.name, batch=B, **out,
+         note="layer 0 of each cell at the prefill's shape (bf16 input); mLSTM: 4 chunks "
+              "of 1024, profiled whole; sLSTM: event ms over the prompt, profiled over "
+              f"{XLSTM_PROFILE_PROMPT} positions; estimates scale to the prefill's "
+              f"{layers} layers of each")
 
 
 # gemma2's reduced config at its published head dim 256 (d_model 64) in
@@ -3754,12 +3845,54 @@ def check_lm_archs_reference(torch, dev):
         if not torch.equal(t_cpu, t_card) or not err <= 2e-4:
             fail(f"lm_reference {name}: tokens equal {torch.equal(t_cpu, t_card)}, logits "
                  f"differ by {err} (2e-4)")
-        if card["flash_attention_f32"] != 2 * cfg.n_layers or card["flash_attention"]:
+        if card["flash_attention_f32"] != 2 * _attention_layers(cfg) or \
+                card["flash_attention"]:
             fail(f"lm_reference {name}: card launches {card}")
         results[name] = dict(max_abs_err=err, logits_abs_max=f_cpu.abs().max().item(),
                              card_launches={k: v for k, v in card.items() if v})
     results["gemma2-9b head_dim 256 bf16"] = _gemma2_hd256_reference(torch, dev)
+    results["xlstm-125m bf16 compute params"] = _xlstm_bf16_cast_reference(torch, dev)
     emit("lm_reference", prompt=P, decode_steps=T, tolerance=2e-4, archs=results)
+
+
+def _xlstm_bf16_cast_reference(torch, dev):
+    """reduced(xlstm-125m) in bf16 on the card: prefill of 48 tokens and 8
+    decode steps from ``lm_compute_params`` (leaf by leaf, as the lm_arch
+    runs cast) give the logits of the uncast float32 params bit for bit;
+    the cells' gate weights must stay float32 (mLSTM's decode step reads
+    wq, wk and wv in float32: a cast by leaf name alone changes its
+    logits)."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import lm_cache_init, lm_decode_step, lm_prefill
+    from repro_torch.weights import init_lm_params
+
+    cfg = dataclasses.replace(reduced(get_config("xlstm-125m")), compute_dtype="bfloat16")
+    params = init_lm_params(cfg, SEED, device=dev)
+    cast = _cast_leaf_by_leaf(torch, pytree.map(torch.clone, params), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 56), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 25))
+
+    def decode(p):
+        caches = lm_cache_init(p, cfg, 2, 56)
+        with torch.no_grad():
+            logits, caches = lm_prefill(p, tokens[:, :48], caches, cfg)
+            rows = [logits[:, 0]]
+            for i in range(48, 56):
+                logits, caches = lm_decode_step(p, tokens[:, i], caches, i, cfg)
+                rows.append(logits[:, 0])
+        return torch.stack(rows, 1)
+
+    ref, got = decode(params), decode(cast)
+    kept = {k: str(v.dtype) for k, v in cast["decoder"]["g0"]["cell"].items()
+            if k in ("wq", "wk", "wv", "up_proj")}
+    same = _bits(torch, got.float(), ref.float())
+    if not (same and kept["wq"] == "torch.float32" and kept["up_proj"] == "torch.bfloat16"):
+        fail(f"lm_reference xlstm bf16: cast params' decode logits equal bits {same}, leaf "
+             f"dtypes {kept}")
+    return dict(decode_logits_bit_equal=True, leaf_dtypes=kept,
+                logits_abs_max=ref.float().abs().max().item())
 
 
 def _gemma2_hd256_reference(torch, dev):
@@ -4070,6 +4203,216 @@ def run_train_full_width(torch, dev):
          checkpoint_restored="equal bits", checkpoint_every=TRAIN_CKPT_EVERY,
          note="warm step ms by CUDA events around train_step (steps 2-5); the loop "
               "adds the batch, the per-step generator and the metrics read")
+
+
+# lm_train: the LM trainer's CLI at full width (its default arch, xlstm,
+# and hymba through B7's forward and backward), 20 steps of 8 x 128 tokens
+# (xlstm 8 x 32: its sLSTM loop runs forward, recomputed and backward at
+# ~0.6 ms a position a layer, host-bound, 2.4 s a step at 128 on an NVIDIA
+# H100 80GB HBM3, 700.00 W)
+LM_TRAIN_ARCHS = ("tinyllama-1.1b", "xlstm-125m", "hymba-1.5b")
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 20, 8, 128
+LM_TRAIN_SEQ_BY_ARCH = {"xlstm-125m": 32}
+LM_TRAIN_RESUMED = "xlstm-125m"
+# B7's backward at hymba-1.5b's training shape (batch, seq, din * N)
+SCAN_BWD_SHAPE = (LM_TRAIN_BATCH, LM_TRAIN_SEQ, 1600 * 16)
+
+
+def _train_cli(torch, argv):
+    """``repro_torch.launch.train.main(argv)`` in process, its printed lines
+    captured: (its result, the lines)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train.main(list(argv))
+    torch.cuda.synchronize()
+    return res, buf.getvalue().splitlines()
+
+
+def run_lm_train(torch, dev):
+    """lm_train: ``python -m repro_torch.launch.train --scale full --steps
+    20 --batch 8 --seq 128`` (xlstm: --seq 32) in process for each of
+    LM_TRAIN_ARCHS
+    (bf16 compute, float32 params and AdamW state, remat, naive attention):
+    losses (all finite; whether they fall is recorded, not gated: step 0's
+    learning rate is 0 and warmup takes 10 steps), ms a step with the host's
+    MarkovLM time apart, tokens/s, peak memory, launches.  xlstm's run
+    writes checkpoints (--ckpt-dir: steps 10 and 20); a second call to 20
+    steps in a directory holding only its step-10 checkpoint resumes there,
+    and its losses must equal the straight run's within 1e-5 relative
+    (train_full_width's tolerance)."""
+    import shutil
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.ssm_scan.ops import linear_scan
+
+    counters = _counters()
+
+    def args(name, steps=LM_TRAIN_STEPS):
+        return ("--arch", name, "--scale", "full", "--steps", str(steps), "--batch",
+                str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ_BY_ARCH.get(name, LM_TRAIN_SEQ)))
+
+    runs, results = {}, {}
+    ckpt_dir = _fresh_dir("lm_train")
+    for name in LM_TRAIN_ARCHS:
+        seq = LM_TRAIN_SEQ_BY_ARCH.get(name, LM_TRAIN_SEQ)
+        base = _fresh_memory(torch)
+        _zero_counters(torch, counters)
+        linear_scan.backward_launches = 0
+        t0 = time.perf_counter()
+        res, lines = _train_cli(torch, args(name) + (
+            ("--ckpt-dir", str(ckpt_dir / "straight")) if name == LM_TRAIN_RESUMED else ()))
+        wall = time.perf_counter() - t0
+        runs[f"lm_train_{name}"] = _launches(counters)
+        hist = res["history"]
+        losses = [h["loss"] for h in hist]
+        step_ms = [(h["time"] - d) * 1e3 for h, d in zip(hist, res["data_s"])]
+        if res["last_step"] != LM_TRAIN_STEPS or len(losses) != LM_TRAIN_STEPS or \
+                not all(math.isfinite(x) for x in losses):
+            fail(f"lm_train {name}: {res['last_step']} steps, losses {losses}")
+        warm = statistics.mean(step_ms[1:])
+        results[name] = dict(
+            seq=seq, first_loss=losses[0], last_loss=losses[-1], losses=losses,
+            loss_fell=losses[-1] < losses[0], step_ms=step_ms, warm_step_ms=warm,
+            host_data_ms=[d * 1e3 for d in res["data_s"]],
+            tokens_per_s=LM_TRAIN_BATCH * seq / warm * 1e3,
+            peak_memory_gb=(torch.cuda.max_memory_allocated() - base) / 1e9, wall_s=wall,
+            launches={k: v for k, v in runs[f"lm_train_{name}"].items() if v},
+            scan_backward_launches=linear_scan.backward_launches, printed=lines[-2:])
+        torch.cuda.empty_cache()
+    hymba = results["hymba-1.5b"]
+    # each hymba step runs B7 once a layer in the forward, the recompute
+    # (remat) and the backward
+    hcfg = get_config("hymba-1.5b")
+    per_step = hcfg.n_layers * (3 if hcfg.remat else 2)
+    if hymba["scan_backward_launches"] != hcfg.n_layers * LM_TRAIN_STEPS or \
+            hymba["launches"].get("ssm_scan") != per_step * LM_TRAIN_STEPS:
+        fail(f"lm_train hymba: B7 launches {hymba['launches']}, backward "
+             f"{hymba['scan_backward_launches']}")
+
+    half = f"step_{LM_TRAIN_STEPS // 2:09d}"
+    shutil.copytree(ckpt_dir / "straight" / half, ckpt_dir / "resumed" / half)
+    second, _ = _train_cli(torch, args(LM_TRAIN_RESUMED)
+                           + ("--ckpt-dir", str(ckpt_dir / "resumed")))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    straight = results[LM_TRAIN_RESUMED]["losses"][LM_TRAIN_STEPS // 2:]
+    resumed = [h["loss"] for h in second["history"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight))
+    if [h["step"] for h in second["history"]] != list(range(LM_TRAIN_STEPS // 2 + 1,
+                                                            LM_TRAIN_STEPS + 1)) or \
+            len(resumed) != len(straight) or not rel <= 1e-5:
+        fail(f"lm_train resume: steps {[h['step'] for h in second['history']]}, losses "
+             f"{resumed} against {straight} (max relative {rel})")
+    emit("lm_train", archs=results, batch=LM_TRAIN_BATCH, steps=LM_TRAIN_STEPS,
+         resumed=dict(
+             model=LM_TRAIN_RESUMED, from_checkpoint=LM_TRAIN_STEPS // 2,
+             resumed_steps=[h["step"] for h in second["history"]],
+             max_relative_loss_difference=rel, tolerance=1e-5),
+         note="python -m repro_torch.launch.train in process (tinyllama-1.1b is its default "
+              "arch); step ms is the loop's time a step less the host's MarkovLM batch, "
+              "warm over steps 2-20; the batch, its copy and the metrics read are in it")
+    return runs, hymba["scan_backward_launches"]
+
+
+def check_ssm_scan_backward(torch, dev):
+    """B7 under autograd at hymba-1.5b's training shape: h, da and db of the
+    kernel's autograd Function (one kernel launch forward, one over reversed
+    time backward) against autograd through the plain loop, within 1e-5 of
+    each tensor's largest magnitude; the backward timed as in phase 3 (the
+    kernel's against the plain loop's backward) with its bound: a, h and
+    the upstream gradient read once, da and db written once."""
+    from repro_torch.kernels.ssm_scan.ops import linear_scan, ssm_scan_plain
+
+    B, L, D = SCAN_BWD_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    a = (0.5 + 0.499 * torch.rand(B, L, D, generator=g, device=dev)).requires_grad_()
+    b = torch.randn(B, L, D, generator=g, device=dev).requires_grad_()
+    G = torch.randn(B, L, D, generator=g, device=dev)
+    h = linear_scan(a, b)
+    before = linear_scan.backward_launches
+    da, db = torch.autograd.grad(h, (a, b), G, retain_graph=True)
+    torch.cuda.synchronize()
+    hp = ssm_scan_plain(a, b)
+    rda, rdb = torch.autograd.grad(hp, (a, b), G, retain_graph=True)
+    errs = {k: ((x - y).abs().max() / y.abs().max()).item()
+            for k, x, y in (("h", h, hp), ("da", da, rda), ("db", db, rdb))}
+    if linear_scan.backward_launches != before + 1 or not all(e <= 1e-5 for e in
+                                                               errs.values()):
+        fail(f"ssm_scan_backward: relative errors {errs}, backward launches "
+             f"{linear_scan.backward_launches - before}")
+    err = max((da - rda).abs().max().item(), (db - rdb).abs().max().item())
+    times = kernel_times(lambda: torch.autograd.grad(h, (a, b), G, retain_graph=True),
+                         lambda: torch.autograd.grad(hp, (a, b), G, retain_graph=True),
+                         reps=3, wrapper=linear_scan)
+    n = B * L * D
+    bms, by = bound_ms(20.0 * n, 3.0 * n, PEAK_F32)
+    emit("ssm_scan_backward", shape=[B, L, D], dtype="float32", max_abs_err=err,
+         relative_errors=errs, **times, library=None, bound_ms=bms, bound_by=by,
+         tolerance="1e-5 of each tensor's largest magnitude (h, da, db)",
+         note="one backward: a shifted one step and flipped, the upstream gradient "
+              "flipped, B7 once, the result flipped back, da = g h_{t-1}; the plain "
+              "version is autograd through the sequential loop")
+    return dict(name="ssm_scan", at=f"backward, hymba-1.5b training {list(SCAN_BWD_SHAPE)}",
+                route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+                replaces="src/repro/kernels/ssm_scan/kernel.py:27", max_abs_err=err,
+                **times, bound_ms=bms, bound_by=by)
+
+
+def check_lm_train_reference(torch, dev):
+    """lm_train_reference: one lm_loss gradient of every ported arch's
+    reduced config in float32 (llama-vision with stub vision, musicgen with
+    stub frames), the same params and batch on the card and on the CPU: the
+    loss within 1e-5, every leaf's gradient within 1e-4 of its largest
+    magnitude (AdamW's first update, ~lr sign(g), would flip for gradients
+    near 0).  B7 runs forward and backward for hymba; B2 never (the loss
+    takes the naive core)."""
+    from repro_torch import pytree
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.ssm_scan.ops import linear_scan
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.weights import init_lm_params
+
+    counters = _counters()
+    results = {}
+    for name in ARCHS:
+        cfg = reduced(get_config(name))
+        params = init_lm_params(cfg, SEED, device="cpu")
+        g = torch.Generator().manual_seed(SEED + 27)
+        batch = {"tokens": (torch.randint(0, cfg.vocab_size, (2, 32), generator=g)
+                            if cfg.embed_inputs else torch.randn(2, 32, cfg.d_model,
+                                                                 generator=g)),
+                 "labels": torch.randint(0, cfg.vocab_size, (2, 32), generator=g)}
+        if cfg.n_vision_tokens:
+            batch["vision"] = torch.randn(2, cfg.n_vision_tokens, cfg.d_model, generator=g)
+        out = {}
+        _zero_counters(torch, counters)
+        linear_scan.backward_launches = 0
+        for where in ("cpu", dev):
+            ps = [p.to(where).requires_grad_() for p in pytree.leaves(params)]
+            loss, _ = lm_loss(pytree.unflatten(params, ps),
+                              {k: v.to(where) for k, v in batch.items()}, cfg)
+            out[str(where)] = (loss.item(), [t.cpu() for t in torch.autograd.grad(loss, ps)])
+        torch.cuda.synchronize()
+        (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out[str(dev)]
+        rel = max(((c - p).abs().max() / p.abs().max()).item() for c, p in zip(g_card, g_cpu))
+        launches = _launches(counters)
+        scans = 2 * cfg.n_layers if name == "hymba-1.5b" else 0  # forward + backward
+        if not (abs(l_card - l_cpu) <= 1e-5 and rel <= 1e-4) or launches["ssm_scan"] != scans \
+                or linear_scan.backward_launches != scans // 2 or launches["flash_attention"] \
+                or launches["flash_attention_f32"]:
+            fail(f"lm_train_reference {name}: loss {l_card} against {l_cpu}, gradients "
+                 f"{rel} of scale, launches {launches}")
+        results[name] = dict(loss=l_cpu, loss_abs_err=abs(l_card - l_cpu),
+                             max_grad_err_of_scale=rel,
+                             card_launches={k: v for k, v in launches.items() if v})
+    emit("lm_train_reference", batch=[2, 32], archs=results,
+         tolerance="loss 1e-5; each leaf's gradient 1e-4 of its largest magnitude")
 
 
 def _standin_dc(spec):
@@ -4870,6 +5213,18 @@ def run_sharded_serve_cli(torch, dev):
     return by_run
 
 
+class PhaseClock:
+    """Wall seconds since the previous mark, by the name given at each."""
+
+    def __init__(self):
+        self.seconds, self._t = {}, time.perf_counter()
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = now - self._t
+        self._t = now
+
+
 def main() -> None:
     import torch
 
@@ -4892,63 +5247,102 @@ def main() -> None:
 
     from repro_torch.kernels import _build
 
+    clock = PhaseClock()
     t0 = time.perf_counter()
     _build.library()
     info = _build.build_info
     emit("build", nvcc_seconds="cached" if info["seconds"] is None else info["seconds"],
          load_seconds=time.perf_counter() - t0, library=info["path"])
+    clock("build")
 
     check_flash_identity_probe(torch, dev)
     kernels = [check_grs(torch, dev), check_flash(torch, dev), check_flash_f32(torch, dev),
                *check_pack(torch, dev), *check_fused_round(torch, dev),
                check_ssm_scan(torch, dev)]
+    clock("kernel_checks")
     asd_launches, flash_fn, sched, dc, graph_runs = run_slice(torch, dev)
+    clock("slice")
     check_reference(torch, dev)
+    clock("reference")
     serve_launches, serve_runs = run_serve(torch, dev, flash_fn, sched, dc)
+    clock("serve")
     by_run = {"asd": asd_launches, **serve_launches}
     branched_launches, branched_graph_runs = run_branched(torch, dev, flash_fn, sched, dc,
                                                           serve_runs)
+    clock("branched")
     by_run.update(branched_launches)
     del serve_runs
     graph_runs.update(branched_graph_runs)
     by_run.update(run_sampler_graphs(torch, dev, flash_fn, sched, dc, graph_runs))
+    clock("sampler_graphs")
     del graph_runs, branched_graph_runs
     by_run.update(run_serve_graphs(torch, dev, flash_fn, sched, dc))
+    clock("serve_graphs")
     by_run.update(run_sharded_serve(torch, dev, flash_fn, sched, dc))
+    clock("sharded_serve")
     check_serve_reference(torch, dev)
+    clock("serve_reference")
     check_branched_reference(torch, dev)
+    clock("branched_reference")
     window_device_ms = check_prng(torch, dev)
+    clock("prng")
     cli_shapes = check_cli_kernels(torch, dev)
+    clock("cli_kernels")
     by_run.update(run_serve_counter_memory(torch, dev, flash_fn, dc, window_device_ms))
+    clock("serve_counter_memory")
     del flash_fn  # the denoiser's weights
     cli_launches, cli_summaries = run_serve_cli(torch, dev)
     by_run.update(cli_launches)
+    clock("serve_cli")
     by_run.update(run_serve_cli(torch, dev, SERVE_CLI_BRANCHED_RUNS, "serve_cli_branched",
                                 reference=cli_summaries["profile"])[0])
+    clock("serve_cli_branched")
     by_run.update(run_sharded_serve_cli(torch, dev))
+    clock("sharded_serve_cli")
     check_serve_keys_reference(torch, dev)
+    clock("serve_keys_reference")
     by_run.update(run_hymba(torch, dev))
+    clock("hymba")
     hymba_f32_launches, designs_by_run = check_hymba_f32(torch, dev)
     by_run.update(hymba_f32_launches)
+    clock("hymba_f32")
     check_hymba_reference(torch, dev)
+    clock("hymba_reference")
     lm_rows = check_flash_lm_shapes(torch, dev)
+    clock("flash_attention_lm")
     for name in LM_ARCHS:
         by_run.update(run_lm_arch(torch, dev, name))
+        clock(f"lm_arch {name}")
     check_lm_archs_reference(torch, dev)
+    clock("lm_reference")
+    scan_backward = check_ssm_scan_backward(torch, dev)
+    clock("ssm_scan_backward")
+    train_launches, scan_backward_launches = run_lm_train(torch, dev)
+    by_run.update(train_launches)
+    clock("lm_train")
+    check_lm_train_reference(torch, dev)
+    clock("lm_train_reference")
     f32_standins = check_standin_kernels(torch, dev)
+    clock("standin_kernels")
     run_train_full_width(torch, dev)
+    clock("train_full_width")
     policy_params, policy_dc, policy_launches, policy_designs = run_standin_policy(torch, dev)
     by_run.update(policy_launches)
     designs_by_run.update(policy_designs)
+    clock("standin_policy")
     pixel_launches, pixel_designs, pixel_params, pixel_dc = run_standin_pixel(torch, dev)
     by_run.update(pixel_launches)
     designs_by_run.update(pixel_designs)
+    clock("standin_pixel")
     branched_launches, branched_designs = run_standin_branched(torch, dev, pixel_params,
                                                                pixel_dc)
     by_run.update(branched_launches)
     designs_by_run.update(branched_designs)
+    clock("standin_branched")
     check_standin_reference(torch, dev, policy_params, policy_dc)
+    clock("standin_reference")
     branched_rows = check_branched_kernels(torch, dev)
+    clock("branched_kernels")
     for kern in kernels:
         per = {run: counts.get(kern["name"], 0) for run, counts in by_run.items()}
         if not any(per.values()):
@@ -4984,7 +5378,13 @@ def main() -> None:
                  f"shape: {per}")
         kern["launches"] = sum(per.values())
         kern["launches_by_run"] = per
-    kernels += branched_rows + lm_rows
+    # B7's backward: its launches in the hymba training run (one a layer a
+    # step; the run's other B7 launches are the forward and the recompute)
+    scan_backward["launches"] = scan_backward_launches
+    scan_backward["launches_by_run"] = {"lm_train_hymba-1.5b": scan_backward_launches}
+    kernels += branched_rows + lm_rows + [scan_backward]
+    emit("phase_seconds", **clock.seconds, total=sum(clock.seconds.values()),
+         note="wall seconds of each group of phases, in order, the build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

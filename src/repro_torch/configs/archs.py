@@ -1,11 +1,22 @@
 """The assigned LM architectures the port runs (copied from the JAX
-package's ``configs/archs.py``): hymba-1.5b, the dense archs (tinyllama,
-yi, gemma2, qwen2.5), llama-3.2-vision and musicgen.  xlstm-125m (mLSTM
-and sLSTM blocks) and the MoE archs (dbrx, qwen3-moe) are not ported yet."""
+package's ``configs/archs.py``): xlstm-125m, hymba-1.5b, the dense archs
+(tinyllama, yi, gemma2, qwen2.5), llama-3.2-vision and musicgen.  The MoE
+archs (dbrx, qwen3-moe) are not ported yet (ROADMAP A9)."""
 
 from __future__ import annotations
 
 from repro_torch.configs.base import BlockDesc, ModelConfig
+
+
+def xlstm_125m() -> ModelConfig:
+    # [ssm] sLSTM + mLSTM blocks [arXiv:2405.04517]; d_ff=0 (blocks carry
+    # their own projections); alternating (mlstm, slstm) groups.
+    return ModelConfig(
+        name="xlstm-125m", family="ssm", n_layers=12, d_model=768,
+        n_heads=4, n_kv_heads=4, d_ff=0, vocab_size=50304,
+        group=(BlockDesc("mlstm"), BlockDesc("slstm")),
+        pos_embed="none", ssm_conv=4, ssm_state=16,
+    )
 
 
 def hymba_1_5b() -> ModelConfig:
@@ -83,6 +94,7 @@ def musicgen_medium() -> ModelConfig:
 
 
 ARCHS = {
+    "xlstm-125m": xlstm_125m,
     "hymba-1.5b": hymba_1_5b,
     "tinyllama-1.1b": tinyllama_1_1b,
     "yi-6b": yi_6b,

@@ -6,6 +6,9 @@ seen.  Each draws with numpy from ``default_rng((seed, step, salt))`` as the
 JAX package's ``repro.data.pipeline`` does, so both packages' batches are
 equal bit for bit.  ``batch_at`` returns numpy arrays.
 
+  * MarkovLM     -- a learnable token stream from a random Markov chain
+                    (latent states, each emitting from its own sparse
+                    distribution over the vocabulary) for the LM trainer
   * GMMSequences -- (B, L, d) rows drawn from a GMM (a diffusion toy target)
   * BlobImages   -- "images" as patch-token sequences: 1-3 Gaussian bumps
                     at random centres (pixel / latent diffusion stand-in)
@@ -19,6 +22,41 @@ import dataclasses
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class MarkovLM:
+    """Token sequences (B, L + 1) from a random 64-state Markov chain whose
+    states emit tokens; ``batch_at`` returns the first L as ``tokens`` and
+    the last L as ``labels``, int32 numpy arrays.  A host loop of one
+    ``rng.choice`` a token and a state, as in the JAX package."""
+
+    vocab: int
+    seq_len: int
+    batch: int
+    seed: int = 0
+    order_states: int = 64
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        # sparse-ish random transition matrix over latent states -> tokens
+        self.trans = rng.dirichlet(
+            np.full(self.order_states, 0.1), size=self.order_states
+        ).astype(np.float32)
+        self.emit = rng.dirichlet(
+            np.full(self.vocab, 0.05), size=self.order_states
+        ).astype(np.float32)
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed, step))
+        B, L = self.batch, self.seq_len
+        states = rng.integers(0, self.order_states, size=B)
+        toks = np.empty((B, L + 1), np.int32)
+        for i in range(L + 1):
+            toks[:, i] = [rng.choice(self.vocab, p=self.emit[s]) for s in states]
+            states = np.array(
+                [rng.choice(self.order_states, p=self.trans[s]) for s in states])
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 @dataclasses.dataclass

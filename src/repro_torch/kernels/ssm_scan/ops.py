@@ -10,6 +10,13 @@ ragged edge, so nothing is padded.
 The plain PyTorch version is ``ssm_scan_plain``.  ``linear_scan`` takes it
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.  ``linear_scan.launches`` counts kernel launches.
+
+``linear_scan`` is differentiable.  Its backward is the same recurrence
+run in reverse time: with the upstream gradient G, g_t = G_t + a_{t+1}
+g_{t+1} is the scan of (a shifted one step earlier, G) over flipped time,
+then db = g and da_t = g_t h_{t-1} (h_{-1} = 0).  On the card that is one
+more launch of the kernel, counted in ``linear_scan.launches`` and apart
+in ``linear_scan.backward_launches``.
 """
 
 from __future__ import annotations
@@ -59,13 +66,9 @@ def ssm_scan_cuda(a, b):
     return h
 
 
-def linear_scan(a, b):
-    """a, b: (B, L, D) -> the full state trajectory h (B, L, D), h_t = a_t
-    h_{t-1} + b_t, in a's dtype: the plain version on the CPU, the CUDA
-    kernel on the card."""
-    if a.ndim != 3 or tuple(b.shape) != tuple(a.shape):
-        raise ValueError(f"linear_scan: a {tuple(a.shape)} and b {tuple(b.shape)} "
-                         "must be one (B, L, D) shape")
+def _scan(a, b):
+    """The device's scan: the plain version on the CPU, the kernel on the
+    card."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return ssm_scan_plain(a, b)
     if a.device.type != "cuda":
@@ -73,4 +76,35 @@ def linear_scan(a, b):
     return ssm_scan_cuda(a, b)
 
 
+class _LinearScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, G):
+        a, h = ctx.saved_tensors
+        a_next = torch.zeros_like(a)
+        a_next[:, :-1] = a[:, 1:]
+        g = _scan(a_next.flip(1), G.to(a.dtype).flip(1)).flip(1)
+        if a.device.type == "cuda":
+            linear_scan.backward_launches += 1
+        h_prev = torch.zeros_like(h)
+        h_prev[:, 1:] = h[:, :-1]
+        return g * h_prev, g
+
+
+def linear_scan(a, b):
+    """a, b: (B, L, D) -> the full state trajectory h (B, L, D), h_t = a_t
+    h_{t-1} + b_t, in a's dtype: the plain version on the CPU, the CUDA
+    kernel on the card; differentiable in a and b."""
+    if a.ndim != 3 or tuple(b.shape) != tuple(a.shape):
+        raise ValueError(f"linear_scan: a {tuple(a.shape)} and b {tuple(b.shape)} "
+                         "must be one (B, L, D) shape")
+    return _LinearScan.apply(a, b)
+
+
 linear_scan.launches = 0
+linear_scan.backward_launches = 0

@@ -10,8 +10,8 @@ int window (0 = full); ``pos`` is a 0-d integer tensor or a Python int.
 ``prefill`` and ``step`` update the cache in place and return it.  Ported,
 all four functions each: the ``attn`` block (the dense archs' and the
 denoiser's), the ``xattn`` block (llama-3.2-vision's cross-attention to the
-vision stub) and the ``hymba`` block.  The ``mlstm`` and ``slstm`` blocks
-(xlstm) and MoE FFNs are not ported yet.
+vision stub), the ``hymba`` block, and xlstm's ``mlstm`` and ``slstm``
+blocks.  MoE FFNs are not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -178,6 +178,35 @@ def hymba_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
     return _maybe_ffn(params, x1 + 0.5 * (a + m)), cache
 
 
+# ------------------------------------------------------------ mlstm/slstm
+# xlstm's blocks: a pre-norm recurrent cell added to the stream, no FFN
+# (the cells carry their own projections) and no window.  The cache is the
+# cell's recurrent state, written in place (the decoder hands each layer a
+# view of the caches stacked over repeats).
+
+
+def _xlstm_block(cell_fwd, cell_init_state, cell_step):
+    def fwd(params, x, cfg: ModelConfig, desc: BlockDesc, ctx, window: int):
+        return x + cell_fwd(params["cell"], rmsnorm_apply(params["norm"], x), cfg)
+
+    def cache_init(params, cfg: ModelConfig, desc: BlockDesc, batch: int, max_len: int,
+                   dtype):
+        return cell_init_state(params["cell"], cfg, batch)
+
+    def prefill(params, x, cache, cfg: ModelConfig, desc: BlockDesc, ctx, window: int):
+        y, state = cell_fwd(params["cell"], rmsnorm_apply(params["norm"], x), cfg,
+                            return_state=True)
+        _set_state(cache, state)
+        return x + y, cache
+
+    def step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc, window: int):
+        y, state = cell_step(params["cell"], rmsnorm_apply(params["norm"], x1), cache, cfg)
+        _set_state(cache, state)
+        return x1 + y, cache
+
+    return Block(fwd, cache_init, prefill, step)
+
+
 BLOCKS = {
     "attn": Block(attn_block_fwd, attn_block_cache_init, attn_block_prefill,
                   attn_block_step),
@@ -185,4 +214,6 @@ BLOCKS = {
                    xattn_block_step),
     "hymba": Block(hymba_block_fwd, hymba_block_cache_init, hymba_block_prefill,
                    hymba_block_step),
+    "mlstm": _xlstm_block(ssm.mlstm_fwd, ssm.mlstm_init_state, ssm.mlstm_step),
+    "slstm": _xlstm_block(ssm.slstm_fwd, ssm.slstm_init_state, ssm.slstm_step),
 }

@@ -1,6 +1,6 @@
-"""Language model: embedding -> decoder -> final norm -> head, and the
-serving paths (cache init, prefill, greedy-decode steps), as the JAX
-package's ``repro/models/lm.py``.
+"""Language model: embedding -> decoder -> final norm -> head, the loss,
+and the serving paths (cache init, prefill, greedy-decode steps), as the
+JAX package's ``repro/models/lm.py``.
 
 Params are a plain dict of tensors in the JAX package's tree layout (see
 ``repro_torch.weights.lm_param_shapes``); every function runs on the device
@@ -9,7 +9,9 @@ inputs, and the frame stub ((B, L, d_model) embeddings, musicgen's); rotary,
 sinusoidal or no positions; embedding scales (gemma2's); an untied or tied
 head, final softcap; the vision stub's patch embeddings (B, Nv, d_model)
 that xattn layers attend to (llama-3.2-vision's), given in the compute
-dtype.  The loss (``lm_loss``) is not ported yet.
+dtype.  ``lm_loss`` is the next-token loss the trainer
+(``repro_torch.launch.train``) takes gradients of; it runs the naive
+attention core, as the JAX package's does (kernel B2 has no backward).
 """
 
 from __future__ import annotations
@@ -19,26 +21,40 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.decoder import (decoder_cache_init, decoder_fwd, decoder_prefill,
                                         decoder_step)
-from repro_torch.nn.layers import (cast_leaves, embedding_apply, rmsnorm_apply,
-                                   sinusoidal_embed, softcap, unembed_apply)
+from repro_torch.nn.layers import (embedding_apply, rmsnorm_apply, sinusoidal_embed,
+                                   softcap, unembed_apply)
 
 # leaves used only in the compute dtype (everything else -- norms, the
 # conv, x_proj, dt, A and D of the mamba mixer -- enters float32 math in
 # the prefill or the decode step)
 _COMPUTE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up",
                              "w_down", "in_proj", "out_proj", "table", "w"})
+# the same inside an xlstm block's cell: only its projections.  mLSTM's
+# wq, wk, wv, conv_w, w_i, w_f and sLSTM's w_gates, r_gates enter float32
+# math in the decode step (and the gates in the forward too).
+_CELL_COMPUTE_LEAVES = frozenset({"up_proj", "down_proj", "gate_proj"})
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def lm_compute_params(params, cfg: ModelConfig):
+def _casts_to_compute(path: tuple) -> bool:
+    """Whether the leaf at ``path`` (its dict keys from the params' root)
+    is used only in the compute dtype."""
+    names = _CELL_COMPUTE_LEAVES if "cell" in path else _COMPUTE_LEAVES
+    return path[-1] in names
+
+
+def lm_compute_params(params, cfg: ModelConfig, path: tuple = ()):
     """The params with every leaf that is only used in the compute dtype
     cast to it once.  The ``lm_*`` functions cast each use to that dtype
     anyway, so results are the same; casting once saves a pass over the
-    weights per call (a decode step reads them all)."""
-    return cast_leaves(params, _COMPUTE_LEAVES, compute_dtype(cfg))
+    weights per call (a decode step reads them all).  ``path``: where
+    ``params`` sits in the whole tree, for a subtree cast alone."""
+    if isinstance(params, dict):
+        return {k: lm_compute_params(v, cfg, path + (k,)) for k, v in params.items()}
+    return params.to(compute_dtype(cfg)) if _casts_to_compute(path) else params
 
 
 def _embed(params, inputs, cfg: ModelConfig, pos=None):
@@ -73,13 +89,32 @@ def _head(params, x, cfg: ModelConfig):
     return softcap(logits, cfg.final_softcap)
 
 
-def lm_fwd(params, tokens, cfg: ModelConfig, vision=None):
+def lm_fwd(params, tokens, cfg: ModelConfig, vision=None, impl: str = "flash"):
     """tokens: (B, L) int ids, or (B, L, d_model) frames -> logits (B, L,
     vocab) in the compute dtype.  ``vision``: (B, Nv, d_model) patch
-    embeddings for the xattn layers."""
+    embeddings for the xattn layers.  ``impl``: the attention core,
+    "flash" (kernel B2 on the card) or "naive" (differentiable)."""
     x = _embed(params, tokens, cfg)
-    x = decoder_fwd(params["decoder"], x, cfg, dict(causal=True, vision=vision))
+    x = decoder_fwd(params["decoder"], x, cfg, dict(causal=True, vision=vision, impl=impl))
     return _head(params, rmsnorm_apply(params["final_norm"], x), cfg)
+
+
+def lm_loss(params, batch, cfg: ModelConfig, impl: str = "naive"):
+    """batch: dict(tokens, labels (B, L) int, mask (B, L) optional, vision
+    optional) -> (loss, metrics): the mean next-token negative
+    log-likelihood over the masked positions (logits in float32,
+    logsumexp minus the label's logit; the denominator at least 1).
+    metrics: ``nll``, ``moe_aux`` (0: no MoE is ported) and ``tokens``."""
+    logits = lm_fwd(params, batch["tokens"], cfg, vision=batch.get("vision"),
+                    impl=impl).float()
+    labels = batch["labels"].long()
+    nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None])[..., 0]
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    return loss, {"nll": loss.detach(), "moe_aux": torch.zeros_like(denom),
+                  "tokens": denom}
 
 
 def lm_cache_init(params, cfg: ModelConfig, batch: int, max_len: int,

@@ -24,8 +24,10 @@ with n the layer count (the stacked ``layers`` axis).  The LM tree
 and for the other archs the ``attn`` block's leaves (``attn_norm``,
 ``attn`` with ``bq``, ``bk``, ``bv`` (heads or kv, hd) where the config
 has QKV biases, the FFN), the ``xattn`` block's (the same, plus
-``attn.gate`` (n,)), one ``g<i>`` a group member; no ``embed`` for frame
-inputs, no ``head`` where the embeddings are tied.
+``attn.gate`` (n,)), the ``mlstm`` and ``slstm`` blocks' (``norm`` and a
+``cell``, see ``_xlstm_cell_shapes``), one ``g<i>`` a group member; no
+``embed`` for frame inputs, no ``head`` where the embeddings are tied.
+MoE FFNs are refused (ROADMAP A9).
 
 ``from_jax_params`` and ``from_jax_lm_params`` convert the JAX package's
 unboxed params (as numpy arrays) and need no JAX, and ``from_jax_opt_state``
@@ -33,7 +35,8 @@ its AdamW state.  ``denoiser_init_params`` draws a denoiser with the JAX
 init's law, the one to train from; ``init_denoiser_params`` (from a numpy
 seed, with nonzero ``out_proj`` and norm scales, for testing) and
 ``init_lm_params`` (from a torch generator on the device) make random trees.
-``from_jax_chain_state`` converts a slot batch of the JAX package's chain
+``lm_init_params`` draws an LM with the JAX init's law, the one to train
+from.  ``from_jax_chain_state`` converts a slot batch of the JAX package's chain
 states, so both packages can start from the same states.
 """
 
@@ -54,9 +57,12 @@ def _block_shapes(cfg: ModelConfig, desc) -> dict:
     """Leaf shapes of one group member, stacked over the n repeats."""
     d, h, kv, hd, n = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.resolved_head_dim, cfg.n_repeats)
-    if desc.kind not in ("attn", "xattn", "hymba") or desc.moe:
-        raise NotImplementedError(f"block {desc} is not ported yet (the mlstm and slstm "
-                                  "blocks and MoE FFNs remain)")
+    if desc.moe:
+        raise NotImplementedError(f"block {desc}: MoE FFNs are not ported yet (ROADMAP A9)")
+    if desc.kind in ("mlstm", "slstm"):
+        return {"norm": {"scale": (n, d)}, "cell": _xlstm_cell_shapes(cfg, desc.kind)}
+    if desc.kind not in ("attn", "xattn", "hymba"):
+        raise NotImplementedError(f"block {desc} is not ported")
     attn = {"wq": (n, d, h, hd), "wk": (n, d, kv, hd), "wv": (n, d, kv, hd),
             "wo": (n, h, hd, d)}
     if cfg.qkv_bias:
@@ -80,6 +86,24 @@ def _block_shapes(cfg: ModelConfig, desc) -> dict:
         block["ffn_norm"] = {"scale": (n, d)}
         block["ffn"] = {**gate, "w_up": (n, d, cfg.d_ff), "w_down": (n, cfg.d_ff, d)}
     return block
+
+
+def _xlstm_cell_shapes(cfg: ModelConfig, kind: str) -> dict:
+    """The mLSTM cell (up-projection to 2 x din, din = 2 d, conv, heads of
+    din / H) or the sLSTM cell (heads of d / H, a GELU-gated FFN of
+    int(4 d / 3)), stacked over the n repeats; no block FFN."""
+    d, h, n, ck = cfg.d_model, cfg.n_heads, cfg.n_repeats, cfg.ssm_conv
+    if kind == "mlstm":
+        din = 2 * d
+        dh = din // h
+        return {"up_proj": (n, d, 2 * din), "conv_w": (n, ck, din), "conv_b": (n, din),
+                "wq": (n, din, h, dh), "wk": (n, din, h, dh), "wv": (n, din, h, dh),
+                "w_i": (n, din, h), "w_f": (n, din, h), "b_i": (n, h), "b_f": (n, h),
+                "out_norm": {"scale": (n, din)}, "down_proj": (n, din, d)}
+    dh, dff = d // h, max(1, int(d * 4 / 3))
+    return {"w_gates": (n, d, 4, h, dh), "r_gates": (n, 4, h, dh, dh),
+            "b_gates": (n, 4, h, dh), "out_norm": {"scale": (n, d)},
+            "up_proj": (n, d, dff), "gate_proj": (n, d, dff), "down_proj": (n, dff, d)}
 
 
 def _decoder_shapes(cfg: ModelConfig) -> dict:
@@ -222,6 +246,49 @@ def from_jax_opt_state(state, dc: DenoiserConfig, device=None):
                                  device=dev)}
 
 
+def lm_init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """LM params drawn with the law of the JAX package's ``lm_init``, the
+    ones to train from: products lecun-normal (as ``denoiser_init_params``),
+    ``embed.table`` and ``head.w`` normal * 0.02, ``conv_w`` and ``dt_proj``
+    normal * 0.1, mLSTM's ``w_i`` and ``w_f`` normal * 0.02, sLSTM's
+    ``r_gates`` normal * 0.05; the norm scales, biases and xattn gates zero,
+    but mLSTM's forget bias ``b_f`` 3 (a gate that remembers); ``A_log`` =
+    log(1..N) and ``D`` = 1.  Drawn on ``device`` (None means "cuda") from
+    ``generator``, which must live there, in the tree's key order."""
+    dev = resolve_device(device)
+
+    def leaf(name, shape, stacked):
+        fixed = _fixed_leaf(name, shape, dev)
+        if fixed is not None:
+            return fixed
+        if name in ("scale", "conv_b", "dt_bias", "bq", "bk", "bv", "gate", "b_i",
+                    "b_gates"):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        if name == "b_f":
+            return torch.full(shape, 3.0, dtype=torch.float32, device=dev)
+        a = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
+        std = _NORMAL_STD.get(name)
+        return a.mul_(std if std is not None else 1.0 / math.sqrt(_fan_in(shape, stacked)))
+
+    return _random_tree(lm_param_shapes(cfg), leaf)
+
+
+# leaves the JAX LM init draws normal * std, not lecun-normal
+_NORMAL_STD = {"table": 0.02, "w": 0.02, "w_i": 0.02, "w_f": 0.02, "conv_w": 0.1,
+               "dt_proj": 0.1, "r_gates": 0.05}
+
+
+def _fixed_leaf(name, shape, dev):
+    """The mamba leaves both LM inits set: ``A_log`` = log(1..N) in every
+    row, ``D`` = 1; None for any other leaf."""
+    if name == "A_log":
+        row = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=dev))
+        return row.expand(shape).contiguous()
+    if name == "D":
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+    return None
+
+
 def init_lm_params(cfg: ModelConfig, seed: int, device=None):
     """Random LM params, the tree of ``lm_param_shapes``, drawn on ``device``
     (None means "cuda") from ``torch.Generator(device).manual_seed(seed)``:
@@ -229,32 +296,31 @@ def init_lm_params(cfg: ModelConfig, seed: int, device=None):
     same seed gives other numbers on the CPU than on the card; to run both
     on the same params, make them once and copy them.
 
-    As the JAX init: products lecun-normal, ``embed.table`` and ``head.w``
-    normal * 0.02, the mamba ``conv_w`` and ``dt_proj`` normal * 0.1,
-    ``A_log`` = log(1..N) in every row and ``D`` = 1, so the decays are
-    those of a real mamba.  Unlike it, the norm scales, the ``conv_b`` and
-    ``dt_bias`` biases and the QKV biases ``bq``, ``bk``, ``bv`` (qwen2.5)
-    are nonzero (normal * 0.1), and so is each xattn layer's ``gate``
-    (normal; the JAX init's 0 would make the layer a no-op): zero leaves
-    would hide a missing term.
+    As the JAX init (``lm_init_params``) where it sets the dynamics:
+    products lecun-normal, the normal-drawn leaves at its scales, ``A_log``
+    and ``D`` as there, so the decays are those of a real mamba, and
+    mLSTM's forget bias ``b_f`` near 3 (3 + normal * 0.1).  Unlike it, the
+    norm scales, the biases ``conv_b``, ``dt_bias``, ``b_i``, ``b_gates``
+    and the QKV biases ``bq``, ``bk``, ``bv`` (qwen2.5) are nonzero (normal
+    * 0.1), and so is each xattn layer's ``gate`` (normal; the JAX init's 0
+    would make the layer a no-op): zero leaves would hide a missing term.
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def leaf(name, shape, stacked):
-        if name == "A_log":
-            row = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=dev))
-            return row.expand(shape).contiguous()
-        if name == "D":
-            return torch.ones(shape, dtype=torch.float32, device=dev)
+        fixed = _fixed_leaf(name, shape, dev)
+        if fixed is not None:
+            return fixed
         a = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-        if name in ("table", "w"):
-            return a.mul_(0.02)
-        if name in ("scale", "conv_w", "conv_b", "dt_proj", "dt_bias", "bq", "bk", "bv"):
+        if name in ("scale", "conv_b", "dt_bias", "bq", "bk", "bv", "b_i", "b_gates"):
             return a.mul_(0.1)
+        if name == "b_f":
+            return a.mul_(0.1).add_(3.0)
         if name == "gate":
             return a
-        return a.mul_(1.0 / math.sqrt(_fan_in(shape, stacked)))
+        std = _NORMAL_STD.get(name)
+        return a.mul_(std if std is not None else 1.0 / math.sqrt(_fan_in(shape, stacked)))
 
     return _random_tree(lm_param_shapes(cfg), leaf)
 

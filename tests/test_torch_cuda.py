@@ -1286,3 +1286,81 @@ def test_captured_decode_equals_the_eager_decode(dev):
         torch.cuda.synchronize()
     assert prog.graph is not None and int(pos) == P + T
     assert torch.equal(out, torch.stack(eager))
+
+
+# ---- B7 under autograd (the LM trainer): its backward is the kernel run
+# once more, over reversed time
+
+
+@pytest.mark.parametrize("B,L,D", [(2, 37, 25601), (3, 17, 130)])
+def test_ssm_scan_backward_matches_autograd_through_plain(dev, B, L, D):
+    """da, db and h of the kernel's autograd Function against autograd
+    through the plain loop, within 1e-5 of each tensor's largest magnitude;
+    one forward and one backward launch."""
+    g = torch.Generator(device=dev).manual_seed(B * L + D)
+    a = (0.5 + 0.499 * torch.rand(B, L, D, generator=g, device=dev)).requires_grad_()
+    b = torch.randn(B, L, D, generator=g, device=dev).requires_grad_()
+    G = torch.randn(B, L, D, generator=g, device=dev)
+    before = linear_scan.launches, linear_scan.backward_launches
+    h = linear_scan(a, b)
+    da, db = torch.autograd.grad(h, (a, b), G)
+    torch.cuda.synchronize()
+    assert (linear_scan.launches - before[0], linear_scan.backward_launches - before[1]) == \
+        (2, 1)
+    hp = ssm_scan_plain(a, b)
+    rda, rdb = torch.autograd.grad(hp, (a, b), G)
+    for got, want in ((h, hp), (da, rda), (db, rdb)):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_mamba_input_gets_a_gradient_on_the_card(dev):
+    """The mixer's input and every param get a finite, nonzero gradient
+    through B7 on the card, equal to the CPU's within 1e-4 of its scale (a
+    scan output without a grad_fn would leave the scan's share out)."""
+    from repro_torch.nn.ssm import mamba_fwd
+
+    cfg = reduced(get_config("hymba-1.5b"))
+    params = init_lm_params(cfg, 0, device="cpu")["decoder"]["g0"]["mamba"]
+    layer = {k: v[1] for k, v in params.items()}
+    x = torch.randn(2, 24, cfg.d_model, generator=torch.Generator().manual_seed(4))
+    grads = {}
+    for where in ("cpu", dev):
+        p = {k: v.to(where).requires_grad_() for k, v in layer.items()}
+        xi = x.to(where).requires_grad_()
+        out = mamba_fwd(p, xi, cfg)
+        gs = torch.autograd.grad(out.square().sum(), [xi] + [p[k] for k in sorted(p)])
+        grads[str(where)] = [t.cpu() for t in gs]
+    for card, cpu in zip(grads[str(dev)], grads["cpu"]):
+        assert torch.isfinite(card).all() and card.abs().max() > 0
+        assert (card - cpu).abs().max() <= 1e-4 * cpu.abs().max()
+
+
+@pytest.mark.parametrize("name", ["xlstm-125m", "hymba-1.5b"])
+def test_lm_training_step_on_card_matches_cpu(dev, name):
+    """One lm_loss gradient of the reduced arch in float32 from the same
+    params and batch: the loss within 1e-5, every leaf's gradient within
+    1e-4 of its largest magnitude (hymba: B7 forward and backward on the
+    card)."""
+    cfg = reduced(get_config(name))
+    params = init_lm_params(cfg, 0, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 32), generator=g),
+             "labels": torch.randint(0, cfg.vocab_size, (4, 32), generator=g)}
+    out = {}
+    b0 = linear_scan.backward_launches
+    for where in ("cpu", dev):
+        ps = [p.to(where).requires_grad_() for p in _leaves_of(params)]
+        tree = _unflatten(params, iter(ps))
+        loss, _ = t_lm.lm_loss(tree, {k: v.to(where) for k, v in batch.items()}, cfg)
+        out[str(where)] = (loss.item(), [t.cpu() for t in torch.autograd.grad(loss, ps)])
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out[str(dev)]
+    assert abs(l_card - l_cpu) <= 1e-5
+    for card, cpu in zip(g_card, g_cpu):
+        assert (card - cpu).abs().max() <= 1e-4 * cpu.abs().max()
+    assert linear_scan.backward_launches - b0 == (cfg.n_layers if name == "hymba-1.5b"
+                                                  else 0)
+
+
+def _unflatten(tree, it):
+    return ({k: _unflatten(tree[k], it) for k in sorted(tree)} if isinstance(tree, dict)
+            else next(it))

@@ -78,6 +78,7 @@ def test_the_trainer_modules_are_checked():
 
 
 @pytest.mark.parametrize("path", TRAINER + [PORT / "weights.py", PORT / "pytree.py",
+                                             PORT / "launch" / "train.py",
                                              ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_the_trainer_imports_no_jax_msgpack_or_repro(path):

@@ -103,7 +103,7 @@ def test_the_configs_are_the_jax_packages(cfgs):
     full_j, full_t = j_get_config(NAME), get_config(NAME)
     assert dataclasses.asdict(full_t) == dataclasses.asdict(full_j)
     assert dataclasses.asdict(cfgs[1]) == dataclasses.asdict(cfgs[0])
-    assert len(ARCHS) == 7
+    assert len(ARCHS) == 8
     for name in ARCHS:
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(j_get_config(name))
         assert (dataclasses.asdict(reduced(get_config(name)))
@@ -550,27 +550,34 @@ def _group(*descs):
     return dict(group=tuple(BlockDesc(*d) for d in descs))
 
 
-@pytest.mark.parametrize("change", [_group(("mlstm",)), _group(("slstm",)),
+@pytest.mark.parametrize("change", [_group(("mlstm", 0, None, True)),
+                                    _group(("slstm", 0, None, True)),
                                     _group(("attn", 0, None, True)),
                                     _group(("hymba", 0, None, True))])
 def test_lm_refuses_what_is_not_ported(cfgs, tokens, change):
-    """The xlstm blocks and MoE FFNs (embedding scales, sinusoidal
-    positions, frames and tied embeddings are ported since; see
-    test_torch_lm_dense.py and test_torch_lm_xattn_frames.py)."""
+    """MoE FFNs, on every block kind (embedding scales, sinusoidal
+    positions, frames, tied embeddings and the xlstm blocks are ported
+    since; see test_torch_lm_dense.py, test_torch_lm_xattn_frames.py and
+    test_torch_xlstm.py)."""
     params = init_lm_params(cfgs[1], 0, device="cpu")
     with pytest.raises(NotImplementedError):
         t_lm.lm_fwd(params, _t(tokens), dataclasses.replace(cfgs[1], **change))
 
 
-def test_decoder_refuses_missing_parts_and_window_lists(cfgs):
+def test_decoder_refuses_missing_parts_and_window_lists(cfgs, monkeypatch):
+    """A block with no cache_init (every ported block has all four
+    functions, so a forward-only stub is registered), and a window list of
+    the wrong length."""
     from repro_torch.configs.base import BlockDesc
+    from repro_torch.models import blocks as t_blocks
     from repro_torch.models.decoder import decoder_cache_init, decoder_fwd
 
     cfg = cfgs[1]
     params = init_lm_params(cfg, 0, device="cpu")
-    xlstm = dataclasses.replace(cfg, group=(BlockDesc("mlstm"),))
+    monkeypatch.setitem(t_blocks.BLOCKS, "fwd_only", t_blocks.Block(t_blocks.attn_block_fwd))
+    stub = dataclasses.replace(cfg, group=(BlockDesc("fwd_only"),))
     with pytest.raises(NotImplementedError, match="cache_init"):
-        decoder_cache_init(params["decoder"], xlstm, B, 8)
+        decoder_cache_init(params["decoder"], stub, B, 8)
     three = dataclasses.replace(cfg, group=(BlockDesc("hymba", window_per_repeat=(0, 4, 4)),))
     with pytest.raises(ValueError, match="per-repeat windows"):
         decoder_fwd(params["decoder"], torch.zeros(B, 4, 64), three, dict(causal=True))

@@ -38,7 +38,8 @@ from repro_torch.weights import from_jax_lm_params, init_lm_params, lm_param_sha
 DENSE = ("tinyllama-1.1b", "yi-6b", "gemma2-9b", "qwen2.5-14b")
 # full-width parameter counts (jax.eval_shape of the JAX package's lm_init)
 PARAMS = {"tinyllama-1.1b": 1_100_048_384, "yi-6b": 6_061_035_520,
-          "gemma2-9b": 9_241_404_928, "qwen2.5-14b": 14_770_033_664}
+          "gemma2-9b": 9_241_404_928, "qwen2.5-14b": 14_770_033_664,
+          "xlstm-125m": 172_980_528}
 B, L, P = 2, 48, 40  # L > 32: gemma2's reduced window bites
 
 
@@ -96,14 +97,14 @@ def arch(request):
 
 
 def test_the_configs_are_the_jax_packages():
-    for name in DENSE:
+    for name in DENSE + ("xlstm-125m",):
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(j_get_config(name))
         assert (dataclasses.asdict(reduced(get_config(name)))
                 == dataclasses.asdict(j_reduced(j_get_config(name))))
     assert get_config("gemma2-9b").resolved_head_dim == 256
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + ("xlstm-125m",))
 def test_lm_param_shapes_are_the_jax_init_tree(name):
     for jcfg, tcfg in ((j_get_config(name), get_config(name)),
                        (j_reduced(j_get_config(name)), reduced(get_config(name)))):
