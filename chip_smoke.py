@@ -218,10 +218,15 @@ Phases, each printing one JSON line and raising on any failure:
               from ``lm_compute_params`` (cast leaf by leaf by path) equal
               in bits to those of the uncast params.
      ssm_scan_backward
-              B7 under autograd at hymba-1.5b's training shape (8, 128,
-              25,600): h, da and db against autograd through the plain
-              loop (1e-5 of each tensor's scale), the backward timed as
-              in phase 3, with its bound.
+              B7's backward kernel (csrc/ssm_scan_bwd.cu) at hymba-1.5b's
+              training shape (8, 128, 25,600): under autograd h, da and db
+              against autograd through the plain loop (1e-5 of each
+              tensor's scale), one launch and one device kernel a backward
+              call; da and db equal in bits to the plain reverse loop there,
+              at edge shapes and for a gradient that is not contiguous; the
+              kernel timed as in phase 3 with its bound and its build's
+              registers and spills; B7's forward at the same shape
+              (ssm_scan_training_shape).
      lm_train ``python -m repro_torch.launch.train --scale full --steps 20
               --batch 8 --seq 128`` in process for tinyllama-1.1b (the
               CLI's default), xlstm-125m (--seq 32) and hymba-1.5b (B7
@@ -229,6 +234,11 @@ Phases, each printing one JSON line and raising on any failure:
               without the host's MarkovLM time, tokens/s, peak memory,
               launches; a second xlstm call resumed from the first's
               step-10 checkpoint equal to it within 1e-5.
+     lm_train_profile
+              one warm hymba-1.5b training step at that shape under
+              torch.profiler (B7 forward, B7 backward, matmuls, other,
+              idle share), and the upstream gradient a full-width mamba
+              mixer hands B7's backward (mamba_scan_gradient: contiguous).
      lm_train_reference
               one lm_loss gradient of every ported arch's reduced config
               in float32, card against CPU: loss within 1e-5, each leaf's
@@ -266,10 +276,14 @@ Phases, each printing one JSON line and raising on any failure:
               scale; the model's output rounded to bf16 must fail that.
      branched_kernels
               B1-B6 against their plain versions at the branched rounds'
-              shapes (rows of S x B x theta), timed as in phase 3.
+              shapes (rows of S x B x theta), timed as in phase 3; B3 and
+              index_select timed again under a 256 MB flush
+              (b3_index_select), B3's bound from the rows its indices
+              read.
   8. kernels  one JSON line with every ported kernel's numbers, and rows
-              at the branched shapes, the lm-zoo shapes and B7's backward
-              (``at``) with their launches there.
+              at the branched shapes, the lm-zoo shapes and B7's training
+              shape, forward and backward (``at``) with their launches
+              there.
   9. the last line: {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, where there is no CUDA device or
@@ -351,21 +365,22 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 # L2 flush between timed kernel calls: one in-place pass over 64 MB (more
 # than the card's 50 MB L2), so each call reads its inputs from device
 # memory as a caller that just ran other work would.  Its kernel is told
-# apart from the timed ones by name.
+# apart from the timed ones by name.  A caller whose inputs are about the
+# L2's size passes a larger flush (``flush_bytes``).
 _FLUSH_BYTES = 64 << 20
 _FLUSH_KERNEL = "bitwise_not"
-_flush_buf = []
+_flush_bufs = {}
 
 
-def _flush_l2():
+def _flush_l2(nbytes: int = _FLUSH_BYTES):
     import torch
 
-    if not _flush_buf:
-        _flush_buf.append(torch.zeros(_FLUSH_BYTES, dtype=torch.uint8, device="cuda"))
-    _flush_buf[0].bitwise_not_()
+    if nbytes not in _flush_bufs:
+        _flush_bufs[nbytes] = torch.zeros(nbytes, dtype=torch.uint8, device="cuda")
+    _flush_bufs[nbytes].bitwise_not_()
 
 
-def cold_ms(fn, reps: int = 10) -> float:
+def cold_ms(fn, reps: int = 10, flush_bytes: int = _FLUSH_BYTES) -> float:
     """Milliseconds per call of ``fn`` with a cold L2: CUDA events around
     each call, the flush outside them.  A sleep kernel first fills the
     stream so the host queues the calls ahead of the card; where the host
@@ -379,7 +394,7 @@ def cold_ms(fn, reps: int = 10) -> float:
               for _ in range(reps)]
     torch.cuda._sleep(20_000_000)  # cycles: time for the host to queue every call
     for start, end in events:
-        _flush_l2()
+        _flush_l2(flush_bytes)
         start.record()
         fn()
         end.record()
@@ -389,10 +404,10 @@ def cold_ms(fn, reps: int = 10) -> float:
 
 # the port's kernels, by the names the profiler gives them
 _PORT_KERNELS = ("grs_kernel", "flash_fwd", "gather_rows_kernel", "scatter_rows_kernel",
-                 "fused_gather_kernel", "fvc_kernel", "ssm_scan_kernel")
+                 "fused_gather_kernel", "fvc_kernel", "ssm_scan_kernel", "ssm_scan_bwd_kernel")
 
 
-def device_ms(fn, reps: int = 10, wrapper=None):
+def device_ms(fn, reps: int = 10, wrapper=None, flush_bytes: int = _FLUSH_BYTES):
     """(device milliseconds per call of ``fn`` with a cold L2, launch records
     the profiler lost).  Each kernel counts as the mean time of its recorded
     launches times its launches a call, and those launches are counted: the
@@ -411,7 +426,7 @@ def device_ms(fn, reps: int = 10, wrapper=None):
     before = wrapper.launches if wrapper is not None else 0
 
     def one():
-        _flush_l2()
+        _flush_l2(flush_bytes)
         fn()
 
     _, one_call = _profiled(torch, one)
@@ -420,7 +435,7 @@ def device_ms(fn, reps: int = 10, wrapper=None):
 
     def run():
         for _ in range(reps):
-            _flush_l2()
+            _flush_l2(flush_bytes)
             fn()
 
     for _ in range(3):
@@ -447,17 +462,20 @@ def device_ms(fn, reps: int = 10, wrapper=None):
     return total, lost
 
 
-def kernel_times(kernel, plain, library=None, reps: int = 20, wrapper=None) -> dict:
+def kernel_times(kernel, plain, library=None, reps: int = 20, wrapper=None,
+                 flush_bytes: int = _FLUSH_BYTES) -> dict:
     """ms / device_ms of the kernel's wrapper, its plain version and the
     library call (None where there is none), each on the same inputs and
-    each call after an L2 flush (cold-cache times).  ``wrapper`` is the
-    port's wrapper that ``kernel`` calls, whose counter counts its launches;
-    ``*device_records_lost`` counts launches the profiler did not record."""
+    each call after an L2 flush of ``flush_bytes`` (cold-cache times).
+    ``wrapper`` is the port's wrapper that ``kernel`` calls, whose counter
+    counts its launches; ``*device_records_lost`` counts launches the
+    profiler did not record."""
     out = {}
     for prefix, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        out[prefix + "ms"] = None if fn is None else cold_ms(fn, reps)
+        out[prefix + "ms"] = None if fn is None else cold_ms(fn, reps, flush_bytes)
         out[prefix + "device_ms"], out[prefix + "device_records_lost"] = (
-            (None, 0) if fn is None else device_ms(fn, reps, wrapper if not prefix else None))
+            (None, 0) if fn is None else device_ms(fn, reps, wrapper if not prefix else None,
+                                                    flush_bytes))
     return out
 
 
@@ -491,18 +509,46 @@ def _offset_view(torch, t, offset):
     return base[offset:].view(t.shape)
 
 
-def _one_call_kernels(torch, fn):
-    """The device kernels one call of ``fn`` runs, under torch.profiler, as
-    (name, count) pairs.  A trace with no kernel at all is the profiler
-    losing its records (seen on the card for a call that did launch), so
-    it is taken again, up to three times."""
-    fn()
+def _captured_work(torch, fn, keep=None):
+    """The device work one call of ``fn`` queues, as (kind, name) pairs:
+    the nodes of a CUDA graph that captures the call (after a warm-up call
+    on a side stream), read from the graph's DOT dump.  A KERNEL node's
+    name is its kernel's; MEMSET and MEMCPY nodes are device work as well.
+    No profiler takes part, so no record can be lost.  ``keep``, a path,
+    keeps the dump there."""
+    import re
+    import shutil
+    import warnings
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    for _ in range(3):
-        _, kernels = _profiled(torch, fn)
-        if kernels:
-            break
-    return [(k[:60], n) for k, _, n in kernels]
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # dumped before it is instantiated
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    path = Path(keep) if keep else _fresh_dir("captured_work") / "graph.dot"
+    with warnings.catch_warnings():  # debug_dump warns that it was called
+        warnings.simplefilter("ignore", UserWarning)
+        graph.debug_dump(str(path))
+    graph.reset()
+    torch.cuda.synchronize()
+    dot = path.read_text()
+    if not keep:
+        shutil.rmtree(path.parent, ignore_errors=True)
+    work = []
+    # a node's definition starts its line ("graph_0_node_0"[style=...); an
+    # edge's line names two nodes with "->" between them
+    for body in re.findall(r'^"graph_\d+_node_\d+"\[(.*?)\];$', dot, re.S | re.M):
+        kind = re.search(r'label="\{(\w+)', body)
+        name = re.search(r"\{ID \| [^|]*\| ([^\\|}]+)", body)
+        work.append((kind.group(1) if kind else body[:40],
+                     name.group(1)[:100] if name and kind and kind.group(1) == "KERNEL"
+                     else None))
+    return work
 
 
 def _row_geometry(rows, D):
@@ -595,9 +641,9 @@ def check_grs(torch, dev):
     times = kernel_times(lambda: grs(*main), lambda: grs_plain(*main), wrapper=grs)
     bms, by = _grs_bound(R, D)
     u, xi, mh, m, sig = main
-    one_call = _one_call_kernels(torch, lambda: grs_cuda(u, sig, xi, mh, m))
-    if sum(n for _, n in one_call) != 1:
-        fail(f"grs: one call ran {one_call}, expected one kernel")
+    one_call = _captured_work(torch, lambda: grs_cuda(u, sig, xi, mh, m))
+    if len(one_call) != 1 or one_call[0][0] != "KERNEL" or "grs_kernel" not in one_call[0][1]:
+        fail(f"grs: one call queued {one_call}, expected one kernel")
     emit("grs", shape=[R, D], max_abs_err=err, accepted_rows=accepted,
          edge_max_abs_err=edges, tolerance="z atol 1e-5; accept bits equal "
          "except rows within 1e-5 of the threshold",
@@ -1082,9 +1128,9 @@ def check_fused_round(torch, dev):
     err = compare(tbls, sc, gidx, args, m, sidx, N)
     edges["misaligned view (offset 1 float)"] = compare(tbls, sc, gidx, args, m, sidx, N, 1)
     rows = [t.reshape(M, D) for t in args[:4]] + args[4:]
-    one_call = _one_call_kernels(torch, lambda: fused_verify_commit_cuda(*rows, sidx, N))
-    if sum(n for _, n in one_call) != 1:
-        fail(f"fused_round: one B6 call ran {one_call}, expected one kernel")
+    one_call = _captured_work(torch, lambda: fused_verify_commit_cuda(*rows, sidx, N))
+    if len(one_call) != 1 or one_call[0][0] != "KERNEL" or "fvc_kernel" not in one_call[0][1]:
+        fail(f"fused_round: one B6 call queued {one_call}, expected one kernel")
     lines = []
     for name, fn, plain, nbytes, ops, replaces in (
             ("fused_gather", lambda: fused_gather(*tbls, sc, gidx),
@@ -1279,6 +1325,7 @@ _KERNEL_GROUPS = (("flash_attention", ("flash_fwd_wgmma",)),
                   ("pack", ("gather_rows_kernel", "scatter_rows_kernel")),
                   ("fused_round", ("fused_gather_kernel", "fvc_")),
                   ("ssm_scan", ("ssm_scan_kernel",)),
+                  ("ssm_scan_backward", ("ssm_scan_bwd_kernel",)),
                   ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")))
 
 
@@ -2731,11 +2778,14 @@ def check_branched_kernels(torch, dev):
     at = f"paper-pixel-dit, B 2 budget 64: {N}-row tables, {M} packed rows"
     packed = {f"branched_serve_packed_b{M}": 1.0}
     fused = {f"branched_serve_fused_b{M}": 1.0}
+    # B3's bytes: each row its indices name read once (the padding lanes
+    # name row 0 again), every packed row written once
+    unique = int(torch.unique(gidx).numel())
     for name, fn, plain, lib, nbytes, replaces, runs in (
             ("gather_rows", lambda: gather_rows(tbls[0], gidx),
              lambda: gather_rows_plain(tbls[0], gidx),
-             lambda: torch.index_select(tbls[0], 0, gidx), 2.0 * M * pix_D * 4 + M * 8,
-             "src/repro/kernels/pack/kernel.py:31", packed),
+             lambda: torch.index_select(tbls[0], 0, gidx),
+             (unique + M) * pix_D * 4.0 + M * 8, "src/repro/kernels/pack/kernel.py:31", packed),
             ("scatter_rows", lambda: scatter_rows(vals, sidx, N),
              lambda: scatter_rows_plain(vals, sidx, N), None,
              M * pix_D * 4.0 + N * pix_D * 4 + M * 8, "src/repro/kernels/pack/kernel.py:59",
@@ -2755,6 +2805,10 @@ def check_branched_kernels(torch, dev):
             else "src/repro_torch/csrc/superstep.cu", replaces, runs, 0.0, times, nbytes, 0.0,
             PEAK_F32, tolerance="equal bits (data movement)",
             library="index_select" if lib is not None else None)
+        if name == "gather_rows":
+            rows[-1].update(unique_rows_read=unique,
+                            flush_256mb=_b3_against_index_select(torch, fn, plain, lib, at,
+                                                                 unique, M, times, nbytes))
     # B6 on inputs where the target sits near the proposal (some accepts)
     y, gg, xi = (torch.randn((M,) + ev, generator=g, device=dev) for _ in range(3))
     A = 1.0 + 0.1 * torch.rand(M, generator=g, device=dev)
@@ -2783,6 +2837,30 @@ def check_branched_kernels(torch, dev):
         "threshold", accepted_rows=int(ak.sum()),
         geometry=_row_geometry(M, pix_D))
     return rows
+
+
+def _b3_against_index_select(torch, fn, plain, lib, at, unique, M, times, nbytes):
+    """B3 and ``index_select`` at pixel-dit's branched shape timed again
+    with a 256 MB flush, five times the 50 MB table, where the 64 MB flush
+    is about one table: the phase line ``b3_index_select`` gives both
+    flushes' times, the bound of the rows these indices read, and whether
+    B3 is the slower by device time.  Returns the 256 MB times."""
+    from repro_torch.kernels.pack.ops import gather_rows
+
+    big = kernel_times(fn, plain, lib, wrapper=gather_rows, flush_bytes=256 << 20)
+    bms, _ = bound_ms(nbytes, 0.0, PEAK_F32)
+    keys = ("ms", "device_ms", "device_records_lost", "library_ms", "library_device_ms",
+            "library_device_records_lost")
+    slower = {flush: (t["device_ms"] > t["library_device_ms"]
+                      if t["device_ms"] is not None and t["library_device_ms"] is not None
+                      else "not recorded")
+              for flush, t in (("64mb", times), ("256mb", big))}
+    emit("b3_index_select", at=at, unique_rows_read=unique, packed_rows=M, bound_ms=bms,
+         bound_by="bytes", flush_64mb={k: times[k] for k in keys},
+         flush_256mb={k: big[k] for k in keys}, b3_slower_by_device_time=slower,
+         note="bound: the unique rows the indices name read once, every packed row "
+              "written once, the indices read")
+    return {k: big[k] for k in keys}
 
 
 # launches of each kernel per round on the serve CLI's default model (bf16,
@@ -4318,48 +4396,212 @@ def run_lm_train(torch, dev):
     return runs, hymba["scan_backward_launches"]
 
 
+def ptxas_of(log, kernel):
+    """Registers, spills and stack of ``kernel`` from an -Xptxas -v log, or
+    None where the log has no line for it."""
+    import re
+
+    m = re.search(kernel + r"\S*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                  r"(\d+) bytes spill loads\nptxas info\s*: Used (\d+) registers", log)
+    if m is None:
+        return None
+    stack, st, ld, regs = (int(x) for x in m.groups())
+    return dict(registers=regs, spill_store_bytes=st, spill_load_bytes=ld, stack_bytes=stack)
+
+
+def _ptxas_info(stem, kernel):
+    """``ptxas_of`` the build log of ``csrc/<stem>.cu``; fails where it has
+    no line for ``kernel``."""
+    from repro_torch.kernels import _build
+
+    info = ptxas_of((Path(_build.build_info["path"]).parent / f"{stem}.log").read_text(),
+                    kernel)
+    if info is None:
+        fail(f"build: no ptxas line for {kernel} in {stem}.log")
+    return info
+
+
+def _scan_inputs(torch, dev, B, L, D, seed, grad=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = 0.5 + 0.499 * torch.rand(B, L, D, generator=g, device=dev)
+    b = torch.randn(B, L, D, generator=g, device=dev)
+    G = torch.randn(B, L, D, generator=g, device=dev)
+    return (a.requires_grad_(grad), b.requires_grad_(grad), G)
+
+
 def check_ssm_scan_backward(torch, dev):
-    """B7 under autograd at hymba-1.5b's training shape: h, da and db of the
-    kernel's autograd Function (one kernel launch forward, one over reversed
-    time backward) against autograd through the plain loop, within 1e-5 of
-    each tensor's largest magnitude; the backward timed as in phase 3 (the
-    kernel's against the plain loop's backward) with its bound: a, h and
-    the upstream gradient read once, da and db written once."""
-    from repro_torch.kernels.ssm_scan.ops import linear_scan, ssm_scan_plain
+    """B7's backward kernel (``csrc/ssm_scan_bwd.cu``) at hymba-1.5b's
+    training shape: under autograd, h, da and db against autograd through
+    the plain loop within 1e-5 of each tensor's largest magnitude, and one
+    forward and one backward launch; da and db equal in bits to
+    ``ssm_scan_backward_plain`` there, at edge shapes and for an upstream
+    gradient that is not contiguous; the device work of one call, read from
+    a CUDA graph that captures it (the backward kernel alone; beside the
+    forward kernel in a forward and backward; after one copy for a strided
+    gradient); the kernel timed as in phase 3 against the plain reverse
+    loop with its bound (a, h and G read once, da and db written once), the
+    whole autograd call by events, and the build's registers and spills.
+    Then B7's forward at the same shape, timed as in phase 3 with its bound
+    (a and b read, h written).  Returns the two rows."""
+    from repro_torch.kernels.ssm_scan.ops import (linear_scan, ssm_scan_backward_cuda,
+                                                  ssm_scan_backward_plain, ssm_scan_plain)
 
     B, L, D = SCAN_BWD_SHAPE
-    g = torch.Generator(device=dev).manual_seed(SEED + 26)
-    a = (0.5 + 0.499 * torch.rand(B, L, D, generator=g, device=dev)).requires_grad_()
-    b = torch.randn(B, L, D, generator=g, device=dev).requires_grad_()
-    G = torch.randn(B, L, D, generator=g, device=dev)
+    a, b, G = _scan_inputs(torch, dev, B, L, D, SEED + 26, grad=True)
     h = linear_scan(a, b)
-    before = linear_scan.backward_launches
+    before = linear_scan.launches, linear_scan.backward_launches
     da, db = torch.autograd.grad(h, (a, b), G, retain_graph=True)
     torch.cuda.synchronize()
+    launched = (linear_scan.launches - before[0], linear_scan.backward_launches - before[1])
     hp = ssm_scan_plain(a, b)
     rda, rdb = torch.autograd.grad(hp, (a, b), G, retain_graph=True)
     errs = {k: ((x - y).abs().max() / y.abs().max()).item()
             for k, x, y in (("h", h, hp), ("da", da, rda), ("db", db, rdb))}
-    if linear_scan.backward_launches != before + 1 or not all(e <= 1e-5 for e in
-                                                               errs.values()):
-        fail(f"ssm_scan_backward: relative errors {errs}, backward launches "
-             f"{linear_scan.backward_launches - before}")
+    if launched != (1, 1) or not all(e <= 1e-5 for e in errs.values()):
+        fail(f"ssm_scan_backward: relative errors {errs}, (launches, backward launches) "
+             f"{launched}")
     err = max((da - rda).abs().max().item(), (db - rdb).abs().max().item())
-    times = kernel_times(lambda: torch.autograd.grad(h, (a, b), G, retain_graph=True),
-                         lambda: torch.autograd.grad(hp, (a, b), G, retain_graph=True),
-                         reps=3, wrapper=linear_scan)
+    del hp, rda, rdb
+    a0, h0 = a.detach(), h.detach()
+    pa, pb = ssm_scan_backward_plain(a0, h0, G)
+    equal = {"training shape, autograd": bool(torch.equal(da, pa) and torch.equal(db, pb))}
+    for B_, L_, D_ in ((2, 37, 25601), (3, 17, 130), (2, 1, 25600), (2, 50, 1), (2, 33, 256)):
+        ea, eb, eG = _scan_inputs(torch, dev, B_, L_, D_, B_ * L_ + D_)
+        eh = ssm_scan_plain(ea, eb)
+        got, want = ssm_scan_backward_cuda(ea, eh, eG), ssm_scan_backward_plain(ea, eh, eG)
+        equal[f"{(B_, L_, D_)}"] = all(torch.equal(x, y) for x, y in zip(got, want))
+    ea, eb, eG = _scan_inputs(torch, dev, 2, 40, 96, 5, grad=True)
+    eh = linear_scan(ea, eb)
+    got = torch.autograd.grad(eh, (ea, eb), eG.transpose(1, 2).contiguous().transpose(1, 2))
+    want = ssm_scan_backward_plain(ea.detach(), eh.detach(), eG)
+    equal["(2, 40, 96), G not contiguous"] = all(torch.equal(x, y) for x, y in zip(got, want))
+    torch.cuda.synchronize()
+    if not all(equal.values()):
+        fail(f"ssm_scan_backward: kernel and plain backward differ in bits: {equal}")
+    # the device work of one forward and backward through autograd (fresh
+    # leaves, so the whole call is captured on one stream), of the
+    # Function's backward alone, and of it for a strided gradient (one copy
+    # more), each read from a CUDA graph that captures the call
+    def autograd_call():
+        fa, fb = a0.detach().requires_grad_(), b.detach().requires_grad_()
+        return torch.autograd.grad(linear_scan(fa, fb), (fa, fb), G)
+
+    G_strided = G.transpose(1, 2).contiguous().transpose(1, 2)
+    calls = {"forward and backward through autograd.grad": _captured_work(torch, autograd_call),
+             "backward": _captured_work(torch, lambda: h.grad_fn.apply(G)),
+             "backward, strided gradient": _captured_work(
+                 torch, lambda: h.grad_fn.apply(G_strided))}
+    del G_strided
+    kinds = {k: [(kind, name and ("ssm_scan_bwd_kernel" if "ssm_scan_bwd_kernel" in name else
+                                  "ssm_scan_kernel" if "ssm_scan_kernel" in name else "other"))
+                 for kind, name in c] for k, c in calls.items()}
+    want = {"forward and backward through autograd.grad": [("KERNEL", "ssm_scan_kernel"),
+                                                          ("KERNEL", "ssm_scan_bwd_kernel")],
+            "backward": [("KERNEL", "ssm_scan_bwd_kernel")],
+            "backward, strided gradient": [("KERNEL", "other"),
+                                           ("KERNEL", "ssm_scan_bwd_kernel")]}
+    if kinds != want:
+        fail(f"ssm_scan_backward: captured device work {calls}, expected {want}")
+    times = kernel_times(lambda: ssm_scan_backward_cuda(a0, h0, G),
+                         lambda: ssm_scan_backward_plain(a0, h0, G), reps=20,
+                         wrapper=linear_scan)
+    autograd_ms = cold_ms(lambda: torch.autograd.grad(h, (a, b), G, retain_graph=True),
+                          reps=20)
     n = B * L * D
     bms, by = bound_ms(20.0 * n, 3.0 * n, PEAK_F32)
+    build = _ptxas_info("ssm_scan_bwd", "ssm_scan_bwd_kernel")
     emit("ssm_scan_backward", shape=[B, L, D], dtype="float32", max_abs_err=err,
-         relative_errors=errs, **times, library=None, bound_ms=bms, bound_by=by,
-         tolerance="1e-5 of each tensor's largest magnitude (h, da, db)",
-         note="one backward: a shifted one step and flipped, the upstream gradient "
-              "flipped, B7 once, the result flipped back, da = g h_{t-1}; the plain "
-              "version is autograd through the sequential loop")
-    return dict(name="ssm_scan", at=f"backward, hymba-1.5b training {list(SCAN_BWD_SHAPE)}",
-                route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
-                replaces="src/repro/kernels/ssm_scan/kernel.py:27", max_abs_err=err,
-                **times, bound_ms=bms, bound_by=by)
+         relative_errors=errs, equal_bits=equal,
+         device_work_per_call=calls,
+         **times, autograd_call_ms=autograd_ms, library=None, bound_ms=bms, bound_by=by,
+         share_of_bound=bms / times["device_ms"] if times["device_ms"] else None,
+         device_ms_below_bound=bool(times["device_ms"] and times["device_ms"] < bms),
+         build=build, tolerance="1e-5 of each tensor's largest magnitude (h, da, db) "
+                                "against autograd through the loop; equal bits against "
+                                "ssm_scan_backward_plain",
+         note="the kernel timed through its wrapper; plain is the reverse loop; "
+              "autograd_call_ms is one torch.autograd.grad through linear_scan")
+    del da, db, pa, pb
+    bwd = dict(name="ssm_scan_backward", at=f"hymba-1.5b training {list(SCAN_BWD_SHAPE)}",
+               route="cuda", source="src/repro_torch/csrc/ssm_scan_bwd.cu",
+               replaces="none: src/repro/kernels/ssm_scan/ref.py:17 (the JAX package "
+                        "differentiates its associative scan by autodiff)",
+               max_abs_err=err, **times, bound_ms=bms, bound_by=by, build=build)
+
+    a1, b1 = a.detach(), b.detach()
+    hk = linear_scan(a1, b1)
+    torch.cuda.synchronize()
+    if not torch.equal(hk, ssm_scan_plain(a1, b1)):
+        fail("ssm_scan: the forward differs from the plain loop at the training shape")
+    ftimes = kernel_times(lambda: linear_scan(a1, b1), lambda: ssm_scan_plain(a1, b1), reps=20,
+                          wrapper=linear_scan)
+    fbms, fby = bound_ms(12.0 * n, 2.0 * n, PEAK_F32)
+    emit("ssm_scan_training_shape", shape=[B, L, D], dtype="float32", equal_bits=True,
+         **ftimes, bound_ms=fbms, bound_by=fby,
+         share_of_bound=fbms / ftimes["device_ms"] if ftimes["device_ms"] else None)
+    fwd = dict(name="ssm_scan", at=f"forward, hymba-1.5b training {list(SCAN_BWD_SHAPE)}",
+               route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+               replaces="src/repro/kernels/ssm_scan/kernel.py:27", max_abs_err=0.0, **ftimes,
+               bound_ms=fbms, bound_by=fby)
+    return bwd, fwd
+
+
+def run_lm_train_profile(torch, dev):
+    """lm_train_profile: one warm hymba-1.5b training step at lm_train's
+    shape (8 x 128 random tokens through the CLI's train step: lm_loss,
+    remat, AdamW) under torch.profiler, device ms by group (B7 forward, B7
+    backward, matmuls, other) and idle share; then the upstream gradient
+    one full-width mamba mixer (layer 1) hands B7's backward at that shape:
+    contiguous, so the backward copies nothing before its launch."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.nn.ssm import mamba_fwd
+
+    cfg = get_config("hymba-1.5b")
+    train_step, init = train.build(cfg, 1, 3e-4, LM_TRAIN_STEPS, dev)
+    params, opt_state = init()
+    g = torch.Generator(device=dev).manual_seed(SEED + 28)
+    toks = torch.randint(0, cfg.vocab_size, (LM_TRAIN_BATCH, LM_TRAIN_SEQ + 1), generator=g,
+                         device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params, opt_state, _ = train_step(params, opt_state, batch, g)  # warm-up
+    torch.cuda.synchronize()
+
+    def step():
+        nonlocal params, opt_state
+        params, opt_state, _ = train_step(params, opt_state, batch, g)
+
+    wall_ms, kernels = _profiled(torch, step)
+    _emit_profile(torch, "lm_train_profile", wall_ms, kernels,
+                  "one warm hymba-1.5b training step (forward, remat recompute, backward, "
+                  "AdamW; 8 x 128 tokens) under torch.profiler: ssm_scan is B7's forward "
+                  "(twice a layer), ssm_scan_backward its backward kernel; 'other' the "
+                  "elementwise kernels, norms, casts and AdamW", arch=cfg.name,
+                  tokens=LM_TRAIN_BATCH * LM_TRAIN_SEQ)
+    layer = {k: v[1].detach().requires_grad_() for k, v in
+             params["decoder"]["g0"]["mamba"].items()}
+    params = opt_state = None
+    torch.cuda.empty_cache()
+    x = torch.randn(LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.d_model, generator=g,
+                    device=dev).to(torch.bfloat16).requires_grad_()
+    out = mamba_fwd(layer, x, cfg)
+    seen, stack, visited = [], [out.grad_fn], set()
+    while stack:  # the scan's backward node, found in the mixer's graph
+        node = stack.pop()
+        if node is None or node in visited:
+            continue
+        visited.add(node)
+        if type(node).__name__ == "_LinearScanBackward":
+            node.register_prehook(lambda grads: seen.append(grads[0]))
+        stack.extend(nxt for nxt, _ in node.next_functions)
+    torch.autograd.grad(out, x, torch.randn_like(out))
+    torch.cuda.synchronize()
+    if len(seen) != 1 or not seen[0].is_contiguous():
+        fail("lm_train_profile: the mixer's scan gradients "
+             f"{[(tuple(t.shape), t.stride()) for t in seen]}")
+    emit("mamba_scan_gradient", shape=list(seen[0].shape), stride=list(seen[0].stride()),
+         contiguous=True, note="the upstream gradient of B7's output in one full-width "
+                               "hymba-1.5b mamba mixer at the training shape")
 
 
 def check_lm_train_reference(torch, dev):
@@ -5315,11 +5557,13 @@ def main() -> None:
         clock(f"lm_arch {name}")
     check_lm_archs_reference(torch, dev)
     clock("lm_reference")
-    scan_backward = check_ssm_scan_backward(torch, dev)
+    scan_backward, scan_train_fwd = check_ssm_scan_backward(torch, dev)
     clock("ssm_scan_backward")
     train_launches, scan_backward_launches = run_lm_train(torch, dev)
     by_run.update(train_launches)
     clock("lm_train")
+    run_lm_train_profile(torch, dev)
+    clock("lm_train_profile")
     check_lm_train_reference(torch, dev)
     clock("lm_train_reference")
     f32_standins = check_standin_kernels(torch, dev)
@@ -5378,11 +5622,15 @@ def main() -> None:
                  f"shape: {per}")
         kern["launches"] = sum(per.values())
         kern["launches_by_run"] = per
-    # B7's backward: its launches in the hymba training run (one a layer a
-    # step; the run's other B7 launches are the forward and the recompute)
+    # B7 at the training shape: its backward kernel once a layer a step in
+    # the hymba training run, its forward the run's other launches (the
+    # forward and the recompute)
     scan_backward["launches"] = scan_backward_launches
     scan_backward["launches_by_run"] = {"lm_train_hymba-1.5b": scan_backward_launches}
-    kernels += branched_rows + lm_rows + [scan_backward]
+    fwd_launches = by_run["lm_train_hymba-1.5b"]["ssm_scan"] - scan_backward_launches
+    scan_train_fwd["launches"] = fwd_launches
+    scan_train_fwd["launches_by_run"] = {"lm_train_hymba-1.5b": fwd_launches}
+    kernels += branched_rows + lm_rows + [scan_train_fwd, scan_backward]
     emit("phase_seconds", **clock.seconds, total=sum(clock.seconds.values()),
          note="wall seconds of each group of phases, in order, the build included")
     print(json.dumps({"kernels": kernels}), flush=True)

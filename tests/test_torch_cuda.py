@@ -20,7 +20,8 @@ from repro_torch.kernels.flash_attention.ops import (attention_plain, f32_design
                                                       flash_mha, flash_wgmma)
 from repro_torch.kernels.grs.ops import grs, grs_cuda
 from repro_torch.kernels.pack import ops as pack_ops
-from repro_torch.kernels.ssm_scan.ops import linear_scan, ssm_scan_plain
+from repro_torch.kernels.ssm_scan.ops import (linear_scan, ssm_scan_backward_cuda,
+                                              ssm_scan_backward_plain, ssm_scan_plain)
 from repro_torch.kernels.superstep import ops as fused_ops
 from repro_torch.models import diffusion as t_diff
 from repro_torch.models import lm as t_lm
@@ -1288,8 +1289,57 @@ def test_captured_decode_equals_the_eager_decode(dev):
     assert torch.equal(out, torch.stack(eager))
 
 
-# ---- B7 under autograd (the LM trainer): its backward is the kernel run
-# once more, over reversed time
+# ---- B7 under autograd (the LM trainer): its backward is a kernel of its
+# own (csrc/ssm_scan_bwd.cu), one reverse-time pass
+
+
+def _scan_backward_inputs(B, L, D, dev):
+    g = torch.Generator(device=dev).manual_seed(B * L + D)
+    a = 0.5 + 0.499 * torch.rand(B, L, D, generator=g, device=dev)
+    h = ssm_scan_plain(a, torch.randn(B, L, D, generator=g, device=dev))
+    return a, h, torch.randn(B, L, D, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("B,L,D", [(2, 37, 25601), (3, 17, 130), (2, 1, 25600), (2, 50, 1),
+                                   (2, 33, 256), (8, 128, 25600)])
+def test_ssm_scan_backward_kernel_matches_plain_in_bits(dev, B, L, D):
+    """One launch gives the plain reverse loop's da and db bit for bit: the
+    same roundings (a_{t+1} g_{t+1}, then + G_t; g_t h_{t-1}), no FMA."""
+    a, h, G = _scan_backward_inputs(B, L, D, dev)
+    before = linear_scan.launches, linear_scan.backward_launches
+    da, db = ssm_scan_backward_cuda(a, h, G)
+    torch.cuda.synchronize()
+    assert (linear_scan.launches - before[0], linear_scan.backward_launches - before[1]) == \
+        (1, 1)
+    pa, pb = ssm_scan_backward_plain(a, h, G)
+    assert torch.equal(da, pa) and torch.equal(db, pb)
+
+
+def test_ssm_scan_backward_takes_a_gradient_that_is_not_contiguous(dev):
+    """Under autograd a strided upstream gradient is copied once and gives
+    the bits of its contiguous copy; the backward is still one launch."""
+    a, h, G = _scan_backward_inputs(2, 40, 96, dev)
+    b = torch.randn_like(a).requires_grad_()
+    a.requires_grad_()
+    out = linear_scan(a, b)
+    strided = G.transpose(1, 2).contiguous().transpose(1, 2)
+    before = linear_scan.backward_launches
+    got = torch.autograd.grad(out, (a, b), strided)
+    torch.cuda.synchronize()
+    assert linear_scan.backward_launches == before + 1
+    want = ssm_scan_backward_plain(a.detach(), out.detach(), G)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_ssm_scan_backward_kernel_refuses_what_it_does_not_take(dev):
+    a, h, G = _scan_backward_inputs(2, 8, 16, dev)
+    strided = G.transpose(1, 2).contiguous().transpose(1, 2)
+    before = linear_scan.launches, linear_scan.backward_launches
+    for args in ((a, h, G.double()), (a.to(torch.bfloat16), h, G), (a, h.cpu(), G),
+                 (a, h, strided), (a[0], h[0], G[0]), (a, h, G[:, :4])):
+        with pytest.raises(ValueError):
+            ssm_scan_backward_cuda(*args)
+    assert (linear_scan.launches, linear_scan.backward_launches) == before
 
 
 @pytest.mark.parametrize("B,L,D", [(2, 37, 25601), (3, 17, 130)])
