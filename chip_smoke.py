@@ -169,13 +169,20 @@ Phases, each printing one JSON line and raising on any failure:
               4112, 16 greedy ``lm_decode_step`` calls, then ``lm_fwd`` on
               the 4112 tokens; the launch counts of B7 and B2 in each;
               decode logits against forward logits; warm times; one
-              profiled prefill, decode step and mamba mixer.
+              profiled prefill, decode step and mamba mixer.  The mixer
+              scans in chunks of 1024 (B7 once a chunk a layer: 4 a layer
+              in the prefill, 5 in the forward).
               Two planted decode faults (window ignored, SSM state one
               token stale): the gate must see the first.  The greedy decode
               again as one captured step (token and position on the card,
               the argmax written inside the graph) replayed 16 times: the
               eager decode's tokens and logit bits, ms a step, idle share
               (hymba_decode_graph).
+     hymba_long_prefill
+              ``lm_prefill`` of 1 x 32,768 tokens (A11's 32k prefill cell
+              at batch 1): B7 32 times a layer, B2 once, finite logits,
+              the peak above the weights, the first call's wall and a warm
+              call.
      hymba_f32
               the same full-width run in float32 (B2's float32 kernel in
               its tensor-core design): decode against forward within a
@@ -195,16 +202,25 @@ Phases, each printing one JSON line and raising on any failure:
               (all 48 layers), llama-3.2-vision-11b (stub vision
               embeddings 2 x 6400) and musicgen-medium (stub frames) at
               full width: the parameter count, prefill of 2 x 4096 tokens
-              (gemma2: 1 x 8192, twice its window), 16 greedy decode
+              (gemma2: 1 x 8192, twice its window; qwen3-moe-30b-a3b,
+              every expert on the card, bf16 leaves drawn in bf16 a layer
+              at a time: 1 x 4096), 16 greedy decode
               steps eagerly and as one captured step replayed (tokens and
               logit bits equal), the forward over prompt and generated
               positions; B2 once an attention layer in the prefill and
               the forward (xlstm: never), never in a decode step; decode
               against forward within the hymba bf16 gate (not
               llama-vision: the JAX package's xattn forward ropes, its
-              prefill and step do not); warm ms (xlstm's prefill: its
-              first call), peak memory, idle share, one profiled prefill
-              (xlstm: of 128 positions).
+              prefill and step do not; nor qwen3-moe: its prefill and
+              forward drop (token, expert) pairs at their capacity, its
+              decode steps none, and the counts are printed); warm ms
+              (xlstm's prefill: its first call), peak memory, idle share,
+              one profiled prefill (xlstm: of 128 positions; qwen3-moe:
+              with the device ms of its MoE steps by group, routing,
+              gather, expert products and combine).  For qwen3-moe also
+              one MoE layer at the prefill's and a decode step's shape:
+              two calls and a captured call equal in bits, warm ms, and
+              the bounds of its expert products and of a decode step.
      xlstm_mixers
               one mLSTM and one sLSTM layer of xlstm-125m at the prefill's
               shape: event ms, device busy ms and idle share (the sLSTM
@@ -216,7 +232,20 @@ Phases, each printing one JSON line and raising on any failure:
               four-chunk kernel in a model; a planted ignored window must
               exceed the gate), and reduced xlstm in bf16: decode logits
               from ``lm_compute_params`` (cast leaf by leaf by path) equal
-              in bits to those of the uncast params.
+              in bits to those of the uncast params.  Reduced
+              qwen3-moe-30b-a3b (E 4, top 2: nothing drops) is one of
+              them, decode against forward included.
+     moe_denoiser
+              qwen3-moe-a3b-smoke (random weights): ``asd_sample_batched``
+              in buffer noise mode (K 64, theta 8, 8 chains) on the card
+              against the CPU from the same inputs (counters equal,
+              samples within 2e-3); a point's output the same bits alone,
+              in 18 and in 36 (the denoiser runs in blocks of 16 points;
+              an expert product unblocked at 1 and 18 points' rows
+              against 36 is printed beside it); one MoE layer twice and
+              captured, equal bits;
+              ``serve.main`` at the model at its defaults and packed: B1
+              once a round, B2's float32 kernel once a layer a block.
      ssm_scan_backward
               B7's backward kernel (csrc/ssm_scan_bwd.cu) at hymba-1.5b's
               training shape (8, 128, 25,600): under autograd h, da and db
@@ -292,6 +321,7 @@ no ``src/repro_torch`` beside it.  No JAX is imported.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -322,6 +352,11 @@ SLOTS, BUDGET, RPS, REQUESTS = 4, 16, 4, 6
 HYMBA_BATCH, HYMBA_PROMPT, HYMBA_DECODE = 2, 4096, 16
 # hymba-1.5b's parameter count (jax.eval_shape of the JAX package's lm_init)
 HYMBA_PARAMS = 1_403_345_600
+# the mamba mixer's scan chunk (mamba_fwd's default, the JAX package's):
+# B7 runs ceil(L / MAMBA_CHUNK) times a layer in a prefill or a forward
+MAMBA_CHUNK = 1024
+# hymba_long_prefill: one prompt of A11's 32k cells through lm_prefill
+HYMBA_LONG_PROMPT = 32768
 # decode logits against forward logits, relative L2, set between the clean
 # run and the planted faults (NVIDIA H100 80GB HBM3, 700 W): bf16, the main
 # path, reads 0.0524 clean and 0.1015 with the window ignored in decode (a
@@ -1182,9 +1217,12 @@ def check_ssm_scan(torch, dev):
              for name, shape in {"L=1": (2, 1, 25600), "L=100 D=70": (1, 100, 70),
                                  "D=25601 (not a multiple of 4)": (2, 37, 25601),
                                  "L=17 (ragged unroll tail)": (3, 17, 130),
-                                 "D=1": (2, 50, 1)}.items()}
-    # the hymba prefill's shape: B 2, L 4096, din * N = 1600 * 16
-    B, L, D = HYMBA_BATCH, HYMBA_PROMPT, 1600 * 16
+                                 "D=1": (2, 50, 1),
+                                 "L=16 (the forward's last chunk)": (2, 16, 25600),
+                                 "L=4096 (the prefill unchunked)": (2, 4096, 25600)}.items()}
+    # the hymba prefill's per-call shape: B 2, a chunk of L, din * N = 1600
+    # * 16 (the mixer scans in chunks of MAMBA_CHUNK)
+    B, L, D = HYMBA_BATCH, MAMBA_CHUNK, 1600 * 16
     a, b = inputs(B, L, D, 1)
     err, equal = compare(a, b)
     times = kernel_times(lambda: linear_scan(a, b), lambda: ssm_scan_plain(a, b), reps=3,
@@ -1349,17 +1387,7 @@ def profile_round(torch, dev, model_fn, sched, y0):
 def _profiled(torch, fn):
     """Wall ms of ``fn`` (ended by a synchronize) under torch.profiler, and
     the device kernels it ran as (name, ms, count)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    wall_ms, kernels, _ = _profiled_moe(torch, fn)
     return wall_ms, kernels
 
 
@@ -3283,8 +3311,12 @@ def run_hymba(torch, dev):
          compute_dtype=cfg.compute_dtype, kv_cache_dtype="bfloat16")
 
     counters = _counters()
-    per_layer = {name: 0 for name in counters}
-    per_layer.update(ssm_scan=cfg.n_layers, flash_attention=cfg.n_layers)
+    # B2 once a layer; B7 once a chunk of MAMBA_CHUNK positions a layer (the
+    # prefill's 4096: 4 a layer; the forward's 4112: 5)
+    want = {run: dict({name: 0 for name in counters}, flash_attention=cfg.n_layers,
+                      ssm_scan=cfg.n_layers * -(-n // MAMBA_CHUNK))
+            for run, n in (("hymba_prefill", P), ("hymba_forward", P + T))}
+    want["hymba_decode"] = {name: 0 for name in counters}
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
     runs, wall = {}, {}
@@ -3320,10 +3352,9 @@ def run_hymba(torch, dev):
         runs["hymba_forward"] = _launches(counters)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    for run, want in (("hymba_prefill", per_layer), ("hymba_forward", per_layer),
-                      ("hymba_decode", {name: 0 for name in counters})):
-        if runs[run] != want:
-            fail(f"hymba: {run} launched {runs[run]}, expected {want}")
+    for run, expected in want.items():
+        if runs[run] != expected:
+            fail(f"hymba: {run} launched {runs[run]}, expected {expected}")
     dec = torch.stack(steps, dim=1)  # logits at positions P-1 .. P+T-1
     ref = full[:, P - 1:].float()
     finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
@@ -3380,16 +3411,67 @@ def run_hymba(torch, dev):
         h = torch.randn(B, P, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
         from repro_torch.nn.ssm import mamba_fwd
 
-        mamba_fwd(layer, h, cfg)
+        chunked = mamba_fwd(layer, h, cfg)
+        whole = mamba_fwd(layer, h, cfg, chunk=P)
         torch.cuda.synchronize()
+        same = torch.equal(chunked.view(torch.int16), whole.view(torch.int16))
+        del whole
+        if not same:
+            fail("hymba: the mixer at chunks of 1024 and in one scan differ in bits")
         wall_ms, kernels = _profiled(torch, lambda: mamba_fwd(layer, h, cfg))
         _emit_profile(torch, "hymba_mamba_profile", wall_ms, kernels,
-                      "one mamba mixer (layer 1) at the prefill shape under torch.profiler: "
-                      "'other' is its elementwise kernels (conv, SiLU, softplus, exp, the "
-                      "drive product, the D skip, the gate) and casts; ssm_scan is B7; "
-                      "matmul includes the C readout", scan_elements=B * P * cfg.d_inner
-                      * cfg.ssm_state)
+                      "one mamba mixer (layer 1) at the prefill shape under torch.profiler "
+                      f"(B7 once a chunk of {MAMBA_CHUNK}): 'other' is its elementwise "
+                      "kernels (conv, SiLU, softplus, exp, the drive product and the "
+                      "carry's fold, the C readout's product and sum, the D skip, the "
+                      "gate) and casts; ssm_scan is B7", scan_elements=B * P * cfg.d_inner
+                      * cfg.ssm_state, chunked_equals_one_scan_bits=same)
+        del caches
+    runs["hymba_long_prefill"] = _hymba_long_prefill(torch, dev, cp, cfg, counters)
     return runs
+
+
+def _hymba_long_prefill(torch, dev, cp, cfg, counters):
+    """hymba_long_prefill: hymba-1.5b through lm_prefill at 1 x
+    HYMBA_LONG_PROMPT (A11's 32k prefill cell at batch 1), the bf16 KV cache
+    sized for the prompt: B7 once a chunk a layer (32 a layer), B2 once a
+    layer, finite last-position logits; the peak above the weights, the
+    first call's wall and a warm call by CUDA events.  Whole, the mixer's
+    decay, drive and h would be (1, 32768, 25600) float32 each."""
+    from repro_torch.models.lm import lm_cache_init, lm_prefill
+
+    L = HYMBA_LONG_PROMPT
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    prompt = torch.randint(0, cfg.vocab_size, (1, L), generator=g, device=dev)
+    base = _fresh_memory(torch)
+    with torch.no_grad():
+        caches = lm_cache_init(cp, cfg, 1, L)
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        logits, caches = lm_prefill(cp, prompt, caches, cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = _launches(counters)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        finite = bool(torch.isfinite(logits).all())
+        warm_ms = cuda_ms(lambda: lm_prefill(cp, prompt, caches, cfg), reps=1, warmup=0)
+    chunks = -(-L // MAMBA_CHUNK)
+    want = dict({name: 0 for name in counters}, flash_attention=cfg.n_layers,
+                ssm_scan=cfg.n_layers * chunks)
+    if launches != want or not finite or tuple(logits.shape) != (1, 1, cfg.vocab_size):
+        fail(f"hymba_long_prefill: launches {launches} (expected {want}), finite {finite}, "
+             f"logits {tuple(logits.shape)}")
+    D = cfg.d_inner * cfg.ssm_state
+    emit("hymba_long_prefill", model=cfg.name, batch=1, prompt=L, chunk=MAMBA_CHUNK,
+         launches={k: v for k, v in launches.items() if v}, finite=finite,
+         peak_above_weights_gb=peak_gb, first_call_s=first_s, warm_ms=warm_ms,
+         tokens_per_s=L / warm_ms * 1e3,
+         scan_tensor_gb_per_chunk=4.0 * MAMBA_CHUNK * D / 1e9,
+         scan_tensor_gb_whole=4.0 * L * D / 1e9,
+         note="bf16 weights and KV cache; the mixer's decay, drive and h exist a chunk at a "
+              "time (scan_tensor_gb_per_chunk each) where one scan over the prompt would "
+              "hold scan_tensor_gb_whole each; warm_ms by CUDA events")
+    return launches
 
 
 def _captured_decode(torch, dev, cp, cfg, prefilled, steps, P, counters, frames=None):
@@ -3546,9 +3628,11 @@ def check_hymba_f32(torch, dev):
     finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
     # B2 in float32 takes the float32 kernel's tensor-core design (4096 and
     # 4112 rows): once a layer in the prefill and the forward, never the
-    # wgmma kernel
+    # wgmma kernel; B7 once a chunk a layer (4 in the prefill, 5 in the
+    # forward)
     want = {name: 0 for name in counters}
-    want.update(ssm_scan=2 * cfg.n_layers, flash_attention_f32=2 * cfg.n_layers)
+    want.update(ssm_scan=cfg.n_layers * (-(-P // MAMBA_CHUNK) - (-(P + T) // MAMBA_CHUNK)),
+                flash_attention_f32=2 * cfg.n_layers)
     if launches != want or designs != {"tensor_core": 2 * cfg.n_layers, "packed": 0}:
         fail(f"hymba_f32: launched {launches}, designs {designs}, expected {want}, all on "
              "the tensor cores")
@@ -3635,12 +3719,22 @@ LM_ARCHS = {
     "qwen2.5-14b": (2, 4096, 14_770_033_664),
     "llama-3.2-vision-11b": (2, 4096, 9_775_157_256),
     "musicgen-medium": (2, 4096, 1_362_249_216),
+    # every expert on the card: 61.06 GB of bf16 weights, so one prompt
+    "qwen3-moe-30b-a3b": (1, 4096, 30_532_110_336),
 }
 LM_DECODE = 16
 # The JAX package's xattn forward ropes its queries and the vision keys and
 # its prefill and decode step do not (src/repro/models/blocks.py:128-197),
 # so llama-vision's decode logits are not its forward's: no decode gate.
-LM_NO_DECODE_GATE = ("llama-3.2-vision-11b",)
+# qwen3-moe's capacity is per row from L (src/repro/nn/moe.py:68-70): a
+# decode step (L 1, C 1) drops no (token, expert) pair, the 4096-token
+# prefill (C 320) and the 4112-token forward (C 322) drop others, so its
+# decode logits are not its forward's either (the reduced config, where C
+# is L and nothing drops, holds decode to forward in lm_reference).
+LM_NO_DECODE_GATE = ("llama-3.2-vision-11b", "qwen3-moe-30b-a3b")
+# the MoE draw's peak above the finished bf16 tree: one float32 layer of an
+# expert stack (0.81 GB) or the float32 embedding table (1.24 GB) at a time
+MOE_DRAW_SLACK_GB = 2.0
 # xlstm's prefill and forward loop over positions in its sLSTM layers (a
 # Python loop of ~22 small kernels a position, host-bound at ~0.35 ms a
 # position a layer on the card): its prefill is timed once (the first
@@ -3705,23 +3799,36 @@ def run_lm_arch(torch, dev, name):
     cfg = get_config(name)
     B, P, want_params = LM_ARCHS[name]
     T = LM_DECODE
+    moe = bool(cfg.n_experts)
     base = _fresh_memory(torch)
     t0 = time.perf_counter()
-    cp = init_lm_params(cfg, SEED, device=dev)
-    n_params = sum(p.numel() for p in pytree.leaves(cp))
-    _cast_leaf_by_leaf(torch, cp, cfg)
+    if moe:
+        # its float32 tree would be 122 GB: the bf16 leaves are drawn into
+        # bf16 a layer at a time, and no float32 tree exists
+        cp = init_lm_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
+        n_params = sum(p.numel() for p in pytree.leaves(cp))
+    else:
+        cp = init_lm_params(cfg, SEED, device=dev)
+        n_params = sum(p.numel() for p in pytree.leaves(cp))
+        _cast_leaf_by_leaf(torch, cp, cfg)
     torch.cuda.synchronize()
     weights = dict(seconds=time.perf_counter() - t0,
                    peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
                    resident_gb=(torch.cuda.memory_allocated() - base) / 1e9)
     if n_params != want_params:
         fail(f"{name}: {n_params} params, expected {want_params}")
+    if moe and weights["peak_gb"] - weights["resident_gb"] > MOE_DRAW_SLACK_GB:
+        fail(f"{name}: the draw peaked {weights['peak_gb']} GB for a {weights['resident_gb']} "
+             f"GB tree (more than {MOE_DRAW_SLACK_GB} GB above it)")
     emit("lm_weights", model=name, params=n_params, **weights, layers=cfg.n_layers,
          d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
          head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, ffn=cfg.ffn_kind,
          vocab=cfg.vocab_size, group=[(d.kind, d.window) for d in cfg.group],
+         experts=cfg.n_experts or None, top_k=cfg.top_k or None,
          seed=SEED, compute_dtype=cfg.compute_dtype, kv_cache_dtype="bfloat16",
-         note="float32 init cast to bf16 leaf by leaf (chip_smoke's _cast_leaf_by_leaf)")
+         note=("bf16 leaves drawn in bf16 a layer at a time (init_lm_params(dtype=...)), "
+               f"the draw's peak at most {MOE_DRAW_SLACK_GB} GB above the tree" if moe else
+               "float32 init cast to bf16 leaf by leaf (chip_smoke's _cast_leaf_by_leaf)"))
 
     counters = _counters()
     inputs, vision = _lm_inputs(torch, dev, cfg, B, P + T, SEED + 21)
@@ -3729,15 +3836,17 @@ def run_lm_arch(torch, dev, name):
     prompt = inputs[:, :P]
     per_layer = {n: 0 for n in counters}
     per_layer["flash_attention"] = _attention_layers(cfg)  # xlstm: none
-    runs, wall = {}, {}
+    runs, wall, routed = {}, {}, {}
     with torch.no_grad():
         caches = lm_cache_init(cp, cfg, B, P + T)
         _zero_counters(torch, counters)
         t0 = time.perf_counter()
-        logits, caches = lm_prefill(cp, prompt, caches, cfg, vision=vision)
+        with _route_log(torch) as log:
+            logits, caches = lm_prefill(cp, prompt, caches, cfg, vision=vision)
         torch.cuda.synchronize()
         wall["prefill_s"] = time.perf_counter() - t0
         runs[f"{name}_prefill"] = _launches(counters)
+        routed["prefill"] = _dropped_pairs(torch, log)
         prefilled = pytree.map(torch.clone, caches)
 
         steps, toks = [logits[:, 0].float()], []
@@ -3755,10 +3864,12 @@ def run_lm_arch(torch, dev, name):
         seq = torch.cat([prompt, torch.stack(toks, 1)], 1) if frames is None else frames
         _zero_counters(torch, counters)
         t0 = time.perf_counter()
-        full = lm_fwd(cp, seq, cfg, vision=vision)
+        with _route_log(torch) as log:
+            full = lm_fwd(cp, seq, cfg, vision=vision)
         torch.cuda.synchronize()
         wall["forward_s"] = time.perf_counter() - t0
         runs[f"{name}_forward"] = _launches(counters)
+        routed["forward"] = _dropped_pairs(torch, log)
         peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
         ref = full[:, P - 1:].float()
         shape_ok = tuple(full.shape) == (B, P + T, cfg.vocab_size)
@@ -3779,6 +3890,7 @@ def run_lm_arch(torch, dev, name):
     graph_decode = _captured_decode(torch, dev, cp, cfg, prefilled, steps, P, counters,
                                     frames=frames)
     del prefilled
+    moe_layer = _moe_layer(torch, dev, cp, cfg, P) if moe else None
 
     recurrent = name in LM_RECURRENT
     with torch.no_grad():
@@ -3789,12 +3901,20 @@ def run_lm_arch(torch, dev, name):
                             warmup=1)
         torch.cuda.synchronize()
         Pp = XLSTM_PROFILE_PROMPT if recurrent else P
-        wall_ms, kernels = _profiled(torch, lambda: lm_prefill(cp, prompt[:, :Pp], caches,
-                                                               cfg, vision=vision))
+        wall_ms, kernels, moe_ms = _profiled_moe(torch, lambda: lm_prefill(
+            cp, prompt[:, :Pp], caches, cfg, vision=vision))
+    extra = {}
+    if moe:
+        busy = sum(ms for _, ms, _ in kernels)
+        extra = dict(moe_device_ms_by_group=moe_ms or "not measured",
+                     outside_moe_device_ms=busy - sum(moe_ms.values()) if moe_ms else None)
     _emit_profile(torch, "lm_profile", wall_ms, kernels,
                   f"one warm lm_prefill of {name} ({B} x {Pp} tokens, {cfg.n_layers} layers) "
-                  "under torch.profiler; 'other' holds norms, RoPE, activations and casts",
-                  model=name, prefill_tokens=B * Pp)
+                  "under torch.profiler; 'other' holds norms, RoPE, activations and casts"
+                  + ("; moe_device_ms_by_group: the device time of the kernels launched "
+                     "inside each MoE step (record_function ranges; the expert products' "
+                     "GEMMs also count in 'matmul')" if moe else ""),
+                  model=name, prefill_tokens=B * Pp, **extra)
     if recurrent:
         _xlstm_mixer_profiles(torch, dev, cp, cfg, B, P)
     emit("lm_arch", model=name, batch=B, prompt=P, decode_steps=T, cache_len=P + T,
@@ -3803,6 +3923,8 @@ def run_lm_arch(torch, dev, name):
          finite=finite, decode_vs_forward_relative_l2=rel,
          decode_vs_forward_max_abs_err=(dec - ref).abs().max().item(),
          decode_gate=(f"relative L2 {HYMBA_BF16_GATE} (hymba's bf16 gate)" if gated else
+                      "none: the prefill and the forward drop (token, expert) pairs at "
+                      "their capacity, a decode step none" if moe else
                       "none: the JAX package's xattn forward ropes, its prefill and step "
                       "do not"),
          greedy_argmax_agreement=(dec.argmax(-1) == ref.argmax(-1)).float().mean().item(),
@@ -3812,8 +3934,334 @@ def run_lm_arch(torch, dev, name):
          "warm, CUDA events",
          prefill_tokens_per_s=B * P / prefill_ms * 1e3, decode_ms_per_step=decode_ms,
          decode_tokens_per_s=B / decode_ms * 1e3, captured_decode=graph_decode,
+         **({} if not moe else dict(dropped_pairs=routed, moe_layer=moe_layer,
+                                    bounds=_moe_bounds(cfg, B, P))),
          note="warm times by CUDA events; a decode step is one position of each sequence")
     return runs
+
+
+# the profile's MoE groups: (group, the nn.moe function whose kernels it holds)
+MOE_RANGES = (("routing", "_route"), ("gather", "_gather"),
+              ("expert_products", "_expert_ffn"), ("combine", "_combine"))
+
+
+@contextlib.contextmanager
+def _moe_ranges(torch):
+    """Each MoE step of ``repro_torch.nn.moe`` run inside a
+    ``record_function`` range named ``moe_<group>`` (the module's functions
+    swapped for wrappers, and back)."""
+    from repro_torch.nn import moe
+
+    saved = {fn: getattr(moe, fn) for _, fn in MOE_RANGES}
+
+    def ranged(group, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(f"moe_{group}"):
+                return fn(*args, **kwargs)
+        return call
+
+    for group, fn in MOE_RANGES:
+        setattr(moe, fn, ranged(group, saved[fn]))
+    try:
+        yield
+    finally:
+        for fn, orig in saved.items():
+            setattr(moe, fn, orig)
+
+
+def _profiled_moe(torch, fn):
+    """Wall ms of ``fn`` (ended by a synchronize) under torch.profiler, the
+    device kernels it ran as (name, ms, count), and the device ms of the
+    kernels inside each MoE step by group (empty where no MoE ran, or the
+    profiler tied no kernel to a range)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with _moe_ranges(torch), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+    names = {f"moe_{group}": group for group, _ in MOE_RANGES}
+    # the ranges show on the device's timeline too: not kernels
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in averages
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0 and e.key not in names]
+    by_group = {names[e.key]: getattr(e, "device_time_total", 0.0) / 1e3
+                for e in averages if e.key in names}
+    return wall_ms, kernels, by_group if any(by_group.values()) else {}
+
+
+@contextlib.contextmanager
+def _route_log(torch):
+    """Records each ``_route`` call's (routed, kept) (token, expert) pairs as
+    a device tensor while the block runs."""
+    from repro_torch.nn import moe
+
+    log, route = [], moe._route
+
+    def recorded(params, x, cfg, capacity=None):
+        out = route(params, x, cfg, capacity)
+        routed = torch.tensor(x.shape[0] * x.shape[1] * cfg.top_k, device=x.device)
+        log.append(torch.stack([routed, out[2].sum()]))
+        return out
+
+    moe._route = recorded
+    try:
+        yield log
+    finally:
+        moe._route = route
+
+
+def _dropped_pairs(torch, log):
+    """The (token, expert) pairs the capacity dropped, from a ``_route_log``
+    (None where no MoE layer ran)."""
+    if not log:
+        return None
+    per = torch.stack(log).cpu()
+    dropped = (per[:, 0] - per[:, 1]).tolist()
+    return dict(calls=len(log), routed=int(per[:, 0].sum()), dropped=int(sum(dropped)),
+                max_dropped_in_a_layer=int(max(dropped)), dropped_by_layer=dropped)
+
+
+def _moe_bounds(cfg, B, P):
+    """The card's least time for the MoE work this run does, every expert
+    computing its C rows a batch row: the prefill's expert products (2 E C
+    3 d ff flops a row and layer, at bf16's peak) and a decode step's read
+    of every expert stack (bf16, at the memory rate)."""
+    from repro_torch.nn.moe import capacity_of
+
+    E, d, ff, n = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.n_layers
+    C = capacity_of(cfg, P)
+    flops = 2.0 * B * E * C * 3 * d * ff * n
+    stack_bytes = 2.0 * E * 3 * d * ff * n
+    return dict(capacity_prefill=C, prefill_expert_tflop=flops / 1e12,
+                prefill_expert_products_bound_ms=flops / PEAK_BF16 * 1e3,
+                decode_expert_gb=stack_bytes / 1e9,
+                decode_step_bound_ms=stack_bytes / HBM_BYTES_PER_S * 1e3,
+                note="my arithmetic from the config: the products at the capacity's rows, "
+                     "and the expert stacks read once a decode step")
+
+
+def _moe_bits(torch, p, x, cfg):
+    """``moe_apply(p, x, cfg)`` twice, and captured in a CUDA graph (after a
+    warm call on a side stream) and replayed: (its output, two calls equal
+    in bits, the replay equal to the eager call in bits)."""
+    from repro_torch.nn.moe import moe_apply
+
+    with torch.no_grad():
+        a, b = moe_apply(p, x, cfg)[0], moe_apply(p, x, cfg)[0]
+        static_x = x.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe_apply(p, static_x, cfg)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static_out = moe_apply(p, static_x, cfg)[0]
+        graph.replay()
+        torch.cuda.synchronize()
+    return a, _bits(torch, a, b), _bits(torch, a, static_out)
+
+
+def _moe_layer(torch, dev, cp, cfg, P):
+    """One MoE layer (layer 0's router and stacks) on a (1, P, d) bf16 input,
+    and on a (1, 1, d) decode-shaped one: two eager calls give equal bits,
+    and a captured call replayed gives the eager bits (the combine adds in
+    a fixed order, nothing reads back to the host); warm ms by CUDA
+    events."""
+    from repro_torch.nn.moe import moe_apply
+
+    p = {k: v[0] for k, v in cp["decoder"]["g0"]["moe"].items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 27)
+    out = {}
+    for name, L in (("prefill_shape", P), ("decode_shape", 1)):
+        x = torch.randn(1, L, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+        a, same, captured = _moe_bits(torch, p, x, cfg)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: moe_apply(p, x, cfg), reps=5)
+        if not (same and captured and bool(torch.isfinite(a).all())):
+            fail(f"moe layer at {name}: two calls equal bits {same}, captured equal bits "
+                 f"{captured}")
+        out[name] = dict(tokens=L, two_calls_equal_bits=same, captured_equal_bits=captured,
+                         ms=ms)
+    return out
+
+
+# moe_denoiser: the MoE smoke denoiser (qwen3-moe-a3b-smoke: 2 layers, d
+# 64, E 8, top 2, float32), sampled by ASD (buffer noise, DDPM, K 64,
+# theta 8, 8 chains) on the card against the port's CPU run of the same
+# inputs (counters equal, samples within 2e-3, as serve_reference), and
+# served by the CLI.  Its points run in blocks of 16 (models/diffusion.py).
+MOE_DENOISER = "qwen3-moe-a3b-smoke"
+MOE_K, MOE_CHAINS, MOE_TOL = 64, 8, 2e-3
+MOE_CLI_RUNS = (("default", []),
+                ("packed", ["--execution", "packed", "--round-budget", "24"]))
+
+
+def run_moe_denoiser(torch, dev):
+    """moe_denoiser: MOE_DENOISER at random weights (nonzero out_proj, so
+    proposals are rejected): ``asd_sample_batched`` in buffer noise mode on
+    the card and on the CPU from the same y0 and noise; a point's output the
+    same bits alone and in a batch of 36 (and of 18), with the token
+    product's rows beside it unblocked; one MoE layer's two calls and a
+    captured call equal in bits; then ``serve.main`` at the model with the
+    CLI's defaults and packed, launches per round.  B1 once a round, B2's
+    float32 kernel once a layer a block of 16 points."""
+    import contextlib as _ctx
+    import io
+
+    from repro_torch import pytree
+    from repro_torch.configs.registry import get_denoiser_config
+    from repro_torch.core.asd import asd_sample_batched
+    from repro_torch.core.schedules import ddpm
+    from repro_torch.launch import serve
+    from repro_torch.models.diffusion import make_ddpm_model_fn
+    from repro_torch.weights import init_denoiser_params
+
+    dc = get_denoiser_config(MOE_DENOISER)
+    cfg = dc.backbone
+    params_cpu = init_denoiser_params(dc, SEED, out_scale=1.0, device="cpu")
+    sched = ddpm(MOE_K)
+    rng = np.random.default_rng(SEED + 31)
+    n, ev = MOE_CHAINS, (dc.seq_len, dc.d_data)
+    y0 = torch.from_numpy(rng.standard_normal((n,) + ev, dtype=np.float32))
+    u = torch.from_numpy(rng.random((n, MOE_K + THETA + 1), dtype=np.float32))
+    xi = torch.from_numpy(rng.standard_normal((n, MOE_K + THETA + 1) + ev, dtype=np.float32))
+    counters = _counters()
+    res, launches = {}, None
+    for where in ("cpu", dev):
+        fn = make_ddpm_model_fn(pytree.map(lambda t: t.to(where), params_cpu), dc)
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            r = asd_sample_batched(fn, sched, y0.to(where), THETA, keep_trajectory=False,
+                                   u_buf=u.to(where), xi_buf=xi.to(where), device=where)
+        if where != "cpu":
+            torch.cuda.synchronize()
+            launches = _launches(counters)
+        res[str(where)] = (r, time.perf_counter() - t0)
+    (rc, _), (rg, wall) = res["cpu"], res[str(dev)]
+    counts = {k: (getattr(rc, k).tolist(), getattr(rg, k).tolist())
+              for k in ("rounds", "accepts", "proposals", "model_evals")}
+    err = (rg.sample.cpu() - rc.sample).abs().max().item()
+    rounds = int(rg.rounds.max())
+    if (any(a != b for a, b in counts.values()) or not err <= MOE_TOL
+            or not int(rc.accepts.sum()) < int(rc.proposals.sum())
+            or launches["grs"] != rounds or not launches["flash_attention_f32"]
+            or launches["flash_attention_f32"] % cfg.n_layers or launches["flash_attention"]):
+        fail(f"moe_denoiser asd: counters {counts}, sample error {err} ({MOE_TOL}), "
+             f"launches {launches} for {rounds} rounds")
+    asd = dict(chains=n, K=MOE_K, theta=THETA, rounds=rounds, wall_s=wall,
+               accept_rate=float(rc.accepts.sum() / rc.proposals.sum()),
+               max_abs_err_vs_cpu=err, tolerance=MOE_TOL, counters_equal=True,
+               launches={k: v for k, v in launches.items() if v},
+               b2_launches_per_round=launches["flash_attention_f32"] / rounds)
+
+    params = pytree.map(lambda t: t.to(dev), params_cpu)
+    fn = make_ddpm_model_fn(params, dc)
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    t = torch.randint(0, MOE_K, (36,), generator=g, device=dev).float()
+    y = torch.randn((36,) + ev, generator=g, device=dev)
+    w = torch.randn(cfg.n_experts, cfg.d_model, cfg.d_ff, generator=g, device=dev)
+    xg = torch.randn(cfg.n_experts, 36 * dc.seq_len, cfg.d_model, generator=g, device=dev)
+    with torch.no_grad():
+        full = fn(t, y)
+        invariance = {f"{m}_of_36": _bits(torch, fn(t[:m], y[:m]), full[:m]) for m in (1, 18)}
+        # what the blocks are for: an expert product unblocked, a point's C
+        # (= 8) rows alone against 36 points' rows (not gated)
+        probe = {f"expert_product_rows_same_unblocked_{m}_of_36": _bits(
+            torch, torch.bmm(xg[:, :m * dc.seq_len], w), torch.bmm(xg, w)[:, :m * dc.seq_len])
+            for m in (1, 18)}
+    layer = {k: v[0] for k, v in params["decoder"]["g0"]["moe"].items()}
+    x = torch.randn(16, dc.seq_len, cfg.d_model, generator=g, device=dev)
+    _, same, captured = _moe_bits(torch, layer, x, cfg)
+    combine = dict(two_calls_equal_bits=same, captured_equal_bits=captured)
+    if not all(invariance.values()) or not all(combine.values()):
+        fail(f"moe_denoiser: a point alone and in a batch {invariance}, the MoE layer "
+             f"{combine}")
+    del params, fn
+
+    cli, cli_launches = {}, {}
+    for name, extra in MOE_CLI_RUNS:
+        argv = ["--model", MOE_DENOISER, *extra]
+        _zero_counters(torch, counters)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with _ctx.redirect_stdout(buf):
+            summary = serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = _launches(counters)
+        rounds = summary["rounds_total"]
+        packed = "--execution" in extra
+        per_round = launched["flash_attention_f32"] / rounds
+        if (not summary["finite"] or summary["retired"] != SERVE_CLI_REQUESTS
+                or launched["grs"] != rounds or launched["flash_attention"]
+                or per_round != int(per_round) or int(per_round) % cfg.n_layers
+                or per_round < 2 * cfg.n_layers
+                or packed != bool(launched["gather_rows"] and launched["scatter_rows"])):
+            fail(f"moe_denoiser serve_cli {name}: finite {summary['finite']}, retired "
+                 f"{summary['retired']}, launches {launched} for {rounds} rounds")
+        cli_launches[f"moe_denoiser_cli_{name}"] = launched
+        cli[name] = dict(argv=argv, rounds=rounds, retired=summary["retired"],
+                         accept_rate=summary["accept_rate"],
+                         samples_per_s=SERVE_CLI_REQUESTS / summary["wall_time_s"],
+                         wall_s=wall, launches={k: v for k, v in launched.items() if v},
+                         b2_launches_per_round=per_round,
+                         printed=buf.getvalue().splitlines()[-2:])
+    emit("moe_denoiser", model=MOE_DENOISER, experts=cfg.n_experts, top_k=cfg.top_k,
+         capacity_factor=cfg.capacity_factor, point_block=16, asd_buffer=asd,
+         batch_invariance=dict(invariance, **probe), moe_layer_16_points=combine,
+         serve_cli=cli,
+         gate="ASD counters equal card and CPU, samples within the tolerance, a rejection; "
+              "a point's rows the same bits alone, at 18 and at 36; the MoE layer's two "
+              "calls and its captured call equal in bits; the CLI's samples finite, every "
+              "request retired, B1 once a round, B2 once a layer a block, B3 and B4 when "
+              "packed")
+    rows = _moe_denoiser_kernels(torch, dev, dc)
+    return {"moe_denoiser_asd": launches, **cli_launches}, rows
+
+
+def _moe_denoiser_kernels(torch, dev, dc):
+    """B2's float32 kernel at the MoE denoiser's block (16 points of its 8
+    tokens, 4 heads of 16; the packed design) and B1 at its ASD rounds'
+    rows (8 chains x theta 8 of 8 x 4 floats), against their plain
+    versions, timed as in phase 3; kernels-line rows with the runs whose
+    launches are at each shape."""
+    from repro_torch.core.grs import grs as grs_plain
+    from repro_torch.kernels.grs.ops import grs
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cfg = dc.backbone
+    H = cfg.n_heads
+    q, k, v = _flash_inputs(torch, dev, 16, dc.seq_len, dc.seq_len, H, cfg.d_model // H,
+                            SEED + 33, torch.float32)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    f32 = _f32_timed(torch, q, k, v, dict(causal=False), lambda: sdpa(qt, kt, vt))
+    if f32["design"] != "packed":
+        fail(f"moe_denoiser_kernels: B2 float32 launched {f32['design']}, not packed")
+    emit("moe_denoiser_kernels", kernel="flash_attention_f32", **f32,
+         library="scaled_dot_product_attention (float32)")
+    R, D = MOE_CHAINS * THETA, dc.seq_len * dc.d_data
+    args = _grs_inputs(torch, dev, R, D, SEED + 34)
+    err, accepted = _grs_compare(torch, args)
+    times = kernel_times(lambda: grs(*args), lambda: grs_plain(*args), wrapper=grs)
+    bms, by = _grs_bound(R, D)
+    emit("moe_denoiser_kernels", kernel="grs", shape=[R, D], max_abs_err=err,
+         accepted_rows=accepted, **times, bound_ms=bms, bound_by=by,
+         geometry=_row_geometry(R, D))
+    block = [16, dc.seq_len, H, cfg.d_model // H]
+    return [dict(name="flash_attention_f32", route="cuda", source=FLASH_F32_SOURCE,
+                 replaces=FLASH_REPLACES, at=f"{MOE_DENOISER} block {block}", **f32,
+                 runs={"moe_denoiser_asd": 1.0, "moe_denoiser_cli_default": 1.0,
+                       "moe_denoiser_cli_packed": 1.0}),
+            dict(name="grs", route="cuda", source="src/repro_torch/csrc/grs.cu",
+                 replaces="src/repro/kernels/grs/kernel.py:27",
+                 at=f"{MOE_DENOISER} ASD rounds ({R}, {D})", max_abs_err=err, **times,
+                 library=None, bound_ms=bms, bound_by=by, runs={"moe_denoiser_asd": 1.0})]
 
 
 def _xlstm_mixer_profiles(torch, dev, cp, cfg, B, P):
@@ -4024,6 +4472,8 @@ LM_FLASH_SHAPES = (
     ("llama-3.2-vision-11b cross", "llama-3.2-vision-11b", (2, 4096, 6400, 32, 128),
      False, 0, 0.0, 0.2),
     ("musicgen-medium", "musicgen-medium", (2, 4096, 4096, 24, 64), True, 0, 0.0, 1.0),
+    ("qwen3-moe-30b-a3b", "qwen3-moe-30b-a3b", (1, 4096, 4096, 32, 128), True, 0, 0.0,
+     1.0),
 )
 
 
@@ -4606,7 +5056,9 @@ def run_lm_train_profile(torch, dev):
 
 def check_lm_train_reference(torch, dev):
     """lm_train_reference: one lm_loss gradient of every ported arch's
-    reduced config in float32 (llama-vision with stub vision, musicgen with
+    reduced config in float32 but qwen3-moe's (whose loss, with the
+    router's aux term, is ROADMAP A9's training half: lm_loss refuses it)
+    (llama-vision with stub vision, musicgen with
     stub frames), the same params and batch on the card and on the CPU: the
     loss within 1e-5, every leaf's gradient within 1e-4 of its largest
     magnitude (AdamW's first update, ~lr sign(g), would flip for gradients
@@ -4622,7 +5074,7 @@ def check_lm_train_reference(torch, dev):
 
     counters = _counters()
     results = {}
-    for name in ARCHS:
+    for name in (n for n in ARCHS if not get_config(n).n_experts):
         cfg = reduced(get_config(name))
         params = init_lm_params(cfg, SEED, device="cpu")
         g = torch.Generator().manual_seed(SEED + 27)
@@ -5557,6 +6009,10 @@ def main() -> None:
         clock(f"lm_arch {name}")
     check_lm_archs_reference(torch, dev)
     clock("lm_reference")
+    moe_launches, moe_rows = run_moe_denoiser(torch, dev)
+    by_run.update(moe_launches)
+    lm_rows += moe_rows
+    clock("moe_denoiser")
     scan_backward, scan_train_fwd = check_ssm_scan_backward(torch, dev)
     clock("ssm_scan_backward")
     train_launches, scan_backward_launches = run_lm_train(torch, dev)

@@ -1,7 +1,8 @@
 """The assigned LM architectures the port runs (copied from the JAX
 package's ``configs/archs.py``): xlstm-125m, hymba-1.5b, the dense archs
-(tinyllama, yi, gemma2, qwen2.5), llama-3.2-vision and musicgen.  The MoE
-archs (dbrx, qwen3-moe) are not ported yet (ROADMAP A9)."""
+(tinyllama, yi, gemma2, qwen2.5), llama-3.2-vision, musicgen and the MoE
+arch qwen3-moe-30b-a3b (every expert on one card).  dbrx-132b waits for
+the MoE training half (ROADMAP A9)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,16 @@ def xlstm_125m() -> ModelConfig:
         n_heads=4, n_kv_heads=4, d_ff=0, vocab_size=50304,
         group=(BlockDesc("mlstm"), BlockDesc("slstm")),
         pos_embed="none", ssm_conv=4, ssm_state=16,
+    )
+
+
+def qwen3_moe_30b() -> ModelConfig:
+    # [moe] 128 experts top-8 fine-grained [hf:Qwen/Qwen3-30B-A3B]
+    return ModelConfig(
+        name="qwen3-moe-30b-a3b", family="moe", n_layers=48, d_model=2048,
+        n_heads=32, n_kv_heads=4, head_dim=128, d_ff=768, vocab_size=151936,
+        group=(BlockDesc("attn", moe=True),),
+        n_experts=128, top_k=8, rope_theta=1e6,
     )
 
 
@@ -95,6 +106,7 @@ def musicgen_medium() -> ModelConfig:
 
 ARCHS = {
     "xlstm-125m": xlstm_125m,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b,
     "hymba-1.5b": hymba_1_5b,
     "tinyllama-1.1b": tinyllama_1_1b,
     "yi-6b": yi_6b,

@@ -4,7 +4,7 @@ the JAX package's registry)."""
 from __future__ import annotations
 
 from repro_torch.configs.archs import ARCHS
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import BlockDesc, ModelConfig
 from repro_torch.models.diffusion import DenoiserConfig
 
 
@@ -53,17 +53,33 @@ def paper_diffusion_policy_smoke(action_dim: int = 4) -> DenoiserConfig:
     return DenoiserConfig(backbone=backbone, seq_len=8, d_data=action_dim)
 
 
+def qwen3_moe_a3b_smoke(action_dim: int = 4) -> DenoiserConfig:
+    """CI/demo-sized qwen3-moe-30b-a3b-family denoiser: attention blocks
+    with a token-choice top-k MoE FFN, at smoke dims, computed in float32.
+    capacity_factor >= E/k, so no token is dropped."""
+    backbone = ModelConfig(
+        name="qwen3-moe-a3b-smoke", family="moe", n_layers=2,
+        d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=1,
+        group=(BlockDesc("attn", moe=True),),
+        n_experts=8, top_k=2, capacity_factor=8.0,
+        pos_embed="none", embed_inputs=False, compute_dtype="float32",
+        remat=False,
+    )
+    return DenoiserConfig(backbone=backbone, seq_len=8, d_data=action_dim)
+
+
 PAPER_MODELS = {
     "paper-ldm-dit": paper_ldm_dit,
     "paper-pixel-dit": paper_pixel_dit,
     "paper-diffusion-policy": paper_diffusion_policy,
     "paper-diffusion-policy-smoke": paper_diffusion_policy_smoke,
+    "qwen3-moe-a3b-smoke": qwen3_moe_a3b_smoke,
 }
 
 
 def get_denoiser_config(name: str) -> DenoiserConfig:
-    """A paper denoiser config by its name (the JAX registry's dense ones;
-    its MoE smoke model waits for the port's MoE layers)."""
+    """A paper denoiser config by its name (the JAX registry's: the dense
+    ones and the MoE smoke model)."""
     if name in PAPER_MODELS:
         return PAPER_MODELS[name]()
     raise KeyError(f"unknown or not yet ported paper model {name!r}; "

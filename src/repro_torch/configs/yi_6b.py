@@ -1,0 +1,4 @@
+"""--arch yi-6b: the exact assigned config (see archs.py for provenance)."""
+from repro_torch.configs.archs import ARCHS
+
+CONFIG = ARCHS["yi-6b"]()

@@ -122,3 +122,37 @@ def ddpm_coeffs(K: int, beta_schedule: str = "cosine"):
     alphas = 1.0 - betas
     abar = np.cumprod(alphas)
     return _f32(betas), _f32(alphas), _f32(abar)
+
+
+# ---------------------------------------------------------------------------
+# SL <-> OU-DDPM reparametrization (paper Thm 9)
+# ---------------------------------------------------------------------------
+
+
+def _tensor(a) -> torch.Tensor:
+    """A tensor as it is; a Python or numpy number as float32."""
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(a, dtype=torch.float32)
+
+
+def ou_time_of_sl(t):
+    """s(t) = .5 ln(1 + 1/t)."""
+    return 0.5 * torch.log1p(1.0 / _tensor(t))
+
+
+def sl_time_of_ou(s):
+    """Inverse of ``ou_time_of_sl``: t(s) = 1 / (e^{2s} - 1)."""
+    return 1.0 / torch.expm1(2.0 * _tensor(s))
+
+
+def sl_of_ddpm_state(x_rev, s):
+    """ybar_t = t e^{s(t)} xbar^{<-}_{s(t)} with t = t(s); returns (ybar, t)."""
+    s = _tensor(s)
+    t = sl_time_of_ou(s)
+    return t * torch.exp(s) * x_rev, t
+
+
+def ddpm_of_sl_state(y, t):
+    """The inverse of ``sl_of_ddpm_state``: (y / (t e^{s}), s) with s = s(t)."""
+    t = _tensor(t)
+    s = ou_time_of_sl(t)
+    return y / (t * torch.exp(s)), s

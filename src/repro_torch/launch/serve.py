@@ -33,10 +33,12 @@ prefix committed; ``--branch-controller`` static or gain), and the summary
 line then gives the mean accepted prefix a round and the wasted share of
 the drafted points; as in the JAX CLI, the fused engine runs one branch.
 What the port has no counterpart for yet is refused with exit status 2 and
-the ROADMAP.md item that brings it, never ignored: model parallelism and
-MoE models (``--model-shards``, ``--seq-shards``, ``--expert-parallel``, a
-``--mesh`` other than ``1x1``: A9), and ``--grs-impl`` / ``--pack-impl``,
-since the device picks the plain version (CPU) or the CUDA kernel (card).
+the ROADMAP.md item that brings it, never ignored: model parallelism
+(``--model-shards``, ``--seq-shards``, ``--expert-parallel``, a ``--mesh``
+other than ``1x1``: A9), and ``--grs-impl`` / ``--pack-impl``, since the
+device picks the plain version (CPU) or the CUDA kernel (card).  The MoE
+denoiser ``qwen3-moe-a3b-smoke`` is served with every expert on the
+device.
 
 Observability: ``--metrics-port`` serves /metrics, /metrics.json and
 /healthz on 127.0.0.1 and scrapes itself once after the run;
@@ -86,17 +88,11 @@ from repro_torch.weights import denoiser_init_params
 
 log = logging.getLogger("repro_torch.serving.serve")
 
-# the JAX registry's MoE denoisers
-_MOE_MODELS = ("qwen3-moe-a3b-smoke",)
-
-
 def _refusal(args):
     """The message for a flag the port cannot honour yet, or None."""
     if args.model_shards != 1 or args.seq_shards != 1 or args.expert_parallel:
         return ("--model-shards / --seq-shards / --expert-parallel: model parallelism "
                 "is ROADMAP.md A9")
-    if args.model in _MOE_MODELS:
-        return f"--model {args.model}: MoE denoisers are ROADMAP.md A9"
     if args.mesh != "1x1":
         return (f"--mesh {args.mesh}: only 1x1 (shards live on the card, or one a card "
                 "with several); a mesh of more devices is data or model parallelism, "

@@ -11,7 +11,9 @@ int window (0 = full); ``pos`` is a 0-d integer tensor or a Python int.
 all four functions each: the ``attn`` block (the dense archs' and the
 denoiser's), the ``xattn`` block (llama-3.2-vision's cross-attention to the
 vision stub), the ``hymba`` block, and xlstm's ``mlstm`` and ``slstm``
-blocks.  MoE FFNs are not ported yet (ROADMAP A9).
+blocks.  The attn block's FFN may be the MoE (``BlockDesc.moe``:
+qwen3-moe's, with every expert on the device); no arch has one elsewhere,
+and the decoder refuses it elsewhere.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from repro_torch.nn import attention as attn
 from repro_torch.nn import ssm
 from repro_torch.nn.ffn import ffn_apply
 from repro_torch.nn.layers import rmsnorm_apply
+from repro_torch.nn.moe import moe_apply
 
 
 class Block(NamedTuple):
@@ -33,10 +36,15 @@ class Block(NamedTuple):
     step: Optional[Callable] = None
 
 
-def _maybe_ffn(params, x):
-    """The pre-norm FFN (SwiGLU or GELU) added to the stream, where the block
-    has one."""
-    if "ffn" in params:
+def _maybe_ffn(params, x, cfg: ModelConfig):
+    """The pre-norm FFN (SwiGLU or GELU, or the MoE where the params have
+    ``moe``) added to the stream, where the block has one.  The MoE's aux
+    loss is dropped: only the trainer reads it, and the MoE trainer is
+    ROADMAP A9's training half."""
+    if "moe" in params:
+        h, _ = moe_apply(params["moe"], rmsnorm_apply(params["ffn_norm"], x), cfg)
+        x = x + h
+    elif "ffn" in params:
         x = x + ffn_apply(params["ffn"], rmsnorm_apply(params["ffn_norm"], x))
     return x
 
@@ -46,7 +54,7 @@ def attn_block_fwd(params, x, cfg: ModelConfig, desc: BlockDesc, ctx, window: in
     h = rmsnorm_apply(params["attn_norm"], x)
     x = x + attn.attn_fwd(params["attn"], h, cfg, window=window,
                           causal=ctx.get("causal", True), impl=ctx.get("impl", "flash"))
-    return _maybe_ffn(params, x)
+    return _maybe_ffn(params, x, cfg)
 
 
 def attn_block_cache_init(params, cfg: ModelConfig, desc: BlockDesc, batch: int,
@@ -59,14 +67,14 @@ def attn_block_prefill(params, x, cache, cfg: ModelConfig, desc: BlockDesc, ctx,
                        window: int):
     h = rmsnorm_apply(params["attn_norm"], x)
     a, _ = attn.attn_prefill(params["attn"], h, cache, cfg, window=window)
-    return _maybe_ffn(params, x + a), cache
+    return _maybe_ffn(params, x + a, cfg), cache
 
 
 def attn_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
                     window: int):
     h = rmsnorm_apply(params["attn_norm"], x1)
     a, _ = attn.attn_step(params["attn"], h, cache, pos, cfg, window=window)
-    return _maybe_ffn(params, x1 + a), cache
+    return _maybe_ffn(params, x1 + a, cfg), cache
 
 
 # ------------------------------------------------------------------ xattn
@@ -89,7 +97,7 @@ def xattn_block_fwd(params, x, cfg: ModelConfig, desc: BlockDesc, ctx, window: i
     h = rmsnorm_apply(params["attn_norm"], x)
     x = x + attn.attn_fwd(params["attn"], h, cfg, causal=False,
                           impl=ctx.get("impl", "flash"), kv_x=_vision(ctx).to(x.dtype))
-    return _maybe_ffn(params, x)
+    return _maybe_ffn(params, x, cfg)
 
 
 def xattn_block_cache_init(params, cfg: ModelConfig, desc: BlockDesc, batch: int,
@@ -111,7 +119,7 @@ def xattn_block_prefill(params, x, cache, cfg: ModelConfig, desc: BlockDesc, ctx
     reps = cfg.n_heads // cfg.n_kv_heads
     o = flash_mha(q, attn._repeat_heads(k_raw, reps), attn._repeat_heads(v_raw, reps),
                   causal=False, softcap=cfg.attn_softcap)
-    return _maybe_ffn(params, x + attn._out(params["attn"], o, x.dtype)), cache
+    return _maybe_ffn(params, x + attn._out(params["attn"], o, x.dtype), cfg), cache
 
 
 def xattn_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
@@ -129,7 +137,7 @@ def xattn_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
     k = attn._repeat_heads(cache["k"].to(cdt), reps)
     v = attn._repeat_heads(cache["v"].to(cdt), reps)
     o = attn.attn_core_naive(q, k, v, None, cfg.attn_softcap)
-    return _maybe_ffn(params, x1 + attn._out(p, o, cdt)), cache
+    return _maybe_ffn(params, x1 + attn._out(p, o, cdt), cfg), cache
 
 
 # ------------------------------------------------------------------ hymba
@@ -142,7 +150,7 @@ def hymba_block_fwd(params, x, cfg: ModelConfig, desc: BlockDesc, ctx, window: i
     a = attn.attn_fwd(params["attn"], h, cfg, window=window,
                       causal=ctx.get("causal", True), impl=ctx.get("impl", "flash"))
     m = ssm.mamba_fwd(params["mamba"], h, cfg)
-    return _maybe_ffn(params, x + 0.5 * (a + m))
+    return _maybe_ffn(params, x + 0.5 * (a + m), cfg)
 
 
 def hymba_block_cache_init(params, cfg: ModelConfig, desc: BlockDesc, batch: int,
@@ -163,7 +171,7 @@ def hymba_block_prefill(params, x, cache, cfg: ModelConfig, desc: BlockDesc, ctx
     a, _ = attn.attn_prefill(params["attn"], h, cache["kv"], cfg, window=window)
     m, state = ssm.mamba_fwd(params["mamba"], h, cfg, return_state=True)
     _set_state(cache["ssm"], state)
-    return _maybe_ffn(params, x + 0.5 * (a + m)), cache
+    return _maybe_ffn(params, x + 0.5 * (a + m), cfg), cache
 
 
 def hymba_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
@@ -175,7 +183,7 @@ def hymba_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
     a, _ = attn.attn_step(params["attn"], h, cache["kv"], pos, cfg, window=window)
     m, state = ssm.mamba_step(params["mamba"], h, cache["ssm"], cfg)
     _set_state(cache["ssm"], state)
-    return _maybe_ffn(params, x1 + 0.5 * (a + m)), cache
+    return _maybe_ffn(params, x1 + 0.5 * (a + m), cfg), cache
 
 
 # ------------------------------------------------------------ mlstm/slstm

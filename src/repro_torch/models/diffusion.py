@@ -4,8 +4,10 @@ consumes (paper Remark 2 / Eq. 4).
 
 Params are a plain dict of tensors in the JAX package's tree layout (see
 ``repro_torch.weights``).  ``sl_denoiser_loss`` and ``ddpm_denoiser_loss``
-are the training losses, with their random draws injectable.  Tensor,
-sequence and expert parallelism are not ported yet.
+are the training losses, with their random draws injectable.  A MoE
+backbone (qwen3-moe-a3b-smoke) runs with every expert on the device, in
+blocks of ``_POINT_ROWS`` points (see ``denoiser_fwd``).  Tensor, sequence
+and expert parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from repro_torch.nn.layers import cast_leaves, rmsnorm_apply, sinusoidal_embed
 # time MLP and the norm scales -- is used in float32)
 _COMPUTE_LEAVES = frozenset(
     {"in_proj", "cond_proj", "out_proj", "wq", "wk", "wv", "wo", "bq", "bk",
-     "bv", "w_gate", "w_up", "w_down"})
+     "bv", "w_gate", "w_up", "w_down", "router"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +58,26 @@ def _point_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out[:out.shape[0] - pad].reshape(lead + (w.shape[-1],))
 
 
+def _in_point_blocks(fn, t, y, cond):
+    """``fn(t, y, cond)`` on blocks of ``_POINT_ROWS`` points, the last
+    padded with zero points, and the real rows of the results: every
+    product, attention call and expert product then has one shape,
+    whatever the number of points."""
+    n, R = t.shape[0], _POINT_ROWS
+    pad = -n % R
+
+    def padded(a):
+        return None if a is None or not pad else torch.cat(
+            [a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+
+    if pad:
+        t, y, cond = padded(t), padded(y), padded(cond)
+    outs = [fn(t[i:i + R], y[i:i + R], None if cond is None else cond[i:i + R])
+            for i in range(0, n + pad, R)]
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    return out[:n]
+
+
 def compute_dtype(dc: DenoiserConfig) -> torch.dtype:
     return getattr(torch, dc.backbone.compute_dtype)
 
@@ -70,7 +92,17 @@ def compute_params(params, dc: DenoiserConfig):
 def denoiser_fwd(params, t, y, dc: DenoiserConfig, cond=None, attn_impl=None):
     """t: (B,) noise level / step; y: (B, L, d_data) -> x0_hat (B, L, d_data)
     float32.  cond: optional (B, d_cond).  ``attn_impl``: "flash" (default;
-    the CUDA kernel on the card, its plain version on the CPU) or "naive"."""
+    the CUDA kernel on the card, its plain version on the CPU) or "naive".
+
+    A point's output depends on that point alone, and must be the same
+    bits whatever batch the point rides in (the sharded engine's rule, see
+    ``_point_product``).  A MoE layer's expert products have rows in
+    proportion to the points, and cuBLAS picks its kernel, with the order
+    of a sum, by the row count: so a MoE backbone runs in blocks of
+    ``_POINT_ROWS`` points, where every product has one shape."""
+    if any(d.moe for d in dc.backbone.group) and t.shape[0] != _POINT_ROWS:
+        return _in_point_blocks(
+            lambda tb, yb, cb: denoiser_fwd(params, tb, yb, dc, cb, attn_impl), t, y, cond)
     cfg = dc.backbone
     cdt = compute_dtype(dc)
     tf = t.float()

@@ -9,9 +9,11 @@ inputs, and the frame stub ((B, L, d_model) embeddings, musicgen's); rotary,
 sinusoidal or no positions; embedding scales (gemma2's); an untied or tied
 head, final softcap; the vision stub's patch embeddings (B, Nv, d_model)
 that xattn layers attend to (llama-3.2-vision's), given in the compute
-dtype.  ``lm_loss`` is the next-token loss the trainer
-(``repro_torch.launch.train``) takes gradients of; it runs the naive
-attention core, as the JAX package's does (kernel B2 has no backward).
+dtype; MoE FFNs (qwen3-moe's, every expert on the device) in the
+forward, the prefill and the decode step.  ``lm_loss`` is the next-token
+loss the trainer (``repro_torch.launch.train``) takes gradients of; it runs
+the naive attention core, as the JAX package's does (kernel B2 has no
+backward).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from repro_torch.nn.layers import (embedding_apply, rmsnorm_apply, sinusoidal_em
 # conv, x_proj, dt, A and D of the mamba mixer -- enters float32 math in
 # the prefill or the decode step)
 _COMPUTE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up",
-                             "w_down", "in_proj", "out_proj", "table", "w"})
+                             "w_down", "in_proj", "out_proj", "table", "w", "router"})
 # the same inside an xlstm block's cell: only its projections.  mLSTM's
 # wq, wk, wv, conv_w, w_i, w_f and sLSTM's w_gates, r_gates enter float32
 # math in the decode step (and the gates in the forward too).
@@ -39,7 +41,7 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def _casts_to_compute(path: tuple) -> bool:
+def casts_to_compute(path: tuple) -> bool:
     """Whether the leaf at ``path`` (its dict keys from the params' root)
     is used only in the compute dtype."""
     names = _CELL_COMPUTE_LEAVES if "cell" in path else _COMPUTE_LEAVES
@@ -54,7 +56,7 @@ def lm_compute_params(params, cfg: ModelConfig, path: tuple = ()):
     ``params`` sits in the whole tree, for a subtree cast alone."""
     if isinstance(params, dict):
         return {k: lm_compute_params(v, cfg, path + (k,)) for k, v in params.items()}
-    return params.to(compute_dtype(cfg)) if _casts_to_compute(path) else params
+    return params.to(compute_dtype(cfg)) if casts_to_compute(path) else params
 
 
 def _embed(params, inputs, cfg: ModelConfig, pos=None):
@@ -104,7 +106,12 @@ def lm_loss(params, batch, cfg: ModelConfig, impl: str = "naive"):
     optional) -> (loss, metrics): the mean next-token negative
     log-likelihood over the masked positions (logits in float32,
     logsumexp minus the label's logit; the denominator at least 1).
-    metrics: ``nll``, ``moe_aux`` (0: no MoE is ported) and ``tokens``."""
+    metrics: ``nll``, ``moe_aux`` (0: the model has no MoE) and ``tokens``.
+    A MoE model is refused: its loss adds the router's aux term, which is
+    ROADMAP A9's training half, and a zero there would be a wrong loss."""
+    if cfg.n_experts or any(d.moe for d in cfg.group):
+        raise NotImplementedError(f"lm_loss for {cfg.name}: the MoE loss (the router's "
+                                  "aux term) is ROADMAP.md A9's training half")
     logits = lm_fwd(params, batch["tokens"], cfg, vision=batch.get("vision"),
                     impl=impl).float()
     labels = batch["labels"].long()

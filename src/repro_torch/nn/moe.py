@@ -1,0 +1,133 @@
+"""Mixture-of-Experts FFN: token-choice top-k routing with a capacity for
+each (row, expert) (GShard with dropping), as the JAX package's
+``repro/nn/moe.py``, in its layout where every device holds every expert
+(its "replicated" layout: the train path and one-device serving).  Its
+expert-parallel layout (``ep_axis``) is ROADMAP A9's parallel half.
+
+A call routes each token to its ``top_k`` experts (softmax over E in
+float32, renormalised), then each (row, expert) keeps its C heaviest
+tokens, C = min(max(1, ceil(top_k * L * capacity_factor / E)), L), and
+drops the rest.  The kept tokens are gathered, every expert runs its
+SwiGLU on its C rows of every batch row (one batched product over E of B x
+C rows a matrix, so a call reads each expert's weights once), and each
+token sums its kept experts' outputs, weighted by its gates.
+
+The JAX package's combine is a scatter-add in the compute dtype
+(``out.at[b, token].add``), which XLA's CPU scatter runs in (b, e, c)
+order: a token's expert rows are added in ascending expert index, each
+add rounded to the compute dtype.  The combine here keeps that order
+without atomics: an inverse map gives each token the slot of each of its
+kept experts, and the rows are gathered and added one expert at a time,
+so two calls, and a captured call, give the same bits.  Nothing reads a
+value back to the host and every shape follows from (B, L, E, top_k,
+capacity_factor), so a call can be captured in a CUDA graph.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+
+def capacity_of(cfg: ModelConfig, L: int, capacity: int | None = None) -> int:
+    """The per-(row, expert) capacity C for rows of L tokens, the JAX
+    package's: ceil(top_k * L * capacity_factor / E), at least 1, at most
+    L (an expert cannot hold more than every token of a row)."""
+    if capacity is None:
+        capacity = int(max(1, -(-cfg.top_k * L * cfg.capacity_factor // cfg.n_experts)))
+    return min(int(capacity), L)
+
+
+def _route(params, x, cfg: ModelConfig, capacity=None):
+    """Token-choice routing and the per-(row, expert) capacity selection.
+
+    x: (B, L, d) -> (gate_vals, token_idx, keep (B, E, C), frac_tokens,
+    frac_probs (E,), top_idx (B, L, k)): the gate and token of each
+    capacity slot and whether it holds a routed token, the fractions the
+    aux loss is built from, and each token's experts.  The router logits
+    are ``x @ router`` in x's dtype, then float32."""
+    B, L, _ = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    logits = (x @ params["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)  # (B, L, E)
+    top_p, top_idx = torch.topk(probs, k, dim=-1)  # (B, L, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    # the (B, L, E) weights of the selected experts (zero elsewhere)
+    weights = torch.zeros_like(probs).scatter_(-1, top_idx, top_p)
+    C = capacity_of(cfg, L, capacity)
+    # per (row, expert): its C heaviest tokens; ties among the zero
+    # weights pick any token, which ``keep`` masks
+    gate_vals, token_idx = torch.topk(weights.transpose(1, 2), C, dim=-1)  # (B, E, C)
+    keep = gate_vals > 0.0
+    frac_tokens = torch.zeros_like(probs).scatter_(-1, top_idx, 1.0).mean(dim=(0, 1))
+    frac_probs = probs.mean(dim=(0, 1))
+    return gate_vals, token_idx, keep, frac_tokens, frac_probs, top_idx
+
+
+def _gather(x, token_idx, keep):
+    """Each expert's capacity rows of x (B, L, d), expert-major: (E, B * C,
+    d), the slots that hold no routed token zeroed."""
+    B, L, d = x.shape
+    E, C = token_idx.shape[1:]
+    flat = (token_idx + torch.arange(B, device=x.device)[:, None, None] * L).transpose(0, 1)
+    xg = x.reshape(B * L, d).index_select(0, flat.reshape(-1)).view(E, B * C, d)
+    return xg * keep.transpose(0, 1).reshape(E, B * C, 1).to(x.dtype)
+
+
+def _expert_ffn(params, xg, cdt):
+    """The batched-over-experts SwiGLU: xg (E, M, d) against the (E, d, ff)
+    and (E, ff, d) stacks -> (E, M, d); silu of the gate in float32, cast
+    back, times the up path."""
+    g = torch.bmm(xg, params["w_gate"].to(cdt))
+    u = torch.bmm(xg, params["w_up"].to(cdt))
+    h = F.silu(g.float()).to(cdt) * u
+    return torch.bmm(h, params["w_down"].to(cdt))
+
+
+def _aux_loss(frac_tokens, frac_probs, cfg: ModelConfig):
+    """The Switch-style load-balancing loss."""
+    return cfg.n_experts * torch.sum(frac_tokens * frac_probs) / cfg.top_k
+
+
+def _combine(y, gate_vals, token_idx, keep, top_idx, L: int):
+    """out (B, L, d): each token's kept expert rows of y (E, B * C, d),
+    times their gates, added in ascending expert index with a rounding to
+    y's dtype after each add (the JAX package's scatter-add order)."""
+    B, E, C = token_idx.shape
+    k, d = top_idx.shape[-1], y.shape[-1]
+    dev = y.device
+    y = y * (gate_vals * keep).transpose(0, 1).reshape(E, B * C, 1).to(y.dtype)
+    # slot[b, e, l]: where token l sits among expert e's C rows of row b,
+    # or -1; the C tokens of a (b, e) row are distinct, so no two writes
+    # meet
+    slots = torch.arange(C, device=dev).expand(B, E, C)
+    slot = torch.full((B, E, L), -1, dtype=torch.int64, device=dev)
+    slot.scatter_(2, token_idx, torch.where(keep, slots, -1))
+    experts = torch.sort(top_idx, dim=-1).values  # (B, L, k) ascending
+    mine = slot.transpose(1, 2).gather(2, experts)  # (B, L, k)
+    # row of y, or the zero row appended at E * B * C where dropped
+    b = torch.arange(B, device=dev)[:, None, None]
+    rows = torch.where(mine >= 0, experts * (B * C) + b * C + mine, E * B * C)
+    y_rows = torch.cat([y.reshape(E * B * C, d), y.new_zeros(1, d)])
+    parts = y_rows.index_select(0, rows.reshape(-1)).view(B, L, k, d)
+    out = torch.zeros((B, L, d), dtype=y.dtype, device=dev)
+    for j in range(k):
+        out = out + parts[:, :, j]
+    return out
+
+
+def moe_apply(params, x, cfg: ModelConfig, capacity: int | None = None,
+              ep_axis: str | None = None):
+    """x: (B, L, d) -> ((B, L, d) in x's dtype, {"moe_aux_loss": ()}).
+    ``params``: router (d, E), w_gate and w_up (E, d, ff), w_down (E, ff,
+    d); each used in x's dtype.  ``ep_axis`` (expert parallelism) is
+    refused."""
+    if ep_axis is not None:
+        raise NotImplementedError(f"moe_apply(ep_axis={ep_axis!r}): expert parallelism "
+                                  "is ROADMAP.md A9 (its parallel half)")
+    gate_vals, token_idx, keep, ft, fp, top_idx = _route(params, x, cfg, capacity)
+    y = _expert_ffn(params, _gather(x, token_idx, keep), x.dtype)
+    out = _combine(y, gate_vals, token_idx, keep, top_idx, x.shape[1])
+    return out, {"moe_aux_loss": _aux_loss(ft, fp, cfg)}

@@ -3,10 +3,12 @@ recurrent form, with the JAX package's casts (``repro/nn/ssm.py``): mamba
 (hymba's selective SSM), and xLSTM's mLSTM (matrix memory) and sLSTM
 (scalar memory with recurrent gates).
 
-``mamba_fwd`` runs the diagonal recurrence over the whole sequence through
+``mamba_fwd`` runs the diagonal recurrence in chunks of ``chunk``
+positions (1024, the JAX package's default), each through
 ``kernels.ssm_scan.linear_scan`` (kernel B7 on the card, its plain version
-on the CPU): one launch per call, no chunking.  It computes what the JAX
-package's chunked associative scan computes.  mLSTM and sLSTM reach no
+on the CPU): one launch a chunk, with the state carried between chunks.
+It computes what the JAX package's chunked associative scan computes, and
+no tensor of the scan grows with L.  mLSTM and sLSTM reach no
 kernel in the JAX package (einsums, and a ``lax.scan`` over time); here
 they are plain PyTorch: ``mlstm_fwd`` loops over chunks, ``slstm_fwd``
 over positions.
@@ -41,14 +43,24 @@ def _conv_state(x, ck: int):
     return F.pad(xr, (0, 0, ck - 1 - L, 0))
 
 
-def mamba_fwd(params, x_in, cfg: ModelConfig, return_state: bool = False):
+def mamba_fwd(params, x_in, cfg: ModelConfig, return_state: bool = False,
+              chunk: int = 1024):
     """x_in: (B, L, d_model) -> (B, L, d_model) [, final recurrent state
     {"conv": (B, ck-1, din), "ssm": (B, din, N)}, both float32].
 
     in_proj and the causal conv run in the compute dtype; SiLU, dt, B, C
-    and the scan in float32; out_proj in the compute dtype.  The scan's
-    inputs are laid out (B, L, din * N), d-major then n.
+    and the scan in float32; out_proj in the compute dtype.  The scan runs
+    in chunks of ``chunk`` positions (the last may be shorter), its inputs
+    laid out (B, chunk, N * din), n-major then d: the decay, the drive and
+    h exist for one chunk at a time.  The state h_prev carried into a chunk
+    is folded into its first drive as b_0 + a_0 * h_prev, the plain loop's
+    two roundings in its order.  The C readout runs a chunk at a time too,
+    as a product and a sum over n, each element's sum in one order
+    whatever the chunk (a batched matmul's order changes with its batch
+    count): so any ``chunk`` gives the bits of one scan over all of L.
     """
+    if chunk < 1:
+        raise ValueError(f"mamba_fwd: chunk must be at least 1, got {chunk}")
     B, L, _ = x_in.shape
     cdt = x_in.dtype
     ck, N = cfg.ssm_conv, cfg.ssm_state
@@ -66,21 +78,31 @@ def mamba_fwd(params, x_in, cfg: ModelConfig, return_state: bool = False):
     proj = x.to(cdt) @ params["x_proj"].to(cdt)
     dt, Bm, Cm = proj.float().split([dt_rank, N, N], dim=-1)
     dt = F.softplus(dt @ params["dt_proj"].float() + params["dt_bias"].float())
-    A = -torch.exp(params["A_log"].float())  # (din, N)
+    A = -torch.exp(params["A_log"].float()).t().contiguous()  # (N, din)
 
-    # the (B, L, din, N) scan inputs are the layer's largest tensors: exp
-    # runs in place to hold one fewer of them
-    decay = torch.exp_(dt[..., None] * A).view(B, L, din * N)
-    drive = ((dt * x)[..., None] * Bm[:, :, None, :]).view(B, L, din * N)
-    h = linear_scan(decay, drive).view(B, L, din, N)
-    del decay, drive
-    y = torch.einsum("bldn,bln->bld", h, Cm)
+    ys, h_prev = [], None
+    for s in range(0, L, chunk):
+        at = slice(s, s + chunk)
+        n = dt[:, at].shape[1]
+        # the (B, chunk, N, din) scan inputs are the layer's largest
+        # tensors: exp runs in place to hold one fewer of them
+        decay = torch.exp_(dt[:, at, None, :] * A).view(B, n, N * din)
+        drive = ((dt[:, at] * x[:, at])[:, :, None, :] * Bm[:, at, :, None]).view(B, n, N * din)
+        if h_prev is not None:
+            drive[:, 0] = drive[:, 0] + decay[:, 0] * h_prev
+        h = linear_scan(decay, drive)
+        del decay, drive
+        ys.append((h.view(B, n, N, din) * Cm[:, at, :, None]).sum(2))
+        h_prev = h[:, -1]
+        del h
+    y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
     y = y + x * params["D"].float()
     y = y * F.silu(z.float())
     out = y.to(cdt) @ params["out_proj"].to(cdt)
     if not return_state:
         return out
-    return out, {"conv": _conv_state(x_raw, ck), "ssm": h[:, -1].contiguous()}
+    return out, {"conv": _conv_state(x_raw, ck),
+                 "ssm": h_prev.view(B, N, din).transpose(1, 2).contiguous()}
 
 
 def mamba_init_state(params, cfg: ModelConfig, batch: int):

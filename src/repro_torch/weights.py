@@ -26,8 +26,9 @@ and for the other archs the ``attn`` block's leaves (``attn_norm``,
 has QKV biases, the FFN), the ``xattn`` block's (the same, plus
 ``attn.gate`` (n,)), the ``mlstm`` and ``slstm`` blocks' (``norm`` and a
 ``cell``, see ``_xlstm_cell_shapes``), one ``g<i>`` a group member; no
-``embed`` for frame inputs, no ``head`` where the embeddings are tied.
-MoE FFNs are refused (ROADMAP A9).
+``embed`` for frame inputs, no ``head`` where the embeddings are tied.  An
+attn block with a MoE FFN has ``ffn_norm`` and ``moe.{router (n, d, E),
+w_gate, w_up (n, E, d, ff), w_down (n, E, ff, d)}`` in place of ``ffn``.
 
 ``from_jax_params`` and ``from_jax_lm_params`` convert the JAX package's
 unboxed params (as numpy arrays) and need no JAX, and ``from_jax_opt_state``
@@ -51,14 +52,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.asd import ASDChainState
 from repro_torch.device import resolve_device
 from repro_torch.models.diffusion import DenoiserConfig
+from repro_torch.models.lm import casts_to_compute
 
 
 def _block_shapes(cfg: ModelConfig, desc) -> dict:
     """Leaf shapes of one group member, stacked over the n repeats."""
     d, h, kv, hd, n = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.resolved_head_dim, cfg.n_repeats)
-    if desc.moe:
-        raise NotImplementedError(f"block {desc}: MoE FFNs are not ported yet (ROADMAP A9)")
+    if desc.moe and desc.kind != "attn":
+        raise NotImplementedError(f"block {desc}: the port has MoE FFNs in attn blocks only")
     if desc.kind in ("mlstm", "slstm"):
         return {"norm": {"scale": (n, d)}, "cell": _xlstm_cell_shapes(cfg, desc.kind)}
     if desc.kind not in ("attn", "xattn", "hymba"):
@@ -78,7 +80,13 @@ def _block_shapes(cfg: ModelConfig, desc) -> dict:
             "x_proj": (n, din, dt_rank + 2 * N), "dt_proj": (n, dt_rank, din),
             "dt_bias": (n, din), "A_log": (n, din, N), "D": (n, din),
             "out_proj": (n, din, d)}}
-    if cfg.d_ff:
+    if cfg.d_ff and desc.moe:
+        # the JAX package's moe_init order
+        E, ff = cfg.n_experts, cfg.d_ff
+        block["ffn_norm"] = {"scale": (n, d)}
+        block["moe"] = {"router": (n, d, E), "w_gate": (n, E, d, ff),
+                        "w_up": (n, E, d, ff), "w_down": (n, E, ff, d)}
+    elif cfg.d_ff:
         if cfg.ffn_kind not in ("swiglu", "gelu"):
             raise NotImplementedError(f"ffn {cfg.ffn_kind!r} is not ported")
         # the key order is the order random inits draw the leaves in
@@ -170,19 +178,22 @@ def from_jax_lm_params(tree, cfg: ModelConfig, device=None):
 
 
 def _random_tree(shapes, leaf):
-    """The tree of ``shapes`` with each leaf made by ``leaf(name, shape,
-    stacked)``, in the tree's key order."""
-    def make(tree, name, stacked):
+    """The tree of ``shapes`` with each leaf made by ``leaf(path, shape,
+    stacked)`` (``path``: the leaf's keys from the root), in the tree's key
+    order."""
+    def make(tree, path, stacked):
         if isinstance(tree, dict):
-            return {k: make(v, k, stacked or k == "decoder") for k, v in tree.items()}
-        return leaf(name, tree, stacked)
+            return {k: make(v, path + (k,), stacked or k == "decoder")
+                    for k, v in tree.items()}
+        return leaf(path, tree, stacked)
 
-    return make(shapes, None, False)
+    return make(shapes, (), False)
 
 
 def _fan_in(shape, stacked) -> int:
     """The fan-in of a lecun-normal leaf: all but the last axis (and not the
-    stacked leading layers axis), as in the JAX package."""
+    stacked leading layers axis), as in the JAX package: an expert stack's
+    (E, d, ff) counts E x d, its (E, ff, d) E x ff."""
     return math.prod(shape[int(stacked):-1])
 
 
@@ -196,8 +207,8 @@ def denoiser_init_params(dc: DenoiserConfig, generator: torch.Generator, device=
     the tree's key order."""
     dev = resolve_device(device)
 
-    def leaf(name, shape, stacked):
-        if name in ("out_proj", "scale", "bq", "bk", "bv"):
+    def leaf(path, shape, stacked):
+        if path[-1] in ("out_proj", "scale", "bq", "bk", "bv"):
             return torch.zeros(shape, dtype=torch.float32, device=dev)
         a = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
         return a.mul_(1.0 / math.sqrt(_fan_in(shape, stacked)))
@@ -220,7 +231,8 @@ def init_denoiser_params(dc: DenoiserConfig, seed: int, out_scale: float = 1e-2,
     rng = np.random.default_rng(seed)
     d = dc.backbone.d_model
 
-    def leaf(name, shape, stacked):
+    def leaf(path, shape, stacked):
+        name = path[-1]
         a = rng.standard_normal(shape, dtype=np.float32)
         if name == "scale":
             a *= 0.1
@@ -248,8 +260,9 @@ def from_jax_opt_state(state, dc: DenoiserConfig, device=None):
 
 def lm_init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """LM params drawn with the law of the JAX package's ``lm_init``, the
-    ones to train from: products lecun-normal (as ``denoiser_init_params``),
-    ``embed.table`` and ``head.w`` normal * 0.02, ``conv_w`` and ``dt_proj``
+    ones to train from: products lecun-normal (as ``denoiser_init_params``;
+    an expert stack's fan-in counts its expert axis), ``embed.table``,
+    ``head.w`` and the MoE ``router`` normal * 0.02, ``conv_w`` and ``dt_proj``
     normal * 0.1, mLSTM's ``w_i`` and ``w_f`` normal * 0.02, sLSTM's
     ``r_gates`` normal * 0.05; the norm scales, biases and xattn gates zero,
     but mLSTM's forget bias ``b_f`` 3 (a gate that remembers); ``A_log`` =
@@ -257,7 +270,8 @@ def lm_init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     ``generator``, which must live there, in the tree's key order."""
     dev = resolve_device(device)
 
-    def leaf(name, shape, stacked):
+    def leaf(path, shape, stacked):
+        name = path[-1]
         fixed = _fixed_leaf(name, shape, dev)
         if fixed is not None:
             return fixed
@@ -275,7 +289,7 @@ def lm_init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
 
 # leaves the JAX LM init draws normal * std, not lecun-normal
 _NORMAL_STD = {"table": 0.02, "w": 0.02, "w_i": 0.02, "w_f": 0.02, "conv_w": 0.1,
-               "dt_proj": 0.1, "r_gates": 0.05}
+               "dt_proj": 0.1, "r_gates": 0.05, "router": 0.02}
 
 
 def _fixed_leaf(name, shape, dev):
@@ -289,7 +303,7 @@ def _fixed_leaf(name, shape, dev):
     return None
 
 
-def init_lm_params(cfg: ModelConfig, seed: int, device=None):
+def init_lm_params(cfg: ModelConfig, seed: int, device=None, dtype=None):
     """Random LM params, the tree of ``lm_param_shapes``, drawn on ``device``
     (None means "cuda") from ``torch.Generator(device).manual_seed(seed)``:
     a full-width model is 1.4 G floats, too many to draw on the host.  The
@@ -304,14 +318,16 @@ def init_lm_params(cfg: ModelConfig, seed: int, device=None):
     and the QKV biases ``bq``, ``bk``, ``bv`` (qwen2.5) are nonzero (normal
     * 0.1), and so is each xattn layer's ``gate`` (normal; the JAX init's 0
     would make the layer a no-op): zero leaves would hide a missing term.
+
+    ``dtype`` (e.g. the compute dtype), where given: the leaves that
+    ``lm_compute_params`` casts are drawn straight into it, a layer of the
+    stacked axis at a time, so the float32 tree never exists (qwen3-moe's
+    would take 122 GB).  Same law; other numbers than the float32 draw.
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def leaf(name, shape, stacked):
-        fixed = _fixed_leaf(name, shape, dev)
-        if fixed is not None:
-            return fixed
+    def draw(name, shape, stacked):
         a = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
         if name in ("scale", "conv_b", "dt_bias", "bq", "bk", "bv", "b_i", "b_gates"):
             return a.mul_(0.1)
@@ -321,6 +337,20 @@ def init_lm_params(cfg: ModelConfig, seed: int, device=None):
             return a
         std = _NORMAL_STD.get(name)
         return a.mul_(std if std is not None else 1.0 / math.sqrt(_fan_in(shape, stacked)))
+
+    def leaf(path, shape, stacked):
+        name = path[-1]
+        fixed = _fixed_leaf(name, shape, dev)
+        if fixed is not None:
+            return fixed
+        if dtype is None or not casts_to_compute(path):
+            return draw(name, shape, stacked)
+        if not stacked:
+            return draw(name, shape, stacked).to(dtype)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for i in range(shape[0]):  # a layer's fan-in is the stacked leaf's
+            out[i] = draw(name, shape[1:], False)
+        return out
 
     return _random_tree(lm_param_shapes(cfg), leaf)
 

@@ -1414,3 +1414,117 @@ def test_lm_training_step_on_card_matches_cpu(dev, name):
 def _unflatten(tree, it):
     return ({k: _unflatten(tree[k], it) for k in sorted(tree)} if isinstance(tree, dict)
             else next(it))
+
+
+# ------------------------------------------------------------- MoE and C1
+
+
+def test_moe_lm_on_card_matches_cpu(dev):
+    """The reduced qwen3-moe-30b-a3b (E 4, top 2, float32): the forward, the
+    prefill and 8 greedy decode steps on the card against the same params
+    on the CPU; tokens equal, logits within 2e-4 (float32 sums in other
+    orders), B2's float32 kernel once a layer in the prefill and the
+    forward."""
+    from repro_torch import pytree
+
+    cfg = reduced(get_config("qwen3-moe-30b-a3b"))
+    params = init_lm_params(cfg, 0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for where in ("cpu", dev):
+        p = pytree.map(lambda t: t.to(where), params)
+        flash_f32.launches = 0
+        with torch.no_grad():
+            full = t_lm.lm_fwd(p, tokens.to(where), cfg)
+            caches = t_lm.lm_cache_init(p, cfg, 2, 48, dtype=torch.float32)
+            lg, caches = t_lm.lm_prefill(p, tokens.to(where), caches, cfg)
+            steps, toks = [lg[:, 0]], []
+            for i in range(8):
+                toks.append(steps[-1].argmax(-1))
+                lg, caches = t_lm.lm_decode_step(p, toks[-1], caches, 40 + i, cfg)
+                steps.append(lg[:, 0])
+        out[str(where)] = (full.cpu(), torch.stack(toks, 1).cpu(), torch.stack(steps, 1).cpu(),
+                           flash_f32.launches)
+    (fc, tc, sc, _), (fg, tg, sg, launched) = out["cpu"], out[str(dev)]
+    assert torch.equal(tc, tg)
+    assert (fg - fc).abs().max().item() <= 2e-4 and (sg - sc).abs().max().item() <= 2e-4
+    assert launched == 2 * cfg.n_layers
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_combine_is_the_same_bits_twice_and_captured(dev, dtype):
+    """moe_apply (E 8, top 4, capacity_factor 1.0: tokens drop) twice, and
+    captured in a CUDA graph and replayed: equal bits each time; and
+    against the CPU's within 2e-4 (float32) or 5e-2 (bf16, a few ulps of
+    outputs of order 1)."""
+    import dataclasses
+
+    from repro_torch.nn.moe import moe_apply
+
+    cfg = dataclasses.replace(reduced(get_config("qwen3-moe-30b-a3b")), n_experts=8,
+                              top_k=4, capacity_factor=1.0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    d, E, ff = cfg.d_model, cfg.n_experts, cfg.d_ff
+    p = {"router": torch.randn(d, E, generator=g, device=dev),
+         "w_gate": torch.randn(E, d, ff, generator=g, device=dev) / d ** 0.5,
+         "w_up": torch.randn(E, d, ff, generator=g, device=dev) / d ** 0.5,
+         "w_down": torch.randn(E, ff, d, generator=g, device=dev) / ff ** 0.5}
+    p = {k: v.to(dtype) for k, v in p.items()}
+    x = torch.randn(3, 64, d, generator=g, device=dev).to(dtype)
+    with torch.no_grad():
+        a, b = moe_apply(p, x, cfg)[0], moe_apply(p, x, cfg)[0]
+        static_x = x.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe_apply(p, static_x, cfg)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = moe_apply(p, static_x, cfg)[0]
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.isfinite(a).all() and a.abs().max() > 0.1
+    assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       b.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert torch.equal(a, out)
+    cpu = moe_apply({k: v.cpu() for k, v in p.items()}, x.cpu(), cfg)[0]
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    assert (a.cpu().float() - cpu.float()).abs().max().item() <= tol
+
+
+def test_moe_denoiser_point_is_the_same_bits_alone_and_in_a_batch(dev):
+    """qwen3-moe-a3b-smoke at random weights: one point alone, and the first
+    18, against the same points in a batch of 36, in bits (the denoiser runs
+    in blocks of 16 points, each of one shape)."""
+    from repro_torch.configs.registry import get_denoiser_config
+
+    dc = get_denoiser_config("qwen3-moe-a3b-smoke")
+    fn = t_diff.make_ddpm_model_fn(init_denoiser_params(dc, 0, out_scale=1.0, device=dev), dc)
+    g = torch.Generator(device=dev).manual_seed(5)
+    t = torch.randint(0, 64, (36,), generator=g, device=dev).float()
+    y = torch.randn(36, dc.seq_len, dc.d_data, generator=g, device=dev)
+    with torch.no_grad():
+        full = fn(t, y)
+        for m in (1, 18):
+            assert torch.equal(fn(t[:m], y[:m]).view(torch.int32), full[:m].view(torch.int32))
+
+
+@pytest.mark.parametrize("chunk", [7, 16])
+def test_chunked_mamba_gives_the_unchunked_bits_on_the_card(dev, chunk):
+    """The reduced hymba's mixer at chunks 7 and 16 against one chunk over
+    all of L (B7 once a chunk), in bits, and the final state."""
+    from repro_torch.nn.ssm import mamba_fwd
+
+    cfg = reduced(get_config("hymba-1.5b"))
+    params = init_lm_params(cfg, 0, device=dev)["decoder"]["g0"]["mamba"]
+    layer = {k: v[1] for k, v in params.items()}
+    x = torch.randn(2, 45, cfg.d_model, generator=torch.Generator(device=dev).manual_seed(6),
+                    device=dev)
+    with torch.no_grad():
+        whole, ws = mamba_fwd(layer, x, cfg, return_state=True, chunk=1 << 20)
+        linear_scan.launches = 0
+        out, st = mamba_fwd(layer, x, cfg, return_state=True, chunk=chunk)
+    assert linear_scan.launches == -(-45 // chunk)
+    assert torch.equal(out.view(torch.int32), whole.view(torch.int32))
+    assert torch.equal(st["ssm"].view(torch.int32), ws["ssm"].view(torch.int32))

@@ -92,7 +92,7 @@ REFUSED = {
     "--model-shards 2": ("A9", ["--model-shards", "2"]),
     "--seq-shards 2": ("A9", ["--seq-shards", "2"]),
     "--expert-parallel": ("A9", ["--expert-parallel"]),
-    "MoE model": ("A9", ["--model", "qwen3-moe-a3b-smoke"]),
+    "MoE model": ("A9", ["--expert-parallel", "--model", "qwen3-moe-a3b-smoke"]),
     "--mesh 2x4": ("A9", ["--mesh", "2x4"]),
     "--grs-impl": ("A8", ["--grs-impl", "core"]),
     "--pack-impl": ("A8", ["--pack-impl", "kernel"]),

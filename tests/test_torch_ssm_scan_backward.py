@@ -122,7 +122,7 @@ def _scan_gradients(out):
 
 
 def test_mamba_mixer_hands_the_scan_a_contiguous_gradient():
-    """The einsum of the C readout gives the scan's output a contiguous
+    """The C readout's product gives the scan's output a contiguous
     gradient, so the card's backward takes it without a copy."""
     from repro_torch.nn.ssm import mamba_fwd
     from repro_torch.weights import init_lm_params
