@@ -203,24 +203,27 @@ Phases, each printing one JSON line and raising on any failure:
               embeddings 2 x 6400) and musicgen-medium (stub frames) at
               full width: the parameter count, prefill of 2 x 4096 tokens
               (gemma2: 1 x 8192, twice its window; qwen3-moe-30b-a3b,
-              every expert on the card, bf16 leaves drawn in bf16 a layer
-              at a time: 1 x 4096), 16 greedy decode
+              every expert on the card, bf16 leaves drawn in bf16 in runs
+              of 256 MiB: 1 x 4096; dbrx-132b the same at 8 of its 40
+              layers, 27.3 B params), 16 greedy decode
               steps eagerly and as one captured step replayed (tokens and
               logit bits equal), the forward over prompt and generated
               positions; B2 once an attention layer in the prefill and
               the forward (xlstm: never), never in a decode step; decode
               against forward within the hymba bf16 gate (not
               llama-vision: the JAX package's xattn forward ropes, its
-              prefill and step do not; nor qwen3-moe: its prefill and
-              forward drop (token, expert) pairs at their capacity, its
+              prefill and step do not; nor the MoE archs: their prefill and
+              forward drop (token, expert) pairs at their capacity, their
               decode steps none, and the counts are printed); warm ms
               (xlstm's prefill: its first call), peak memory, idle share,
-              one profiled prefill (xlstm: of 128 positions; qwen3-moe:
-              with the device ms of its MoE steps by group, routing,
-              gather, expert products and combine).  For qwen3-moe also
-              one MoE layer at the prefill's and a decode step's shape:
-              two calls and a captured call equal in bits, warm ms, and
-              the bounds of its expert products and of a decode step.
+              the prefill's and a decode step's bounds from the port's
+              analytic model, one profiled prefill (xlstm: of 128
+              positions; the MoE archs: with the device ms of their MoE
+              steps by group, routing, gather, expert products and
+              combine).  For the MoE archs also one MoE layer at the
+              prefill's and a decode step's shape: two calls and a
+              captured call equal in bits, warm ms, and the bounds of its
+              expert products and of a decode step.
      xlstm_mixers
               one mLSTM and one sLSTM layer of xlstm-125m at the prefill's
               shape: event ms, device busy ms and idle share (the sLSTM
@@ -263,15 +266,27 @@ Phases, each printing one JSON line and raising on any failure:
               without the host's MarkovLM time, tokens/s, peak memory,
               launches; a second xlstm call resumed from the first's
               step-10 checkpoint equal to it within 1e-5.
+     lm_train_moe
+              qwen3-moe-30b-a3b at published widths and 4 of its 48 layers
+              (3.11 B params, every expert on the card) trained 10 steps of
+              8 x 128 through the CLI's build and loop.run: losses and
+              moe_aux finite, ms a step, tokens/s, peak memory, the step's
+              bound from the port's analytic model, one more warm step
+              profiled (lm_train_moe_profile: device ms by group, idle
+              share); then the CLI at --scale smoke for qwen3-moe-30b-a3b
+              and dbrx-132b.
      lm_train_profile
               one warm hymba-1.5b training step at that shape under
               torch.profiler (B7 forward, B7 backward, matmuls, other,
               idle share), and the upstream gradient a full-width mamba
               mixer hands B7's backward (mamba_scan_gradient: contiguous).
      lm_train_reference
-              one lm_loss gradient of every ported arch's reduced config
-              in float32, card against CPU: loss within 1e-5, each leaf's
-              gradient within 1e-4 of its scale.
+              one lm_loss gradient of every arch's reduced config in
+              float32, card against CPU: loss within 1e-5, each leaf's
+              gradient within 1e-4 of its scale, moe_aux within 1e-5 (the
+              MoE archs, and reduced qwen3-moe once more at
+              capacity_factor 1.0, where pairs drop and no positive tie
+              sits at the capacity's edge).
   7. train_full_width
               the full-width ``paper-pixel-dit`` trained through
               ``repro_torch.training.loop.run`` (5 steps of sl_denoiser_loss
@@ -3721,7 +3736,12 @@ LM_ARCHS = {
     "musicgen-medium": (2, 4096, 1_362_249_216),
     # every expert on the card: 61.06 GB of bf16 weights, so one prompt
     "qwen3-moe-30b-a3b": (1, 4096, 30_532_110_336),
+    # every expert on the card at LM_DEPTH's 8 of its 40 layers: 54.61 GB of
+    # bf16 weights (the 40 layers, 131.6 B params, would take 263 GB)
+    "dbrx-132b": (2, 4096, 27_305_809_920),
 }
+# the archs cut in depth to fit the card (published widths, fewer layers)
+LM_DEPTH = {"dbrx-132b": 8}
 LM_DECODE = 16
 # The JAX package's xattn forward ropes its queries and the vision keys and
 # its prefill and decode step do not (src/repro/models/blocks.py:128-197),
@@ -3730,10 +3750,11 @@ LM_DECODE = 16
 # decode step (L 1, C 1) drops no (token, expert) pair, the 4096-token
 # prefill (C 320) and the 4112-token forward (C 322) drop others, so its
 # decode logits are not its forward's either (the reduced config, where C
-# is L and nothing drops, holds decode to forward in lm_reference).
-LM_NO_DECODE_GATE = ("llama-3.2-vision-11b", "qwen3-moe-30b-a3b")
-# the MoE draw's peak above the finished bf16 tree: one float32 layer of an
-# expert stack (0.81 GB) or the float32 embedding table (1.24 GB) at a time
+# is L and nothing drops, holds decode to forward in lm_reference); nor
+# are dbrx's (C 1280 at L 4096, 1285 at 4112, 1 in a decode step).
+LM_NO_DECODE_GATE = ("llama-3.2-vision-11b", "qwen3-moe-30b-a3b", "dbrx-132b")
+# the MoE draw's peak above the finished bf16 tree: init_lm_params draws a
+# run of at most 256 MiB of float32 at a time
 MOE_DRAW_SLACK_GB = 2.0
 # xlstm's prefill and forward loop over positions in its sLSTM layers (a
 # Python loop of ~22 small kernels a position, host-bound at ~0.35 ms a
@@ -3797,14 +3818,16 @@ def run_lm_arch(torch, dev, name):
     from repro_torch.weights import init_lm_params
 
     cfg = get_config(name)
+    if name in LM_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=LM_DEPTH[name])
     B, P, want_params = LM_ARCHS[name]
     T = LM_DECODE
     moe = bool(cfg.n_experts)
     base = _fresh_memory(torch)
     t0 = time.perf_counter()
     if moe:
-        # its float32 tree would be 122 GB: the bf16 leaves are drawn into
-        # bf16 a layer at a time, and no float32 tree exists
+        # its float32 tree would be 122 GB (dbrx's 8 layers: 109 GB): the
+        # bf16 leaves are drawn into bf16 in runs, and no float32 tree exists
         cp = init_lm_params(cfg, SEED, device=dev, dtype=torch.bfloat16)
         n_params = sum(p.numel() for p in pytree.leaves(cp))
     else:
@@ -3821,12 +3844,13 @@ def run_lm_arch(torch, dev, name):
         fail(f"{name}: the draw peaked {weights['peak_gb']} GB for a {weights['resident_gb']} "
              f"GB tree (more than {MOE_DRAW_SLACK_GB} GB above it)")
     emit("lm_weights", model=name, params=n_params, **weights, layers=cfg.n_layers,
+         published_layers=get_config(name).n_layers,
          d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
          head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, ffn=cfg.ffn_kind,
          vocab=cfg.vocab_size, group=[(d.kind, d.window) for d in cfg.group],
          experts=cfg.n_experts or None, top_k=cfg.top_k or None,
          seed=SEED, compute_dtype=cfg.compute_dtype, kv_cache_dtype="bfloat16",
-         note=("bf16 leaves drawn in bf16 a layer at a time (init_lm_params(dtype=...)), "
+         note=("bf16 leaves drawn in bf16 in runs of 256 MiB (init_lm_params(dtype=...)), "
                f"the draw's peak at most {MOE_DRAW_SLACK_GB} GB above the tree" if moe else
                "float32 init cast to bf16 leaf by leaf (chip_smoke's _cast_leaf_by_leaf)"))
 
@@ -3936,6 +3960,7 @@ def run_lm_arch(torch, dev, name):
          decode_tokens_per_s=B / decode_ms * 1e3, captured_decode=graph_decode,
          **({} if not moe else dict(dropped_pairs=routed, moe_layer=moe_layer,
                                     bounds=_moe_bounds(cfg, B, P))),
+         analytic_bounds=_analytic_bounds(cfg, B, P, n_params),
          note="warm times by CUDA events; a decode step is one position of each sequence")
     return runs
 
@@ -4042,6 +4067,26 @@ def _moe_bounds(cfg, B, P):
                 decode_step_bound_ms=stack_bytes / HBM_BYTES_PER_S * 1e3,
                 note="my arithmetic from the config: the products at the capacity's rows, "
                      "and the expert stacks read once a decode step")
+
+
+def _analytic_bounds(cfg, B, P, n_params):
+    """The least times of this run's prefill (B x P) and of one decode step
+    against a P-long cache, from the port's analytic model
+    (repro_torch.analysis.analytic.analyze_cell): its flops at bf16's peak
+    or its idealised bytes at the memory rate, whichever is longer."""
+    from repro_torch.analysis.analytic import analyze_cell
+    from repro_torch.configs.base import InputShape
+
+    out = {}
+    for kind in ("prefill", "decode"):
+        cost = analyze_cell(cfg, InputShape(f"lm_arch_{kind}", P, B, kind), n_params)
+        t_ops, t_bytes = cost.flops / PEAK_BF16 * 1e3, cost.hbm_bytes / HBM_BYTES_PER_S * 1e3
+        out[kind] = dict(tflop=cost.flops / 1e12, gb=cost.hbm_bytes / 1e9,
+                         bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes")
+    out["note"] = ("analyze_cell of the run's config: its MoE flops count each token's "
+                   "top_k experts, not the capacity's rows the port computes")
+    return out
 
 
 def _moe_bits(torch, p, x, cfg):
@@ -4474,6 +4519,7 @@ LM_FLASH_SHAPES = (
     ("musicgen-medium", "musicgen-medium", (2, 4096, 4096, 24, 64), True, 0, 0.0, 1.0),
     ("qwen3-moe-30b-a3b", "qwen3-moe-30b-a3b", (1, 4096, 4096, 32, 128), True, 0, 0.0,
      1.0),
+    ("dbrx-132b", "dbrx-132b", (2, 4096, 4096, 48, 128), True, 0, 0.0, 1.0),
 )
 
 
@@ -4846,6 +4892,122 @@ def run_lm_train(torch, dev):
     return runs, hymba["scan_backward_launches"]
 
 
+# lm_train_moe: qwen3-moe-30b-a3b trained at its published widths, cut to
+# LM_TRAIN_MOE_LAYERS of its 48 layers (3.11 B params: float32 params,
+# gradients and AdamW moments take 49.8 GB), LM_TRAIN_MOE_STEPS steps of
+# LM_TRAIN_BATCH x LM_TRAIN_SEQ MarkovLM tokens through the CLI's build and
+# loop.run in process (the CLI has no depth flag, nor has the JAX one);
+# then the CLI at --scale smoke for both MoE archs
+LM_TRAIN_MOE = "qwen3-moe-30b-a3b"
+LM_TRAIN_MOE_LAYERS, LM_TRAIN_MOE_STEPS = 4, 10
+LM_TRAIN_MOE_SMOKE = (("qwen3-moe-30b-a3b", 4), ("dbrx-132b", 4))
+
+
+def run_lm_train_moe(torch, dev):
+    """lm_train_moe: LM_TRAIN_MOE at published widths and LM_TRAIN_MOE_LAYERS
+    layers (bf16 compute, float32 params and AdamW state, remat, naive
+    attention, every expert on the card): losses and ``moe_aux`` finite
+    (the aux > 0), ms a step without the host's MarkovLM batch, tokens/s,
+    peak memory, no kernel of the port launched (the loss takes the naive
+    core), and the step's bound from the port's analytic model
+    (analyze_cell at accum 1: its flops at bf16's peak or its idealised
+    bytes at the memory rate); one more warm step profiled
+    (lm_train_moe_profile).  Then ``python -m repro_torch.launch.train
+    --arch <moe> --scale smoke --steps 4`` in process for both MoE archs:
+    finite losses."""
+    from repro_torch import pytree
+    from repro_torch.analysis.analytic import analyze_cell
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import MarkovLM
+    from repro_torch.launch import train
+    from repro_torch.training.loop import LoopConfig, run
+
+    cfg = dataclasses.replace(get_config(LM_TRAIN_MOE), n_layers=LM_TRAIN_MOE_LAYERS)
+    counters = _counters()
+    base = _fresh_memory(torch)
+    train_step, init = train.build(cfg, 1, 3e-4, LM_TRAIN_MOE_STEPS, dev)
+    params, opt_state = init()
+    n_params = sum(p.numel() for p in pytree.leaves(params))
+    state_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    data = MarkovLM(vocab=cfg.vocab_size, seq_len=LM_TRAIN_SEQ, batch=LM_TRAIN_BATCH)
+    data_s, logged = [], []
+
+    def batch_fn(step):
+        t0 = time.perf_counter()
+        batch = data.batch_at(step)
+        data_s.append(time.perf_counter() - t0)
+        return batch
+
+    _zero_counters(torch, counters)
+    t0 = time.perf_counter()
+    params, opt_state, last, hist = run(
+        train_step, params, opt_state, batch_fn, train._SEED,
+        LoopConfig(total_steps=LM_TRAIN_MOE_STEPS, log_every=1),
+        log_fn=lambda s, m: logged.append(m), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(counters)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in data.batch_at(LM_TRAIN_MOE_STEPS).items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+
+    def step():
+        nonlocal params, opt_state
+        params, opt_state, _ = train_step(params, opt_state, batch, g)
+
+    wall_ms, kernels, moe_ms = _profiled_moe(torch, step)
+    _emit_profile(torch, "lm_train_moe_profile", wall_ms, kernels,
+                  f"one warm {LM_TRAIN_MOE} training step at {cfg.n_layers} layers (forward, "
+                  "remat recompute, backward, AdamW; 8 x 128 tokens) under torch.profiler; "
+                  "moe_device_ms_by_group: the device time inside each MoE step's ranges "
+                  "(forward and recompute; the backward runs outside them)",
+                  model=LM_TRAIN_MOE, tokens=LM_TRAIN_BATCH * LM_TRAIN_SEQ,
+                  moe_device_ms_by_group=moe_ms or "not measured")
+    params = opt_state = None
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    aux = [m["moe_aux"] for m in logged]
+    step_ms = [(h["time"] - d) * 1e3 for h, d in zip(hist, data_s)]
+    if last != LM_TRAIN_MOE_STEPS or len(losses) != LM_TRAIN_MOE_STEPS or \
+            not all(math.isfinite(x) for x in losses + aux) or not min(aux) > 0 or \
+            not all(m["finite"] for m in logged) or any(launches.values()):
+        fail(f"lm_train_moe: {last} steps, losses {losses}, moe_aux {aux}, launches "
+             f"{launches}")
+    warm = statistics.mean(step_ms[1:])
+    cost = analyze_cell(cfg, InputShape("lm_train_moe", LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                                        "train"), n_params, accum=1, remat=cfg.remat)
+    t_ops, t_bytes = cost.flops / PEAK_BF16 * 1e3, cost.hbm_bytes / HBM_BYTES_PER_S * 1e3
+    smoke = {}
+    for name, steps in LM_TRAIN_MOE_SMOKE:
+        res, lines = _train_cli(torch, ("--arch", name, "--scale", "smoke", "--steps",
+                                        str(steps)))
+        got = [h["loss"] for h in res["history"]]
+        if res["last_step"] != steps or len(got) != steps or \
+                not all(math.isfinite(x) for x in got):
+            fail(f"lm_train_moe: the CLI at {name} --scale smoke: {res['last_step']} steps, "
+                 f"losses {got}")
+        smoke[name] = dict(steps=steps, losses=got, printed=lines[-1:])
+    emit("lm_train_moe", model=LM_TRAIN_MOE, layers=cfg.n_layers,
+         published_layers=get_config(LM_TRAIN_MOE).n_layers, params=n_params,
+         experts=cfg.n_experts, top_k=cfg.top_k, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+         steps=LM_TRAIN_MOE_STEPS, losses=losses, moe_aux=aux,
+         nll=[m["nll"] for m in logged], step_ms=step_ms, warm_step_ms=warm,
+         tokens_per_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ / warm * 1e3,
+         host_data_ms=[d * 1e3 for d in data_s], wall_s=wall,
+         params_and_adamw_state_gb=state_gb, peak_memory_gb=peak_gb,
+         launches={k: v for k, v in launches.items() if v},
+         bound=dict(tflop=cost.flops / 1e12, gb=cost.hbm_bytes / 1e9, ops_ms=t_ops,
+                    bytes_ms=t_bytes, bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    source="repro_torch.analysis.analytic.analyze_cell(accum=1, remat)"),
+         cli_smoke=smoke,
+         note="train.build + loop.run in process (LoopConfig log_every 1 for moe_aux); "
+              "step ms is the loop's time a step less the host's MarkovLM batch, warm over "
+              "steps 2-10")
+    return {f"lm_train_{LM_TRAIN_MOE}": launches}
+
+
 def ptxas_of(log, kernel):
     """Registers, spills and stack of ``kernel`` from an -Xptxas -v log, or
     None where the log has no line for it."""
@@ -5054,16 +5216,59 @@ def run_lm_train_profile(torch, dev):
                                "hymba-1.5b mamba mixer at the training shape")
 
 
+@contextlib.contextmanager
+def _route_inputs(torch):
+    """Records each ``_route`` call's (params, x, cfg), detached, while the
+    block runs."""
+    from repro_torch.nn import moe
+
+    log, route = [], moe._route
+
+    def recorded(params, x, cfg, capacity=None):
+        log.append(({k: v.detach() for k, v in params.items()}, x.detach(), cfg))
+        return route(params, x, cfg, capacity)
+
+    moe._route = recorded
+    try:
+        yield log
+    finally:
+        moe._route = route
+
+
+def _drops_and_edge_ties(torch, log):
+    """(pairs the capacity dropped, positive ties at its edge) over the
+    routes of a ``_route_inputs`` log: a positive tie there would let two
+    top-k's keep different tokens."""
+    from repro_torch.nn import moe
+
+    dropped = ties = 0
+    with torch.no_grad():
+        for params, x, cfg in log:
+            keep = moe._route(params, x, cfg)[2]
+            C, L = keep.shape[-1], x.shape[1]
+            dropped += x.shape[0] * L * cfg.top_k - int(keep.sum())
+            if C < L:
+                w = moe._route(params, x, cfg, L)[0].sort(-1, descending=True).values
+                ties += int(((w[..., C - 1] == w[..., C]) & (w[..., C] > 0)).sum())
+    return dropped, ties
+
+
+# lm_train_reference's case where the capacity drops (token, expert) pairs:
+# reduced qwen3-moe at capacity_factor 1.0 (C 16 of 32 positions a row and
+# expert), its routers scaled by 25 so the tokens' choices spread
+MOE_DROP_CASE = ("qwen3-moe-30b-a3b", 1.0, 25.0)
+
+
 def check_lm_train_reference(torch, dev):
-    """lm_train_reference: one lm_loss gradient of every ported arch's
-    reduced config in float32 but qwen3-moe's (whose loss, with the
-    router's aux term, is ROADMAP A9's training half: lm_loss refuses it)
-    (llama-vision with stub vision, musicgen with
-    stub frames), the same params and batch on the card and on the CPU: the
-    loss within 1e-5, every leaf's gradient within 1e-4 of its largest
-    magnitude (AdamW's first update, ~lr sign(g), would flip for gradients
-    near 0).  B7 runs forward and backward for hymba; B2 never (the loss
-    takes the naive core)."""
+    """lm_train_reference: one lm_loss gradient of every arch's reduced
+    config in float32 (llama-vision with stub vision, musicgen with stub
+    frames; the MoE archs with the router's aux term, and reduced qwen3-moe
+    once more at capacity_factor 1.0, where the capacity drops pairs and no
+    positive tie sits at its edge), the same params and batch on the card
+    and on the CPU: the loss within 1e-5, every leaf's gradient within 1e-4
+    of its largest magnitude (AdamW's first update, ~lr sign(g), would flip
+    for gradients near 0), ``moe_aux`` within 1e-5.  B7 runs forward and
+    backward for hymba; B2 never (the loss takes the naive core)."""
     from repro_torch import pytree
     from repro_torch.configs.archs import ARCHS
     from repro_torch.configs.base import reduced
@@ -5074,9 +5279,14 @@ def check_lm_train_reference(torch, dev):
 
     counters = _counters()
     results = {}
-    for name in (n for n in ARCHS if not get_config(n).n_experts):
-        cfg = reduced(get_config(name))
+    drop_name, drop_cf, drop_router = MOE_DROP_CASE
+    for name in list(ARCHS) + [f"{drop_name} capacity_factor {drop_cf:g}"]:
+        dropping = name not in ARCHS
+        cfg = reduced(get_config(drop_name if dropping else name))
         params = init_lm_params(cfg, SEED, device="cpu")
+        if dropping:
+            cfg = dataclasses.replace(cfg, capacity_factor=drop_cf)
+            params["decoder"]["g0"]["moe"]["router"].mul_(drop_router)
         g = torch.Generator().manual_seed(SEED + 27)
         batch = {"tokens": (torch.randint(0, cfg.vocab_size, (2, 32), generator=g)
                             if cfg.embed_inputs else torch.randn(2, 32, cfg.d_model,
@@ -5089,24 +5299,40 @@ def check_lm_train_reference(torch, dev):
         linear_scan.backward_launches = 0
         for where in ("cpu", dev):
             ps = [p.to(where).requires_grad_() for p in pytree.leaves(params)]
-            loss, _ = lm_loss(pytree.unflatten(params, ps),
-                              {k: v.to(where) for k, v in batch.items()}, cfg)
-            out[str(where)] = (loss.item(), [t.cpu() for t in torch.autograd.grad(loss, ps)])
+            with _route_inputs(torch) as routes:
+                loss, metrics = lm_loss(pytree.unflatten(params, ps),
+                                        {k: v.to(where) for k, v in batch.items()}, cfg)
+            if where == "cpu":
+                dropped, ties = _drops_and_edge_ties(torch, routes)
+            out[str(where)] = (loss.item(), [t.cpu() for t in torch.autograd.grad(loss, ps)],
+                               metrics["moe_aux"].item())
         torch.cuda.synchronize()
-        (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out[str(dev)]
+        (l_cpu, g_cpu, a_cpu), (l_card, g_card, a_card) = out["cpu"], out[str(dev)]
         rel = max(((c - p).abs().max() / p.abs().max()).item() for c, p in zip(g_card, g_cpu))
         launches = _launches(counters)
         scans = 2 * cfg.n_layers if name == "hymba-1.5b" else 0  # forward + backward
+        moe = {}
+        if cfg.n_experts:
+            moe = dict(moe_aux=a_cpu, moe_aux_abs_err=abs(a_card - a_cpu),
+                       capacity_factor=cfg.capacity_factor, dropped_pairs=dropped,
+                       positive_edge_ties=ties)
+            if not (a_cpu > 0 and abs(a_card - a_cpu) <= 1e-5 and ties == 0
+                    and (dropped > 0) == dropping):
+                fail(f"lm_train_reference {name}: moe_aux {a_card} against {a_cpu}, "
+                     f"{dropped} pairs dropped, {ties} positive edge ties")
+        elif a_cpu != 0.0 or a_card != 0.0:
+            fail(f"lm_train_reference {name}: moe_aux {a_card}, {a_cpu} without MoE")
         if not (abs(l_card - l_cpu) <= 1e-5 and rel <= 1e-4) or launches["ssm_scan"] != scans \
                 or linear_scan.backward_launches != scans // 2 or launches["flash_attention"] \
                 or launches["flash_attention_f32"]:
             fail(f"lm_train_reference {name}: loss {l_card} against {l_cpu}, gradients "
                  f"{rel} of scale, launches {launches}")
         results[name] = dict(loss=l_cpu, loss_abs_err=abs(l_card - l_cpu),
-                             max_grad_err_of_scale=rel,
+                             max_grad_err_of_scale=rel, **moe,
                              card_launches={k: v for k, v in launches.items() if v})
     emit("lm_train_reference", batch=[2, 32], archs=results,
-         tolerance="loss 1e-5; each leaf's gradient 1e-4 of its largest magnitude")
+         tolerance="loss 1e-5; each leaf's gradient 1e-4 of its largest magnitude; "
+                   "moe_aux 1e-5")
 
 
 def _standin_dc(spec):
@@ -6018,6 +6244,8 @@ def main() -> None:
     train_launches, scan_backward_launches = run_lm_train(torch, dev)
     by_run.update(train_launches)
     clock("lm_train")
+    by_run.update(run_lm_train_moe(torch, dev))
+    clock("lm_train_moe")
     run_lm_train_profile(torch, dev)
     clock("lm_train_profile")
     check_lm_train_reference(torch, dev)

@@ -1,8 +1,8 @@
-"""The assigned LM architectures the port runs (copied from the JAX
-package's ``configs/archs.py``): xlstm-125m, hymba-1.5b, the dense archs
-(tinyllama, yi, gemma2, qwen2.5), llama-3.2-vision, musicgen and the MoE
-arch qwen3-moe-30b-a3b (every expert on one card).  dbrx-132b waits for
-the MoE training half (ROADMAP A9)."""
+"""The 10 assigned LM architectures (copied from the JAX package's
+``configs/archs.py``): xlstm-125m, hymba-1.5b, the dense archs (tinyllama,
+yi, gemma2, qwen2.5), llama-3.2-vision, musicgen and the MoE archs
+dbrx-132b and qwen3-moe-30b-a3b (every expert on one device).  Each also
+has its own module (``configs/<id>.py``) exporting ``CONFIG``."""
 
 from __future__ import annotations
 
@@ -17,6 +17,16 @@ def xlstm_125m() -> ModelConfig:
         n_heads=4, n_kv_heads=4, d_ff=0, vocab_size=50304,
         group=(BlockDesc("mlstm"), BlockDesc("slstm")),
         pos_embed="none", ssm_conv=4, ssm_state=16,
+    )
+
+
+def dbrx_132b() -> ModelConfig:
+    # [moe] 16 experts top-4, fine-grained [hf:databricks/dbrx-base]
+    return ModelConfig(
+        name="dbrx-132b", family="moe", n_layers=40, d_model=6144,
+        n_heads=48, n_kv_heads=8, d_ff=10752, vocab_size=100352,
+        group=(BlockDesc("attn", moe=True),),
+        n_experts=16, top_k=4, rope_theta=5e5,
     )
 
 
@@ -106,6 +116,7 @@ def musicgen_medium() -> ModelConfig:
 
 ARCHS = {
     "xlstm-125m": xlstm_125m,
+    "dbrx-132b": dbrx_132b,
     "qwen3-moe-30b-a3b": qwen3_moe_30b,
     "hymba-1.5b": hymba_1_5b,
     "tinyllama-1.1b": tinyllama_1_1b,
@@ -115,3 +126,7 @@ ARCHS = {
     "llama-3.2-vision-11b": llama32_vision_11b,
     "musicgen-medium": musicgen_medium,
 }
+
+# archs whose full-sequence mixer is sub-quadratic end to end; only these
+# run the long_500k cell
+SUBQUADRATIC = {"xlstm-125m", "hymba-1.5b"}

@@ -1,5 +1,6 @@
 """Model configuration dataclasses (the port's own copy of the JAX package's
-``configs/base.py``: ``BlockDesc``, ``ModelConfig`` and ``reduced``)."""
+``configs/base.py``: ``BlockDesc``, ``ModelConfig``, ``reduced``, and the
+four input-shape cells ``InputShape`` with ``ALL_SHAPES``)."""
 
 from __future__ import annotations
 
@@ -77,6 +78,35 @@ class ModelConfig:
     def d_inner(self) -> int:
         """SSM inner width."""
         return max(1, self.ssm_expand) * self.n_heads * self.resolved_head_dim
+
+    def param_count_estimate(self) -> int:
+        """Closed-form parameter count: attention and FFN (or every expert)
+        a layer, and the embedding and head; norms, biases, routers and
+        mixers are left out (the JAX package's estimate)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        attn = (d * self.n_heads * hd  # q
+                + 2 * d * self.n_kv_heads * hd  # k, v
+                + self.n_heads * hd * d)  # o
+        ffn = (self.n_experts or 1) * 3 * d * self.d_ff
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (attn + ffn) + emb
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One of the assigned input-shape cells."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+TRAIN_4K = InputShape("train_4k", 4096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

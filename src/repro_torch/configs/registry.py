@@ -1,10 +1,10 @@
-"""The paper's own denoiser configs and the ported LM archs (copied from
-the JAX package's registry)."""
+"""The paper's own denoiser configs, the LM archs and their input-shape
+cells (copied from the JAX package's registry)."""
 
 from __future__ import annotations
 
-from repro_torch.configs.archs import ARCHS
-from repro_torch.configs.base import BlockDesc, ModelConfig
+from repro_torch.configs.archs import ARCHS, SUBQUADRATIC
+from repro_torch.configs.base import ALL_SHAPES, BlockDesc, InputShape, ModelConfig
 from repro_torch.models.diffusion import DenoiserConfig
 
 
@@ -91,3 +91,15 @@ def get_config(name: str) -> ModelConfig:
     if name in ARCHS:
         return ARCHS[name]()
     raise KeyError(f"unknown or not yet ported arch {name!r}; known: {sorted(ARCHS)}")
+
+
+def shapes_for(name: str) -> list[InputShape]:
+    """The shape cells an arch runs: every one but long_500k, which only the
+    sub-quadratic archs run."""
+    return [s for s in ALL_SHAPES if s.name != "long_500k" or name in SUBQUADRATIC]
+
+
+def all_cells():
+    """Every (arch, shape, skipped) cell, the skipped ones included."""
+    return [(name, shape, shape.name == "long_500k" and name not in SUBQUADRATIC)
+            for name in ARCHS for shape in ALL_SHAPES]

@@ -28,8 +28,12 @@ import torch
 class MarkovLM:
     """Token sequences (B, L + 1) from a random 64-state Markov chain whose
     states emit tokens; ``batch_at`` returns the first L as ``tokens`` and
-    the last L as ``labels``, int32 numpy arrays.  A host loop of one
-    ``rng.choice`` a token and a state, as in the JAX package."""
+    the last L as ``labels``, int32 numpy arrays.  The draws are the JAX
+    package's host loop of one ``rng.choice(n, p=row)`` a token and a
+    state, bit for bit: each such call takes one ``rng.random()`` and
+    searches it in the row's float64 cumulative sum, normalised by its
+    last entry, so the sums are made once here and each draw is a search
+    (``choice`` makes the sum anew every call, O(vocab) a token)."""
 
     vocab: int
     seq_len: int
@@ -46,6 +50,7 @@ class MarkovLM:
         self.emit = rng.dirichlet(
             np.full(self.vocab, 0.05), size=self.order_states
         ).astype(np.float32)
+        self._trans_cdf, self._emit_cdf = (_choice_cdf(p) for p in (self.trans, self.emit))
 
     def batch_at(self, step: int) -> dict:
         rng = np.random.default_rng((self.seed, step))
@@ -53,10 +58,23 @@ class MarkovLM:
         states = rng.integers(0, self.order_states, size=B)
         toks = np.empty((B, L + 1), np.int32)
         for i in range(L + 1):
-            toks[:, i] = [rng.choice(self.vocab, p=self.emit[s]) for s in states]
-            states = np.array(
-                [rng.choice(self.order_states, p=self.trans[s]) for s in states])
+            toks[:, i] = _choices(self._emit_cdf, states, rng)
+            states = _choices(self._trans_cdf, states, rng)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _choice_cdf(p):
+    """Each row's cumulative sum as ``Generator.choice`` makes it from ``p``:
+    in float64, divided by its last entry."""
+    cdf = np.cumsum(p.astype(np.float64), axis=1)
+    return cdf / cdf[:, -1:]
+
+
+def _choices(cdf, rows, rng):
+    """``[rng.choice(n, p=P[r]) for r in rows]`` for the P of ``cdf``: one
+    uniform a row, in order, searched on the right."""
+    return np.array([np.searchsorted(cdf[r], u, side="right")
+                     for r, u in zip(rows, rng.random(len(rows)))])
 
 
 @dataclasses.dataclass

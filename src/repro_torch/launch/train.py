@@ -3,6 +3,7 @@ package's ``repro.launch.train``.
 
     PYTHONPATH=src python -m repro_torch.launch.train                 # on the card
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
         --scale full --steps 20 --batch 8 --ckpt-dir /path/to/ckpts
 
@@ -19,8 +20,10 @@ The flags, their names and defaults are the JAX CLI's, with two
 differences: ``--mesh`` takes only ``1x1`` (its default here), and
 ``--device`` picks the device (default the card; ``cpu`` runs the kernels'
 plain versions).  The params are ``lm_init_params`` from a generator at
-seed 0, the JAX init's law.  A mesh of more devices and the MoE archs are
-refused with exit status 2 and the ROADMAP.md item that brings them (A9).
+seed 0, the JAX init's law.  The MoE archs (dbrx-132b, qwen3-moe-30b-a3b)
+train with every expert on the device, their loss carrying the router's
+aux term.  A mesh of more devices is refused with exit status 2 and the
+ROADMAP.md item that brings it (A9).
 
 ``main(argv)`` returns the last step, the loop's history and each step's
 host data seconds, so a script can drive it in process.
@@ -43,8 +46,6 @@ from repro_torch.training.optimizer import adamw, cosine_schedule
 from repro_torch.training.train_step import make_train_step
 from repro_torch.weights import lm_init_params
 
-# the JAX registry's MoE archs
-_MOE_ARCHS = ("dbrx-132b", "qwen3-moe-30b-a3b")
 _SEED = 1  # the loop's per-step generators (the JAX CLI's PRNGKey(1))
 
 
@@ -84,8 +85,6 @@ def _refusal(args):
     if args.mesh != "1x1":
         return (f"--mesh {args.mesh}: only 1x1; data and model parallelism over a mesh "
                 "are ROADMAP.md A9")
-    if args.arch in _MOE_ARCHS:
-        return f"--arch {args.arch}: MoE archs are ROADMAP.md A9"
     return None
 
 

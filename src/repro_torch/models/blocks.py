@@ -1,19 +1,22 @@
 """Residual blocks, each a ``Block`` of up to four functions:
 
-    fwd(params, x, cfg, desc, ctx, window)               -> x
+    fwd(params, x, cfg, desc, ctx, window)               -> (x, aux)
     cache_init(params, cfg, desc, batch, max_len, dtype) -> cache
     prefill(params, x, cache, cfg, desc, ctx, window)    -> (x, cache)
     step(params, x1, cache, pos, cfg, desc, window)      -> (x1, cache)
 
 ``ctx``: dict(causal, impl, vision).  ``window`` is the layer's Python
 int window (0 = full); ``pos`` is a 0-d integer tensor or a Python int.
-``prefill`` and ``step`` update the cache in place and return it.  Ported,
-all four functions each: the ``attn`` block (the dense archs' and the
-denoiser's), the ``xattn`` block (llama-3.2-vision's cross-attention to the
-vision stub), the ``hymba`` block, and xlstm's ``mlstm`` and ``slstm``
-blocks.  The attn block's FFN may be the MoE (``BlockDesc.moe``:
-qwen3-moe's, with every expert on the device); no arch has one elsewhere,
-and the decoder refuses it elsewhere.
+``aux`` is the MoE FFN's ``{"moe_aux_loss": ()}`` where the block has
+one, else ``{}`` (as the JAX package's blocks).  ``prefill`` and ``step``
+update the cache in place and return it; they drop ``aux``, as the
+JAX package's decoder does.  Ported, all four functions each: the
+``attn`` block (the dense archs' and the denoiser's), the ``xattn`` block
+(llama-3.2-vision's cross-attention to the vision stub), the ``hymba``
+block, and xlstm's ``mlstm`` and ``slstm`` blocks.  The attn block's FFN
+may be the MoE (``BlockDesc.moe``: qwen3-moe's and dbrx's, with every
+expert on the device); no arch has one elsewhere, and the decoder refuses
+it elsewhere.
 """
 
 from __future__ import annotations
@@ -38,19 +41,18 @@ class Block(NamedTuple):
 
 def _maybe_ffn(params, x, cfg: ModelConfig):
     """The pre-norm FFN (SwiGLU or GELU, or the MoE where the params have
-    ``moe``) added to the stream, where the block has one.  The MoE's aux
-    loss is dropped: only the trainer reads it, and the MoE trainer is
-    ROADMAP A9's training half."""
+    ``moe``) added to the stream, where the block has one: (x, aux), aux
+    the MoE's ``{"moe_aux_loss": ()}`` or ``{}``."""
     if "moe" in params:
-        h, _ = moe_apply(params["moe"], rmsnorm_apply(params["ffn_norm"], x), cfg)
-        x = x + h
-    elif "ffn" in params:
+        h, aux = moe_apply(params["moe"], rmsnorm_apply(params["ffn_norm"], x), cfg)
+        return x + h, aux
+    if "ffn" in params:
         x = x + ffn_apply(params["ffn"], rmsnorm_apply(params["ffn_norm"], x))
-    return x
+    return x, {}
 
 
 def attn_block_fwd(params, x, cfg: ModelConfig, desc: BlockDesc, ctx, window: int):
-    """Pre-norm self-attention, then the FFN: x (B, L, d) -> (B, L, d)."""
+    """Pre-norm self-attention, then the FFN: x (B, L, d) -> ((B, L, d), aux)."""
     h = rmsnorm_apply(params["attn_norm"], x)
     x = x + attn.attn_fwd(params["attn"], h, cfg, window=window,
                           causal=ctx.get("causal", True), impl=ctx.get("impl", "flash"))
@@ -67,14 +69,14 @@ def attn_block_prefill(params, x, cache, cfg: ModelConfig, desc: BlockDesc, ctx,
                        window: int):
     h = rmsnorm_apply(params["attn_norm"], x)
     a, _ = attn.attn_prefill(params["attn"], h, cache, cfg, window=window)
-    return _maybe_ffn(params, x + a, cfg), cache
+    return _maybe_ffn(params, x + a, cfg)[0], cache
 
 
 def attn_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
                     window: int):
     h = rmsnorm_apply(params["attn_norm"], x1)
     a, _ = attn.attn_step(params["attn"], h, cache, pos, cfg, window=window)
-    return _maybe_ffn(params, x1 + a, cfg), cache
+    return _maybe_ffn(params, x1 + a, cfg)[0], cache
 
 
 # ------------------------------------------------------------------ xattn
@@ -119,7 +121,8 @@ def xattn_block_prefill(params, x, cache, cfg: ModelConfig, desc: BlockDesc, ctx
     reps = cfg.n_heads // cfg.n_kv_heads
     o = flash_mha(q, attn._repeat_heads(k_raw, reps), attn._repeat_heads(v_raw, reps),
                   causal=False, softcap=cfg.attn_softcap)
-    return _maybe_ffn(params, x + attn._out(params["attn"], o, x.dtype), cfg), cache
+    x = x + attn._out(params["attn"], o, x.dtype)
+    return _maybe_ffn(params, x, cfg)[0], cache
 
 
 def xattn_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
@@ -137,7 +140,7 @@ def xattn_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
     k = attn._repeat_heads(cache["k"].to(cdt), reps)
     v = attn._repeat_heads(cache["v"].to(cdt), reps)
     o = attn.attn_core_naive(q, k, v, None, cfg.attn_softcap)
-    return _maybe_ffn(params, x1 + attn._out(p, o, cdt), cfg), cache
+    return _maybe_ffn(params, x1 + attn._out(p, o, cdt), cfg)[0], cache
 
 
 # ------------------------------------------------------------------ hymba
@@ -171,7 +174,7 @@ def hymba_block_prefill(params, x, cache, cfg: ModelConfig, desc: BlockDesc, ctx
     a, _ = attn.attn_prefill(params["attn"], h, cache["kv"], cfg, window=window)
     m, state = ssm.mamba_fwd(params["mamba"], h, cfg, return_state=True)
     _set_state(cache["ssm"], state)
-    return _maybe_ffn(params, x + 0.5 * (a + m), cfg), cache
+    return _maybe_ffn(params, x + 0.5 * (a + m), cfg)[0], cache
 
 
 def hymba_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
@@ -183,7 +186,7 @@ def hymba_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
     a, _ = attn.attn_step(params["attn"], h, cache["kv"], pos, cfg, window=window)
     m, state = ssm.mamba_step(params["mamba"], h, cache["ssm"], cfg)
     _set_state(cache["ssm"], state)
-    return _maybe_ffn(params, x1 + 0.5 * (a + m), cfg), cache
+    return _maybe_ffn(params, x1 + 0.5 * (a + m), cfg)[0], cache
 
 
 # ------------------------------------------------------------ mlstm/slstm
@@ -195,7 +198,7 @@ def hymba_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
 
 def _xlstm_block(cell_fwd, cell_init_state, cell_step):
     def fwd(params, x, cfg: ModelConfig, desc: BlockDesc, ctx, window: int):
-        return x + cell_fwd(params["cell"], rmsnorm_apply(params["norm"], x), cfg)
+        return x + cell_fwd(params["cell"], rmsnorm_apply(params["norm"], x), cfg), {}
 
     def cache_init(params, cfg: ModelConfig, desc: BlockDesc, batch: int, max_len: int,
                    dtype):

@@ -71,15 +71,22 @@ def _records(x, layer) -> bool:
 
 
 def decoder_fwd(params, x, cfg: ModelConfig, ctx):
-    """x: (B, L, d_model) -> (B, L, d_model)."""
+    """x: (B, L, d_model) -> ((B, L, d_model), aux): aux the float32 0-d
+    sum of every MoE layer's load-balancing loss (0 without MoE), as the
+    JAX package's decoder sums it over the group and the layers.  Under
+    remat each layer's checkpointed function returns its own aux, so the
+    recompute in the backward adds nothing twice."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r, g, fwd, desc, window in _layers(cfg, "fwd"):
         layer = _layer(params[g], r)
         if cfg.remat and _records(x, layer):
-            x = checkpoint(functools.partial(fwd, layer), x, cfg, desc, ctx, window,
-                           use_reentrant=False)
+            x, a = checkpoint(functools.partial(fwd, layer), x, cfg, desc, ctx, window,
+                              use_reentrant=False)
         else:
-            x = fwd(layer, x, cfg, desc, ctx, window)
-    return x
+            x, a = fwd(layer, x, cfg, desc, ctx, window)
+        if "moe_aux_loss" in a:
+            aux = aux + a["moe_aux_loss"]
+    return x, aux
 
 
 def decoder_cache_init(params, cfg: ModelConfig, batch: int, max_len: int,

@@ -119,7 +119,7 @@ def denoiser_fwd(params, t, y, dc: DenoiserConfig, cond=None, attn_impl=None):
     if cond is not None:
         x = x + _point_product(cond.to(cdt), params["cond_proj"].to(cdt))[..., None, :]
     ctx = dict(causal=False, impl=attn_impl or "flash")
-    x = decoder_fwd(params["decoder"], x, cfg, ctx)
+    x, _ = decoder_fwd(params["decoder"], x, cfg, ctx)
     x = rmsnorm_apply(params["final_norm"], x)
     return (x @ params["out_proj"].to(cdt)).float()
 

@@ -9,11 +9,13 @@ inputs, and the frame stub ((B, L, d_model) embeddings, musicgen's); rotary,
 sinusoidal or no positions; embedding scales (gemma2's); an untied or tied
 head, final softcap; the vision stub's patch embeddings (B, Nv, d_model)
 that xattn layers attend to (llama-3.2-vision's), given in the compute
-dtype; MoE FFNs (qwen3-moe's, every expert on the device) in the
-forward, the prefill and the decode step.  ``lm_loss`` is the next-token
-loss the trainer (``repro_torch.launch.train``) takes gradients of; it runs
-the naive attention core, as the JAX package's does (kernel B2 has no
-backward).
+dtype; MoE FFNs (qwen3-moe's and dbrx's, every expert on the device) in
+the forward, the prefill, the decode step and the loss.  ``lm_loss`` is
+the next-token loss the trainer (``repro_torch.launch.train``) takes
+gradients of, plus ``router_aux_weight`` times the MoE layers' summed
+load-balancing loss; it runs the naive attention core, as the JAX
+package's does (kernel B2 has no backward).  ``lm_fwd`` returns the
+logits alone (the JAX package's returns them with the aux sum).
 """
 
 from __future__ import annotations
@@ -91,37 +93,42 @@ def _head(params, x, cfg: ModelConfig):
     return softcap(logits, cfg.final_softcap)
 
 
+def _lm_fwd_aux(params, tokens, cfg: ModelConfig, vision=None, impl: str = "flash"):
+    """(logits, the MoE layers' summed aux loss, float32 0-d): the JAX
+    package's ``lm_fwd``."""
+    x = _embed(params, tokens, cfg)
+    x, aux = decoder_fwd(params["decoder"], x, cfg,
+                         dict(causal=True, vision=vision, impl=impl))
+    return _head(params, rmsnorm_apply(params["final_norm"], x), cfg), aux
+
+
 def lm_fwd(params, tokens, cfg: ModelConfig, vision=None, impl: str = "flash"):
     """tokens: (B, L) int ids, or (B, L, d_model) frames -> logits (B, L,
     vocab) in the compute dtype.  ``vision``: (B, Nv, d_model) patch
     embeddings for the xattn layers.  ``impl``: the attention core,
     "flash" (kernel B2 on the card) or "naive" (differentiable)."""
-    x = _embed(params, tokens, cfg)
-    x = decoder_fwd(params["decoder"], x, cfg, dict(causal=True, vision=vision, impl=impl))
-    return _head(params, rmsnorm_apply(params["final_norm"], x), cfg)
+    return _lm_fwd_aux(params, tokens, cfg, vision=vision, impl=impl)[0]
 
 
 def lm_loss(params, batch, cfg: ModelConfig, impl: str = "naive"):
     """batch: dict(tokens, labels (B, L) int, mask (B, L) optional, vision
     optional) -> (loss, metrics): the mean next-token negative
     log-likelihood over the masked positions (logits in float32,
-    logsumexp minus the label's logit; the denominator at least 1).
-    metrics: ``nll``, ``moe_aux`` (0: the model has no MoE) and ``tokens``.
-    A MoE model is refused: its loss adds the router's aux term, which is
-    ROADMAP A9's training half, and a zero there would be a wrong loss."""
-    if cfg.n_experts or any(d.moe for d in cfg.group):
-        raise NotImplementedError(f"lm_loss for {cfg.name}: the MoE loss (the router's "
-                                  "aux term) is ROADMAP.md A9's training half")
-    logits = lm_fwd(params, batch["tokens"], cfg, vision=batch.get("vision"),
-                    impl=impl).float()
+    logsumexp minus the label's logit; the denominator at least 1), plus
+    ``router_aux_weight`` times the MoE layers' summed load-balancing loss.
+    metrics: ``nll`` (the mean alone), ``moe_aux`` (that sum; 0 without
+    MoE) and ``tokens``."""
+    logits, aux = _lm_fwd_aux(params, batch["tokens"], cfg, vision=batch.get("vision"),
+                              impl=impl)
+    logits = logits.float()
     labels = batch["labels"].long()
     nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None])[..., 0]
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = (nll * mask).sum() / denom
-    return loss, {"nll": loss.detach(), "moe_aux": torch.zeros_like(denom),
-                  "tokens": denom}
+    total = loss + cfg.router_aux_weight * aux
+    return total, {"nll": loss.detach(), "moe_aux": aux.detach(), "tokens": denom}
 
 
 def lm_cache_init(params, cfg: ModelConfig, batch: int, max_len: int,

@@ -6,7 +6,8 @@ package's functional interface (``repro.training.optimizer``):
     params, state, metrics = opt.update(grads, state, params)
 
 Params (float32) and state are nested dicts of tensors; ``update``
-changes them in place (``torch._foreach_*``) and returns them.  The arithmetic is the
+changes them in place (``torch._foreach_*``, a group of leaves at a time,
+so its temporaries stay small beside the params) and returns them.  The arithmetic is the
 reference's: clipping by the float32 global norm, bias correction, and
 decoupled weight decay on every leaf with ndim >= 2 -- on the stacked
 layer tree that includes the (n, d) norm scales, as in the reference.
@@ -51,6 +52,27 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(n * n for n in sq))
 
 
+# the float32 bytes of a group of leaves ``update`` takes at once: its
+# temporaries (the clipped gradient, the denominator, the step) hold three
+# groups, not three copies of the params (a leaf larger than this is a group)
+_GROUP_BYTES = 1 << 30
+
+
+def _groups(leaves):
+    """Consecutive runs of (grad, mu, nu, param) tuples of at most
+    ``_GROUP_BYTES`` float32 bytes of params each."""
+    group, size = [], 0
+    for leaf in leaves:
+        n = leaf[3].numel() * 4
+        if group and size + n > _GROUP_BYTES:
+            yield group
+            group, size = [], 0
+        group.append(leaf)
+        size += n
+    if group:
+        yield group
+
+
 def adamw(schedule: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, clip_norm: float = 1.0) -> Optimizer:
     def init(params):
@@ -62,26 +84,34 @@ def adamw(schedule: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e
     @torch.no_grad()
     def update(grads, state, params):
         step = state["step"] + 1
-        g = [x.float() for x in pytree.leaves(grads)]
         gnorm = global_norm(grads)
         scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-        g = torch._foreach_mul(g, scale)
-        mu, nu, ps = (pytree.leaves(t) for t in (state["mu"], state["nu"], params))
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, g, alpha=1 - b1)
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_addcmul_(nu, g, g, value=1 - b2)
         t = step.float()
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=t.device) ** t
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=t.device) ** t
         lr = schedule(step)
-        delta = torch._foreach_div(torch._foreach_div(mu, bc1), torch._foreach_add(
-            torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps))
-        if weight_decay:
+        leaves = list(zip(*(pytree.leaves(t) for t in (grads, state["mu"], state["nu"],
+                                                        params))))
+        for group in _groups(leaves):
+            g, mu, nu, ps = (list(x) for x in zip(*group))
+            g = torch._foreach_mul([x.float() for x in g], scale)
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, g, alpha=1 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, g, g, value=1 - b2)
+            del g
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, eps)
+            delta = torch._foreach_div(mu, bc1)
+            torch._foreach_div_(delta, denom)
+            del denom
             mats = [i for i, p in enumerate(ps) if p.ndim >= 2]
-            torch._foreach_add_([delta[i] for i in mats], [ps[i].float() for i in mats],
-                                alpha=weight_decay)
-        torch._foreach_sub_(ps, torch._foreach_mul(delta, lr))
+            if weight_decay and mats:
+                torch._foreach_add_([delta[i] for i in mats], [ps[i].float() for i in mats],
+                                    alpha=weight_decay)
+            torch._foreach_mul_(delta, lr)
+            torch._foreach_sub_(ps, delta)
         state["step"] = step
         return params, state, {"grad_norm": gnorm, "lr": lr}
 

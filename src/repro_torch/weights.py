@@ -303,6 +303,11 @@ def _fixed_leaf(name, shape, dev):
     return None
 
 
+# the longest run of float32 numbers ``init_lm_params`` draws at once into a
+# leaf of another dtype (256 MiB)
+_DRAW_CHUNK = 1 << 26
+
+
 def init_lm_params(cfg: ModelConfig, seed: int, device=None, dtype=None):
     """Random LM params, the tree of ``lm_param_shapes``, drawn on ``device``
     (None means "cuda") from ``torch.Generator(device).manual_seed(seed)``:
@@ -320,36 +325,45 @@ def init_lm_params(cfg: ModelConfig, seed: int, device=None, dtype=None):
     would make the layer a no-op): zero leaves would hide a missing term.
 
     ``dtype`` (e.g. the compute dtype), where given: the leaves that
-    ``lm_compute_params`` casts are drawn straight into it, a layer of the
-    stacked axis at a time, so the float32 tree never exists (qwen3-moe's
-    would take 122 GB).  Same law; other numbers than the float32 draw.
+    ``lm_compute_params`` casts are drawn straight into it, in runs of at
+    most ``_DRAW_CHUNK`` float32 numbers (256 MiB) over the leaf's flat
+    order, so neither the float32 tree nor a float32 copy of one big leaf
+    exists (qwen3-moe's tree would take 122 GB; one layer of dbrx's
+    ``w_gate`` stack 4.23 GB, its embedding table 2.47 GB).  Same law, each
+    leaf at the std of its whole shape; other numbers than the float32 draw
+    (and than a draw a layer at a time, so qwen3-moe's bf16 numbers are not
+    those of earlier versions).
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def draw(name, shape, stacked):
-        a = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+    def law(name, shape, stacked):
+        """(std, mean) of the leaf's normal draws."""
         if name in ("scale", "conv_b", "dt_bias", "bq", "bk", "bv", "b_i", "b_gates"):
-            return a.mul_(0.1)
+            return 0.1, 0.0
         if name == "b_f":
-            return a.mul_(0.1).add_(3.0)
+            return 0.1, 3.0
         if name == "gate":
-            return a
+            return 1.0, 0.0
         std = _NORMAL_STD.get(name)
-        return a.mul_(std if std is not None else 1.0 / math.sqrt(_fan_in(shape, stacked)))
+        return (std if std is not None else 1.0 / math.sqrt(_fan_in(shape, stacked))), 0.0
 
     def leaf(path, shape, stacked):
         name = path[-1]
         fixed = _fixed_leaf(name, shape, dev)
         if fixed is not None:
             return fixed
+        std, mean = law(name, shape, stacked)
+
+        def normal(size):
+            a = torch.randn(size, generator=gen, dtype=torch.float32, device=dev).mul_(std)
+            return a.add_(mean) if mean else a
+
         if dtype is None or not casts_to_compute(path):
-            return draw(name, shape, stacked)
-        if not stacked:
-            return draw(name, shape, stacked).to(dtype)
+            return normal(shape)
         out = torch.empty(shape, dtype=dtype, device=dev)
-        for i in range(shape[0]):  # a layer's fan-in is the stacked leaf's
-            out[i] = draw(name, shape[1:], False)
+        for run in out.view(-1).split(_DRAW_CHUNK):
+            run.copy_(normal(run.numel()))
         return out
 
     return _random_tree(lm_param_shapes(cfg), leaf)

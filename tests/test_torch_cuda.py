@@ -1493,6 +1493,100 @@ def test_moe_combine_is_the_same_bits_twice_and_captured(dev, dtype):
     assert (a.cpu().float() - cpu.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("name,capacity_factor", [("qwen3-moe-30b-a3b", None),
+                                                   ("dbrx-132b", None),
+                                                   ("qwen3-moe-30b-a3b", 1.0)])
+def test_moe_lm_training_step_on_card_matches_cpu(dev, name, capacity_factor):
+    """One lm_loss gradient of the reduced MoE arch in float32 (the router's
+    aux term in the loss; capacity_factor 1.0 with routers scaled by 25:
+    the capacity drops pairs) from the same params and batch: the loss
+    within 1e-5, moe_aux within 1e-5, every leaf's gradient within 1e-4 of
+    its largest magnitude."""
+    import dataclasses
+
+    cfg = reduced(get_config(name))
+    params = init_lm_params(cfg, 0, device="cpu")
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
+        params["decoder"]["g0"]["moe"]["router"].mul_(25.0)
+    g = torch.Generator().manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32), generator=g),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 32), generator=g)}
+    out = {}
+    for where in ("cpu", dev):
+        ps = [p.to(where).requires_grad_() for p in _leaves_of(params)]
+        tree = _unflatten(params, iter(ps))
+        loss, metrics = t_lm.lm_loss(tree, {k: v.to(where) for k, v in batch.items()}, cfg)
+        out[str(where)] = (loss.item(), metrics["moe_aux"].item(),
+                           [t.cpu() for t in torch.autograd.grad(loss, ps)])
+    (l_cpu, a_cpu, g_cpu), (l_card, a_card, g_card) = out["cpu"], out[str(dev)]
+    assert a_cpu > 0 and abs(a_card - a_cpu) <= 1e-5
+    assert abs(l_card - l_cpu) <= 1e-5
+    for card, cpu in zip(g_card, g_cpu):
+        assert (card - cpu).abs().max() <= 1e-4 * cpu.abs().max()
+
+
+def test_adamw_groups_on_card_are_one_group_bit_for_bit(dev, monkeypatch):
+    """AdamW a leaf at a time (a group of vectors alone among them: no
+    weight-decay call there) against one group of every leaf on the card:
+    the same bits over three steps."""
+    from repro_torch import pytree
+    from repro_torch.training import optimizer
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    tree = {"a": torch.randn(30, 20, generator=g, device=dev),
+            "b": torch.randn(7, generator=g, device=dev),
+            "c": torch.randn(3, 5, 6, generator=g, device=dev)}
+    grads = pytree.map(lambda t: torch.randn(t.shape, generator=g, device=dev), tree)
+    out = []
+    for group_bytes in (1 << 30, 4):
+        monkeypatch.setattr(optimizer, "_GROUP_BYTES", group_bytes)
+        opt = optimizer.adamw(optimizer.cosine_schedule(1e-2, 2, 10))
+        params = pytree.map(torch.clone, tree)
+        state = opt.init(params)
+        for _ in range(3):
+            params, state, _ = opt.update(grads, state, params)
+        out.append(pytree.leaves({"p": params, "mu": state["mu"], "nu": state["nu"]}))
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+
+
+def test_dbrx_width_moe_layer_is_the_same_bits_twice_and_captured(dev):
+    """One MoE layer at dbrx-132b's widths (d 6144, ff 10752, E 16, top 4,
+    bf16) on 1 x 512 tokens (C 160: pairs drop): two calls, and a captured
+    call replayed, equal in bits."""
+    from repro_torch.nn.moe import capacity_of, moe_apply
+
+    cfg = get_config("dbrx-132b")
+    g = torch.Generator(device=dev).manual_seed(4)
+    d, E, ff = cfg.d_model, cfg.n_experts, cfg.d_ff
+
+    def draw(*shape, std):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(torch.bfloat16)
+
+    p = {"router": draw(d, E, std=0.02 * 25),
+         "w_gate": draw(E, d, ff, std=(E * d) ** -0.5),
+         "w_up": draw(E, d, ff, std=(E * d) ** -0.5),
+         "w_down": draw(E, ff, d, std=(E * ff) ** -0.5)}
+    x = draw(1, 512, d, std=1.0)
+    assert capacity_of(cfg, 512) == 160
+    with torch.no_grad():
+        a, b = moe_apply(p, x, cfg)[0], moe_apply(p, x, cfg)[0]
+        static_x = x.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe_apply(p, static_x, cfg)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = moe_apply(p, static_x, cfg)[0]
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.isfinite(a).all() and a.abs().max() > 0
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(a.view(torch.int16), out.view(torch.int16))
+
+
 def test_moe_denoiser_point_is_the_same_bits_alone_and_in_a_batch(dev):
     """qwen3-moe-a3b-smoke at random weights: one point alone, and the first
     18, against the same points in a batch of 36, in bits (the denoiser runs

@@ -103,7 +103,7 @@ def test_the_configs_are_the_jax_packages(cfgs):
     full_j, full_t = j_get_config(NAME), get_config(NAME)
     assert dataclasses.asdict(full_t) == dataclasses.asdict(full_j)
     assert dataclasses.asdict(cfgs[1]) == dataclasses.asdict(cfgs[0])
-    assert len(ARCHS) == 9  # the eight dense archs and qwen3-moe-30b-a3b
+    assert len(ARCHS) == 10  # the eight dense archs, dbrx-132b and qwen3-moe-30b-a3b
     for name in ARCHS:
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(j_get_config(name))
         assert (dataclasses.asdict(reduced(get_config(name)))
@@ -248,8 +248,9 @@ def test_hymba_block_matches(cfgs, tree, window):
     x = _acts(10, (B, L, 64))
     jo, _ = j_blocks.hymba_block_fwd(_jnp(p), jnp.asarray(x), jcfg, jcfg.group[0],
                                      dict(causal=True), window)
-    to = t_blocks.hymba_block_fwd(_tt(p), _t(x), tcfg, desc, dict(causal=True), window)
+    to, aux = t_blocks.hymba_block_fwd(_tt(p), _t(x), tcfg, desc, dict(causal=True), window)
     np.testing.assert_allclose(_np(to), np.asarray(jo), atol=1e-5, rtol=1e-5)
+    assert aux == {}  # no MoE FFN
 
     jc = j_blocks.hymba_block_cache_init(_jnp(p), jcfg, jcfg.group[0], B, L, jnp.float32)
     tc = t_blocks.hymba_block_cache_init(_tt(p), tcfg, desc, B, L, torch.float32)
@@ -426,7 +427,7 @@ def test_bf16_hymba_block_follows_the_jax_casts(cfgs, tree, window):
     jo, _ = j_blocks.hymba_block_fwd(_jnp(p), xj, jcfg, jd, dict(causal=True, impl="naive"),
                                      window)
     _same_bits(t_blocks.hymba_block_fwd(_tt(p), xt, tcfg, td,
-                                        dict(causal=True, impl="naive"), window), jo)
+                                        dict(causal=True, impl="naive"), window)[0], jo)
 
     jc = j_blocks.hymba_block_cache_init(_jnp(p), jcfg, jd, B, L, jnp.bfloat16)
     tc = t_blocks.hymba_block_cache_init(_tt(p), tcfg, td, B, L, torch.bfloat16)
@@ -559,14 +560,16 @@ def test_lm_refuses_what_is_not_ported(cfgs, tokens, change):
     sinusoidal positions, frames, tied embeddings and the xlstm blocks are
     ported since; see test_torch_lm_dense.py, test_torch_lm_xattn_frames.py
     and test_torch_xlstm.py).  The attn block's MoE FFN is ported (see
-    test_torch_moe.py), but not its loss: ``lm_loss`` refuses it, naming
-    ROADMAP A9."""
+    test_torch_moe.py), and so is its loss (the router's aux term added;
+    see test_torch_moe_train.py): ``lm_loss`` runs it."""
     cfg = dataclasses.replace(cfgs[1], **change)
     if cfg.group[0].kind == "attn":
         cfg = dataclasses.replace(cfg, n_experts=4, top_k=2)
         params = init_lm_params(cfg, 0, device="cpu")
-        with pytest.raises(NotImplementedError, match="A9"):
-            t_lm.lm_loss(params, {"tokens": _t(tokens), "labels": _t(tokens)}, cfg)
+        loss, metrics = t_lm.lm_loss(params, {"tokens": _t(tokens), "labels": _t(tokens)},
+                                     cfg)
+        assert torch.isfinite(loss) and metrics["moe_aux"].item() > 0
+        assert torch.allclose(loss, metrics["nll"] + cfg.router_aux_weight * metrics["moe_aux"])
         return
     params = init_lm_params(cfgs[1], 0, device="cpu")
     with pytest.raises(NotImplementedError):

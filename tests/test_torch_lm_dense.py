@@ -132,9 +132,10 @@ def test_attn_block_matches(arch):
         jo, _ = jax.jit(lambda p, x: j_blocks.attn_block_fwd(
             p, x, jcfg, jd, dict(causal=True), window))(_jnp(p), jnp.asarray(x))
         for impl in ("naive", "flash"):
-            to = t_blocks.attn_block_fwd(_tt(p), _t(x), tcfg, td,
-                                         dict(causal=True, impl=impl), window)
+            to, aux = t_blocks.attn_block_fwd(_tt(p), _t(x), tcfg, td,
+                                              dict(causal=True, impl=impl), window)
             np.testing.assert_allclose(_np(to), np.asarray(jo), atol=1e-5, rtol=1e-5)
+            assert aux == {}
 
         jc = j_blocks.attn_block_cache_init(_jnp(p), jcfg, jd, B, L, jnp.float32)
         tc = t_blocks.attn_block_cache_init(_tt(p), tcfg, td, B, L, torch.float32)

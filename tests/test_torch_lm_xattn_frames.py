@@ -158,9 +158,10 @@ def test_xattn_block_matches():
     jo, _ = jax.jit(lambda p, x: j_blocks.xattn_block_fwd(p, x, jcfg, jd, ctx, 0))(
         _jnp(p), jnp.asarray(x))
     for impl in ("naive", "flash"):
-        to = t_blocks.xattn_block_fwd(_tt(p), _t(x), tcfg, td,
-                                      dict(causal=True, vision=_t(vision), impl=impl), 0)
+        to, aux = t_blocks.xattn_block_fwd(_tt(p), _t(x), tcfg, td,
+                                           dict(causal=True, vision=_t(vision), impl=impl), 0)
         np.testing.assert_allclose(_np(to), np.asarray(jo), atol=1e-5, rtol=1e-5)
+        assert aux == {}
 
     jc = j_blocks.xattn_block_cache_init(_jnp(p), jcfg, jd, B, L, jnp.float32)
     tc = t_blocks.xattn_block_cache_init(_tt(p), tcfg, td, B, L, torch.float32)

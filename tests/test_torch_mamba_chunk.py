@@ -113,6 +113,6 @@ def test_the_hymba_block_past_one_chunk_matches_jax(layer, monkeypatch):
     scan = t_ssm.linear_scan
     monkeypatch.setattr(t_ssm, "linear_scan",
                         lambda a, b: calls.append(a.shape[1]) or scan(a, b))
-    to = t_blocks.hymba_block_fwd(block, x, cfg, desc, dict(causal=True), 0)
+    to, _ = t_blocks.hymba_block_fwd(block, x, cfg, desc, dict(causal=True), 0)
     assert calls == [1024, 6]
     np.testing.assert_allclose(_np(to), np.asarray(jo), atol=1e-4, rtol=1e-4)

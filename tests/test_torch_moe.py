@@ -7,7 +7,8 @@ qwen3-moe-30b-a3b through ``lm_fwd``, ``lm_prefill`` and ``lm_decode_step``
 (logits within 2e-4, as the dense archs), the MoE denoiser
 ``qwen3-moe-a3b-smoke`` through ``denoiser_fwd`` and one ASD call on the
 same noise, the serve CLI at that model, the refusals that stay, the
-init's fan-in, and the full-width tree and count.
+init's fan-in, and the full-width tree and count.  The MoE loss and its
+gradients are in tests/test_torch_moe_train.py.
 """
 
 import dataclasses
@@ -293,11 +294,16 @@ def test_lm_fwd_prefill_and_decode_match(lm):
 
 
 def test_lm_loss_refuses_moe_and_the_cast_keeps_the_router(lm):
+    """``lm_loss`` no longer refuses the MoE: its loss is the NLL plus
+    ``router_aux_weight`` times the summed aux (against JAX's in
+    test_torch_moe_train.py); the compute cast keeps the router's leaves in
+    the compute dtype and the norms float32."""
     tcfg, tree, tokens, _ = lm
     params = from_jax_lm_params(tree, tcfg, device="cpu")
     batch = {"tokens": _t(tokens), "labels": _t(tokens)}
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_lm.lm_loss(params, batch, tcfg)
+    loss, metrics = t_lm.lm_loss(params, batch, tcfg)
+    assert torch.isfinite(loss) and metrics["moe_aux"].item() > 0
+    assert torch.allclose(loss, metrics["nll"] + tcfg.router_aux_weight * metrics["moe_aux"])
     cast = t_lm.lm_compute_params(params, dataclasses.replace(tcfg,
                                                              compute_dtype="bfloat16"))
     moe = cast["decoder"]["g0"]["moe"]

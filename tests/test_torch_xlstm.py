@@ -199,7 +199,9 @@ def test_block_matches(cfgs, tree, kind, g):
     p = _layer(tree["decoder"][g], 1)
     x = _acts(24, (B, L, 64))
     jo, _ = jfns[0](_jnp(p), jnp.asarray(x), jcfg, jd, dict(causal=True), 0)
-    _close(tb.fwd(_tt(p), _t(x), tcfg, td, dict(causal=True), 0), jo)
+    to, aux = tb.fwd(_tt(p), _t(x), tcfg, td, dict(causal=True), 0)
+    _close(to, jo)
+    assert aux == {}
 
     jc = jfns[1](_jnp(p), jcfg, jd, B, L, jnp.float32)
     one = tb.cache_init(_tt(p), tcfg, td, B, L, torch.float32)
