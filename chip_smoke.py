@@ -30,9 +30,10 @@ Phases, each printing one JSON line and raising on any failure:
               and at rows longer than a cluster holds, with the device
               kernels one call runs (one), and the row geometry with the
               clusters the card keeps resident.
-  4. denoiser the full-width ``paper-pixel-dit`` denoiser (random weights
-              from a seed): one forward through the flash kernel against
-              the same forward through the naive attention.
+  4. denoiser the full-width ``paper-pixel-dit`` denoiser at PIXEL_DEPTH of
+              its 24 layers (random weights from a seed; phases 4-6 use
+              it): one forward through the flash kernel against the same
+              forward through the naive attention.
      asd      ``asd_sample_batched`` (4 chains, theta 8, K 64) with the
               launch counts of both kernels during that run, then the
               sequential baseline on the same chains.
@@ -287,6 +288,22 @@ Phases, each printing one JSON line and raising on any failure:
               MoE archs, and reduced qwen3-moe once more at
               capacity_factor 1.0, where pairs drop and no positive tie
               sits at the capacity's edge).
+     dryrun   ``repro_torch.launch.dryrun.run_cell`` into a temporary
+              directory for tinyllama-1.1b's train_4k, prefill_32k and
+              decode_32k, hymba-1.5b's train_4k and long_500k, the policy's
+              and pixel-dit's (memopt) ASD cells and dbrx-132b's
+              prefill_32k: every cell reckoned to fit measured ok, no
+              fraction of its bound above 1.05, dbrx too large with nothing
+              allocated, B2 once an attention layer a prefill, B7's forward
+              and backward in hymba's step, B1 once and B2 twice a layer an
+              ASD round; tinyllama's train_4k under the fsdp variant refused
+              naming ROADMAP A9.  Then, against their plain versions and
+              timed as in phase 3 (dryrun_kernels): B2 at the 32k prefill's
+              (1, 32768, 32, 64) causal (its plain version a head at a
+              time), GRS at the ASD rounds' (4096, 224) and (512, 196608)
+              rows and B2 at their eager head and verification calls, B7
+              forward and backward at the training step's chunk (1, 1024,
+              25600).
   7. train_full_width
               the full-width ``paper-pixel-dit`` trained through
               ``repro_torch.training.loop.run`` (5 steps of sl_denoiser_loss
@@ -325,9 +342,9 @@ Phases, each printing one JSON line and raising on any failure:
               (b3_index_select), B3's bound from the rows its indices
               read.
   8. kernels  one JSON line with every ported kernel's numbers, and rows
-              at the branched shapes, the lm-zoo shapes and B7's training
-              shape, forward and backward (``at``) with their launches
-              there.
+              at the branched shapes, the lm-zoo shapes, B7's training
+              shape, forward and backward, and the dry run's shapes
+              (``at``) with their launches there.
   9. the last line: {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, where there is no CUDA device or
@@ -358,6 +375,9 @@ PEAK_TF32 = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 K, THETA, CHAINS = 64, 8, 4
+# the pixel-dit cell's depth (of the published 24 layers) in the sampler
+# and serving phases: the script's whole run stays inside its time limit
+PIXEL_DEPTH = 12
 SEED = 0
 OUT_SCALE = 1e-2  # out_proj = normal * OUT_SCALE / sqrt(d_model)
 # the serve cell (pixel-dit-serve): slots, budget (half the covering 32),
@@ -1267,14 +1287,17 @@ def run_slice(torch, dev):
     from repro_torch.weights import init_denoiser_params
 
     dc = paper_pixel_dit()
+    published = dc.backbone.n_layers
+    dc = dataclasses.replace(dc, backbone=dataclasses.replace(dc.backbone,
+                                                              n_layers=PIXEL_DEPTH))
     cfg = dc.backbone
     t0 = time.perf_counter()
     params = init_denoiser_params(dc, SEED, out_scale=OUT_SCALE, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in pytree.leaves(params))
     emit("weights", model=cfg.name, params=n_params, seconds=time.perf_counter() - t0,
-         layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
-         d_ff=cfg.d_ff, seq_len=dc.seq_len, d_data=dc.d_data, seed=SEED,
+         layers=cfg.n_layers, published_layers=published, d_model=cfg.d_model,
+         heads=cfg.n_heads, d_ff=cfg.d_ff, seq_len=dc.seq_len, d_data=dc.d_data, seed=SEED,
          out_scale=OUT_SCALE)
 
     flash_fn = make_sl_model_fn(params, dc)
@@ -1290,7 +1313,7 @@ def run_slice(torch, dev):
         fail(f"denoiser: flash vs naive relative L2 error {rel} > 5e-2")
     emit("denoiser", relative_l2_err=rel, max_abs_err=(out_f - out_n).abs().max().item(),
          out_abs_max=out_n.abs().max().item(),
-         tolerance="relative L2 5e-2: bf16 compute over 24 layers; the naive "
+         tolerance=f"relative L2 5e-2: bf16 compute over {cfg.n_layers} layers; the naive "
          "core rounds scores and probabilities to bf16, the kernel does not")
 
     sched = sl_geometric(K, t_min=0.05, t_max=50.0)
@@ -1479,7 +1502,7 @@ def _counters():
 
 
 # launches of each kernel per round of the packed engine, by round_impl
-# (flash: 24 layers x 2 model calls, the proposal and the verification)
+# (flash: every layer x 2 model calls, the proposal and the verification)
 def _per_round(n_layers):
     return {"packed": {"grs": 1, "gather_rows": 3, "scatter_rows": 1, "fused_gather": 0,
                        "fused_verify_commit": 0, "flash_attention": 2 * n_layers,
@@ -5335,6 +5358,249 @@ def check_lm_train_reference(torch, dev):
                    "moe_aux 1e-5")
 
 
+# the dry run's cells driven here: each kind, at its published shape
+DRYRUN_CELLS = ("tinyllama-1.1b:train_4k", "tinyllama-1.1b:prefill_32k",
+                "tinyllama-1.1b:decode_32k", "hymba-1.5b:train_4k", "hymba-1.5b:long_500k",
+                "paper-diffusion-policy:asd", "paper-pixel-dit:asd:memopt",
+                "dbrx-132b:prefill_32k")
+DRYRUN_TOO_LARGE = ("dbrx-132b:prefill_32k",)
+DRYRUN_REFUSED = "tinyllama-1.1b:train_4k:fsdp"
+DRYRUN_FRACTION_LIMIT = 1.05  # no step beats its bound (5 % for the timing's spread)
+
+
+def run_dryrun(torch, dev):
+    """The dry run (``repro_torch.launch.dryrun``) through ``run_cell`` into
+    a temporary directory, one DRYRUN_CELLS cell after another on the
+    single-pod mesh.  Gates: every cell reckoned to fit measured ok and
+    finite, no fraction of its bound above DRYRUN_FRACTION_LIMIT, the
+    DRYRUN_TOO_LARGE cells too large with no byte allocated, B2 once an
+    attention layer in each prefill and never in training (the naive
+    core), B7's forward twice (remat) and its backward once a chunk a layer
+    in hymba's step, B1 once and B2 twice a layer (the eager head's call
+    and the verification call) in each ASD round; DRYRUN_REFUSED refused
+    naming ROADMAP A9.  Returns
+    the launches of each cell's run and B7's backward launches in hymba's
+    step."""
+    import tempfile
+
+    from repro_torch.kernels.ssm_scan.ops import linear_scan
+    from repro_torch.launch import dryrun
+
+    counters = _counters()
+    by_run, summary = {}, {}
+    scan_backward = 0
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        for spec in DRYRUN_CELLS:
+            (arch, shape, variant), = dryrun.parse_cells(spec)
+            _zero_counters(torch, counters)
+            bwd0 = linear_scan.backward_launches
+            allocated = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, "single", out, variant)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run = f"dryrun_{arch}_{shape}"
+            by_run[run] = _launches(counters)
+            m = rec.get("measured", {})
+            fields = {k: m.get(k) for k in ("status", "what", "ms", "bound_ms", "bound_by",
+                                             "fraction", "tokens_per_s", "peak_gb",
+                                             "reckoned_gb", "capture_ms", "finite")}
+            per_run = {k: v for k, v in m.get("launches_per_run", {}).items() if v}
+            emit("dryrun", cell=spec, wall_s=wall, record_status=rec["status"],
+                 error=rec.get("error"), params_total=rec.get("params_total"),
+                 dominant=rec.get("roofline", {}).get("dominant"),
+                 roofline_bound_s=rec.get("roofline", {}).get("bound_s"), **fields,
+                 launches_per_run=per_run, launches_in_run=by_run[run],
+                 device=m.get("device"))
+            summary[spec] = fields
+            if rec["status"] != "ok":
+                fail(f"dryrun {spec}: {rec.get('error')}")
+            if spec in DRYRUN_TOO_LARGE:
+                if m["status"] != "too_large" or torch.cuda.memory_allocated() != allocated:
+                    fail(f"dryrun {spec}: {m['status']}, allocated "
+                         f"{torch.cuda.memory_allocated() - allocated} bytes")
+                continue
+            if m["status"] != "ok" or not m["finite"] or \
+                    not 0 < m["fraction"] <= DRYRUN_FRACTION_LIMIT:
+                fail(f"dryrun {spec}: {fields}")
+            cell = dryrun.resolve_cell(arch, shape, variant)
+            cfg = cell.cfg
+            if cell.kind == "asd" and per_run != {"grs": 1, "flash_attention": 2 * cfg.n_layers}:
+                fail(f"dryrun {spec}: launches a round {per_run}, expected B1 once and B2 "
+                     f"once a layer in the eager head's call and in the verification call "
+                     f"({2 * cfg.n_layers})")
+            if shape == "prefill_32k" and per_run != {"flash_attention": _attention_layers(cfg)}:
+                fail(f"dryrun {spec}: launches a prefill {per_run}, expected B2 once in each "
+                     f"of {_attention_layers(cfg)} attention layers")
+            if shape == "train_4k" and arch == "hymba-1.5b":
+                scan_backward = linear_scan.backward_launches - bwd0
+                chunks = cfg.n_layers * -(-4096 // MAMBA_CHUNK)
+                if per_run != {"ssm_scan": 2 * chunks, "ssm_scan_backward": chunks}:
+                    fail(f"dryrun {spec}: launches a step {per_run}, expected B7's forward "
+                         f"{2 * chunks} (remat) and backward {chunks}")
+            elif shape == "train_4k" and per_run:
+                fail(f"dryrun {spec}: launches a step {per_run}, expected none")
+    try:
+        dryrun.parse_cells(DRYRUN_REFUSED)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    if refused is None or "A9" not in refused:
+        fail(f"dryrun {DRYRUN_REFUSED}: not refused naming A9 ({refused})")
+    emit("dryrun_summary", cells=summary, refused={DRYRUN_REFUSED: refused},
+         fraction_limit=DRYRUN_FRACTION_LIMIT)
+    return by_run, scan_backward
+
+
+# the plain attention runs a group of heads at a time, as many as keep its
+# float32 scores within this (one head's at a 32k prefill take 4.3 GB)
+PLAIN_SCORE_BYTES = 1 << 32
+# B2 at the 32k prefill shape the smoke holds against its plain version
+# (tinyllama-1.1b's); tools/flash_prefill_32k.py takes the other archs'
+DRYRUN_PREFILL_FLASH = ("tinyllama-1.1b", (1, 32768, 32768, 32, 64))
+# the ASD cells of DRYRUN_CELLS whose B1 and B2 shapes get kernels-line rows
+DRYRUN_ASD_CELLS = ("paper-diffusion-policy:asd", "paper-pixel-dit:asd:memopt")
+
+
+def flash_shape_row(torch, dev, at, shape, causal, window=0, softcap=0.0, seed=SEED + 80,
+                    reps=3):
+    """B2 (bf16, the wgmma kernel) at one (B, Lq, S, H, hd) shape, held
+    against its plain version within FLASH_TOLERANCE (fails outside it),
+    the plain version a group of heads at a time (PLAIN_SCORE_BYTES); then
+    the kernel, the plain version and the library call timed as in phase 3,
+    with the bound (bf16 operations at 989 TFLOP/s or bytes at 3.35 TB/s).
+    The library call is SDPA (is_causal, or the boolean band mask for a
+    window); with a softcap there is none.  Returns the kernels-line row."""
+    from repro_torch.kernels.flash_attention.ops import attention_plain, flash_mha, flash_wgmma
+    from repro_torch.nn.attention import attn_mask
+
+    B, Lq, S, H, hd = shape
+    q, k, v = _flash_inputs(torch, dev, B, Lq, S, H, hd, seed)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    per = max(1, min(H, PLAIN_SCORE_BYTES // (4 * B * Lq * S)))
+
+    def kernel():
+        return flash_mha(q, k, v, **opts)
+
+    def plain():
+        return torch.cat([attention_plain(q[:, :, h:h + per], k[:, :, h:h + per],
+                                          v[:, :, h:h + per], **opts)
+                          for h in range(0, H, per)], dim=2)
+
+    ok, op = kernel(), plain()
+    torch.cuda.synchronize()
+    used = _flash_tolerance_used(ok, op)
+    err = (ok.float() - op.float()).abs().max().item()
+    del ok, op
+    where = (f"{at} {list(shape)}{' causal' if causal else ''}"
+             f"{f' window {window}' if window else ''}{f' softcap {softcap:g}' if softcap else ''}")
+    if not used <= 1.0:
+        fail(f"flash at {where}: {used} of the tolerance ({FLASH_TOLERANCE})")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = attn_mask(Lq, S, True, window, dev) if window else None
+    library = None if softcap else (lambda: sdpa(qt, kt, vt, attn_mask=mask)) if window else (
+        lambda: sdpa(qt, kt, vt, is_causal=causal))
+    times = kernel_times(kernel, plain, library, reps=reps, wrapper=flash_wgmma)
+    flops = 4.0 * B * H * _attended_pairs(Lq, S, causal, window) * hd
+    bms, by = bound_ms(2.0 * B * H * hd * (2 * Lq + 2 * S), flops, PEAK_BF16)
+    del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return dict(name="flash_attention", route="cuda", source=FLASH_WGMMA_SOURCE,
+                replaces=FLASH_REPLACES, at=where, shape=list(shape), causal=causal,
+                window=window, softcap=softcap, max_abs_err=err, tolerance=FLASH_TOLERANCE,
+                tolerance_used=used, **times,
+                library=("none (no single call: softcap)" if softcap else
+                         "scaled_dot_product_attention"
+                         + (" with the boolean band mask" if window else "")),
+                bound_ms=bms, bound_by=by, tflops=_tflops(flops, times),
+                share_of_bound=bms / times["device_ms"] if times["device_ms"] else None,
+                note=f"plain: attention_plain {per} head(s) at a time")
+
+
+def check_dryrun_kernels(torch, dev):
+    """B1, B2 and B7 at the shapes the dry run's cells (phase ``dryrun``)
+    give them, against their plain versions and timed as in phase 3, with
+    their bounds: B2 at tinyllama-1.1b's 32k prefill (1, 32768, 32, 64)
+    causal (``flash_shape_row``); in each DRYRUN_ASD_CELLS cell, GRS over
+    its chains x theta rows of the event, within 1e-5, and B2 non-causal at
+    the eager head's proposal call (the chains) and at the verification
+    call (chains x (theta + 1) points), half a round's launches each; B7's
+    forward and backward kernels at the chunk hymba-1.5b's train_4k step
+    gives them, (1, 1024, 25600), in bits.  Returns (the B1 and B2 rows,
+    each with the runs at its shape and its share of their launches; the
+    two B7 rows)."""
+    from repro_torch.core.grs import grs as grs_plain
+    from repro_torch.kernels.grs.ops import grs
+    from repro_torch.kernels.ssm_scan.ops import (linear_scan, ssm_scan_backward_cuda,
+                                                  ssm_scan_backward_plain, ssm_scan_plain)
+    from repro_torch.launch import dryrun
+
+    arch, shape = DRYRUN_PREFILL_FLASH
+    row = flash_shape_row(torch, dev, f"{arch} prefill_32k", shape, causal=True)
+    emit("dryrun_kernels", kernel="flash_attention", **row)
+    rows = [dict(row, runs={f"dryrun_{arch}_prefill_32k": 1.0})]
+    for i, spec in enumerate(DRYRUN_ASD_CELLS):
+        (arch, shape_name, variant), = dryrun.parse_cells(spec)
+        cell = dryrun.resolve_cell(arch, shape_name, variant)
+        run = f"dryrun_{arch}_{shape_name}"
+        dc, cfg, theta = cell.dc, cell.cfg, dryrun.ASD_THETA
+        R, D = cell.n_chains * theta, dc.seq_len * dc.d_data
+        args = _grs_inputs(torch, dev, R, D, SEED + 82 + i)
+        err, accepted = _grs_compare(torch, args)
+        times = kernel_times(lambda: grs(*args), lambda: grs_plain(*args), wrapper=grs)
+        bms, by = _grs_bound(R, D)
+        del args
+        at = f"{spec} round: ({R}, {D})"
+        emit("dryrun_kernels", kernel="grs", at=at, max_abs_err=err, accepted_rows=accepted,
+             **times, bound_ms=bms, bound_by=by, geometry=_row_geometry(R, D))
+        rows.append(dict(name="grs", route="cuda", source="src/repro_torch/csrc/grs.cu",
+                         replaces="src/repro/kernels/grs/kernel.py:27", at=at,
+                         max_abs_err=err, **times, library=None, bound_ms=bms, bound_by=by,
+                         runs={run: 1.0}))
+        for call, B in (("eager head", cell.n_chains),
+                        ("verification", cell.n_chains * (theta + 1))):
+            row = flash_shape_row(torch, dev, f"{spec} {call}",
+                                  (B, dc.seq_len, dc.seq_len, cfg.n_heads,
+                                   cfg.resolved_head_dim), causal=False, seed=SEED + 84 + i)
+            emit("dryrun_kernels", kernel="flash_attention", **row)
+            rows.append(dict(row, runs={run: 0.5}))
+
+    B, L, D = 1, MAMBA_CHUNK, 1600 * 16
+    a, b, G = _scan_inputs(torch, dev, B, L, D, SEED + 81)
+    h = linear_scan(a, b)
+    da, db = ssm_scan_backward_cuda(a, h, G)
+    torch.cuda.synchronize()
+    pda, pdb = ssm_scan_backward_plain(a, h, G)
+    equal = {"forward": bool(torch.equal(h, ssm_scan_plain(a, b))),
+             "backward": bool(torch.equal(da, pda) and torch.equal(db, pdb))}
+    if not all(equal.values()):
+        fail(f"dryrun_kernels: B7 at {[B, L, D]} differs from its plain version: {equal}")
+    n = B * L * D
+    at = f"hymba-1.5b train_4k chunk {[B, L, D]} (4 a layer at (1, 4096))"
+    scans = []
+    for name, kernel, plain_fn, nbytes, ops, source, replaces in (
+            ("ssm_scan", lambda: linear_scan(a, b), lambda: ssm_scan_plain(a, b), 12.0 * n,
+             2.0 * n, "src/repro_torch/csrc/ssm_scan.cu",
+             "src/repro/kernels/ssm_scan/kernel.py:27"),
+            ("ssm_scan_backward", lambda: ssm_scan_backward_cuda(a, h, G),
+             lambda: ssm_scan_backward_plain(a, h, G), 20.0 * n, 3.0 * n,
+             "src/repro_torch/csrc/ssm_scan_bwd.cu",
+             "none: src/repro/kernels/ssm_scan/ref.py:17 (the JAX package differentiates "
+             "its associative scan by autodiff)")):
+        # 5 calls: each plain call is ~3,000 launches, which the profiler
+        # takes seconds to read back
+        times = kernel_times(kernel, plain_fn, reps=5, wrapper=linear_scan)
+        bms, by = bound_ms(nbytes, ops, PEAK_F32)
+        emit("dryrun_kernels", kernel=name, at=at, equal_bits=True, **times, library=None,
+             bound_ms=bms, bound_by=by,
+             share_of_bound=bms / times["device_ms"] if times["device_ms"] else None)
+        scans.append(dict(name=name, route="cuda", source=source, replaces=replaces, at=at,
+                          max_abs_err=0.0, **times, library=None, bound_ms=bms, bound_by=by))
+    return rows, scans
+
+
 def _standin_dc(spec):
     from repro_torch.configs.base import ModelConfig
     from repro_torch.models.diffusion import DenoiserConfig
@@ -6250,6 +6516,11 @@ def main() -> None:
     clock("lm_train_profile")
     check_lm_train_reference(torch, dev)
     clock("lm_train_reference")
+    dryrun_launches, dryrun_scan_backward = run_dryrun(torch, dev)
+    by_run.update(dryrun_launches)
+    clock("dryrun")
+    dryrun_rows, dryrun_scans = check_dryrun_kernels(torch, dev)
+    clock("dryrun_kernels")
     f32_standins = check_standin_kernels(torch, dev)
     clock("standin_kernels")
     run_train_full_width(torch, dev)
@@ -6298,7 +6569,7 @@ def main() -> None:
                  f"shape: {per}")
         kern["launches"] = sum(per.values())
         kern["launches_by_run"] = per
-    for kern in lm_rows:
+    for kern in lm_rows + dryrun_rows:
         per = {run: round(by_run[run][kern["name"]] * share)
                for run, share in kern.pop("runs").items()}
         if not all(per.values()):
@@ -6314,7 +6585,16 @@ def main() -> None:
     fwd_launches = by_run["lm_train_hymba-1.5b"]["ssm_scan"] - scan_backward_launches
     scan_train_fwd["launches"] = fwd_launches
     scan_train_fwd["launches_by_run"] = {"lm_train_hymba-1.5b": fwd_launches}
-    kernels += branched_rows + lm_rows + [scan_train_fwd, scan_backward]
+    # B7 at the dry run's hymba train_4k chunk: its backward once a chunk a
+    # layer, its forward the run's other launches (the forward and the
+    # recompute)
+    dryrun_train = "dryrun_hymba-1.5b_train_4k"
+    for kern, n in zip(dryrun_scans, (by_run[dryrun_train]["ssm_scan"] - dryrun_scan_backward,
+                                      dryrun_scan_backward)):
+        kern["launches"] = n
+        kern["launches_by_run"] = {dryrun_train: n}
+    kernels += (branched_rows + lm_rows + [scan_train_fwd, scan_backward] + dryrun_rows
+                + dryrun_scans)
     emit("phase_seconds", **clock.seconds, total=sum(clock.seconds.values()),
          note="wall seconds of each group of phases, in order, the build included")
     print(json.dumps({"kernels": kernels}), flush=True)

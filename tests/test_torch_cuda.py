@@ -1622,3 +1622,62 @@ def test_chunked_mamba_gives_the_unchunked_bits_on_the_card(dev, chunk):
     assert linear_scan.launches == -(-45 // chunk)
     assert torch.equal(out.view(torch.int32), whole.view(torch.int32))
     assert torch.equal(st["ssm"].view(torch.int32), ws["ssm"].view(torch.int32))
+
+
+@pytest.mark.parametrize("arch, shape, L", [("tinyllama-1.1b", "train_4k", 64),
+                                            ("hymba-1.5b", "train_4k", 64),
+                                            ("tinyllama-1.1b", "prefill_32k", 128),
+                                            ("hymba-1.5b", "decode_32k", 128)])
+def test_dryrun_measures_a_reduced_lm_cell_on_the_card(dev, tmp_path, arch, shape, L):
+    """``run_cell`` of a reduced cell of each LM kind on the card: measured
+    ok and finite, timed by events, its peak read, B2 once a layer in a
+    prefill (the reduced configs run float32: its float32 kernel), B7 in
+    hymba's step (once a layer forward, once backward: no remat), a decode
+    step as a captured graph."""
+    from repro_torch.launch import dryrun
+
+    cfg = reduced(get_config(arch))
+    rec = dryrun.run_cell(arch, shape, "single", str(tmp_path), config=cfg, seq_len=L)
+    assert rec["status"] == "ok", rec.get("traceback")
+    m = rec["measured"]
+    assert m["status"] == "ok" and m["finite"] and 0 < m["fraction"] <= 1.05
+    assert m["peak_gb"] > 0 and m["device"] != "cpu" and len(m["runs_ms"]) >= 3
+    launches = {k: v for k, v in m["launches_per_run"].items() if v}
+    if shape == "prefill_32k":
+        assert launches == {"flash_attention_f32": cfg.n_layers}
+    elif arch == "hymba-1.5b" and shape == "train_4k":
+        assert launches == {"ssm_scan": cfg.n_layers, "ssm_scan_backward": cfg.n_layers}
+    elif shape == "decode_32k":
+        assert "captured as a CUDA graph" in m["what"] and m["capture_ms"] > 0
+        assert not launches
+    else:
+        assert not launches
+
+
+def test_dryrun_measures_an_asd_round_on_the_card(dev, tmp_path):
+    """The smoke policy's ASD cell at 8 chains, K 40, counter noise: rounds
+    2-4 of the replayed round graph, B1 once and B2 (float32) twice a
+    layer a round."""
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_cell("paper-diffusion-policy-smoke", "asd", "single", str(tmp_path),
+                          "memopt", n_chains=8, K=40)
+    assert rec["status"] == "ok", rec.get("traceback")
+    m = rec["measured"]
+    assert m["status"] == "ok" and m["finite"] and m["capture_ms"] > 0
+    assert {k: v for k, v in m["launches_per_run"].items() if v} == \
+        {"grs": 1, "flash_attention_f32": 2 * 2}
+
+
+def test_dryrun_too_large_cell_allocates_nothing(dev, tmp_path):
+    """dbrx-132b's prefill_32k is reckoned past 0.9 of the card: recorded
+    too_large, and not one byte is allocated for it."""
+    from repro_torch.launch import dryrun
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec = dryrun.run_cell("dbrx-132b", "prefill_32k", "multi", str(tmp_path))
+    assert rec["status"] == "ok" and rec["measured"]["status"] == "too_large"
+    assert rec["measured"]["reckoned_gb"] > rec["measured"]["limit_gb"]
+    assert torch.cuda.memory_allocated() == before == torch.cuda.max_memory_allocated()
