@@ -159,6 +159,30 @@ Phases, each printing one JSON line and raising on any failure:
               supersteps: sample bits, retired, depth, window and accept
               rate equal to the unsharded run with the same round flags;
               launches of every kernel per round, round ms, idle share.
+     model_parallel
+              serving model parallelism over a model group of two ranks
+              sharing this card (``repro_torch.distributed.group.run_group``:
+              gloo over pinned host copies, so every collective time is
+              host-staged, not NVLink), the card's name and power limit on
+              each line: the full-width pixel-dit (PIXEL_DEPTH layers) TP2
+              and SP2 forwards of 16 points against the replicated forward
+              on the card (relative L2 under MP_BF16_GATE, the ranks and a
+              second call equal in bits, B2 once a layer at 8 local heads,
+              each rank's resident weight bytes); a planted fault (rank 1
+              keeps its own ``wo`` partial sum) the TP2 check must catch;
+              the TP2 ``ShardedASDEngine`` at full width and MP_ENGINE_DEPTH
+              layers (4 keyed requests, 4 slots, theta 8, K 64, packed
+              fused rounds at budget 16),
+              twice: every request retired, the same bits on both ranks and
+              in both runs, launches per round the replicated engine's,
+              warm round ms, the calibrated psum and all_to_all ms a round;
+              the float32 engines (policy smoke TP2, and SP2 over two shards
+              in fused dispatch with packed fused rounds, MoE smoke EP2 and
+              EP2+SP2) against the replicated engine on the card:
+              counters equal, samples within MP_F32_TOL, launches per round
+              equal.  The ranks' supersteps are eager (a host-staged
+              collective cannot be captured), so the host-sync-as-error
+              checks of the captured phases do not apply.
      serve_keys_reference
               the counter-noise engine on a small denoiser, on the card
               and on the CPU from the same keys (keyed and unkeyed
@@ -297,7 +321,7 @@ Phases, each printing one JSON line and raising on any failure:
               allocated, B2 once an attention layer a prefill, B7's forward
               and backward in hymba's step, B1 once and B2 twice a layer an
               ASD round; tinyllama's train_4k under the fsdp variant refused
-              naming ROADMAP A9.  Then, against their plain versions and
+              naming ROADMAP A13.  Then, against their plain versions and
               timed as in phase 3 (dryrun_kernels): B2 at the 32k prefill's
               (1, 32768, 32, 64) causal (its plain version a head at a
               time), GRS at the ASD rounds' (4096, 224) and (512, 196608)
@@ -5378,7 +5402,7 @@ def run_dryrun(torch, dev):
     core), B7's forward twice (remat) and its backward once a chunk a layer
     in hymba's step, B1 once and B2 twice a layer (the eager head's call
     and the verification call) in each ASD round; DRYRUN_REFUSED refused
-    naming ROADMAP A9.  Returns
+    naming ROADMAP A13.  Returns
     the launches of each cell's run and B7's backward launches in hymba's
     step."""
     import tempfile
@@ -5446,8 +5470,8 @@ def run_dryrun(torch, dev):
         refused = None
     except ValueError as e:
         refused = str(e)
-    if refused is None or "A9" not in refused:
-        fail(f"dryrun {DRYRUN_REFUSED}: not refused naming A9 ({refused})")
+    if refused is None or "A13" not in refused:
+        fail(f"dryrun {DRYRUN_REFUSED}: not refused naming A13 ({refused})")
     emit("dryrun_summary", cells=summary, refused={DRYRUN_REFUSED: refused},
          fraction_limit=DRYRUN_FRACTION_LIMIT)
     return by_run, scan_backward
@@ -6399,6 +6423,431 @@ def run_sharded_serve_cli(torch, dev):
     return by_run
 
 
+# ------------------------------------------------------------ model_parallel
+# serving model parallelism over a model group of two ranks sharing this card
+
+MP_WORLD = 2
+# points of the full-width forward checks: the engine's verification call
+# (BUDGET points)
+MP_POINTS = BUDGET
+# relative L2 of the sharded full-width pixel-dit forward against the
+# replicated one on the same card: each rank rounds its partial sum of each
+# row-parallel product (wo, w_down; two a layer) to bf16 before the psum
+# adds them, one more rounding of bf16's epsilon (2^-8) a product where the
+# replicated forward rounds once; the roundings add in quadrature over the
+# 2 x depth products, times 2 for the margin
+MP_BF16_GATE = 2 * 2.0 ** -8 * math.sqrt(2 * PIXEL_DEPTH)
+# the float32 engines against the replicated engine: samples within
+# MP_F32_TOL + MP_F32_TOL |replicated| (the CPU tests' allclose)
+MP_F32_TOL = 1e-5
+# name -> (config, tensor, expert, sp, fused) of the float32 engines;
+# fused: packed fused rounds at the covering budget, and the group's engine
+# over two shards in fused dispatch
+MP_F32_RUNS = {
+    "policy_tp2": ("paper-diffusion-policy-smoke", True, False, 1, False),
+    "policy_sp2_fused": ("paper-diffusion-policy-smoke", False, False, 2, True),
+    "moe_ep2": ("qwen3-moe-a3b-smoke", False, True, 1, False),
+    "moe_ep2_sp2": ("qwen3-moe-a3b-smoke", False, True, 2, False),
+}
+MP_F32_K, MP_F32_THETA, MP_F32_REQUESTS = 16, 4, 6
+MP_ENGINE_REQUESTS = 4
+# the full-width TP2 engine's layers: every row-parallel product's psum
+# crosses the host (2.8 s a round at 12 layers on an NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md), so the engine runs a third of PIXEL_DEPTH to keep
+# the smoke inside its limit; the forward checks run all PIXEL_DEPTH
+MP_ENGINE_DEPTH = 4
+
+
+def _mp_pixel_dc(depth: int):
+    from repro_torch.configs.registry import paper_pixel_dit
+
+    dc = paper_pixel_dit()
+    return dataclasses.replace(dc, backbone=dataclasses.replace(dc.backbone, n_layers=depth))
+
+
+def _mp_specs(dc, world, tensor, expert=False):
+    from repro_torch.distributed.sharding import mp_param_pspecs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.nn.param import param_axes
+    from repro_torch.weights import param_shapes
+
+    return mp_param_pspecs(param_axes(dc), param_shapes(dc), Mesh((world,), ("model",), ()),
+                           tensor=tensor, expert=expert)
+
+
+def _mp_axes(group, tensor, expert, sp):
+    return dict(tp_axis=group if tensor and sp == 1 else None,
+                sp_axis=group if sp > 1 else None, sp_size=sp,
+                ep_axis=group if expert else None)
+
+
+def _tree_bytes(tree, only=None):
+    from repro_torch import pytree
+
+    return sum(t.numel() * t.element_size() for path, t in pytree.paths(tree)
+               if only is None or only(path))
+
+
+@contextlib.contextmanager
+def _dropped_wo_psum(active):
+    """The planted fault: where ``active``, attention's row-parallel ``wo``
+    still joins the psum (the peer must not hang) but keeps its own partial
+    sum instead of the total."""
+    from repro_torch.nn import attention
+
+    orig = attention._out
+
+    def out(params, o, dtype, tp_axis=None, n_heads=0):
+        B, L, H, hd = o.shape
+        partial = o.reshape(B, L, H * hd) @ params["wo"].reshape(H * hd, -1).to(dtype)
+        if tp_axis is not None and H != n_heads:
+            tp_axis.psum(partial)
+        return partial
+
+    if active:
+        attention._out = out
+    try:
+        yield
+    finally:
+        attention._out = orig
+
+
+def _mp_pixel_forwards(torch, group, counters, dc, params):
+    """TP2 and SP2 forwards of the full-width pixel-dit on this rank (and,
+    on rank 0, the replicated forward), two calls each, then the TP2
+    forward with rank 1's wo psum dropped."""
+    from repro_torch import pytree
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.models.diffusion import make_sl_model_fn
+
+    dev = group.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 90)
+    t = torch.exp(torch.linspace(math.log(0.05), math.log(50.0), MP_POINTS)).to(dev)
+    y = torch.randn(MP_POINTS, dc.seq_len, dc.d_data, generator=g, device=dev) * (
+        t * t + t).sqrt()[:, None, None]
+    res = {"full_bytes": _tree_bytes(params)}
+    with torch.no_grad():
+        if group.rank == 0:
+            fn = make_sl_model_fn(params, dc)
+            fn(t, y)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res["ref"] = fn(t, y)
+            torch.cuda.synchronize()
+            res["ref_ms"] = (time.perf_counter() - t0) * 1e3
+            res["ref"] = res["ref"].cpu()
+            del fn
+        for mode, tensor, sp in (("tp2", True, 1), ("sp2", False, 2)):
+            specs = _mp_specs(dc, group.world, tensor)
+            local = shard_params(params, specs, group.rank, group.world)
+            sharded = {path for path, spec in pytree.paths(specs) if "model" in spec}
+            fn = make_sl_model_fn(local, dc, **_mp_axes(group, tensor, False, sp))
+            _zero_counters(torch, counters)
+            t0 = time.perf_counter()
+            out = fn(t, y)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = _launches(counters)
+            t0 = time.perf_counter()
+            again = fn(t, y)
+            torch.cuda.synchronize()
+            res[mode] = dict(out=out.cpu(), again_equal=bool(torch.equal(out, again)),
+                             first_ms=ms, warm_ms=(time.perf_counter() - t0) * 1e3,
+                             launches=launches, resident_bytes=_tree_bytes(local),
+                             sharded_bytes=_tree_bytes(params, lambda p: p in sharded),
+                             sharded_leaves=len(sharded))
+            if mode == "tp2":
+                with _dropped_wo_psum(group.rank == 1):
+                    res["tp2_fault"] = fn(t, y).cpu()
+            del fn, local, out, again
+    return res
+
+
+def _mp_engine(group, dc, params, tensor, expert, sp, make_fn, sched, calibrate=True, **kw):
+    from repro_torch.models.diffusion import mp_collective_payloads
+    from repro_torch.serving.sharded import ShardedASDEngine
+
+    specs = _mp_specs(dc, group.world, tensor, expert)
+    axes = _mp_axes(group, tensor, expert, sp)
+    return ShardedASDEngine(
+        lambda p: make_fn(p, dc, **axes), sched, (dc.seq_len, dc.d_data),
+        model_shards=group.world, model_group=group, params=params, param_specs=specs,
+        collective_payloads=mp_collective_payloads(params, specs, dc, mp_size=group.world,
+                                                   sp_size=sp) if calibrate else None,
+        device=group.device, noise_mode="counter", keep_trajectory=False, **kw)
+
+
+def _mp_serve(torch, eng, reqs, counters):
+    _zero_counters(torch, counters)
+    t0 = time.perf_counter()
+    samples = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = eng.stats
+    return dict(samples=samples, wall_s=wall, rounds=s.rounds_total,
+                supersteps=s.supersteps, launches=_launches(counters),
+                counters={m.rid: (m.rounds, m.head_calls, m.model_evals, m.accepts,
+                                  m.proposals) for m in s.per_request},
+                collective_s=s.collective_s, collective_psum_s=s.collective_psum_s,
+                collective_a2a_s=s.collective_a2a_s,
+                eager=all(w._eager for w in getattr(eng, "workers", [eng])))
+
+
+def _mp_f32_kwargs(name, shards):
+    """The float32 engine's kwargs: unpacked rounds, or packed fused rounds
+    at the covering budget over ``shards`` shards in fused dispatch."""
+    if not MP_F32_RUNS[name][4]:
+        return {}
+    kw = dict(execution="packed", round_impl="fused",
+              round_budget=SLOTS // shards * MP_F32_THETA)
+    return kw if shards == 1 else dict(kw, shards=shards, dispatch="fused")
+
+
+def _mp_f32_setup(torch, dev, name):
+    """(dc, params, schedule, requests) of a float32 engine run: the
+    weights from the numpy seed (the same on every process), keyed
+    requests with their y0."""
+    from repro_torch.configs.registry import get_denoiser_config
+    from repro_torch.core.schedules import ddpm
+    from repro_torch.serving.worker import Request
+    from repro_torch.weights import init_denoiser_params
+
+    dc = get_denoiser_config(MP_F32_RUNS[name][0])
+    params = init_denoiser_params(dc, SEED, out_scale=1.0, device=dev)
+    rng = np.random.default_rng(SEED + 300)
+    reqs = [Request(i, key=np.array([0, 3000 + i], np.uint32),
+                    y0=rng.standard_normal((dc.seq_len, dc.d_data)).astype(np.float32))
+            for i in range(MP_F32_REQUESTS)]
+    return dc, params, ddpm(MP_F32_K), reqs
+
+
+def _mp_rank(group, _):
+    """One rank of the phase: the full-width forwards and engine, then the
+    float32 engines; returns what the parent checks (tensors on the host)."""
+    import torch
+
+    from repro_torch.core.schedules import sl_geometric
+    from repro_torch.models.diffusion import make_ddpm_model_fn, make_sl_model_fn
+    from repro_torch.serving.worker import Request
+    from repro_torch.weights import init_denoiser_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, counters = group.device, _counters()
+    dc = _mp_pixel_dc(PIXEL_DEPTH)
+    t0 = time.perf_counter()
+    params = init_denoiser_params(dc, SEED, out_scale=OUT_SCALE, device=dev)
+    out = {"rank": group.rank, "weights_s": time.perf_counter() - t0}
+    out["pixel"] = _mp_pixel_forwards(torch, group, counters, dc, params)
+    del params
+    torch.cuda.empty_cache()
+    dc = _mp_pixel_dc(MP_ENGINE_DEPTH)
+    params = init_denoiser_params(dc, SEED, out_scale=OUT_SCALE, device=dev)
+    sched = sl_geometric(K, 0.05, 50.0)
+    runs = []
+    for i in range(2):  # the second run for its bits: no calibration probe
+        t0 = time.perf_counter()
+        eng = _mp_engine(group, dc, params, True, False, 1, make_sl_model_fn, sched,
+                         calibrate=i == 0, num_slots=SLOTS, theta=THETA,
+                         execution="packed", round_impl="fused", round_budget=BUDGET)
+        init_s = time.perf_counter() - t0
+        reqs = [Request(i, key=np.array([0, 4000 + i], np.uint32))
+                for i in range(MP_ENGINE_REQUESTS)]
+        runs.append(dict(_mp_serve(torch, eng, reqs, counters), init_s=init_s,
+                         calibrated=dict(eng.workers[0]._collective_kind_s)))
+        del eng
+    out["engine"] = runs
+    del params
+    torch.cuda.empty_cache()
+    out["f32"] = {}
+    for name, (_, tensor, expert, sp, _) in MP_F32_RUNS.items():
+        f32_dc, f32_params, f32_sched, reqs = _mp_f32_setup(torch, dev, name)
+        eng = _mp_engine(group, f32_dc, f32_params, tensor, expert, sp, make_ddpm_model_fn,
+                         f32_sched, num_slots=SLOTS, theta=MP_F32_THETA,
+                         **_mp_f32_kwargs(name, 2))
+        out["f32"][name] = _mp_serve(torch, eng, reqs, counters)
+    return out
+
+
+def _mp_forward_problems(torch, ranks, key, ref):
+    """What is wrong with the ranks' ``key`` forward against ``ref``: a
+    relative L2 error above MP_BF16_GATE, ranks of other bits, a value not
+    finite.  Returns (problems, relative L2 errors by rank)."""
+    outs = [r["pixel"][key] if key.endswith("fault") else r["pixel"][key]["out"]
+            for r in ranks]
+    rels = [_rel_l2(o.float(), ref.float()) for o in outs]
+    problems = [f"rank {i}: relative L2 {e:.4g} > {MP_BF16_GATE:.4g}"
+                for i, e in enumerate(rels) if not e <= MP_BF16_GATE]
+    if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+        problems.append("the ranks' outputs differ in bits")
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        problems.append("not finite")
+    return problems, rels
+
+
+def run_model_parallel(torch, dev):
+    """Serving model parallelism over a model group of two ranks on this one
+    card (``repro_torch.distributed.group.run_group``, gloo over pinned
+    host copies), phase ``model_parallel``: the full-width pixel-dit TP2
+    and SP2 forwards against the replicated forward (B2 at 8 local heads
+    inside each), a planted fault, the TP2 engine at full width, and the
+    float32 engines against the replicated engine on the card.  Returns
+    (launches by run, the kernels-line row of B2 at the sharded
+    verification's shape)."""
+    from repro_torch.distributed.group import run_group
+    from repro_torch.models.diffusion import make_ddpm_model_fn
+    from repro_torch.serving.engine import ContinuousASDEngine
+
+    t_phase = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    emit("model_parallel_note", card=card, note=(
+        "every collective of this phase is host-staged gloo between two processes "
+        "sharing this one card (pinned host copies), not NVLink; a host-staged "
+        "collective cannot be captured, so the ranks' supersteps run eagerly and the "
+        "captured phases' host-sync-as-error checks do not apply to them"))
+    counters = _counters()
+    # the replicated float32 engines, here on the card (captured graphs)
+    refs = {}
+    for name in MP_F32_RUNS:
+        dc, params, sched, reqs = _mp_f32_setup(torch, dev, name)
+        eng = ContinuousASDEngine(make_ddpm_model_fn(params, dc), sched,
+                                  (dc.seq_len, dc.d_data), num_slots=SLOTS,
+                                  theta=MP_F32_THETA, noise_mode="counter",
+                                  keep_trajectory=False, device=dev,
+                                  **_mp_f32_kwargs(name, 1))
+        refs[name] = _mp_serve(torch, eng, reqs, counters)
+        del eng
+    _fresh_memory(torch)
+    t0 = time.perf_counter()
+    ranks = run_group(_mp_rank, MP_WORLD, dev, (None,))
+    group_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    ref = r0["pixel"]["ref"]
+    by_run = {}
+    for mode in ("tp2", "sp2"):
+        problems, rels = _mp_forward_problems(torch, ranks, mode, ref)
+        p = r0["pixel"][mode]
+        if problems or not all(r["pixel"][mode]["again_equal"] for r in ranks):
+            fail(f"model_parallel {mode} forward: {problems}, second call equal "
+                 f"{[r['pixel'][mode]['again_equal'] for r in ranks]}")
+        if p["launches"]["flash_attention"] != PIXEL_DEPTH or any(
+                n for k, n in p["launches"].items() if k != "flash_attention"):
+            fail(f"model_parallel {mode}: launches {p['launches']}, expected B2 "
+                 f"{PIXEL_DEPTH} (once a layer) and nothing else")
+        full, res = r0["pixel"]["full_bytes"], p["resident_bytes"]
+        want = full - p["sharded_bytes"] + p["sharded_bytes"] // MP_WORLD
+        if any(r["pixel"][mode]["resident_bytes"] != want for r in ranks):
+            fail(f"model_parallel {mode}: resident weight bytes "
+                 f"{[r['pixel'][mode]['resident_bytes'] for r in ranks]}, expected {want}")
+        emit("model_parallel", run=f"pixel_{mode}_forward", card=card,
+             model="paper-pixel-dit", layers=PIXEL_DEPTH, points=MP_POINTS,
+             local_heads=16 // MP_WORLD,
+             relative_l2_by_rank=rels, gate=MP_BF16_GATE, gate_rule=(
+                 "2 x bf16 epsilon 2^-8 x sqrt(2 x depth): one more bf16 rounding of "
+                 "each row-parallel product's partial sums, two products a layer"),
+             ranks_equal_bits=True, second_call_equal_bits=True,
+             b2_launches_per_call=p["launches"]["flash_attention"],
+             first_call_ms=p["first_ms"], warm_call_ms=p["warm_ms"],
+             replicated_warm_call_ms=r0["pixel"]["ref_ms"],
+             resident_weight_bytes_by_rank=[r["pixel"][mode]["resident_bytes"]
+                                            for r in ranks],
+             replicated_weight_bytes=full, sharded_leaves=p["sharded_leaves"],
+             sharded_leaf_bytes=p["sharded_bytes"],
+             note="host wall with a synchronize; both ranks run on this one card at once")
+        by_run[f"model_parallel_{mode}_forward"] = p["launches"]
+    problems, rels = _mp_forward_problems(torch, ranks, "tp2_fault", ref)
+    if not problems:
+        fail(f"model_parallel planted fault: the TP2 check passed with rank 1's wo psum "
+             f"dropped (relative L2 {rels})")
+    emit("model_parallel", run="planted_fault", card=card,
+         fault="rank 1 keeps its own wo partial sum (the psum still runs)",
+         relative_l2_by_rank=rels, gate=MP_BF16_GATE, check_failed_with=problems)
+    # the engine at full width: both ranks, both runs, the same bits
+    runs = [r["engine"] for r in ranks]
+    first = runs[0][0]
+    per_round = _per_round(MP_ENGINE_DEPTH)["fused"]
+    for rank, rank_runs in enumerate(runs):
+        for i, run in enumerate(rank_runs):
+            if sorted(run["samples"]) != list(range(MP_ENGINE_REQUESTS)):
+                fail(f"model_parallel engine rank {rank} run {i}: retired "
+                     f"{sorted(run['samples'])}")
+            same = all(np.array_equal(run["samples"][r].view(np.int32),
+                                      first["samples"][r].view(np.int32))
+                       for r in first["samples"])
+            if not same or run["counters"] != first["counters"] or not run["eager"]:
+                fail(f"model_parallel engine rank {rank} run {i}: bits {same}, counters "
+                     f"{run['counters'] == first['counters']}, eager {run['eager']}")
+            want = {k: per_round.get(k, 0) * run["rounds"] for k in run["launches"]}
+            if run["launches"] != want:
+                fail(f"model_parallel engine rank {rank} run {i}: launches "
+                     f"{run['launches']}, the replicated engine's {want} for "
+                     f"{run['rounds']} rounds")
+            if i == 0 and not run["collective_psum_s"] > 0:
+                fail(f"model_parallel engine: no collective lane ({run})")
+    warm = runs[0][1]
+    finite = all(bool(np.isfinite(s).all()) for s in warm["samples"].values())
+    if not finite:
+        fail("model_parallel engine: samples not finite")
+    emit("model_parallel", run="pixel_tp2_engine", card=card, model="paper-pixel-dit",
+         layers=MP_ENGINE_DEPTH, requests=MP_ENGINE_REQUESTS, slots=SLOTS, theta=THETA, K=K,
+         round_budget=BUDGET, round_impl="fused", noise_mode="counter",
+         retired=len(warm["samples"]), ranks_equal_bits=True, runs_equal_bits=True,
+         rounds=warm["rounds"], supersteps=warm["supersteps"],
+         launches_per_round={k: n / warm["rounds"] for k, n in warm["launches"].items()},
+         warm_round_ms=warm["wall_s"] * 1e3 / warm["rounds"],
+         first_run_round_ms=first["wall_s"] * 1e3 / first["rounds"],
+         collective_psum_ms_per_round=first["collective_psum_s"] * 1e3 / first["rounds"],
+         collective_a2a_ms_per_round=first["collective_a2a_s"] * 1e3 / first["rounds"],
+         calibrated_s_per_round=first["calibrated"], engine_init_s=first["init_s"],
+         engine_init_s_uncalibrated=warm["init_s"],
+         accepts=sum(c[3] for c in warm["counters"].values()),
+         proposals=sum(c[4] for c in warm["counters"].values()),
+         note=("collective ms: the first run's calibrated probe (host-staged gloo on one "
+               "card) x rounds; round ms: host wall of the second run / its rounds"))
+    by_run["model_parallel_engine"] = {k: first["launches"][k] + warm["launches"][k]
+                                       for k in first["launches"]}
+    # the float32 engines against the replicated engine on the card
+    for name, (cfg, tensor, expert, sp, fused) in MP_F32_RUNS.items():
+        rep = refs[name]
+        mp = [r["f32"][name] for r in ranks]
+        bits = all(np.array_equal(m["samples"][i].view(np.int32),
+                                  mp[0]["samples"][i].view(np.int32))
+                   for m in mp for i in rep["samples"])
+        err = max(float(np.abs(mp[0]["samples"][i] - rep["samples"][i]).max())
+                  for i in rep["samples"])
+        used = max(float((np.abs(mp[0]["samples"][i] - rep["samples"][i])
+                          / (MP_F32_TOL + MP_F32_TOL * np.abs(rep["samples"][i]))).max())
+                   for i in rep["samples"])
+        lpr_mp = {k: n / mp[0]["rounds"] for k, n in mp[0]["launches"].items()}
+        lpr_rep = {k: n / rep["rounds"] for k, n in rep["launches"].items()}
+        if (mp[0]["counters"] != rep["counters"] or not bits or not used <= 1.0
+                or lpr_mp != lpr_rep):
+            fail(f"model_parallel {name}: counters equal "
+                 f"{mp[0]['counters'] == rep['counters']}, ranks' bits {bits}, max abs "
+                 f"error {err} ({used} of the tolerance), launches per round {lpr_mp} "
+                 f"against {lpr_rep}")
+        emit("model_parallel", run=f"f32_{name}", card=card, model=cfg, tensor=tensor,
+             expert=expert, sp=sp, engine=_mp_f32_kwargs(name, 2) or "unpacked", K=MP_F32_K, theta=MP_F32_THETA, slots=SLOTS,
+             requests=MP_F32_REQUESTS, counters_equal=True, ranks_equal_bits=True,
+             max_abs_err=err, tolerance=f"{MP_F32_TOL} + {MP_F32_TOL} |replicated|",
+             tolerance_used=used, launches_per_round=lpr_mp,
+             accept_law="counters equal: no accept bit differed from the replicated engine",
+             accepts=sum(c[3] for c in rep["counters"].values()),
+             proposals=sum(c[4] for c in rep["counters"].values()),
+             collective_s=mp[0]["collective_s"], round_ms=mp[0]["wall_s"] * 1e3 / mp[0]["rounds"],
+             replicated_round_ms=rep["wall_s"] * 1e3 / rep["rounds"])
+        by_run[f"model_parallel_f32_{name}"] = mp[0]["launches"]
+    row = flash_shape_row(torch, dev, "model_parallel TP2 / SP2 verification, 8 local heads",
+                          (MP_POINTS, 1024, 1024, 16 // MP_WORLD, 64), False)
+    row["runs"] = {"model_parallel_tp2_forward": 1.0, "model_parallel_sp2_forward": 1.0,
+                   "model_parallel_engine": 0.5}
+    emit("model_parallel_done", card=card, group_s=group_s, rank_weights_s=r0["weights_s"],
+         phase_wall_s=time.perf_counter() - t_phase)
+    return by_run, [row]
+
+
 class PhaseClock:
     """Wall seconds since the previous mark, by the name given at each."""
 
@@ -6485,6 +6934,9 @@ def main() -> None:
     clock("serve_cli_branched")
     by_run.update(run_sharded_serve_cli(torch, dev))
     clock("sharded_serve_cli")
+    mp_launches, mp_rows = run_model_parallel(torch, dev)
+    by_run.update(mp_launches)
+    clock("model_parallel")
     check_serve_keys_reference(torch, dev)
     clock("serve_keys_reference")
     by_run.update(run_hymba(torch, dev))
@@ -6503,7 +6955,7 @@ def main() -> None:
     clock("lm_reference")
     moe_launches, moe_rows = run_moe_denoiser(torch, dev)
     by_run.update(moe_launches)
-    lm_rows += moe_rows
+    lm_rows += moe_rows + mp_rows
     clock("moe_denoiser")
     scan_backward, scan_train_fwd = check_ssm_scan_backward(torch, dev)
     clock("ssm_scan_backward")

@@ -7,7 +7,7 @@ the port's copy of the JAX package's ``analysis/report.py``.
 form.  ``dryrun_table`` keeps the JAX columns that mean something for a
 run on one card (the record's status, the measured step's temporaries and
 arguments) and adds the measured step's status; the collective counts are
-"-" until model parallelism is ported (ROADMAP.md A9).
+"-" until the dry run has sharding variants (ROADMAP.md A13).
 ``measured_table`` gives each cell's measured batch-1 step against its
 analytic bound, the cells furthest below their bound first.
 """

@@ -10,8 +10,9 @@ XLA program (``cost_analysis`` and a parse of the post-SPMD HLO).  The port
 has no such program: ``analyze`` builds a ``Roofline`` from an analytic
 ``CellCost`` (``repro_torch.analysis.analytic``) and a chip count, and
 ``memory_stats`` reads a measured step's bytes from ``torch.cuda``.  The
-collective term stays 0 until the analytic collective payloads of model
-parallelism are ported (ROADMAP.md A9, its parallel half).
+collective term stays 0: the term over a mesh of cards (the payload
+schedules of ``models/diffusion.py`` over a link constant) is ROADMAP.md
+A13.
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ XLA's cost analysis; it never runs a step.  Here each record carries:
     mesh (256 or 512 chips, read from ``launch/mesh.py`` without building
     the mesh) at the H100 constants of ``analysis/roofline.py``, train
     cells at ``TRAIN_ACCUM`` and the config's remat.  The collective term
-    is 0 until ROADMAP.md A9;
+    is 0 until ROADMAP.md A13;
   * ``measured``: one batch-1 step of the cell's own work on one card,
     or ``too_large`` where the reckoning (``reckon``: weights, optimizer
     state, caches, ASD buffers and the activation estimate written down
@@ -46,7 +46,7 @@ the cell again.  A cell that
 raises is recorded as an error and the sweep goes on.  The sharding
 variants (``fsdp``, ``dp``, ``sp``, ``pad48sp``, ``dp256``,
 ``dp256memopt``, ``fsdpa1``) are refused when ``--cells`` is read: they
-are ROADMAP.md A9.  ``--device cpu`` runs the plain versions, for the
+are ROADMAP.md A13.  ``--device cpu`` runs the plain versions, for the
 tests.
 """
 
@@ -119,14 +119,14 @@ def refusal(variant: str) -> str | None:
     if profile is None:
         return None
     return (f"variant {variant!r} is the {profile!r} sharding profile: sharding over a "
-            "mesh of cards is ROADMAP.md A9 (its parallel half)")
+            "mesh of cards is ROADMAP.md A13")
 
 
 def parse_cells(spec: str) -> list[tuple[str, str, str]]:
     """``--cells``: "all" (every unskipped (arch, shape) cell, then the
     paper cells), "paper", or a comma list of arch:shape[:variant].
     Raises ValueError for an unknown arch, shape or variant, and for a
-    sharding variant (naming ROADMAP.md A9)."""
+    sharding variant (naming ROADMAP.md A13)."""
     if spec in ("all", "paper"):
         cells = [] if spec == "paper" else [
             (arch, shape.name, "") for arch, shape, skipped in all_cells() if not skipped]
@@ -738,7 +738,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: str, variant: 
     replace the published cell's (``resolve_cell``).  With
     ``measured_dir``, the measured step is kept there and a cell measured
     there before on the same device is not measured again (``_measured``).
-    A sharding variant raises ValueError (ROADMAP.md A9); any other failure
+    A sharding variant raises ValueError (ROADMAP.md A13); any other failure
     is recorded as an ``error``."""
     refused = refusal(variant)
     if refused is not None:

@@ -2,8 +2,9 @@
 ``launch/mesh.py``.
 
 A mesh here is a description (shape, axis names, the devices in row-major
-order), not a communicator: process groups over it come with model
-parallelism (ROADMAP.md A9, its parallel half).  Nothing is touched when
+order), not a communicator: process groups over a mesh of cards are
+ROADMAP.md A13 (the serving model group, ``repro_torch.distributed.group``,
+shares one card).  Nothing is touched when
 the module is imported.  One card cannot hold a production mesh, so
 ``make_production_mesh`` refuses there; the dry run reads the mesh's shape
 and chip count from ``production_mesh_shape`` without building it.
@@ -53,7 +54,7 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     if len(devices) < n:
         raise RuntimeError(
             f"need {n} devices for mesh {shape}, have {len(devices)} — a production "
-            "mesh spans many cards; model parallelism over one is ROADMAP.md A9")
+            "mesh spans many cards; model parallelism over one is ROADMAP.md A13")
     return Mesh(shape, axes, tuple(devices[:n]))
 
 

@@ -23,6 +23,18 @@ them:
                        as one program a boundary; ``--round-budget`` is then
                        per shard (default slots / N * theta * B).
 
+Model parallelism inside a shard, with the JAX CLI's mode resolution and
+messages: ``--model-shards`` N > 1 (tensor parallelism), ``--seq-shards``
+N > 1 (Ulysses sequence parallelism; not with ``--model-shards`` > 1, and
+only where ``sp_compatible`` says so) and ``--expert-parallel`` (the MoE
+expert stacks over the same group, which one of the two must make).  The
+CLI starts the group's ranks itself (``repro_torch.distributed.group
+.run_group``), all on ``--device``: on one card every rank shares it.
+Every rank runs the same engine on the same requests; rank 0 prints the
+summary, with the JAX CLI's ``, mp=N (sequence-parallel)
+(expert-parallel)`` clause and its ``collectives:`` line (the calibrated
+lanes: host-staged gloo here), and the other ranks print nothing.
+
 The flags, their names and defaults are the JAX CLI's, with two
 differences: ``--mesh`` takes only ``1x1`` (its default here), and
 ``--device`` picks the device (default the card; ``cpu`` runs the kernels'
@@ -33,10 +45,10 @@ prefix committed; ``--branch-controller`` static or gain), and the summary
 line then gives the mean accepted prefix a round and the wasted share of
 the drafted points; as in the JAX CLI, the fused engine runs one branch.
 What the port has no counterpart for yet is refused with exit status 2 and
-the ROADMAP.md item that brings it, never ignored: model parallelism
-(``--model-shards``, ``--seq-shards``, ``--expert-parallel``, a ``--mesh``
-other than ``1x1``: A9), and ``--grs-impl`` / ``--pack-impl``, since the
-device picks the plain version (CPU) or the CUDA kernel (card).  The MoE
+the ROADMAP.md item that brings it, never ignored: a ``--mesh`` other than
+``1x1`` (data parallelism over a mesh: A13), and ``--grs-impl`` /
+``--pack-impl``, since the device picks the plain version (CPU) or the
+CUDA kernel (card).  The MoE
 denoiser ``qwen3-moe-a3b-smoke`` is served with every expert on the
 device.
 
@@ -59,9 +71,12 @@ process.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import logging
 import os
+import sys
 import time
 import urllib.error
 import urllib.request
@@ -76,7 +91,12 @@ from repro_torch.core.controller import (BRANCH_CONTROLLERS, CONTROLLERS,
                                          make_branch_controller, make_controller)
 from repro_torch.core.schedules import ddpm as ddpm_schedule
 from repro_torch.device import resolve_device
-from repro_torch.models.diffusion import make_ddpm_model_fn
+from repro_torch.distributed.group import run_group
+from repro_torch.distributed.sharding import mp_param_pspecs
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models.diffusion import (make_ddpm_model_fn, mp_collective_payloads,
+                                          sp_compatible)
+from repro_torch.nn.param import param_axes
 from repro_torch.serving.engine import ContinuousASDEngine, Request
 from repro_torch.serving.obs import (MetricsRegistry, MetricsServer, TraceRecorder,
                                      instrument_engine)
@@ -84,19 +104,17 @@ from repro_torch.serving.packing import ALLOCATORS, make_allocator
 from repro_torch.serving.router import ROUTERS, make_router
 from repro_torch.serving.scheduler import POLICIES, make_policy
 from repro_torch.serving.sharded import ShardedASDEngine
-from repro_torch.weights import denoiser_init_params
+from repro_torch.weights import denoiser_init_params, param_shapes
 
 log = logging.getLogger("repro_torch.serving.serve")
 
+
 def _refusal(args):
     """The message for a flag the port cannot honour yet, or None."""
-    if args.model_shards != 1 or args.seq_shards != 1 or args.expert_parallel:
-        return ("--model-shards / --seq-shards / --expert-parallel: model parallelism "
-                "is ROADMAP.md A9")
     if args.mesh != "1x1":
         return (f"--mesh {args.mesh}: only 1x1 (shards live on the card, or one a card "
-                "with several); a mesh of more devices is data or model parallelism, "
-                "ROADMAP.md A9")
+                "with several; model parallelism is --model-shards / --seq-shards); a "
+                "mesh of more devices is data parallelism, ROADMAP.md A13")
     for flag, value in (("--grs-impl", args.grs_impl), ("--pack-impl", args.pack_impl)):
         if value is not None:
             return (f"{flag} {value}: no counterpart in the port, whose device picks "
@@ -104,11 +122,59 @@ def _refusal(args):
     return None
 
 
+def _params(dc, dev):
+    """The weights drawn on ``dev`` at seed 0 (the same weights on every
+    card and every rank: one seed, one counter-based generator)."""
+    return denoiser_init_params(dc, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+
 def _model_fn(dc, dev):
-    """The model function with the weights drawn on ``dev`` at seed 0 (the
-    same weights on every card: one seed, one counter-based generator)."""
-    gen = torch.Generator(device=dev).manual_seed(0)
-    return make_ddpm_model_fn(denoiser_init_params(dc, gen, device=dev), dc)
+    return make_ddpm_model_fn(_params(dc, dev), dc)
+
+
+def model_parallelism(args) -> int:
+    """The JAX CLI's mode resolution: the ranks of the model group
+    (``mp_total``, 1 without one).  TP and SP both consume the attention
+    head axis, so they are mutually exclusive; EP rides whichever is on.
+    A bad combination exits with the JAX CLI's message."""
+    mp, sp, ep = args.model_shards, args.seq_shards, args.expert_parallel
+    if mp > 1 and sp > 1:
+        raise SystemExit(
+            "--model-shards > 1 and --seq-shards > 1 are mutually "
+            "exclusive: both consume the attention head axis (TP's FFN "
+            "psum would sum partial products of different token slices)")
+    if sp > 1:
+        ok, reason = sp_compatible(get_denoiser_config(args.model), sp)
+        if not ok:
+            raise SystemExit(f"--seq-shards {sp}: {reason}")
+    mp_total = mp if mp > 1 else sp  # ranks per model group
+    if ep and mp_total <= 1:
+        raise SystemExit(
+            "--expert-parallel needs a model group to shard experts over: "
+            "set --model-shards > 1 (or --seq-shards > 1)")
+    return max(mp_total, 1)
+
+
+def _model_parallel_kwargs(args, dc, dev, group) -> tuple:
+    """(factory, engine kwargs) of the model group: the specs of
+    ``mp_param_pspecs(tensor=mp > 1, expert=ep)``, the payloads of
+    ``mp_collective_payloads``, and the model function over the group's
+    axes."""
+    mp, sp, ep = args.model_shards, args.seq_shards, args.expert_parallel
+    mesh = Mesh((group.world,), ("model",), ())
+    specs = mp_param_pspecs(param_axes(dc), param_shapes(dc), mesh, tensor=mp > 1,
+                            expert=ep)
+    params = _params(dc, dev)
+
+    def factory(p):
+        return make_ddpm_model_fn(p, dc, tp_axis=group if mp > 1 else None,
+                                  sp_axis=group if sp > 1 else None, sp_size=sp,
+                                  ep_axis=group if ep else None)
+
+    return factory, dict(
+        model_shards=group.world, model_group=group, params=params, param_specs=specs,
+        collective_payloads=mp_collective_payloads(params, specs, dc, mp_size=group.world,
+                                                   sp_size=sp))
 
 
 def _build(args):
@@ -150,7 +216,7 @@ def run_fused(args) -> dict:
             "mean_window": proposals / max(int(rounds.sum()), 1), "finite": finite}
 
 
-def _profile_supersteps(eng, args, slots, dev) -> dict:
+def _profile_supersteps(eng, args, slots, dev, lead: bool = True) -> dict:
     """Bracket N warm supersteps in ``torch.profiler``.  A warm pool fills
     the slots and runs its first superstep before the bracket opens (on the
     card: the capture, so the window replays); its results are discarded
@@ -179,9 +245,10 @@ def _profile_supersteps(eng, args, slots, dev) -> dict:
     while eng.step():
         pass
     eng.drain_results()
-    os.makedirs(args.profile_dir, exist_ok=True)
     path = os.path.join(args.profile_dir, "serve_trace.json")
-    prof.export_chrome_trace(path)
+    if lead:
+        os.makedirs(args.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(path)
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     idle = max(0.0, 1.0 - busy / wall_ms) if busy > 0 else None
@@ -194,8 +261,17 @@ def _profile_supersteps(eng, args, slots, dev) -> dict:
             "device_idle_share": idle, "programs_built": built, "trace": path}
 
 
-def run_continuous(args) -> dict:
-    dev, dc, model_fn = _build(args)
+def run_continuous(args, group=None) -> dict:
+    """The continuous engine; with ``group`` (a ``ModelGroup``: this process
+    is one of its ranks) the engine runs model-parallel over it, and only
+    rank 0 serves metrics and writes the trace and the profile."""
+    lead = group is None or group.rank == 0
+    if group is None:
+        dev, dc, model_fn = _build(args)
+        mp_kwargs = {}
+    else:
+        dev, dc = group.device, get_denoiser_config(args.model)
+        model_fn, mp_kwargs = _model_parallel_kwargs(args, dc, dev, group)
     sched = ddpm_schedule(args.K)
     slots = args.slots or max(args.chains // 2, 1)
     if args.shards > 1 and slots % args.shards:
@@ -221,7 +297,12 @@ def run_continuous(args) -> dict:
         rounds_per_sync=(args.rounds_per_sync if args.rounds_per_sync == "auto"
                          else int(args.rounds_per_sync)),
         overcommit=args.overcommit, device=dev, tracer=tracer)
-    if args.shards > 1:
+    if group is not None:
+        eng = ShardedASDEngine(
+            model_fn, sched, (dc.seq_len, dc.d_data), num_slots=slots, shards=args.shards,
+            router=make_router(args.router), dispatch=args.dispatch, **mp_kwargs, **common)
+        del mp_kwargs  # the rank keeps its share of the weights only
+    elif args.shards > 1:
         # shards on other cards draw the same weights there
         eng = ShardedASDEngine(
             model_fn, sched, (dc.seq_len, dc.d_data), num_slots=slots, shards=args.shards,
@@ -231,13 +312,13 @@ def run_continuous(args) -> dict:
         eng = ContinuousASDEngine(model_fn, sched, (dc.seq_len, dc.d_data), num_slots=slots,
                                   **common)
     server = None
-    if args.metrics_port >= 0:
+    if args.metrics_port >= 0 and lead:
         registry = instrument_engine(MetricsRegistry(), eng)
         server = MetricsServer(registry, health_fn=eng.healthz, port=args.metrics_port)
         server.start()
         print(f"[metrics] serving /metrics and /healthz at {server.url}")
     try:
-        profiled = (_profile_supersteps(eng, args, slots, dev)
+        profiled = (_profile_supersteps(eng, args, slots, dev, lead)
                     if args.profile_supersteps > 0 else None)
         reqs = [Request(i, key=prng.PRNGKey(1000 + i)) for i in range(args.chains)]
         workers = getattr(eng, "workers", [eng])
@@ -254,6 +335,10 @@ def run_continuous(args) -> dict:
         shard_desc = (f", shards={args.shards} router={args.router}"
                       + (" dispatch=fused" if args.dispatch == "fused" else "")
                       if args.shards > 1 else "")
+        if group is not None:
+            shard_desc += (f", mp={group.world}"
+                           + (" (sequence-parallel)" if args.seq_shards > 1 else "")
+                           + (" (expert-parallel)" if args.expert_parallel else ""))
         grs = "cuda" if dev.type == "cuda" else "plain"
         print(f"[continuous] served {s.retired} requests on {slots} slots "
               f"({exec_desc}{shard_desc}, K={args.K}, policy={args.policy}, "
@@ -269,11 +354,17 @@ def run_continuous(args) -> dict:
               + f"mean queue latency {s.mean_queue_latency() * 1e3:.0f}ms, "
               f"SLO attainment {s.slo_attainment():.2f}, "
               f"{s.throughput():.2f} samples/s")
-        if args.shards > 1:
+        if args.shards > 1 or group is not None:
             for w, n in zip(eng.workers, eng.routed_counts):
                 log.info("shard %d: %d routed, %d retired, %d rounds, budget %s, device %s",
                          w.shard_id, n, w.stats.retired, w.stats.rounds_total,
                          w.round_budget, w.device)
+        if group is not None:
+            tb = s.timing_breakdown()
+            print(f"  collectives: {tb['collective_s'] * 1e3:.1f}ms "
+                  f"({tb['collective_frac']:.1%} of wall, calibrated; "
+                  f"psum {tb['collective_psum_s'] * 1e3:.1f}ms, "
+                  f"all_to_all {tb['collective_a2a_s'] * 1e3:.1f}ms)")
         sample = next(iter(out.values()))
         finite = all(bool(np.isfinite(v).all()) for v in out.values())
         print(f"output {sample.shape} per request, finite={finite}")
@@ -297,7 +388,7 @@ def run_continuous(args) -> dict:
     finally:
         if server is not None:
             server.stop()
-    if tracer is not None:
+    if tracer is not None and lead:
         doc = tracer.export_chrome_trace(args.trace_out)
         print(f"[trace] {len(doc['traceEvents'])} events ({doc['droppedEvents']} dropped) "
               f"-> {args.trace_out} (load in Perfetto / chrome://tracing)")
@@ -310,7 +401,7 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--model", default="paper-diffusion-policy")
     ap.add_argument("--mesh", default="1x1",
-                    help="device mesh; only 1x1 here (larger meshes: ROADMAP.md A9)")
+                    help="device mesh; only 1x1 here (larger meshes: ROADMAP.md A13)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -354,11 +445,19 @@ def parser() -> argparse.ArgumentParser:
                     help="shard-local workers, --slots / N slots each, behind --router "
                          "(they share the card, or take one a card with several)")
     ap.add_argument("--model-shards", type=int, default=1,
-                    help="tensor parallelism (only 1 here: ROADMAP.md A9)")
+                    help="tensor parallelism inside each shard: the ranks of the model "
+                         "group the CLI starts (all on --device; heads and the FFN's "
+                         "hidden dim shard over them, psums inside each model call)")
     ap.add_argument("--expert-parallel", action="store_true",
-                    help="refused: expert parallelism is ROADMAP.md A9")
+                    help="shard MoE expert stacks over the model group (each rank owns "
+                         "E/mp experts; tokens reach them by all_to_all).  Needs a "
+                         "model group: --model-shards > 1 or --seq-shards > 1")
     ap.add_argument("--seq-shards", type=int, default=1,
-                    help="sequence parallelism (only 1 here: ROADMAP.md A9)")
+                    help="Ulysses sequence parallelism inside each shard: weights "
+                         "replicate, the stream is sequence-sharded and attention "
+                         "trades sequence for heads around its core.  Mutually "
+                         "exclusive with --model-shards > 1; needs attn-only groups, "
+                         "heads %% sp == 0, seq_len %% sp == 0")
     ap.add_argument("--router", default="least-loaded", choices=sorted(ROUTERS),
                     help="sharded serving request router")
     ap.add_argument("--dispatch", default="per-shard", choices=("per-shard", "fused"),
@@ -385,17 +484,39 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _logging(args, quiet: bool = False) -> None:
+    logging.basicConfig(format="%(levelname)s %(name)s: %(message)s")
+    level = logging.ERROR if quiet else getattr(logging, args.log_level.upper())
+    logging.getLogger("repro_torch.serving").setLevel(level)
+
+
+def _serve_rank(group, argv) -> dict | None:
+    """One rank of the model group: the continuous engine over ``group``.
+    Rank 0 prints and returns the summary; the others print nothing."""
+    args = parser().parse_args(argv)
+    _logging(args, quiet=group.rank > 0)
+    if group.rank == 0:
+        return run_continuous(args, group)
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_continuous(args, group)
+    return None
+
+
 def main(argv=None) -> dict:
     ap = parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
     refused = _refusal(args)
     if refused is not None:
         ap.error(refused)
-    logging.basicConfig(format="%(levelname)s %(name)s: %(message)s")
-    logging.getLogger("repro_torch.serving").setLevel(getattr(logging, args.log_level.upper()))
-    if args.engine == "continuous":
-        return run_continuous(args)
-    return run_fused(args)
+    if args.engine == "fused":  # as the JAX CLI, the fused sampler runs unsharded
+        _logging(args)
+        return run_fused(args)
+    world = model_parallelism(args)
+    if world > 1:
+        return run_group(_serve_rank, world, args.device, (argv,))[0]
+    _logging(args)
+    return run_continuous(args)
 
 
 if __name__ == "__main__":

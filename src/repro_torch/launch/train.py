@@ -23,7 +23,7 @@ plain versions).  The params are ``lm_init_params`` from a generator at
 seed 0, the JAX init's law.  The MoE archs (dbrx-132b, qwen3-moe-30b-a3b)
 train with every expert on the device, their loss carrying the router's
 aux term.  A mesh of more devices is refused with exit status 2 and the
-ROADMAP.md item that brings it (A9).
+ROADMAP.md item that brings it (A13).
 
 ``main(argv)`` returns the last step, the loop's history and each step's
 host data seconds, so a script can drive it in process.
@@ -84,7 +84,7 @@ def _refusal(args):
     """The message for what the port cannot train yet, or None."""
     if args.mesh != "1x1":
         return (f"--mesh {args.mesh}: only 1x1; data and model parallelism over a mesh "
-                "are ROADMAP.md A9")
+                "are ROADMAP.md A13")
     return None
 
 

@@ -5,7 +5,14 @@
     prefill(params, x, cache, cfg, desc, ctx, window)    -> (x, cache)
     step(params, x1, cache, pos, cfg, desc, window)      -> (x1, cache)
 
-``ctx``: dict(causal, impl, vision).  ``window`` is the layer's Python
+``ctx``: dict(causal, impl, vision, tp_axis, sp_axis, ep_axis).  The three
+axes carry the serving forward's model parallelism into the ``fwd``
+functions, each a ``repro_torch.distributed.group`` ``ModelGroup`` or
+absent (the JAX package's mesh axis names): ``tp_axis`` tensor
+parallelism in attention and the dense FFN, ``ep_axis`` expert
+parallelism in the MoE FFN, ``sp_axis`` Ulysses sequence parallelism (x
+is the rank's sequence slice, and the MoE keeps its output local).
+``window`` is the layer's Python
 int window (0 = full); ``pos`` is a 0-d integer tensor or a Python int.
 ``aux`` is the MoE FFN's ``{"moe_aux_loss": ()}`` where the block has
 one, else ``{}`` (as the JAX package's blocks).  ``prefill`` and ``step``
@@ -39,15 +46,20 @@ class Block(NamedTuple):
     step: Optional[Callable] = None
 
 
-def _maybe_ffn(params, x, cfg: ModelConfig):
+def _maybe_ffn(params, x, cfg: ModelConfig, ctx=None):
     """The pre-norm FFN (SwiGLU or GELU, or the MoE where the params have
     ``moe``) added to the stream, where the block has one: (x, aux), aux
-    the MoE's ``{"moe_aux_loss": ()}`` or ``{}``."""
+    the MoE's ``{"moe_aux_loss": ()}`` or ``{}``.  ``ctx`` carries the
+    model-parallel axes (the forward's; prefill and step pass none)."""
+    ctx = ctx or {}
     if "moe" in params:
-        h, aux = moe_apply(params["moe"], rmsnorm_apply(params["ffn_norm"], x), cfg)
+        h, aux = moe_apply(params["moe"], rmsnorm_apply(params["ffn_norm"], x), cfg,
+                           ep_axis=ctx.get("ep_axis"),
+                           seq_sharded=ctx.get("sp_axis") is not None)
         return x + h, aux
     if "ffn" in params:
-        x = x + ffn_apply(params["ffn"], rmsnorm_apply(params["ffn_norm"], x))
+        x = x + ffn_apply(params["ffn"], rmsnorm_apply(params["ffn_norm"], x),
+                          d_ff=cfg.d_ff, tp_axis=ctx.get("tp_axis"))
     return x, {}
 
 
@@ -55,8 +67,9 @@ def attn_block_fwd(params, x, cfg: ModelConfig, desc: BlockDesc, ctx, window: in
     """Pre-norm self-attention, then the FFN: x (B, L, d) -> ((B, L, d), aux)."""
     h = rmsnorm_apply(params["attn_norm"], x)
     x = x + attn.attn_fwd(params["attn"], h, cfg, window=window,
-                          causal=ctx.get("causal", True), impl=ctx.get("impl", "flash"))
-    return _maybe_ffn(params, x, cfg)
+                          causal=ctx.get("causal", True), impl=ctx.get("impl", "flash"),
+                          tp_axis=ctx.get("tp_axis"), sp_axis=ctx.get("sp_axis"))
+    return _maybe_ffn(params, x, cfg, ctx)
 
 
 def attn_block_cache_init(params, cfg: ModelConfig, desc: BlockDesc, batch: int,
@@ -98,8 +111,9 @@ def _vision(ctx):
 def xattn_block_fwd(params, x, cfg: ModelConfig, desc: BlockDesc, ctx, window: int):
     h = rmsnorm_apply(params["attn_norm"], x)
     x = x + attn.attn_fwd(params["attn"], h, cfg, causal=False,
-                          impl=ctx.get("impl", "flash"), kv_x=_vision(ctx).to(x.dtype))
-    return _maybe_ffn(params, x, cfg)
+                          impl=ctx.get("impl", "flash"), kv_x=_vision(ctx).to(x.dtype),
+                          tp_axis=ctx.get("tp_axis"))
+    return _maybe_ffn(params, x, cfg, ctx)
 
 
 def xattn_block_cache_init(params, cfg: ModelConfig, desc: BlockDesc, batch: int,
@@ -151,9 +165,10 @@ def xattn_block_step(params, x1, cache, pos, cfg: ModelConfig, desc: BlockDesc,
 def hymba_block_fwd(params, x, cfg: ModelConfig, desc: BlockDesc, ctx, window: int):
     h = rmsnorm_apply(params["mix_norm"], x)
     a = attn.attn_fwd(params["attn"], h, cfg, window=window,
-                      causal=ctx.get("causal", True), impl=ctx.get("impl", "flash"))
+                      causal=ctx.get("causal", True), impl=ctx.get("impl", "flash"),
+                      tp_axis=ctx.get("tp_axis"))
     m = ssm.mamba_fwd(params["mamba"], h, cfg)
-    return _maybe_ffn(params, x + 0.5 * (a + m), cfg)
+    return _maybe_ffn(params, x + 0.5 * (a + m), cfg, ctx)
 
 
 def hymba_block_cache_init(params, cfg: ModelConfig, desc: BlockDesc, batch: int,

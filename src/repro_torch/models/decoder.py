@@ -5,6 +5,11 @@ repeats with a leading ``layers`` axis, as in the JAX package; its
 (``window_per_repeat``, hymba's three full-attention layers) are Python
 ints, so the flash kernel gets a static window in every layer.
 
+The ``ctx`` the forward hands every block carries the serving forward's
+model parallelism (``tp_axis``, ``ep_axis``, ``sp_axis``: see
+``models/blocks.py``); its collectives run inside the layers.  The JAX
+package's GSPMD ``sp`` sharding constraint has no counterpart.
+
 Where ``cfg.remat`` is set and autograd records through a layer, the
 layer runs under ``torch.utils.checkpoint``: its activations are recomputed
 in the backward instead of kept (the JAX package wraps its group body in

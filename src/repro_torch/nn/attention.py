@@ -11,8 +11,15 @@ plain version on the CPU), and ``impl="naive"`` materializes the (L, S)
 scores in the compute dtype, as the JAX package's ``attn_core_naive``
 does.  ``attn_prefill`` always takes the flash core (the JAX package takes
 its chunked core there, which computes the same function).  ``attn_step``
-is grouped-query attention against the cache in plain PyTorch.  Tensor and
-sequence parallelism are not ported yet.
+is grouped-query attention against the cache in plain PyTorch.
+
+``attn_fwd`` takes the serving forward's model parallelism, each a
+``repro_torch.distributed.group`` ``ModelGroup`` (the JAX package's mesh
+axis name): ``tp_axis`` (tensor parallelism: this rank's head block of
+``wq`` / ``bq`` / ``wo``, the repeated K/V sliced to it, the row-parallel
+``wo`` psummed) and ``sp_axis`` (Ulysses sequence parallelism: x is the
+rank's sequence slice, and two tiled all-to-alls trade it for a head
+slice around the core, which then sees the whole sequence on H/mp heads).
 """
 
 from __future__ import annotations
@@ -33,14 +40,17 @@ def _repeat_heads(t, reps: int):
 
 
 def _project_qkv(params, x, cfg: ModelConfig, start=0, repeat_kv: bool = True,
-                 kv_x=None, rope: bool = True):
+                 kv_x=None, rope: bool = True, tp_axis=None):
     """x: (B, L, d) at positions start..start+L-1 -> q (B, L, H, hd); k, v
     (B, S, H or KV, hd) from ``kv_x`` (B, S, d) at positions start..start+S-1
     (x where None).  RoPE where the config has it and ``rope`` is set (the
     xattn prefill and step pass False, as the JAX package's
     ``positions=None`` does), KV repeated to all heads unless ``repeat_kv``
     is False (the caches keep the raw KV heads).  ``start`` is a Python int
-    or a 0-d integer tensor on x's device."""
+    or a 0-d integer tensor on x's device.  Under ``tp_axis`` ``wq`` / ``bq``
+    are this rank's block of H/mp heads, so q has them already, and the
+    repeated K/V (``wk`` / ``wv`` stay replicated) are sliced to the same
+    contiguous block; replicated params leave the shapes as they are."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
     cdt = x.dtype
     xkv = x if kv_x is None else kv_x
@@ -61,6 +71,10 @@ def _project_qkv(params, x, cfg: ModelConfig, start=0, repeat_kv: bool = True,
         k = apply_rope(k, start + torch.arange(k.shape[1], device=x.device), cfg.rope_theta)
     if repeat_kv:
         k, v = _repeat_heads(k, h // kv), _repeat_heads(v, h // kv)
+        h_local = q.shape[2]
+        if tp_axis is not None and h_local != h:
+            lo = tp_axis.axis_index() * h_local
+            k, v = k[:, :, lo:lo + h_local], v[:, :, lo:lo + h_local]
     return q, k, v
 
 
@@ -90,26 +104,50 @@ def attn_core_naive(q, k, v, mask, cap: float):
     return torch.einsum("bhls,bshk->blhk", probs, v)
 
 
-def _out(params, o, dtype):
-    """The output projection of o (B, L, H, hd) -> (B, L, d), times
-    tanh(gate) (in float32, cast to ``dtype``) where the params have a
-    gate."""
+def _out(params, o, dtype, tp_axis=None, n_heads: int = 0):
+    """The output projection of o (B, L, H, hd) -> (B, L, d), psummed over
+    ``tp_axis`` where H is a rank's block of ``n_heads`` (row-parallel
+    ``wo``), times tanh(gate) (in float32, cast to ``dtype``) where the
+    params have a gate."""
     B, L, H, hd = o.shape
     out = o.reshape(B, L, H * hd) @ params["wo"].reshape(H * hd, -1).to(dtype)
+    if tp_axis is not None and H != n_heads:
+        out = tp_axis.psum(out)  # row-parallel wo partial sums
     if "gate" in params:
         out = torch.tanh(params["gate"].float()).to(dtype) * out
     return out
 
 
 def attn_fwd(params, x, cfg: ModelConfig, *, window: int = 0,
-             causal: bool = True, impl: str = "flash", kv_x=None):
+             causal: bool = True, impl: str = "flash", kv_x=None, tp_axis=None,
+             sp_axis=None):
     """Full-sequence attention over positions 0..L-1: x (B, L, d) -> (B, L,
     d).  ``window`` is a Python int (0 = full).  With ``kv_x`` (B, S, d) it
     is cross-attention to kv_x, non-causal and unmasked, with RoPE (where
     the config has it) on q at 0..L-1 and on k at 0..S-1, as the JAX
-    package's ``attn_fwd`` applies it."""
+    package's ``attn_fwd`` applies it.
+
+    ``tp_axis``: tensor parallelism (see ``_project_qkv``); the output
+    projection's partial sums are psummed only where the local head count
+    differs from ``n_heads``.  ``sp_axis``: x is this rank's (B, L/mp, d)
+    slice of the sequence, at positions r * L/mp onwards, and every weight
+    is replicated; q, k and v are projected on the slice, a tiled
+    all-to-all trades the sequence axis for the head axis (the core then
+    sees the whole sequence on H/mp heads: exact, not blockwise), and a
+    second one trades back before ``wo``, so the output is the rank's
+    slice again, with no psum.  The two are mutually exclusive, and SP is
+    self-attention only."""
+    if sp_axis is not None:
+        assert tp_axis is None, "sp_axis and tp_axis are mutually exclusive"
+        assert kv_x is None, "Ulysses sequence parallelism is self-attn only"
     B, L, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, kv_x=kv_x)
+    start = sp_axis.axis_index() * L if sp_axis is not None else 0
+    q, k, v = _project_qkv(params, x, cfg, start=start, kv_x=kv_x, tp_axis=tp_axis)
+    if sp_axis is not None:
+        # seq -> head: rank s keeps heads [s H/mp, (s+1) H/mp); the sequence
+        # concatenates sender-major, which is global order
+        q, k, v = (sp_axis.all_to_all(t, 2, 1) for t in (q, k, v))
+        L = q.shape[1]
     cross = kv_x is not None
     if impl == "flash":
         o = flash_mha(q, k, v, causal=causal and not cross, window=window,
@@ -120,7 +158,9 @@ def attn_fwd(params, x, cfg: ModelConfig, *, window: int = 0,
         o = attn_core_naive(q, k, v, mask, cfg.attn_softcap)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    return _out(params, o, x.dtype)
+    if sp_axis is not None:
+        o = sp_axis.all_to_all(o, 1, 2)  # head -> seq, the exact inverse
+    return _out(params, o, x.dtype, tp_axis, cfg.n_heads)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -1,13 +1,20 @@
 """Dense FFNs: SwiGLU (the LLaMA family's) and GELU (musicgen's), told
 apart by their params, as in the JAX package.  The products are plain
-matrix products (``torch.matmul``), as the JAX package leaves them to XLA."""
+matrix products (``torch.matmul``), as the JAX package leaves them to XLA.
+
+Tensor parallelism (``tp_axis``, a ``repro_torch.distributed.group``
+``ModelGroup``): the hidden dim may be this rank's column-parallel block
+of ``w_gate`` / ``w_up`` and row-parallel block of ``w_down``, and the
+partial sums are psummed.  Local against global is read from the param
+shape against the declared ``d_ff``, as in the JAX package, so replicated
+params run the unsharded code with no collective."""
 
 from __future__ import annotations
 
 import torch.nn.functional as F
 
 
-def ffn_apply(params, x):
+def ffn_apply(params, x, *, d_ff: int = 0, tp_axis=None):
     """SwiGLU where the params have ``w_gate``: silu of the gate in float32,
     cast back, times the up path.  Else GELU (tanh form, ``jax.nn.gelu``'s
     default) of the up path in float32, cast back."""
@@ -18,4 +25,7 @@ def ffn_apply(params, x):
         h = F.silu(g.float()).to(cdt) * u
     else:
         h = F.gelu(u.float(), approximate="tanh").to(cdt)
-    return h @ params["w_down"].to(cdt)
+    out = h @ params["w_down"].to(cdt)
+    if tp_axis is not None and d_ff and params["w_down"].shape[0] != d_ff:
+        out = tp_axis.psum(out)  # row-parallel partial sums
+    return out

@@ -1,8 +1,9 @@
 """Mixture-of-Experts FFN: token-choice top-k routing with a capacity for
 each (row, expert) (GShard with dropping), as the JAX package's
-``repro/nn/moe.py``, in its layout where every device holds every expert
-(its "replicated" layout: the train path and one-device serving).  Its
-expert-parallel layout (``ep_axis``) is ROADMAP A9's parallel half.
+``repro/nn/moe.py``, in both its layouts: every device holds every
+expert (the "replicated" layout: the train path and one-device serving),
+or each rank of a model group holds E/mp of them (expert parallelism,
+``ep_axis``, see ``_moe_apply_ep``).
 
 A call routes each token to its ``top_k`` experts (softmax over E in
 float32, renormalised), then each (row, expert) keeps its C heaviest
@@ -119,15 +120,71 @@ def _combine(y, gate_vals, token_idx, keep, top_idx, L: int):
 
 
 def moe_apply(params, x, cfg: ModelConfig, capacity: int | None = None,
-              ep_axis: str | None = None):
+              ep_axis=None, seq_sharded: bool = False):
     """x: (B, L, d) -> ((B, L, d) in x's dtype, {"moe_aux_loss": ()}).
     ``params``: router (d, E), w_gate and w_up (E, d, ff), w_down (E, ff,
-    d); each used in x's dtype.  ``ep_axis`` (expert parallelism) is
-    refused."""
-    if ep_axis is not None:
-        raise NotImplementedError(f"moe_apply(ep_axis={ep_axis!r}): expert parallelism "
-                                  "is ROADMAP.md A9 (its parallel half)")
+    d); each used in x's dtype.
+
+    ``ep_axis`` (a ``repro_torch.distributed.group`` ``ModelGroup``): expert
+    parallelism, taken only where the expert stacks are this rank's block
+    (``w_gate.shape[0] != n_experts``), so replicated params run the
+    unsharded code, as in the JAX package.  ``seq_sharded`` marks x as the
+    rank's (B, L/mp, d) sequence slice (Ulysses): the dispatch then takes
+    no token slice of its own and the output stays local."""
+    if ep_axis is not None and params["w_gate"].shape[0] != cfg.n_experts:
+        return _moe_apply_ep(params, x, cfg, capacity, ep_axis, seq_sharded)
     gate_vals, token_idx, keep, ft, fp, top_idx = _route(params, x, cfg, capacity)
     y = _expert_ffn(params, _gather(x, token_idx, keep), x.dtype)
     out = _combine(y, gate_vals, token_idx, keep, top_idx, x.shape[1])
     return out, {"moe_aux_loss": _aux_loss(ft, fp, cfg)}
+
+
+def _moe_apply_ep(params, x, cfg: ModelConfig, capacity, ep_axis, seq_sharded: bool):
+    """Expert-parallel dispatch over the group ``ep_axis`` (the JAX
+    package's ``_moe_apply_ep``): rank r owns experts [r E/mp, (r+1) E/mp).
+
+    Each rank owns a contiguous L/mp slice of the tokens (its own under
+    Ulysses, else cut from the replicated input), routes it against the
+    replicated router and gathers it for every expert; the routing
+    fractions are averaged over the group.  A tiled all-to-all splits the
+    expert axis, so every rank receives its experts' capacity rows from
+    every sender (sender-major), runs its E/mp expert FFNs, and a second
+    all-to-all hands each sender its rows back in global expert order.
+    The combine is the replicated layout's (ascending expert, no atomics)
+    over the local tokens; a replicated input is restored by a psum of the
+    zero-padded slices.
+
+    Where L does not divide the group and the stream is not sequence
+    sharded there is no exchange: every rank routes every token, runs its
+    expert block, and the same psum combines (correct for any L)."""
+    E, E_local = cfg.n_experts, params["w_gate"].shape[0]
+    mp = E // E_local
+    r = ep_axis.axis_index()
+    B, L, d = x.shape
+    own = slice(r * E_local, (r + 1) * E_local)
+
+    if not seq_sharded and L % mp:
+        gate_vals, token_idx, keep, ft, fp, top_idx = _route(params, x, cfg, capacity)
+        y_local = _expert_ffn(params, _gather(x, token_idx[:, own], keep[:, own]), x.dtype)
+        # the other ranks' experts contribute zero rows here
+        y = y_local.new_zeros((E,) + tuple(y_local.shape[1:]))
+        y[own] = y_local
+        out = _combine(y, gate_vals, token_idx, keep, top_idx, L)
+        return ep_axis.psum(out), {"moe_aux_loss": _aux_loss(ft, fp, cfg)}
+
+    Lc = L if seq_sharded else L // mp
+    xl = x if seq_sharded else x[:, r * Lc:(r + 1) * Lc]
+    gate_vals, token_idx, keep, ft, fp, top_idx = _route(params, xl, cfg, capacity)
+    # equal slices: the global fractions are the mean of the ranks'
+    ft, fp = ep_axis.pmean(ft), ep_axis.pmean(fp)
+    xg = _gather(xl, token_idx, keep)  # (E, B * C, d): every expert's rows
+    xg = ep_axis.all_to_all(xg, 0, 1)  # (E_local, mp * B * C, d)
+    y = _expert_ffn(params, xg, x.dtype)
+    y = ep_axis.all_to_all(y, 1, 0)  # (E, B * C, d), global expert order
+    out_l = _combine(y, gate_vals, token_idx, keep, top_idx, Lc)
+    aux = {"moe_aux_loss": _aux_loss(ft, fp, cfg)}
+    if seq_sharded:
+        return out_l, aux  # the stream stays sequence-sharded
+    out = out_l.new_zeros((B, L, d))
+    out[:, r * Lc:(r + 1) * Lc] = out_l
+    return ep_axis.psum(out), aux  # row-parallel combine

@@ -14,7 +14,12 @@ writes what it changes back into them in place (the counterpart of
 A field a body hands back as the very tensor it read (the keys, ``u_buf``,
 ``xi_buf``) is not copied onto itself.
 
-On the CPU a call runs the body.  On the card:
+On the CPU a call runs the body, and so does every call of a program made
+with ``eager=True``: a worker with a model group builds its programs so,
+since a host-staged collective cannot be captured
+(``repro_torch.distributed.group``).  The kernel wrappers count their
+launches as they launch, so an eager program counts the same launches per
+round as a captured one.  On the card otherwise:
 
   * the first call is the cold dispatch: it runs the body for real, then
     captures the same body with ``torch.cuda.graph``.  A capture executes
@@ -80,13 +85,16 @@ class SuperstepProgram:
     writes.  ``pool`` is the graph memory pool (a
     ``torch.cuda.graph_pool_handle()``) the capture allocates from, which a
     worker's programs share; None gives the capture a pool of its own (and
-    the CPU has none).  ``__call__`` returns True when the call was the program's
+    the CPU has none).  ``eager``: run the body at every call, never
+    capture.  ``__call__`` returns True when the call was the program's
     cold dispatch (its first: on the card, the one that captured)."""
 
-    def __init__(self, body: Callable[[], None], device: torch.device, pool=None):
+    def __init__(self, body: Callable[[], None], device: torch.device, pool=None,
+                 eager: bool = False):
         self.body = body
         self.device = torch.device(device)
         self.pool = pool
+        self.eager = eager
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.calls = 0
         self.captures = 0
@@ -96,7 +104,7 @@ class SuperstepProgram:
 
     def __call__(self) -> bool:
         self.calls += 1
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager:
             self.body()
             return self.calls == 1
         if self.graph is None:

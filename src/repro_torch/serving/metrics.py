@@ -8,12 +8,12 @@ counters (rounds, head calls, accepts, proposals) come straight off the
 chain's counters while its slot waits to be retired.
 
 ``EngineStats`` aggregates across requests and keeps the engine-level counters
-(rounds driven, supersteps, the chunked engine's batches, host wall time)
-and the branched-speculation lanes (``draft_points``,
-``branch_accept_depth``, ``wasted_draft_frac``).  ``merged`` is the sharded
-front end's cross-shard view, and ``fused_dispatch_s`` its fused dispatch
-lane.  The JAX fields of model parallelism (``collective_*``) come with the
-slice that ports it.
+(rounds driven, supersteps, the chunked engine's batches, host wall time),
+the branched-speculation lanes (``draft_points``, ``branch_accept_depth``,
+``wasted_draft_frac``) and the model-parallel collective lanes
+(``collective_s`` and its psum / all_to_all split).  ``merged`` is the
+sharded front end's cross-shard view, and ``fused_dispatch_s`` its fused
+dispatch lane.
 """
 
 from __future__ import annotations
@@ -92,10 +92,19 @@ class EngineStats:
     #                boundary (one program covers every shard): a front-end
     #                lane, on the merged view only, never split across the
     #                workers' dispatch_s
+    #   collective_s model-parallel collective seconds inside the supersteps
+    #                (a per-round probe calibrated on the worker's model
+    #                group, times the rounds driven): a view INTO the time
+    #                the other lanes already count, never added to them
     dispatch_s: float = 0.0
     fused_dispatch_s: float = 0.0
     device_s: float = 0.0
     host_sync_s: float = 0.0
+    collective_s: float = 0.0
+    # its split by kind: psum all-reduces against all_to_all exchanges,
+    # calibrated apart (their bytes a rank moves differ)
+    collective_psum_s: float = 0.0
+    collective_a2a_s: float = 0.0
     head_calls_total: int = 0
     model_evals_total: int = 0
     accepts_total: int = 0
@@ -121,6 +130,7 @@ class EngineStats:
     _MERGE_SUM = (
         "requests", "retired", "batches", "rounds_total", "supersteps",
         "dispatch_s", "fused_dispatch_s", "device_s", "host_sync_s",
+        "collective_s", "collective_psum_s", "collective_a2a_s",
         "head_calls_total", "model_evals_total", "accepts_total", "proposals_total",
         "draft_points_total", "queue_latency_total", "dropped", "slo_tracked",
         "slo_met_count", "queue_depth",
@@ -250,7 +260,10 @@ class EngineStats:
         split).  The denominator is the larger of the recorded wall and the
         accounted total, so the fractions never sum past 1 under the
         dispatch/harvest overlap, and a ``step()``-driven loop with no serve
-        wall still gets fractions."""
+        wall still gets fractions.  The collective lanes are reported
+        against the same denominator but are not part of the accounted
+        total: they are a calibrated view into time the lanes already
+        count."""
         accounted = (self.dispatch_s + self.fused_dispatch_s + self.device_s
                      + self.host_sync_s)
         denom = max(self.wall_time, accounted, 1e-12)
@@ -261,10 +274,16 @@ class EngineStats:
             "fused_dispatch_s": self.fused_dispatch_s,
             "device_s": self.device_s,
             "host_sync_s": self.host_sync_s,
+            "collective_s": self.collective_s,
+            "collective_psum_s": self.collective_psum_s,
+            "collective_a2a_s": self.collective_a2a_s,
             "dispatch_frac": self.dispatch_s / denom,
             "fused_dispatch_frac": self.fused_dispatch_s / denom,
             "device_frac": self.device_s / denom,
             "host_sync_frac": self.host_sync_s / denom,
+            "collective_frac": self.collective_s / denom,
+            "collective_psum_frac": self.collective_psum_s / denom,
+            "collective_a2a_frac": self.collective_a2a_s / denom,
             # the branch lanes ride along (not time components)
             "branch_accept_depth": self.branch_accept_depth(),
             "wasted_draft_frac": self.wasted_draft_frac(),

@@ -233,8 +233,7 @@ def instrument_engine(registry: MetricsRegistry, engine) -> MetricsRegistry:
     labeled by shard, and all values are read at SCRAPE time from the
     engine's existing ``EngineStats``/scheduler state (callback gauges), so
     instrumentation adds nothing to the serve loops.  The catalog is the JAX
-    package's less the model-parallel collective gauges, whose engine
-    feature the port does not have yet (ROADMAP.md A9).
+    package's.
     """
     for w in getattr(engine, "workers", None) or [engine]:
         _instrument_worker(registry, w)
@@ -295,6 +294,21 @@ def _instrument_worker(registry: MetricsRegistry, w) -> None:
     for name, help_text, fn in gauges:
         registry.gauge(name, help_text,
                        fn=(lambda w=w, f=fn: f(w)), **lab)
+    # model-parallel collective time: calibrated seconds inside the
+    # superstep programs (a view into their time, see EngineStats), the
+    # total and its split by kind
+    registry.gauge(
+        "asd_collective_seconds",
+        "calibrated model-parallel collective seconds inside the "
+        "superstep programs (view into device time)",
+        fn=(lambda w=w: w.stats.collective_s), **lab)
+    for kind, field in (("psum", "collective_psum_s"),
+                        ("all_to_all", "collective_a2a_s")):
+        registry.gauge(
+            "asd_collective_kind_seconds",
+            "calibrated collective seconds by primitive kind",
+            fn=(lambda w=w, f=field: getattr(w.stats, f)),
+            kind=kind, **lab)
     for q in (50, 95, 99):
         registry.gauge(
             "asd_completion_latency_seconds",

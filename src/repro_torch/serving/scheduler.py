@@ -352,14 +352,7 @@ class SlotScheduler:
         placed: List[Tuple[int, Any]] = []
 
         def place(slot: int, entry: QueueEntry) -> None:
-            self._slots[slot] = SlotInfo(
-                request=entry.request,
-                submit_time=entry.submit_time,
-                admit_time=now,
-                admit_round=round_idx,
-            )
-            self.admitted += 1
-            placed.append((slot, entry.request))
+            placed.append(self._place(slot, entry, now, round_idx))
 
         if self.policy.fifo_fast_path:  # hot loop: no copy, sort, or scan
             for slot in free:
@@ -383,6 +376,51 @@ class SlotScheduler:
                 e for e in self._queue if id(e) not in taken
             )
         return placed
+
+    def follow(
+        self,
+        now: float,
+        round_idx: int,
+        placements: List[Tuple[int, Any]],
+        dropped_rids: List[Any],
+        deferred: bool = False,
+    ) -> List[Tuple[int, Any]]:
+        """Apply an admission that ``admit`` decided on a replica of this
+        scheduler holding the same queue: place the queued request of each
+        (slot, rid) of ``placements``, move each of ``dropped_rids`` to
+        ``self.dropped``, and return [(slot, request)] as ``admit`` does."""
+        if deferred:
+            self.deferred += 1
+        queued: dict = {}
+        for entry in self._queue:
+            queued.setdefault(entry.request.rid, []).append(entry)
+        taken: set = set()
+
+        def take(rid) -> QueueEntry:
+            if not queued.get(rid):
+                raise ValueError(f"follow: request {rid} is not queued here")
+            entry = queued[rid].pop(0)
+            taken.add(id(entry))
+            return entry
+
+        placed = []
+        for slot, rid in placements:
+            if self._slots[slot] is not None:
+                raise ValueError(f"follow: slot {slot} is not free here")
+            placed.append(self._place(slot, take(rid), now, round_idx))
+        self.dropped.extend(take(rid) for rid in dropped_rids)
+        self._queue = deque(e for e in self._queue if id(e) not in taken)
+        return placed
+
+    def _place(self, slot: int, entry: QueueEntry, now: float, round_idx: int):
+        self._slots[slot] = SlotInfo(
+            request=entry.request,
+            submit_time=entry.submit_time,
+            admit_time=now,
+            admit_round=round_idx,
+        )
+        self.admitted += 1
+        return slot, entry.request
 
     def retire(self, slot: int) -> SlotInfo:
         """Free a slot whose chain has finished; returns its record."""

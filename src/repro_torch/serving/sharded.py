@@ -1,6 +1,6 @@
 """The sharded front end: shard-local workers behind a request router, each
 with its own admission queue, slot sub-batch and verification budget (the
-port of the JAX package's ``serving/sharded.py`` at model parallelism 1).
+port of the JAX package's ``serving/sharded.py``).
 
             submit(request)
                   |
@@ -50,8 +50,15 @@ where the device computes each point's row independently of the batch it
 rides in.  Fused dispatch runs the per-shard bodies, so it equals per-shard
 dispatch in bits.
 
-Model parallelism inside a shard (``model_shards`` > 1, ``param_specs``,
-``collective_payloads``) is ROADMAP.md A9 and raises.
+Model parallelism inside a shard (``model_shards`` > 1): where the JAX
+engine gives each shard a device group of ``model_shards`` devices, the
+port runs the whole front end on every rank of one ``model_group`` (a
+``repro_torch.distributed.group`` ``ModelGroup`` of ``model_shards``
+ranks): each rank's shards sit on the rank's device, so per-shard and
+fused dispatch both work, and every model call's collectives go over the
+one group.  It needs explicit ``params`` and ``param_specs`` (each worker
+keeps its rank's ``shard_params``) and takes ``collective_payloads`` for
+the calibrated collective lanes; the programs run eagerly.
 """
 
 from __future__ import annotations
@@ -99,7 +106,10 @@ class ShardedASDEngine:
 
       shards: the number of workers.  ``num_slots`` is the total slot count
         and must divide evenly (each worker gets ``num_slots // shards``).
-      model_shards: model parallelism inside a shard; only 1 (A9).
+      model_shards: model parallelism inside a shard: 1, or the world size
+        of ``model_group`` (with ``params`` and ``param_specs``, and
+        ``model_fn`` a factory ``params -> model_fn``; see the module
+        docstring).
       router: picks the shard a submitted request joins (default
         ``LeastLoaded``).
       dispatch: "per-shard" or "fused" (see the module docstring).
@@ -126,12 +136,22 @@ class ShardedASDEngine:
                  model_fn_for: Optional[Callable] = None, **worker_kwargs):
         if shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
-        if model_shards != 1:
-            raise ValueError(f"model_shards {model_shards}: model parallelism inside a "
-                             "shard is ROADMAP.md A9 (only 1 here)")
-        for name in ("param_specs", "collective_payloads", "model_mesh"):
-            if worker_kwargs.get(name):
-                raise ValueError(f"{name}: model parallelism is ROADMAP.md A9")
+        if model_shards < 1:
+            raise ValueError(f"model_shards must be >= 1, got {model_shards}")
+        group = worker_kwargs.get("model_group")
+        world = group.world if group is not None else 1
+        if model_shards != world:
+            raise ValueError(
+                f"model_shards {model_shards} must equal the model group's world ({world}"
+                f"{'' if group is not None else ': no model_group given'}): every rank "
+                "of a group runs this front end (start them with "
+                "repro_torch.distributed.group.run_group)")
+        if model_shards > 1 and (worker_kwargs.get("params") is None
+                                 or worker_kwargs.get("param_specs") is None):
+            raise ValueError(
+                "model_shards > 1 needs explicit params AND param_specs "
+                "(mp_param_pspecs tree): a factory closure cannot be sharded over a "
+                "model group")
         if num_slots % shards:
             raise ValueError(f"num_slots {num_slots} must divide evenly over {shards} shards "
                              "(each worker owns an equal slot sub-batch)")
@@ -146,10 +166,17 @@ class ShardedASDEngine:
                 'round_impl="fused" (budget-as-data) to carry per-shard tiers as data.')
         self.num_shards = shards
         self.num_slots = num_slots
-        self.model_shards = 1
+        self.model_shards = int(model_shards)
         self.dispatch = dispatch
         self.router = router if router is not None else LeastLoaded()
-        base = resolve_device(worker_kwargs.pop("device", None))
+        base = resolve_device(worker_kwargs.pop("device", None) or (
+            group.device if group is not None else None))
+        if group is not None:
+            # a rank's shards sit on the rank's device
+            if devices is not None and {resolve_device(d) for d in devices} != {base}:
+                raise ValueError(f"a model group's shards sit on the rank's device {base}, "
+                                 f"got devices {list(map(str, devices))}")
+            devices = [base] * shards
         if devices is None:
             n = torch.cuda.device_count() if base.type == "cuda" else 1
             devices = ([torch.device("cuda", i % n) for i in range(shards)]
@@ -252,7 +279,7 @@ class ShardedASDEngine:
             for s in streams:
                 origin.wait_stream(s)
 
-        return SuperstepProgram(body, dev, ws[0]._graph_pool)
+        return SuperstepProgram(body, dev, ws[0]._graph_pool, eager=ws[0]._eager)
 
     def _get_fused(self, R: int, budget) -> SuperstepProgram:
         # budget-as-data: one program per R serves every shard's tier
@@ -277,7 +304,7 @@ class ShardedASDEngine:
                 for name in _stacked_fields(self._states)})
             conds = None if self._conds is None else self._conds.view(rows, -1)
             prog = self._fused_admit_fns[width] = admission_program(
-                w0, width, flat, conds, w0._graph_pool)
+                w0, width, flat, conds, w0._graph_pool, w0._eager)
             assert len(self._fused_admit_fns) <= (rows - 1).bit_length() + 1
         return prog
 
@@ -528,8 +555,14 @@ class ShardedASDEngine:
         the slot tensors it was captured on, so what is shared is the graph
         pool (see ``ShardWorker.adopt_programs``); the fused programs
         capture into worker 0's pool, so they share it too.  Call it before
-        the first dispatch."""
+        the first dispatch.  Under a model group the programs are eager and
+        there is nothing to share: an engine of another ``model_shards`` or
+        shard count is left as it is, as in the JAX engine."""
         donors = warm.workers if hasattr(warm, "workers") else [warm]
+        if self.model_shards > 1 and (getattr(warm, "model_shards", 1) != self.model_shards
+                                      or getattr(warm, "num_shards", None)
+                                      != self.num_shards):
+            return self
         for i, w in enumerate(self.workers):
             w.adopt_programs(donors[i % len(donors)])
         return self

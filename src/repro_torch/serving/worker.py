@@ -32,9 +32,23 @@ tier, as the JAX worker's budget-as-data does.  The JAX package's
 counterpart: the device picks the plain versions (CPU) or the kernels
 (CUDA).  The sharded front end (``serving/sharded.py``) runs N workers
 behind a router; its fused dispatch binds their slot tensors to views of
-one stacked batch.  Model parallelism is not ported yet (ROADMAP.md A9):
-``model_mesh``, ``param_specs``, ``state_sharding`` and
-``collective_payloads``.
+one stacked batch.
+
+Model parallelism: where the JAX worker takes ``model_mesh`` (its device
+group's ``"model"`` axis) and wraps every superstep in ``shard_map``, the
+port's takes ``model_group`` (a ``repro_torch.distributed.group``
+``ModelGroup``): one process a rank, every rank running this same worker
+on the same requests, and the model function's collectives the only
+traffic between them.  It requires explicit ``params`` and
+``param_specs`` and keeps this rank's ``shard_params`` of them;
+``collective_payloads`` (``mp_collective_payloads``) calibrates the
+``collective_*`` lanes of ``EngineStats`` at init.  The group's
+collectives are staged through the host, which no CUDA graph can capture,
+so its programs run eagerly (``SuperstepProgram(eager=True)``).  Rank 0
+alone runs the admission policy, on its own clock and deadlines, and the
+other ranks apply what it placed and dropped, so the ranks stay in
+lockstep.  ``state_sharding`` (data-parallel slots, the serve CLI's
+``--mesh``) is ROADMAP.md A13 and raises.
 
 Every chain draws from its key as the JAX worker's does: a request's own
 ``key``, or else ``fold_in(serve key, rid)`` (the serve key is
@@ -68,6 +82,8 @@ from repro_torch.core.controller import (BranchController, StaticBranches, Stati
 from repro_torch.core.schedules import Schedule
 from repro_torch.core.sequential import init_y0
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (measure_collective_seconds_by_kind,
+                                              shard_params)
 from repro_torch.programs import SuperstepProgram
 from repro_torch.serving.metrics import EngineStats, RequestMetrics
 from repro_torch.serving.packing import (WaterfillingAllocator, packed_superstep)
@@ -122,7 +138,8 @@ def _as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
 
 
 def admission_program(w: "ShardWorker", width: int, states: ASDChainState,
-                      conds: Optional[torch.Tensor], pool) -> SuperstepProgram:
+                      conds: Optional[torch.Tensor], pool, eager: bool = False
+                      ) -> SuperstepProgram:
     """The admission program of ``width`` chains with worker ``w``'s
     statics: ``init_chain_state`` over the staged y0 rows and keys, every
     field written into ``states`` at the staged row indices, and the staged
@@ -152,7 +169,7 @@ def admission_program(w: "ShardWorker", width: int, states: ASDChainState,
             if "conds" in stage:
                 conds.index_copy_(0, stage["slots"], stage["conds"])
 
-    prog = SuperstepProgram(body, dev, pool)
+    prog = SuperstepProgram(body, dev, pool, eager=eager)
     prog.stage = stage
     return prog
 
@@ -194,7 +211,9 @@ class ShardWorker:
         when ``d_cond > 0``, ``model_fn(t, y, cond)`` with one (d_cond,)
         condition row per point.  Built once (``make_sl_model_fn`` casts the
         weights when it is made), and every model call of a round is one
-        batched call.
+        batched call.  With ``params``: a factory ``params -> model_fn``
+        (the JAX worker's ``model_fn_factory``), called once with this
+        rank's share of them.
       schedule: the affine step schedule shared by all requests.
       event_shape: per-chain sample shape.
       num_slots: chains stepped together.
@@ -229,9 +248,20 @@ class ShardWorker:
         EWMA sits at or below this fraction of the rung below.
       device: where the slot batch lives (None means "cuda").
       tracer: optional ``repro_torch.serving.obs.TraceRecorder``: the
-        boundary spans (dispatch, device wait, harvest) and each request's
-        queued and request spans, from the host clock readings the stats
-        take anyway.
+        boundary spans (dispatch, device wait, harvest, and under a model
+        group the estimated collective span) and each request's queued and
+        request spans, from the host clock readings the stats take anyway.
+      model_group: a ``ModelGroup`` whose every rank runs this worker: the
+        verify runs model-parallel over it (see the module docstring).
+        ``device`` defaults to the group's.
+      params, param_specs: the whole params and their ``mp_param_pspecs``
+        layout (required with ``model_group``); the worker keeps
+        ``shard_params`` of them for its rank.
+      collective_payloads: per-point collective bytes of one model call,
+        ``{"psum": [...], "all_to_all": [...]}`` (``mp_collective_payloads``):
+        calibrates the collective lanes at init, over ``budget_cap + (1 + B) * slots``
+        points a packed round, ``slots * (theta * B + 1)`` an unpacked one.
+      state_sharding: refused (ROADMAP.md A13).
     """
 
     def __init__(self, model_fn: Callable, schedule: Schedule, event_shape: tuple,
@@ -245,8 +275,22 @@ class ShardWorker:
                  execution: str = "unpacked", round_budget=None, allocator=None,
                  round_impl: str = "packed", rounds_per_sync=1,
                  overcommit: float = 1.0, budget_hysteresis: float = 0.75,
-                 device=None, shard_id: int = 0, tracer=None):
-        self.device = resolve_device(device)
+                 device=None, shard_id: int = 0, tracer=None, model_group=None,
+                 params=None, param_specs=None, collective_payloads=None,
+                 state_sharding=None):
+        if state_sharding is not None:
+            raise ValueError("state_sharding: data-parallel slots over a mesh (the serve "
+                             "CLI's --mesh) are ROADMAP.md A13")
+        if model_group is not None and (params is None or param_specs is None):
+            raise ValueError(
+                "model_group model parallelism needs explicit params AND param_specs "
+                "(an mp_param_pspecs tree) — a factory closure cannot be sharded over "
+                "the model group")
+        self.device = resolve_device(device if device is not None or model_group is None
+                                     else model_group.device)
+        self.model_group = model_group
+        # a host-staged collective cannot be captured: a group's programs run eagerly
+        self._eager = model_group is not None
         self.schedule = schedule.to(self.device)
         self.event_shape = tuple(event_shape)
         self.num_slots = num_slots
@@ -262,6 +306,11 @@ class ShardWorker:
         self.num_branches = max(int(num_branches), 1)
         self.branch_controller = (branch_controller if branch_controller is not None
                                   else StaticBranches())
+        self._params = None
+        if params is not None:
+            self._params = (params if model_group is None else shard_params(
+                params, param_specs, model_group.rank, model_group.world))
+            model_fn = model_fn(self._params)
         self._model_fn = model_fn
         if execution not in ("unpacked", "packed"):
             raise ValueError(f"unknown execution mode {execution!r}")
@@ -297,6 +346,18 @@ class ShardWorker:
         self._budget_as_data = round_impl == "fused"
         self._budget_cap = (self._budget_ladder[-1] if self._budget_auto
                             else self.round_budget)
+        # the per-round collective seconds by kind, calibrated once on the
+        # group with the payloads of a round's points: the verify lanes, the
+        # plan's head call and the eager head lanes a branch
+        self._collective_kind_s: dict = {}
+        if model_group is not None and collective_payloads:
+            points = (self._budget_cap + (1 + self.num_branches) * num_slots
+                      if execution == "packed"
+                      else num_slots * (self.theta * self.num_branches + 1))
+            self._collective_kind_s = measure_collective_seconds_by_kind(
+                model_group, {k: [int(b) * points for b in v]
+                              for k, v in collective_payloads.items()})
+        self._collective_s_per_round = sum(self._collective_kind_s.values())
         if rounds_per_sync == "auto":
             self._auto_rps = True
             self._rps = 1
@@ -336,8 +397,8 @@ class ShardWorker:
         self._superstep_fns: dict[tuple, SuperstepProgram] = {}
         self._compiled_supersteps = 0  # this worker's own cache misses
         # the memory pool every graph of this worker captures into
-        self._graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
-                            else None)
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" and not self._eager else None)
 
         # every slot starts as an already finished dummy chain, frozen by
         # the rounds until a request is admitted over it (zero buffers in
@@ -412,7 +473,7 @@ class ShardWorker:
         ``_budget_dev``, which ``_launch_superstep`` fills before each call."""
         tier = self._budget_dev if budget == "data" else budget
         return SuperstepProgram(lambda: self._step_slots(R, tier), self.device,
-                                self._graph_pool)
+                                self._graph_pool, eager=self._eager)
 
     def _step_slots(self, R: int, tier) -> None:
         """A superstep's body: R rounds over the slot tensors, every field
@@ -512,7 +573,7 @@ class ShardWorker:
         if prog is not None:
             return prog
         prog = self._admit_fns[width] = admission_program(
-            self, width, self._states, self._conds, self._graph_pool)
+            self, width, self._states, self._conds, self._graph_pool, self._eager)
         assert len(self._admit_fns) <= self._admit_bound(), (
             f"worker built more admission programs than widths: {sorted(self._admit_fns)}")
         return prog
@@ -625,9 +686,14 @@ class ShardWorker:
 
     def _collect_admissions(self, now: float):
         """Run the admission policy and its host bookkeeping; returns the
-        placed [(slot, request)]."""
-        placed = self.scheduler.admit(now, self.stats.rounds_total,
-                                      self._admission_context(now))
+        placed [(slot, request)].  Under a model group of more than one
+        rank, rank 0 decides (see ``_agree_admissions``)."""
+        group = self.model_group
+        if group is None or group.world == 1:
+            placed = self.scheduler.admit(now, self.stats.rounds_total,
+                                          self._admission_context(now))
+        else:
+            placed = self._agree_admissions(now, group)
         for entry in self.scheduler.drain_dropped():
             self.stats.observe_drop()
             self.dropped_rids.append(entry.request.rid)
@@ -638,6 +704,35 @@ class ShardWorker:
             self._live_demand += self._points_open
             self.stats.requests += 1
         return placed
+
+    def _agree_admissions(self, now: float, group):
+        """Rank 0 runs the admission policy on its own clock, deadlines and
+        EWMAs, and broadcasts what it placed and dropped; the other ranks
+        apply that (``SlotScheduler.follow``), so every rank's slot batch
+        holds the same chains whatever its own clock or deadlines say."""
+        rounds = self.stats.rounds_total
+        if group.rank == 0:
+            deferred = self.scheduler.deferred
+            placed = self.scheduler.admit(now, rounds, self._admission_context(now))
+            body = [v for slot, req in placed for v in (slot, req.rid)]
+            body += [entry.request.rid for entry in self.scheduler.dropped]
+            if any(not isinstance(v, (int, np.integer)) or abs(v) >= 1 << 53 for v in body):
+                raise ValueError("a model group's requests need integer rids below 2**53 "
+                                 f"(rank 0 broadcasts its admissions as floats): {body}")
+            head = [len(placed), len(self.scheduler.dropped),
+                    self.scheduler.deferred - deferred]
+        else:
+            head = [0, 0, 0]
+        n_placed, n_dropped, deferred = (int(v) for v in group.broadcast_floats(head))
+        if group.rank != 0:
+            body = [0] * (2 * n_placed + n_dropped)
+        if body:
+            body = [int(v) for v in group.broadcast_floats(body)]
+        if group.rank == 0:
+            return placed
+        return self.scheduler.follow(
+            now, rounds, list(zip(body[:2 * n_placed:2], body[1:2 * n_placed:2])),
+            body[2 * n_placed:], deferred=bool(deferred))
 
     def _admit_pending(self) -> None:
         """Admit at the boundary (see ``_admit``)."""
@@ -701,6 +796,17 @@ class ShardWorker:
             tr.add_span("device_wait", t0, t1, pid=self.shard_id, tid=self.num_slots + 1,
                         pname=f"shard-{self.shard_id}", tname="device",
                         args={"R": R, "cold": cold})
+        if self._collective_s_per_round and not cold:
+            # the calibrated estimate: the collectives run inside the
+            # superstep, so a boundary is charged R x the probe
+            est = R * self._collective_s_per_round
+            self.stats.collective_s += est
+            self.stats.collective_psum_s += R * self._collective_kind_s.get("psum", 0.0)
+            self.stats.collective_a2a_s += R * self._collective_kind_s.get("all_to_all", 0.0)
+            if tr is not None:
+                tr.add_span("collective", max(t1 - est, t_dispatch), t1, pid=self.shard_id,
+                            tid=self.num_slots + 3, tname="collective",
+                            args={"estimated": True, "R": R})
         info = info_host.numpy()
         row = {name: info[i] for i, name in enumerate(_SYNC_ROWS)}
         a, theta_live = row["a"], row["theta_live"]
@@ -785,7 +891,7 @@ class ShardWorker:
                 self.d_cond, self.eager_head, self.noise_mode, self.keep_trajectory,
                 self.controller, self.num_branches, self.branch_controller,
                 self.execution, self.round_impl, self._budget_ladder, self._budget_cap,
-                self.allocator)
+                self.allocator, self._eager)
 
     def adopt_programs(self, warm: "ShardWorker") -> "ShardWorker":
         """Share a warm worker's program build (same statics and shapes).

@@ -1681,3 +1681,41 @@ def test_dryrun_too_large_cell_allocates_nothing(dev, tmp_path):
     assert rec["status"] == "ok" and rec["measured"]["status"] == "too_large"
     assert rec["measured"]["reckoned_gb"] > rec["measured"]["limit_gb"]
     assert torch.cuda.memory_allocated() == before == torch.cuda.max_memory_allocated()
+
+
+def _tp2_policy_rank(group, seed):
+    """One rank of a two-rank model group on the card: the policy smoke
+    config's TP2 forward on its share of the weights, and rank 0's
+    replicated forward; B2's launches in the sharded call."""
+    from repro_torch.distributed.sharding import mp_param_pspecs, shard_params
+    from repro_torch.kernels.flash_attention.ops import flash_f32
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.nn.param import param_axes
+    from repro_torch.weights import param_shapes
+
+    dc = paper_diffusion_policy_smoke()
+    params = init_denoiser_params(dc, seed, out_scale=1.0, device=group.device)
+    specs = mp_param_pspecs(param_axes(dc), param_shapes(dc), Mesh((2,), ("model",), ()))
+    local = shard_params(params, specs, group.rank, group.world)
+    rng = np.random.default_rng(seed)
+    t = torch.from_numpy(rng.uniform(1.0, 9.0, 5).astype(np.float32)).to(group.device)
+    y = torch.from_numpy(rng.standard_normal((5, dc.seq_len, dc.d_data)).astype(
+        np.float32)).to(group.device)
+    before = flash_f32.launches
+    out = t_diff.denoiser_fwd(local, t, y, dc, tp_axis=group)
+    launches = flash_f32.launches - before
+    ref = t_diff.denoiser_fwd(params, t, y, dc) if group.rank == 0 else None
+    return dict(out=out.cpu(), ref=None if ref is None else ref.cpu(), launches=launches)
+
+
+def test_tp2_forward_on_two_ranks_of_one_card(dev):
+    """Two ranks share the card (gloo over pinned host copies): the TP2
+    forward of the policy smoke config within 1e-5 of the replicated
+    forward, the same bits on both ranks, B2's float32 kernel once a layer
+    on the local heads."""
+    from repro_torch.distributed.group import run_group
+
+    r0, r1 = run_group(_tp2_policy_rank, 2, "cuda", (5,))
+    assert torch.equal(r0["out"], r1["out"])
+    torch.testing.assert_close(r0["out"], r0["ref"], atol=1e-5, rtol=1e-5)
+    assert r0["launches"] == r1["launches"] == paper_diffusion_policy_smoke().backbone.n_layers

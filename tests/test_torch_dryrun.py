@@ -112,15 +112,15 @@ def test_accum_variants_change_the_analytic_term_only(tmp_path):
 
 @pytest.mark.parametrize("variant", SHARDING_VARIANTS)
 def test_sharding_variants_are_refused_naming_a9(tmp_path, variant, capsys):
-    with pytest.raises(ValueError, match="A9"):
+    with pytest.raises(ValueError, match="A13"):
         t_dry.parse_cells(f"tinyllama-1.1b:train_4k:{variant}")
-    with pytest.raises(ValueError, match="A9"):
+    with pytest.raises(ValueError, match="A13"):
         t_dry.run_cell("tinyllama-1.1b", "train_4k", "single", str(tmp_path), variant,
                        device="cpu")
     with pytest.raises(SystemExit) as exit_:
         t_dry.main(["--cells", f"paper-pixel-dit:asd:{variant}", "--device", "cpu",
                     "--out", str(tmp_path)])
-    assert exit_.value.code == 2 and "A9" in capsys.readouterr().err
+    assert exit_.value.code == 2 and "A13" in capsys.readouterr().err
     assert not list(tmp_path.rglob("*.json"))
 
 
@@ -268,7 +268,7 @@ def test_the_report_prints_measured_steps_with_the_device(tmp_path, capsys):
 
 def test_the_production_mesh_is_refused_on_one_device_and_1x1_works():
     for multi, n in ((False, 256), (True, 512)):
-        with pytest.raises(RuntimeError, match=f"need {n} devices.*have 1.*A9"):
+        with pytest.raises(RuntimeError, match=f"need {n} devices.*have 1.*A13"):
             t_mesh.make_production_mesh(multi_pod=multi, device="cpu")
     mesh = t_mesh.make_debug_mesh((1, 1), ("data", "model"), device="cpu")
     assert (mesh.shape, mesh.axis_names, mesh.size) == ((1, 1), ("data", "model"), 1)

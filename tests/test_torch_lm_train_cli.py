@@ -145,7 +145,7 @@ def test_five_cli_steps_follow_the_jax_cli(accum):
 CLI = ("--device", "cpu", "--batch", "4", "--seq", "16")
 
 
-@pytest.mark.parametrize("argv,match", [(("--mesh", "2x4"), "A9")])
+@pytest.mark.parametrize("argv,match", [(("--mesh", "2x4"), "A13")])
 def test_cli_refuses_what_is_not_ported(argv, match, capsys):
     with pytest.raises(SystemExit) as exc:
         t_train.main(list(CLI + argv))

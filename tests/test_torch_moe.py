@@ -6,12 +6,14 @@ bf16 (bit for bit against the JAX scatter-add), the reduced
 qwen3-moe-30b-a3b through ``lm_fwd``, ``lm_prefill`` and ``lm_decode_step``
 (logits within 2e-4, as the dense archs), the MoE denoiser
 ``qwen3-moe-a3b-smoke`` through ``denoiser_fwd`` and one ASD call on the
-same noise, the serve CLI at that model, the refusals that stay, the
-init's fan-in, and the full-width tree and count.  The MoE loss and its
+same noise, the serve CLI at that model and the model-parallel
+combinations it refuses with the JAX CLI's messages, ``ep_axis`` over
+replicated experts, the init's fan-in, and the full-width tree and count.  The MoE loss and its
 gradients are in tests/test_torch_moe_train.py.
 """
 
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,7 @@ from repro_torch.configs.registry import get_config, get_denoiser_config
 from repro_torch.configs.registry import qwen3_moe_a3b_smoke as t_moe_smoke
 from repro_torch.core import asd as t_asd
 from repro_torch.core import schedules as t_sch
+from repro_torch.distributed.group import ModelGroup
 from repro_torch.launch import serve
 from repro_torch.models import lm as t_lm
 from repro_torch.models.diffusion import denoiser_fwd as t_denoiser_fwd
@@ -239,10 +242,14 @@ def test_combine_order_is_the_jax_scatter_adds(dropping):
     assert not torch.equal(rev, out)
 
 
-def test_moe_apply_refuses_expert_parallelism(dropping):
+def test_moe_apply_with_an_ep_axis_runs_replicated_experts_unsharded(dropping):
+    """Expert parallelism is taken only where the expert stacks are a
+    rank's block: with every expert (and a group of one rank) the call is
+    the replicated one, bit for bit."""
     cfg, _, p, x = dropping
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_moe.moe_apply(_tt(p), _t(x), cfg, ep_axis="model")
+    ref, ref_aux = t_moe.moe_apply(_tt(p), _t(x), cfg)
+    out, aux = t_moe.moe_apply(_tt(p), _t(x), cfg, ep_axis=ModelGroup(0, 1, "cpu"))
+    assert torch.equal(out, ref) and torch.equal(aux["moe_aux_loss"], ref_aux["moe_aux_loss"])
 
 
 # ---------------------------------------------------------------- the LM
@@ -379,9 +386,19 @@ def test_the_serve_cli_serves_the_moe_denoiser(capsys):
     assert "[continuous] served 4 requests" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--expert-parallel"], ["--model-shards", "2"],
-                                  ["--seq-shards", "2"]])
-def test_the_serve_cli_still_refuses_model_parallelism(flag, capsys):
+@pytest.mark.parametrize("flag", [["--expert-parallel"],
+                                  ["--model-shards", "2", "--seq-shards", "2"],
+                                  ["--seq-shards", "3"]])
+def test_the_serve_cli_still_refuses_model_parallelism(flag, monkeypatch):
+    """The combinations the JAX CLI refuses on the MoE denoiser (EP with no
+    group, TP with SP, SP over heads that do not divide) exit with its
+    message; the ones it serves run in tests/test_torch_serve_cli.py."""
+    from repro.launch import serve as j_serve
+
+    base = ["--model", "qwen3-moe-a3b-smoke"]
     with pytest.raises(SystemExit) as exc:
-        serve.main(["--device", "cpu", "--model", "qwen3-moe-a3b-smoke"] + flag)
-    assert exc.value.code == 2 and "ROADMAP.md A9" in capsys.readouterr().err
+        serve.main(["--device", "cpu"] + base + flag)
+    monkeypatch.setattr(sys, "argv", ["repro.launch.serve", "--mesh", "1x1"] + base + flag)
+    with pytest.raises(SystemExit) as ref:
+        j_serve.main()
+    assert isinstance(exc.value.code, str) and exc.value.code == ref.value.code

@@ -1,8 +1,9 @@
 """The port's serving observability (``repro_torch.serving.obs``) against the
 JAX package's: the trace recorder and the metrics registry, fed the same
 spans and the same stats, render the same Chrome trace JSON and the same
-Prometheus text; the engine's catalog is the JAX one less its branched and
-collective gauges; the HTTP endpoints answer on an ephemeral port."""
+Prometheus text; the engine's catalog is the JAX one, the model-parallel
+collective gauges included; the HTTP endpoints answer on an ephemeral
+port."""
 
 import json
 import types
@@ -22,8 +23,8 @@ from repro_torch.serving import obs as t_obs
 from repro_torch.serving import scheduler as t_sched
 from repro_torch.serving.engine import ContinuousASDEngine, Request
 
-# the JAX catalog's families the port's engine has no feature for yet
-_NOT_PORTED = ("asd_collective_seconds", "asd_collective_kind_seconds")
+# the JAX catalog's families the port's engine has no feature for yet (none)
+_NOT_PORTED = ()
 
 
 def _record(rec, t0):

@@ -1,10 +1,12 @@
 """The port's serve CLI, ``python -m repro_torch.launch.serve``, on the CPU
 with the smoke model: every engine and option prints the JAX CLI's lines
 with ``finite=True`` (branched runs with its ``branch depth`` clause,
-sharded runs with its ``shards=2 router=...`` clause); every flag the port
-has no counterpart for exits with status 2 and names its ROADMAP.md item;
-without ``--device cpu`` and with no card it raises instead of running on
-the CPU."""
+sharded runs with its ``shards=2 router=...`` clause, model-parallel runs
+over two ranks with its ``mp=2`` clause and ``collectives:`` line); a
+model-parallel combination the JAX CLI rejects exits with its message;
+every flag the port has no counterpart for exits with status 2 and names
+its ROADMAP.md item; without ``--device cpu`` and with no card it raises
+instead of running on the CPU."""
 
 import json
 import os
@@ -38,6 +40,12 @@ RUNS = {
     "shards-2-round-robin": ["--shards", "2", "--router", "round-robin"],
     "shards-2-dispatch-fused": ["--shards", "2", "--dispatch", "fused", "--execution",
                                 "packed", "--round-impl", "fused"],
+    # model parallelism: two ranks started by the CLI, each on the CPU (K 10:
+    # every collective crosses processes)
+    "model-shards-2": ["--model-shards", "2", "--K", "10"],
+    "seq-shards-2": ["--seq-shards", "2", "--K", "10"],
+    "expert-parallel-moe": ["--model", "qwen3-moe-a3b-smoke", "--K", "10", "--expert-parallel",
+                            "--model-shards", "2"],
 }
 
 
@@ -81,6 +89,10 @@ def test_the_cli_serves_on_the_cpu(run, tmp_path):
         assert "shard 1: 4 routed, 4 retired" in proc.stderr
     else:
         assert "shards=" not in line
+    mp = "--model-shards" in RUNS[run] or "--seq-shards" in RUNS[run]
+    assert (", mp=2" in line) == mp and ("  collectives: " in out) == mp
+    assert ("(sequence-parallel)" in line) == ("--seq-shards" in RUNS[run])
+    assert ("(expert-parallel)" in line) == ("--expert-parallel" in RUNS[run])
     if "--num-branches" in RUNS[run]:
         # the JAX CLI's clause: mean accepted prefix a round, wasted drafts
         assert "branch depth " in line and "(waste " in line and "B=2)" in line
@@ -89,11 +101,7 @@ def test_the_cli_serves_on_the_cpu(run, tmp_path):
 
 
 REFUSED = {
-    "--model-shards 2": ("A9", ["--model-shards", "2"]),
-    "--seq-shards 2": ("A9", ["--seq-shards", "2"]),
-    "--expert-parallel": ("A9", ["--expert-parallel"]),
-    "MoE model": ("A9", ["--expert-parallel", "--model", "qwen3-moe-a3b-smoke"]),
-    "--mesh 2x4": ("A9", ["--mesh", "2x4"]),
+    "--mesh 2x4": ("A13", ["--mesh", "2x4"]),
     "--grs-impl": ("A8", ["--grs-impl", "core"]),
     "--pack-impl": ("A8", ["--pack-impl", "kernel"]),
 }
@@ -110,9 +118,31 @@ def test_flags_without_a_counterpart_exit_2(what, capsys):
 
 
 def test_a_refusal_is_the_process_exit_status(tmp_path):
-    proc = _cli(["--model-shards", "2"], tmp_path)
-    assert proc.returncode == 2 and "ROADMAP.md A9" in proc.stderr
+    proc = _cli(["--mesh", "2x4"], tmp_path)
+    assert proc.returncode == 2 and "ROADMAP.md A13" in proc.stderr
     assert "finite" not in proc.stdout
+
+
+# the model-parallel combinations the JAX CLI rejects, with its messages
+BAD_COMBINATIONS = {
+    "tp with sp": ["--model-shards", "2", "--seq-shards", "2"],
+    "ep without a group": ["--expert-parallel"],
+    "ep on the MoE without a group": ["--expert-parallel", "--model", "qwen3-moe-a3b-smoke"],
+    "sp over heads that do not divide": ["--seq-shards", "3"],
+}
+
+
+@pytest.mark.parametrize("what", sorted(BAD_COMBINATIONS))
+def test_a_bad_model_parallel_combination_gives_the_jax_message(what, monkeypatch):
+    from repro.launch import serve as j_serve
+
+    args = BAD_COMBINATIONS[what]
+    with pytest.raises(SystemExit) as port:
+        serve.main(BASE + args)
+    monkeypatch.setattr(sys, "argv", ["repro.launch.serve", "--mesh", "1x1", *BASE[2:], *args])
+    with pytest.raises(SystemExit) as ref:
+        j_serve.main()
+    assert isinstance(port.value.code, str) and port.value.code == ref.value.code
 
 
 def test_main_returns_the_engine_summary():

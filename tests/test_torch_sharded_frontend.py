@@ -1,5 +1,6 @@
 """The sharded front end's checks and views, on the CPU: its validation
-(slot counts, dispatch modes, model_shards naming ROADMAP.md A9),
+(slot counts, dispatch modes, a model_shards other than its model group's
+world, a model group without params),
 ``chain_state(shard, slot)`` in both dispatch modes (in fused dispatch a
 view of the stacked batch), one program a boundary in fused dispatch,
 ``instrument_engine``'s label set a shard, ``healthz``'s worst shard, and
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.core import analytic as t_an
 from repro_torch.core import schedules as t_sch
+from repro_torch.distributed.group import ModelGroup
 from repro_torch.serving.obs import MetricsRegistry, MetricsServer, TraceRecorder, \
     instrument_engine
 from repro_torch.serving.engine import Request
@@ -40,8 +42,9 @@ def _requests(n, seed0=100):
     ("slots over shards", dict(shards=3), "divide evenly"),
     ("no shards", dict(shards=0), "shards must be"),
     ("unknown dispatch", dict(dispatch="broadcast"), "dispatch"),
-    ("model shards", dict(model_shards=2), "ROADMAP.md A9"),
-    ("param specs", dict(param_specs={"w": None}), "ROADMAP.md A9"),
+    ("model shards", dict(model_shards=2), "must equal the model group's world"),
+    ("param specs", dict(model_group=ModelGroup(0, 1, "cpu"), param_specs={"w": None}),
+     "needs explicit params AND param_specs"),
     ("short devices", dict(devices=["cpu"]), "shorter"),
 ])
 def test_the_engine_validates_what_jax_validates(what, kw, match):
