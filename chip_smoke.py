@@ -80,7 +80,8 @@ Phases, each printing one JSON line and raising on any failure:
               the rounds gate.
      serve_graphs
               the superstep programs as graphs against their eager bodies
-              in the same run: pixel-dit (6 keyed requests, 4 slots, theta
+              in the same run: pixel-dit at SERVE_GRAPHS_DEPTH layers (6
+              keyed requests, 4 slots, theta
               8, K 64, R 4, counter noise) at budgets 16 and 64, both
               round_impls, B 1 and 2, and with both auto ladders: one
               capture per key within the ladders' bound, capture ms, peak
@@ -182,7 +183,21 @@ Phases, each printing one JSON line and raising on any failure:
               counters equal, samples within MP_F32_TOL, launches per round
               equal.  The ranks' supersteps are eager (a host-staged
               collective cannot be captured), so the host-sync-as-error
-              checks of the captured phases do not apply.
+              checks of the captured phases do not apply.  Then the LM
+              trainer's meshes (mesh_train) on the same two ranks:
+              tinyllama-1.1b at published widths and MESH_TRAIN_DEPTH of
+              its 22 layers, batch 8 x 128, 3 steps, on 2x1 (data
+              parallelism, ZeRO-1), 1x2 (TP on the attention and FFN
+              leaves, the vocab leaves gathered at use) and 2x1 FSDP, each
+              against the 1 x 1 trainer in this process from the same
+              seed-0 params and batches: every loss within
+              MESH_LOSS_GATE (relative), every leaf's step-1 gradient
+              within MESH_BF16_GATE and its update over the run (final
+              minus initial params) within MESH_UPDATE_GATE (relative L2),
+              the ranks' losses and replicated leaves equal in bits, each
+              rank's resident bytes of params and mu / nu exactly the
+              layout's; the warm step, the seconds inside collectives and
+              their share, peak memory by rank.
      serve_keys_reference
               the counter-noise engine on a small denoiser, on the card
               and on the CPU from the same keys (keyed and unkeyed
@@ -284,7 +299,7 @@ Phases, each printing one JSON line and raising on any failure:
               kernel timed as in phase 3 with its bound and its build's
               registers and spills; B7's forward at the same shape
               (ssm_scan_training_shape).
-     lm_train ``python -m repro_torch.launch.train --scale full --steps 20
+     lm_train ``python -m repro_torch.launch.train --scale full --steps 12
               --batch 8 --seq 128`` in process for tinyllama-1.1b (the
               CLI's default), xlstm-125m (--seq 32) and hymba-1.5b (B7
               forward, recomputed and backward): losses finite, ms a step
@@ -329,7 +344,8 @@ Phases, each printing one JSON line and raising on any failure:
               forward and backward at the training step's chunk (1, 1024,
               25600).
   7. train_full_width
-              the full-width ``paper-pixel-dit`` trained through
+              the full-width ``paper-pixel-dit`` (PIXEL_DEPTH layers)
+              trained through
               ``repro_torch.training.loop.run`` (5 steps of sl_denoiser_loss
               and AdamW on BlobImages of its shape, bf16, remat, naive
               attention, checkpoints every 3 steps under build/): losses,
@@ -381,6 +397,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2262,6 +2279,11 @@ def run_sampler_graphs(torch, dev, model_fn, sched, dc, graph_runs):
 # both round_impls, B 1 and 2, counter noise, graphs against eager bodies;
 # and one run with both auto ladders
 GRAPH_BUDGETS = (16, 64)
+# serve_graphs' pixel-dit depth: its nine configurations each serve and
+# replay the full-width model, so it runs half of PIXEL_DEPTH to keep the
+# smoke inside its time limit (every gate compares graph and eager runs of
+# the same model, whatever its depth)
+SERVE_GRAPHS_DEPTH = PIXEL_DEPTH // 2
 GRAPH_AUTO = dict(round_budget="auto", rounds_per_sync="auto")
 GRAPH_CLI_PROFILE = 8  # warm CLI supersteps profiled, graphs and eager
 
@@ -2332,7 +2354,18 @@ class _HostSplit:
                 for p, v in self.ms.items()}
 
 
-def run_serve_graphs(torch, dev, model_fn, sched, dc):
+def _serve_graphs_model(torch, dev):
+    """(model_fn, dc): the pixel-dit at full width and SERVE_GRAPHS_DEPTH
+    layers, weights from SEED, for serve_graphs."""
+    from repro_torch.models.diffusion import make_sl_model_fn
+    from repro_torch.weights import init_denoiser_params
+
+    dc = _mp_pixel_dc(SERVE_GRAPHS_DEPTH)
+    params = init_denoiser_params(dc, SEED, out_scale=OUT_SCALE, device=dev)
+    return make_sl_model_fn(params, dc), dc
+
+
+def run_serve_graphs(torch, dev, model_fn, dc, sched):
     """The worker's superstep programs as captured CUDA graphs, held against
     their eager bodies in the same run.
 
@@ -2442,7 +2475,8 @@ def run_serve_graphs(torch, dev, model_fn, sched, dc):
             profiles[kind] = dict(wall_ms=wall_ms, busy_ms=busy,
                                   idle_share=max(0.0, 1.0 - busy / wall_ms))
         del eng
-        emit("serve_graphs", model=dc.backbone.name, run=name, requests=REQUESTS,
+        emit("serve_graphs", model=dc.backbone.name, layers=dc.backbone.n_layers, run=name,
+             requests=REQUESTS,
              slots=SLOTS, theta=THETA, K=K, noise_mode="counter", **cfg,
              keys=g["keys"], capture_ms=capture_ms, rounds=g["rounds"],
              launches_per_round={k: v / g["rounds"] for k, v in g["launches"].items() if v},
@@ -4719,8 +4753,8 @@ def _grad_recorder(torch, opt, at_step):
 
 
 def run_train_full_width(torch, dev):
-    """train_full_width: paper-pixel-dit at full width (bf16 compute,
-    float32 params, remat) through repro_torch.training.loop.run: 5 steps of
+    """train_full_width: paper-pixel-dit at full width and PIXEL_DEPTH
+    layers (bf16 compute, float32 params, remat) through repro_torch.training.loop.run: 5 steps of
     sl_denoiser_loss and AdamW on BlobImages of its own shape, async
     checkpoints every 3 steps; then a run resumed from the step-3
     checkpoint, and the last checkpoint restored against the live state."""
@@ -4736,6 +4770,8 @@ def run_train_full_width(torch, dev):
     from repro_torch.weights import denoiser_init_params
 
     dc = paper_pixel_dit()
+    dc = dataclasses.replace(dc, backbone=dataclasses.replace(dc.backbone,
+                                                              n_layers=PIXEL_DEPTH))
     cfg = dc.backbone
     batch = TRAIN_BATCH
     grid = int(round(dc.seq_len ** 0.5))
@@ -4827,12 +4863,15 @@ def run_train_full_width(torch, dev):
 
 
 # lm_train: the LM trainer's CLI at full width (its default arch, xlstm,
-# and hymba through B7's forward and backward), 20 steps of 8 x 128 tokens
+# and hymba through B7's forward and backward), 12 steps of 8 x 128 tokens
 # (xlstm 8 x 32: its sLSTM loop runs forward, recomputed and backward at
 # ~0.6 ms a position a layer, host-bound, 2.4 s a step at 128 on an NVIDIA
 # H100 80GB HBM3, 700.00 W)
 LM_TRAIN_ARCHS = ("tinyllama-1.1b", "xlstm-125m", "hymba-1.5b")
-LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 20, 8, 128
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 12, 8, 128
+# the step the resumed run starts from: the CLI's checkpoint interval,
+# max(10, steps / 4)
+LM_TRAIN_RESUME_FROM = max(10, LM_TRAIN_STEPS // 4)
 LM_TRAIN_SEQ_BY_ARCH = {"xlstm-125m": 32}
 LM_TRAIN_RESUMED = "xlstm-125m"
 # B7's backward at hymba-1.5b's training shape (batch, seq, din * N)
@@ -4856,13 +4895,13 @@ def _train_cli(torch, argv):
 
 def run_lm_train(torch, dev):
     """lm_train: ``python -m repro_torch.launch.train --scale full --steps
-    20 --batch 8 --seq 128`` (xlstm: --seq 32) in process for each of
+    12 --batch 8 --seq 128`` (xlstm: --seq 32) in process for each of
     LM_TRAIN_ARCHS
     (bf16 compute, float32 params and AdamW state, remat, naive attention):
     losses (all finite; whether they fall is recorded, not gated: step 0's
     learning rate is 0 and warmup takes 10 steps), ms a step with the host's
     MarkovLM time apart, tokens/s, peak memory, launches.  xlstm's run
-    writes checkpoints (--ckpt-dir: steps 10 and 20); a second call to 20
+    writes checkpoints (--ckpt-dir: steps 10 and 12); a second call to 12
     steps in a directory holding only its step-10 checkpoint resumes there,
     and its losses must equal the straight run's within 1e-5 relative
     (train_full_width's tolerance)."""
@@ -4915,27 +4954,28 @@ def run_lm_train(torch, dev):
         fail(f"lm_train hymba: B7 launches {hymba['launches']}, backward "
              f"{hymba['scan_backward_launches']}")
 
-    half = f"step_{LM_TRAIN_STEPS // 2:09d}"
+    half = f"step_{LM_TRAIN_RESUME_FROM:09d}"
     shutil.copytree(ckpt_dir / "straight" / half, ckpt_dir / "resumed" / half)
     second, _ = _train_cli(torch, args(LM_TRAIN_RESUMED)
                            + ("--ckpt-dir", str(ckpt_dir / "resumed")))
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    straight = results[LM_TRAIN_RESUMED]["losses"][LM_TRAIN_STEPS // 2:]
+    straight = results[LM_TRAIN_RESUMED]["losses"][LM_TRAIN_RESUME_FROM:]
     resumed = [h["loss"] for h in second["history"]]
     rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight))
-    if [h["step"] for h in second["history"]] != list(range(LM_TRAIN_STEPS // 2 + 1,
+    if [h["step"] for h in second["history"]] != list(range(LM_TRAIN_RESUME_FROM + 1,
                                                             LM_TRAIN_STEPS + 1)) or \
             len(resumed) != len(straight) or not rel <= 1e-5:
         fail(f"lm_train resume: steps {[h['step'] for h in second['history']]}, losses "
              f"{resumed} against {straight} (max relative {rel})")
     emit("lm_train", archs=results, batch=LM_TRAIN_BATCH, steps=LM_TRAIN_STEPS,
          resumed=dict(
-             model=LM_TRAIN_RESUMED, from_checkpoint=LM_TRAIN_STEPS // 2,
+             model=LM_TRAIN_RESUMED, from_checkpoint=LM_TRAIN_RESUME_FROM,
              resumed_steps=[h["step"] for h in second["history"]],
              max_relative_loss_difference=rel, tolerance=1e-5),
          note="python -m repro_torch.launch.train in process (tinyllama-1.1b is its default "
               "arch); step ms is the loop's time a step less the host's MarkovLM batch, "
-              "warm over steps 2-20; the batch, its copy and the metrics read are in it")
+              f"warm over steps 2-{LM_TRAIN_STEPS}; the batch, its copy and the metrics read "
+              "are in it")
     return runs, hymba["scan_backward_launches"]
 
 
@@ -4973,7 +5013,7 @@ def run_lm_train_moe(torch, dev):
     cfg = dataclasses.replace(get_config(LM_TRAIN_MOE), n_layers=LM_TRAIN_MOE_LAYERS)
     counters = _counters()
     base = _fresh_memory(torch)
-    train_step, init = train.build(cfg, 1, 3e-4, LM_TRAIN_MOE_STEPS, dev)
+    train_step, init, _ = train.build(cfg, None, 1, 3e-4, LM_TRAIN_MOE_STEPS, device=dev)
     params, opt_state = init()
     n_params = sum(p.numel() for p in pytree.leaves(params))
     state_gb = (torch.cuda.memory_allocated() - base) / 1e9
@@ -5217,7 +5257,7 @@ def run_lm_train_profile(torch, dev):
     from repro_torch.nn.ssm import mamba_fwd
 
     cfg = get_config("hymba-1.5b")
-    train_step, init = train.build(cfg, 1, 3e-4, LM_TRAIN_STEPS, dev)
+    train_step, init, _ = train.build(cfg, None, 1, 3e-4, LM_TRAIN_STEPS, device=dev)
     params, opt_state = init()
     g = torch.Generator(device=dev).manual_seed(SEED + 28)
     toks = torch.randint(0, cfg.vocab_size, (LM_TRAIN_BATCH, LM_TRAIN_SEQ + 1), generator=g,
@@ -6458,6 +6498,249 @@ MP_ENGINE_REQUESTS = 4
 MP_ENGINE_DEPTH = 4
 
 
+# ------------------------------------------------------------ mesh_train
+# the LM trainer's meshes (launch/train.py build, training/train_step.py
+# MeshStep) on the model_parallel phase's two ranks, against the 1 x 1
+# trainer in this process: tinyllama-1.1b (the JAX CLI's default arch) at
+# published widths and 2 of its 22 layers
+MESH_TRAIN_ARCH = "tinyllama-1.1b"
+MESH_TRAIN_DEPTH = 2
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS, MESH_TRAIN_LR = 8, 128, 3, 3e-4
+# (mesh, layout) of each run: data parallelism with ZeRO-1, the model axis
+# (TP on the attention and FFN leaves, the vocab leaves gathered at use),
+# and FSDP over (data, model) with ZeRO-1
+MESH_TRAIN_RUNS = (("2x1", "param"), ("1x2", "param"), ("2x1", "fsdp"))
+# relative L2 of a mesh run's step-1 gradient of every leaf (and of each
+# loss) against the 1 x 1 run's: a leaf's gradient passes through up to 7
+# bf16 products a layer forward and 7 backward (q, k, v, o, gate, up,
+# down), and the mesh rounds each of them at most once more than the
+# 1 x 1 run (a half batch's product, a rank's partial sum before the psum);
+# bf16 roundings of epsilon 2^-8 add in quadrature over 2 x 7 x depth
+# products, times 2 for the margin
+MESH_BF16_GATE = 2 * 2.0 ** -8 * math.sqrt(2 * 7 * MESH_TRAIN_DEPTH)
+# relative error of each loss against the 1 x 1 run's: at most 3.92e-5
+# in this phase's runs on an H100, so 25 times that spread
+MESH_LOSS_GATE = 1e-3
+# relative L2 of each leaf's update over the run (final minus initial
+# params) against the 1 x 1 run's, which a gate on the params cannot see
+# at warmup's lr (a leaf's whole update is ~1 % of its norm).  AdamW's
+# early updates are ~lr sign(g) an element, so the elements whose bf16
+# gradient changes sign move apart; a ZeRO-1 half of two left without its
+# update gives sqrt(1/2), a missing update 1: the gate is half the first
+MESH_UPDATE_GATE = math.sqrt(0.5) / 2
+
+
+def _mesh_train_setup(torch, dev):
+    """(config, the steps' MarkovLM batches on ``dev``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import MarkovLM
+
+    cfg = dataclasses.replace(get_config(MESH_TRAIN_ARCH), n_layers=MESH_TRAIN_DEPTH)
+    data = MarkovLM(vocab=cfg.vocab_size, seq_len=MESH_TRAIN_SEQ, batch=MESH_TRAIN_BATCH)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(s).items()}
+               for s in range(MESH_TRAIN_STEPS)]
+    return cfg, batches
+
+
+def _synced(torch, fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_mesh_train_reference(torch, dev, path):
+    """The 1 x 1 trainer (``train.build(cfg, None, ...)``) from the seed-0
+    params: its step-1 gradient of every leaf and each leaf's update over
+    the steps, saved to ``path`` on the host for the ranks, and its
+    losses and warm step."""
+    from repro_torch import pytree
+    from repro_torch.launch import train
+    from repro_torch.models.lm import lm_loss
+
+    cfg, batches = _mesh_train_setup(torch, dev)
+    step, init, _ = train.build(cfg, None, 1, MESH_TRAIN_LR, MESH_TRAIN_STEPS, device=dev)
+    params, opt = init()
+    ps = [p.detach().requires_grad_() for p in pytree.leaves(params)]
+    with torch.enable_grad():
+        loss, _ = lm_loss(pytree.unflatten(params, ps), batches[0], cfg)
+        grads = torch.autograd.grad(loss, ps)
+    names = ["/".join(path) for path, _ in pytree.paths(params)]
+    saved = {k: g.cpu() for k, g in zip(names, grads)}
+    del ps, grads
+    start = [p.clone() for p in pytree.leaves(params)]
+    losses, norms, times = [], [], []
+    for batch in batches:
+        (params, opt, m), dt = _synced(torch, step, params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(dt)
+    saved.update({f"update/{k}": (p - p0).cpu()
+                  for k, p, p0 in zip(names, pytree.leaves(params), start)})
+    torch.save(saved, path)
+    return dict(losses=losses, grad_norms=norms, warm_step_ms=1e3 * min(times[1:]))
+
+
+def _checksums(torch, leaf):
+    """Two int64 sums of a leaf's bits (plain and position-weighted): the
+    same bits give the same pair."""
+    v = leaf.contiguous().view(torch.int32).reshape(-1).long()
+    w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+    return int(v.sum()), int((v * w).sum())
+
+
+def _mesh_train_rank(torch, group, ref_path):
+    """Each of MESH_TRAIN_RUNS on this rank: the step-1 gradient blocks
+    against the reference's (sums for the relative L2), three steps, the
+    param blocks' updates against the reference's (sums), the warm step,
+    the seconds inside collectives, peak memory, resident bytes against
+    the layout's, and the final blocks' checksums."""
+    from repro_torch import pytree
+    from repro_torch.distributed.group import collective_seconds, reset_collective_seconds
+    from repro_torch.distributed.sharding import block_slices
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.weights import lm_param_shapes
+
+    dev = group.device
+    ref = torch.load(ref_path, mmap=True, map_location="cpu", weights_only=True)
+    cfg, batches = _mesh_train_setup(torch, dev)
+    shapes = lm_param_shapes(cfg)
+    out = {}
+    for spec, layout in MESH_TRAIN_RUNS:
+        t_run = time.perf_counter()
+        base = _fresh_memory(torch)
+        mesh = make_rank_mesh(group, spec)
+        step, init, lay = train.build(cfg, mesh, 1, MESH_TRAIN_LR, MESH_TRAIN_STEPS, layout,
+                                      device=dev)
+        params, opt = init()
+        # on the host, out of the rank's peak memory
+        start = [p.to("cpu", copy=True) for p in pytree.leaves(params)]
+        reset_collective_seconds()
+        (loss, metrics, grads), grad_s = _synced(torch, step.gradients, params, batches[0])
+        num, den = {}, {}
+        for (path, blk), spec_o in zip(pytree.paths(grads), pytree.leaves(lay.opt["mu"])):
+            r = ref["/".join(path)]
+            want = r[block_slices(tuple(r.shape), spec_o, mesh)].to(dev)
+            num["/".join(path)] = float(((blk - want) ** 2).sum())
+            den["/".join(path)] = float((want ** 2).sum())
+            del want
+        (params, opt, m), apply_s = _synced(torch, step.apply, params, opt, loss, metrics,
+                                            grads)
+        del grads
+        losses, norms = [float(m["loss"])], [float(m["grad_norm"])]
+        times, coll = [grad_s + apply_s], [collective_seconds()]
+        for batch in batches[1:]:
+            reset_collective_seconds()
+            (params, opt, m), dt = _synced(torch, step, params, opt, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            times.append(dt)
+            coll.append(collective_seconds())
+        unum, uden = {}, {}
+        for (path, p), p0, spec_p in zip(pytree.paths(params), start,
+                                         pytree.leaves(lay.params)):
+            r = ref["update/" + "/".join(path)]
+            want = r[block_slices(tuple(r.shape), spec_p, mesh)].to(dev)
+            unum["/".join(path)] = float(((p - p0.to(dev) - want) ** 2).sum())
+            uden["/".join(path)] = float((want ** 2).sum())
+            del want
+        del start
+        sums = {"/".join(path): (block_slices(shapes_of, spec_p, mesh), _checksums(torch, p))
+                for (path, p), spec_p, shapes_of in zip(
+                    pytree.paths(params), pytree.leaves(lay.params),
+                    [tuple(x) for x in pytree.leaves(shapes)])}
+        nbytes = lambda tree: sum(t.numel() * t.element_size() for t in pytree.leaves(tree))
+        out[f"{spec}_{layout}"] = dict(
+            losses=losses, grad_norms=norms, num=num, den=den, unum=unum, uden=uden,
+            step_s=times,
+            collective_s=coll, peak_bytes=torch.cuda.max_memory_allocated() - base,
+            param_bytes=nbytes(params), mu_nu_bytes=nbytes(opt["mu"]) + nbytes(opt["nu"]),
+            layout_param_bytes=lay.resident_bytes(shapes, lay.params),
+            layout_mu_nu_bytes=2 * lay.resident_bytes(shapes, lay.opt["mu"]),
+            full_param_bytes=4 * sum(math.prod(x) for x in pytree.leaves(shapes)),
+            tp_leaves=len(lay.tp),
+            sums={k: ([(sl.start, sl.stop) for sl in v[0]], v[1]) for k, v in sums.items()},
+            wall_s=time.perf_counter() - t_run)
+        del params, opt, step
+    return out
+
+
+def check_mesh_train(torch, card, ref, ranks):
+    """The gates of each mesh run against the 1 x 1 reference, and its
+    ``mesh_train`` line."""
+    for key, r0 in ranks[0]["mesh_train"].items():
+        runs = [r["mesh_train"][key] for r in ranks]
+        problems = []
+        if not all(r["losses"] == r0["losses"] for r in runs):
+            problems.append("the ranks' losses differ")
+        if not all(math.isfinite(x) for x in r0["losses"]):
+            problems.append(f"losses not finite: {r0['losses']}")
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"])]
+        if not max(loss_rel) <= MESH_LOSS_GATE:
+            problems.append(f"losses {r0['losses']} against {ref['losses']}")
+        rel = {k: math.sqrt(sum(r["num"][k] for r in runs) / sum(r["den"][k] for r in runs))
+               for k in r0["num"]}
+        over = {k: e for k, e in rel.items() if not e <= MESH_BF16_GATE}
+        if over:
+            problems.append(f"step-1 gradients over the gate: {over}")
+        upd = {k: math.sqrt(sum(r["unum"][k] for r in runs)
+                            / max(sum(r["uden"][k] for r in runs), 1e-300))
+               for k in r0["unum"]}
+        over = {k: e for k, e in upd.items() if not e <= MESH_UPDATE_GATE}
+        if over:
+            problems.append(f"param updates over the gate: {over}")
+        for r in runs:
+            if (r["param_bytes"], r["mu_nu_bytes"]) != (r["layout_param_bytes"],
+                                                       r["layout_mu_nu_bytes"]):
+                problems.append(f"resident bytes {r['param_bytes']}, {r['mu_nu_bytes']} "
+                                f"against the layout's {r['layout_param_bytes']}, "
+                                f"{r['layout_mu_nu_bytes']}")
+        replicated = 0
+        for k, (blk, sums) in r0["sums"].items():
+            for r in runs[1:]:
+                if r["sums"][k][0] == blk:
+                    replicated += 1
+                    if r["sums"][k][1] != sums:
+                        problems.append(f"replicated leaf {k}: the ranks' bits differ")
+        if problems:
+            fail(f"mesh_train {key}: {problems}")
+        warm = [sum(r["step_s"][1:]) / len(r["step_s"][1:]) for r in runs]
+        coll = [sum(r["collective_s"][1:]) / len(r["collective_s"][1:]) for r in runs]
+        emit("mesh_train", run=key, card=card, arch=MESH_TRAIN_ARCH, layers=MESH_TRAIN_DEPTH,
+             batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ, steps=MESH_TRAIN_STEPS,
+             losses=r0["losses"], reference_losses=ref["losses"],
+             loss_relative_error=loss_rel, grad_norms=r0["grad_norms"],
+             reference_grad_norms=ref["grad_norms"],
+             step1_grad_relative_l2_max=max(rel.values()),
+             step1_grad_relative_l2_worst_leaf=max(rel, key=rel.get),
+             update_relative_l2_max=max(upd.values()),
+             update_relative_l2_worst_leaf=max(upd, key=upd.get),
+             gate=MESH_BF16_GATE, gate_rule=(
+                 "2 x bf16 epsilon 2^-8 x sqrt(2 x 7 x depth): one more bf16 rounding of "
+                 "each of 7 products a layer, forward and backward"),
+             loss_gate=MESH_LOSS_GATE, loss_gate_rule="25 x the largest measured, 3.92e-5",
+             update_gate=MESH_UPDATE_GATE, update_gate_rule=(
+                 "half of sqrt(1/2), what a ZeRO-1 half of two left without its update "
+                 "gives"),
+             tensor_parallel_leaves=r0["tp_leaves"], replicated_leaf_blocks_equal=replicated,
+             warm_step_ms_by_rank=[1e3 * w for w in warm],
+             reference_warm_step_ms=ref["warm_step_ms"],
+             collective_ms_per_warm_step_by_rank=[1e3 * c for c in coll],
+             collective_share_of_warm_step_by_rank=[c / w for c, w in zip(coll, warm)],
+             first_step_ms_by_rank=[1e3 * r["step_s"][0] for r in runs],
+             peak_bytes_by_rank=[r["peak_bytes"] for r in runs],
+             param_bytes_by_rank=[r["param_bytes"] for r in runs],
+             mu_nu_bytes_by_rank=[r["mu_nu_bytes"] for r in runs],
+             whole_param_bytes=r0["full_param_bytes"],
+             run_wall_s_by_rank=[r["wall_s"] for r in runs],
+             note=("the transport is host-staged gloo between two processes that share this "
+                   "one card (pinned host copies), not NVLink; step ms: host wall with a "
+                   "synchronize, the mean of steps 2 and 3; collective ms: wall inside the "
+                   "groups' collectives in those steps"))
+
+
 def _mp_pixel_dc(depth: int):
     from repro_torch.configs.registry import paper_pixel_dit
 
@@ -6517,6 +6800,7 @@ def _mp_pixel_forwards(torch, group, counters, dc, params):
     on rank 0, the replicated forward), two calls each, then the TP2
     forward with rank 1's wo psum dropped."""
     from repro_torch import pytree
+    from repro_torch.distributed.group import MeshGroups
     from repro_torch.distributed.sharding import shard_params
     from repro_torch.models.diffusion import make_sl_model_fn
 
@@ -6539,7 +6823,8 @@ def _mp_pixel_forwards(torch, group, counters, dc, params):
             del fn
         for mode, tensor, sp in (("tp2", True, 1), ("sp2", False, 2)):
             specs = _mp_specs(dc, group.world, tensor)
-            local = shard_params(params, specs, group.rank, group.world)
+            local = shard_params(params, specs,
+                                 MeshGroups((group.world,), ("model",), group.rank))
             sharded = {path for path, spec in pytree.paths(specs) if "model" in spec}
             fn = make_sl_model_fn(local, dc, **_mp_axes(group, tensor, False, sp))
             _zero_counters(torch, counters)
@@ -6621,9 +6906,10 @@ def _mp_f32_setup(torch, dev, name):
     return dc, params, ddpm(MP_F32_K), reqs
 
 
-def _mp_rank(group, _):
-    """One rank of the phase: the full-width forwards and engine, then the
-    float32 engines; returns what the parent checks (tensors on the host)."""
+def _mp_rank(group, mesh_ref):
+    """One rank of the phase: the full-width forwards and engine, the
+    float32 engines, then the trainer's meshes against the reference at
+    ``mesh_ref``; returns what the parent checks (on the host)."""
     import torch
 
     from repro_torch.core.schedules import sl_geometric
@@ -6666,6 +6952,8 @@ def _mp_rank(group, _):
                          f32_sched, num_slots=SLOTS, theta=MP_F32_THETA,
                          **_mp_f32_kwargs(name, 2))
         out["f32"][name] = _mp_serve(torch, eng, reqs, counters)
+    del eng, f32_params
+    out["mesh_train"] = _mesh_train_rank(torch, group, mesh_ref)
     return out
 
 
@@ -6720,8 +7008,18 @@ def run_model_parallel(torch, dev):
         refs[name] = _mp_serve(torch, eng, reqs, counters)
         del eng
     _fresh_memory(torch)
+    mesh_dir = ROOT / "build" / "chip_smoke_mesh"
+    mesh_dir.mkdir(parents=True, exist_ok=True)
+    mesh_ref_path = str(mesh_dir / "reference_grads.pt")
     t0 = time.perf_counter()
-    ranks = run_group(_mp_rank, MP_WORLD, dev, (None,))
+    mesh_ref = run_mesh_train_reference(torch, dev, mesh_ref_path)
+    mesh_ref_s = time.perf_counter() - t0
+    _fresh_memory(torch)
+    t0 = time.perf_counter()
+    try:
+        ranks = run_group(_mp_rank, MP_WORLD, dev, (mesh_ref_path,))
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
     group_s = time.perf_counter() - t0
     r0 = ranks[0]
     ref = r0["pixel"]["ref"]
@@ -6839,11 +7137,14 @@ def run_model_parallel(torch, dev):
              collective_s=mp[0]["collective_s"], round_ms=mp[0]["wall_s"] * 1e3 / mp[0]["rounds"],
              replicated_round_ms=rep["wall_s"] * 1e3 / rep["rounds"])
         by_run[f"model_parallel_f32_{name}"] = mp[0]["launches"]
+    check_mesh_train(torch, card, mesh_ref, ranks)
     row = flash_shape_row(torch, dev, "model_parallel TP2 / SP2 verification, 8 local heads",
                           (MP_POINTS, 1024, 1024, 16 // MP_WORLD, 64), False)
     row["runs"] = {"model_parallel_tp2_forward": 1.0, "model_parallel_sp2_forward": 1.0,
                    "model_parallel_engine": 0.5}
     emit("model_parallel_done", card=card, group_s=group_s, rank_weights_s=r0["weights_s"],
+         mesh_train_reference_s=mesh_ref_s,
+         mesh_train_rank_s=[sum(v["wall_s"] for v in r["mesh_train"].values()) for r in ranks],
          phase_wall_s=time.perf_counter() - t_phase)
     return by_run, [row]
 
@@ -6911,7 +7212,7 @@ def main() -> None:
     by_run.update(run_sampler_graphs(torch, dev, flash_fn, sched, dc, graph_runs))
     clock("sampler_graphs")
     del graph_runs, branched_graph_runs
-    by_run.update(run_serve_graphs(torch, dev, flash_fn, sched, dc))
+    by_run.update(run_serve_graphs(torch, dev, *_serve_graphs_model(torch, dev), sched))
     clock("serve_graphs")
     by_run.update(run_sharded_serve(torch, dev, flash_fn, sched, dc))
     clock("sharded_serve")

@@ -19,8 +19,14 @@ taken in sorted key order, and each is named by the JAX package's
   * retention: ``retain`` keeps the last N checkpoints.
 
 ``save_async`` copies the leaves to the host before it returns and writes
-on a thread, under the same keys as ``save``.  Elastic restore onto a
-sharded layout waits for model parallelism.
+on a thread, under the same keys as ``save`` (the JAX package's
+``save_async`` wraps each key a second time, so its ``restore`` with a
+target cannot read what it wrote; the port writes ``save``'s keys).
+
+``restore_sharded`` is the elastic restore onto a mesh of ranks: every
+rank reads the file and keeps its own block of each leaf under the
+*current* layout, which need not be the one the checkpoint was saved
+from (the JAX package's ``device_put`` onto the current shardings).
 """
 
 from __future__ import annotations
@@ -134,6 +140,32 @@ def restore(directory: str, step: int | None = None, target=None):
         return torch.from_numpy(np.array(arr, order="C")).to(dev)
 
     return pytree.unflatten(target, [leaf(*p) for p in pytree.paths(target)]), manifest
+
+
+def restore_sharded(directory: str, target, specs, mesh, step: int | None = None):
+    """(tree, manifest): this rank's block of every leaf of the checkpoint
+    under ``specs`` (a tree of ``PartitionSpec`` of ``target``'s keys) on
+    ``mesh`` (a ``repro_torch.distributed.group.MeshGroups``; coordinates
+    are all it reads).  ``target`` gives the structure and each block's
+    device; a target leaf with a shape must have the block's.  ``step``
+    None means the latest."""
+    from repro_torch.distributed.sharding import block_slices, zip_specs
+
+    flat, manifest = restore(directory, step)
+    leaves = []
+    for keys, t, spec in zip_specs(target, specs):
+        key = keystr(keys)
+        if key not in flat:
+            raise KeyError(f"checkpoint step {manifest['step']} in {directory} has no "
+                           f"leaf {key}")
+        arr = flat[key]
+        block = arr[block_slices(arr.shape, spec, mesh)]
+        if hasattr(t, "shape") and tuple(block.shape) != tuple(t.shape):
+            raise ValueError(f"checkpoint leaf {key}: a block of {block.shape} under "
+                             f"{spec}, expected {tuple(t.shape)}")
+        dev = t.device if isinstance(t, torch.Tensor) else "cpu"
+        leaves.append(torch.from_numpy(np.array(block, order="C")).to(dev))
+    return pytree.unflatten(target, leaves), manifest
 
 
 def retain(directory: str, keep: int = 3) -> None:

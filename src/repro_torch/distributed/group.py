@@ -9,7 +9,7 @@ runs one process per rank and hands its model-parallel code a
 forward uses, in ``jax.lax``'s tiled forms:
 
   axis_index()                       this rank (``jax.lax.axis_index``)
-  psum(x), pmean(x)                  sum / mean over the ranks
+  psum(x), pmean(x), pmax(x)         sum / mean / max over the ranks
   all_to_all(x, split_axis, concat_axis)
                                      split ``split_axis`` into world blocks,
                                      send block j to rank j, concatenate the
@@ -17,12 +17,33 @@ forward uses, in ``jax.lax``'s tiled forms:
                                      sender order
   all_gather(x, axis)                every rank's x, concatenated along
                                      ``axis`` in rank order
+  reduce_scatter(x, axis)            block ``rank`` of ``axis`` of psum(x)
+                                     (``jax.lax.psum_scatter``, tiled)
   broadcast_floats(values)           rank 0's host numbers on every rank
 
 ``psum`` is an all-gather followed by a sum in rank order
 (((x0 + x1) + x2) ...), in x's dtype on x's device: every rank ends with
 the same bits, two runs give the same bits, whatever order the transport
-reduces in.
+reduces in.  ``reduce_scatter`` keeps that rule: an all-to-all (gloo has
+no reduce-scatter) sends block j of x to rank j, which adds the blocks it
+receives in rank order, so its result is block ``rank`` of ``psum(x)`` in
+bits, for 1/world of psum's bytes.
+
+The Megatron pair lets autograd see the tensor-parallel collectives:
+``psum_fwd(x, group)`` (*g*: psum forward, identity backward) goes after a
+row-parallel product, and ``psum_bwd(x, group)`` (*f*: identity forward,
+psum backward) where a replicated activation enters a rank's local
+slice.  Without autograd *g* is ``psum`` itself, so the serving forward
+keeps its bits. ``pmean_fwd(x, group)`` (pmean forward, identity
+backward) averages a whole-batch statistic over the data-parallel ranks
+inside a loss whose gradients the mesh step averages.
+
+A mesh of ranks (the JAX package's ``Mesh(devices.reshape(dims),
+names)``) is ``MeshGroups``: rank r sits at ``numpy.unravel_index(r,
+dims)``, and ``mesh_groups`` builds, over one spawn, a ``ModelGroup`` for
+every line of every set of axes (``torch.distributed.new_group``), the
+ranks of a line in row-major order over its axes.  ``collective_seconds``
+is the wall time this process spent inside the collectives.
 
 The transport is gloo over explicit host copies (pinned on the card): a
 collective copies its tensor's bytes to the host, runs the gloo collective
@@ -42,16 +63,48 @@ collective that fails or times out, fails the call.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import itertools
+import math
 import os
 import tempfile
+import time
 import traceback
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 # a rank waits this long in a collective for the others before it fails
 DEFAULT_TIMEOUT_S = 600.0
+
+# wall seconds of this process inside the collectives
+_TIMER = {"seconds": 0.0}
+
+
+def collective_seconds() -> float:
+    """Wall seconds this process has spent inside the groups' collectives
+    (the host copies, the transport and the sums), since the last reset."""
+    return _TIMER["seconds"]
+
+
+def reset_collective_seconds() -> None:
+    _TIMER["seconds"] = 0.0
+
+
+@contextlib.contextmanager
+def _timed(x=None):
+    """Adds the block's wall time to the timer; on the card it first waits
+    for the work queued before the collective, so that work is not
+    counted."""
+    if x is not None and x.device.type == "cuda":
+        torch.cuda.current_stream(x.device).synchronize()
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _TIMER["seconds"] += time.perf_counter() - t0
 
 
 class ModelGroup:
@@ -117,18 +170,36 @@ class ModelGroup:
         """Every rank's x concatenated along ``axis`` in rank order (tiled)."""
         if self.world == 1:
             return x
-        return torch.cat(list(self._gathered(x).unbind(0)), dim=axis)
+        with _timed(x):
+            return torch.cat(list(self._gathered(x).unbind(0)), dim=axis)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's x, added in rank order in x's dtype: the
         same bits on every rank."""
         if self.world == 1:
             return x
-        parts = self._gathered(x)
-        out = parts[0].clone()
-        for part in parts[1:]:
-            out += part
-        return out
+        with _timed(x):
+            return _rank_order_sum(self._gathered(x))
+
+    def reduce_scatter(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """Block ``rank`` (of ``world`` contiguous blocks) of ``axis`` of
+        ``psum(x)``, in the same bits: rank j receives every rank's block j
+        (one all-to-all) and adds them in rank order."""
+        if self.world == 1:
+            return x
+        n = x.shape[axis]
+        if n % self.world:
+            raise ValueError(f"reduce_scatter: axis {axis} of size {n} does not split "
+                             f"over {self.world} ranks")
+        with _timed(x):
+            return _rank_order_sum(self._exchanged(x, axis))
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of every rank's x (``jax.lax.pmax``)."""
+        if self.world == 1:
+            return x
+        with _timed(x):
+            return self._gathered(x).amax(0)
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
         return self.psum(x) / self.world if self.world > 1 else x
@@ -143,12 +214,18 @@ class ModelGroup:
         if n % self.world:
             raise ValueError(f"all_to_all: axis {split_axis} of size {n} does not split "
                              f"over {self.world} ranks")
-        blocks = torch.stack(x.split(n // self.world, dim=split_axis))  # (world, ...)
+        with _timed(x):
+            return torch.cat(list(self._exchanged(x, split_axis).unbind(0)), dim=concat_axis)
+
+    def _exchanged(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """(world, *block): block j of x's ``axis`` goes to rank j; row i of
+        the result is the block rank i sent here."""
+        n = x.shape[axis]
+        blocks = torch.stack(x.split(n // self.world, dim=axis))  # (world, ...)
         send = self._host_bytes(blocks)
         recv = torch.empty(send.shape, dtype=torch.uint8, pin_memory=send.is_pinned())
         dist.all_to_all_single(recv, send, group=self.pg)
-        got = recv.to(x.device).view(blocks.dtype).view(blocks.shape)
-        return torch.cat(list(got.unbind(0)), dim=concat_axis)
+        return recv.to(x.device).view(blocks.dtype).view(blocks.shape)
 
     def broadcast_floats(self, values) -> list:
         """Rank 0's ``values`` (host floats, exact for integers below
@@ -156,8 +233,172 @@ class ModelGroup:
         ranks follow so that they stay in lockstep."""
         t = torch.tensor([float(v) for v in values], dtype=torch.float64)
         if self.world > 1:
-            dist.broadcast(t, src=0, group=self.pg)
+            with _timed():
+                dist.broadcast(t, src=0, group=self.pg)
         return t.tolist()
+
+    def barrier(self) -> None:
+        if self.world > 1:
+            with _timed():
+                dist.barrier(group=self.pg)
+
+
+def _rank_order_sum(parts: torch.Tensor) -> torch.Tensor:
+    """parts (world, ...) added in rank order, in their dtype."""
+    out = parts[0].clone()
+    for part in parts[1:]:
+        out += part
+    return out
+
+
+# -- the Megatron pair: collectives autograd can see ------------------------
+
+class _PsumFwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.psum(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _PsumBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.psum(grad.contiguous()), None
+
+
+def psum_fwd(x: torch.Tensor, group) -> torch.Tensor:
+    """*g*: psum over ``group`` forward, identity backward (after a
+    row-parallel product: every rank's partial sum gets the whole
+    gradient of the total)."""
+    return x if group is None or group.world == 1 else _PsumFwd.apply(x, group)
+
+
+def psum_bwd(x: torch.Tensor, group) -> torch.Tensor:
+    """*f*: identity forward, psum over ``group`` backward (where a
+    replicated activation enters a rank's local slice: each rank's
+    gradient is partial, their sum whole)."""
+    return x if group is None or group.world == 1 else _PsumBwd.apply(x, group)
+
+
+class _PmeanFwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.pmean(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def pmean_fwd(x: torch.Tensor, group) -> torch.Tensor:
+    """pmean over the data-parallel ranks of ``group`` forward, identity
+    backward: a statistic of the whole batch from each rank's equal block
+    (the MoE router's fractions).  The mesh step averages the ranks'
+    gradients, so each rank's block carries the whole upstream gradient
+    here and the average gives the mean's own 1 / world."""
+    return x if group is None or group.world == 1 else _PmeanFwd.apply(x, group)
+
+
+# -- a mesh of ranks -----------------------------------------------------------
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class MeshGroups:
+    """One rank's view of a mesh of ranks, the counterpart of a JAX ``Mesh``
+    over devices: ``shape`` and ``axis_names`` (what the layout builders
+    of ``repro_torch.distributed.sharding`` read), this rank and its
+    coordinates (``numpy.unravel_index(rank, shape)``, as device r sits in
+    ``Mesh(devices.reshape(shape), names)``), and ``group(axes)``: the
+    ``ModelGroup`` of the ranks that differ from this one only along
+    ``axes`` (a name or a tuple of names in mesh order), in row-major
+    order over them.  A set of axes of one rank in all is a ``ModelGroup``
+    of world 1.  Without ``groups`` it holds coordinates only (for a
+    layout's slices of a rank that takes part in no collective)."""
+
+    def __init__(self, shape, axis_names, rank: int, device="cpu", groups=None):
+        self.shape = tuple(int(n) for n in shape)
+        self.axis_names = tuple(axis_names)
+        if len(self.shape) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.shape} for axes {self.axis_names}")
+        self.rank = int(rank)
+        self.device = torch.device(device)
+        self.coords = dict(zip(self.axis_names,
+                               (int(c) for c in np.unravel_index(self.rank, self.shape))))
+        self._groups = dict(groups or {})
+
+    def __repr__(self) -> str:
+        return (f"MeshGroups(shape={self.shape}, axes={self.axis_names}, rank={self.rank}, "
+                f"coords={self.coords})")
+
+    @property
+    def world(self) -> int:
+        return math.prod(self.shape)
+
+    def sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+    def size(self, axes) -> int:
+        return math.prod(self.sizes()[a] for a in _axes(axes))
+
+    def index(self, axes) -> int:
+        """This rank's row-major index over ``axes`` (in the order given)."""
+        idx = 0
+        for a in _axes(axes):
+            idx = idx * self.sizes()[a] + self.coords[a]
+        return idx
+
+    def group(self, axes) -> ModelGroup:
+        axes = tuple(a for a in self.axis_names if a in _axes(axes))
+        if self.size(axes) == 1:
+            return ModelGroup(0, 1, self.device)
+        if axes not in self._groups:
+            raise ValueError(f"{self!r} has no group over {axes}")
+        return self._groups[axes]
+
+
+def mesh_groups(world: ModelGroup, shape, axis_names) -> MeshGroups:
+    """This rank's ``MeshGroups`` over ``world`` (the spawn's group, of
+    prod(shape) ranks): a collective every rank calls with the same mesh.
+    Every line of every set of axes of more than one rank gets its process
+    group (``torch.distributed.new_group``, created by every rank in one
+    order), so any set of axes can reduce or gather."""
+    shape, names = tuple(int(n) for n in shape), tuple(axis_names)
+    if math.prod(shape) != world.world:
+        raise ValueError(f"a mesh of {shape} needs {math.prod(shape)} ranks, the group has "
+                         f"{world.world}")
+    mine = MeshGroups(shape, names, world.rank, world.device)
+    coords = [np.unravel_index(r, shape) for r in range(world.world)]
+    groups = {}
+    for n in range(1, len(names) + 1):
+        for axes in itertools.combinations(range(len(names)), n):
+            if math.prod(shape[a] for a in axes) == 1:
+                continue
+            key = tuple(names[a] for a in axes)
+            if len(axes) == len(names):
+                groups[key] = world
+                continue
+            rest = [a for a in range(len(names)) if a not in axes]
+            lines = {}
+            for r, c in enumerate(coords):
+                lines.setdefault(tuple(int(c[a]) for a in rest), []).append(r)
+            for line in sorted(lines):
+                ranks = lines[line]
+                pg = dist.new_group(ranks=ranks, backend="gloo")
+                if world.rank in ranks:
+                    groups[key] = ModelGroup(ranks.index(world.rank), len(ranks),
+                                             world.device, pg)
+    mine._groups = groups
+    return mine
 
 
 def _rank_main(rank: int, fn, world: int, devices: list, tmp: str, args: tuple,

@@ -20,9 +20,13 @@ The serving path uses ``mp_param_pspecs`` with a mesh whose ``model`` axis
 is a model group's world size: ``shard_params`` then slices each leaf on
 its ``"model"`` entries for one rank, and the model group
 (``repro_torch.distributed.group``) runs the forward's collectives;
-``measure_collective_seconds`` times them over that group.  The layouts
-for training (``param_pspecs``, ``fsdp_pspecs``, ``zero1_pspec``,
-``opt_state_pspecs``, ``replicated_pspecs``) are ported as layouts only.
+``measure_collective_seconds`` times them over that group.  The mesh
+trainer (``repro_torch.training.train_step``) lays params out by
+``param_pspecs`` or ``fsdp_pspecs`` and AdamW's state by
+``train_opt_pspecs`` over a ``MeshGroups``: ``shard_params`` cuts on every
+axis a spec names (``pod``, ``data``, ``model``, or a tuple of them on one
+dim), ``gather_params`` is its inverse, and ``tp_paths`` says which
+leaves the blocks compute tensor-parallel on.
 ``get_shard_map``, ``slots_mesh``, ``serving_mesh``, ``shard_pspecs``,
 ``chain_state_shardings``, ``shardings_from_pspecs`` and
 ``abstract_params`` are JAX mesh plumbing (``shard_map``, ``NamedSharding``,
@@ -250,27 +254,124 @@ def tp_param_pspecs(axes_tree, shapes, mesh):
     return mp_param_pspecs(axes_tree, shapes, mesh, tensor=True, expert=False)
 
 
-def shard_params(params, specs, rank: int, world: int):
-    """Rank ``rank``'s share of ``params`` under ``specs`` (a tree of
-    ``PartitionSpec`` over a ``model`` axis of ``world``): each leaf whose
-    spec names ``"model"`` on a dim is cut there into ``world`` contiguous
-    blocks and block ``rank`` kept as a contiguous tensor of its own, so
-    the rank holds 1/world of the leaf; a replicated leaf is the caller's
-    tensor itself.  An entry that is a tuple of axes counts only its
-    ``"model"`` part (the serving layouts name no other)."""
+def entry_mesh_axes(mesh, entry) -> tuple:
+    """The mesh axes of a spec entry that the mesh has (an axis it lacks
+    has one rank), in the entry's order, which must be the mesh's."""
+    axes = tuple(a for a in _entry_axes(entry) if a in mesh.axis_names)
+    order = [mesh.axis_names.index(a) for a in axes]
+    if order != sorted(order):
+        raise ValueError(f"spec entry {entry!r}: its axes are not in the mesh's order "
+                         f"{mesh.axis_names}")
+    return axes
+
+
+def shard_params(params, specs, mesh):
+    """This rank's share of ``params`` under ``specs`` (a tree of
+    ``PartitionSpec``) on ``mesh``, a ``repro_torch.distributed.group.
+    MeshGroups`` (the serving model group's is ``MeshGroups((world,),
+    ("model",), rank)``, coordinates only).  Each dim whose entry names
+    mesh axes is cut into as many contiguous blocks as those axes have
+    ranks together, and the rank keeps the block of its row-major index
+    over them (a tuple entry such as ``("data", "model")`` is data-major,
+    as ``NamedSharding`` lays it out), as a contiguous tensor of its own; a
+    replicated leaf is the caller's tensor itself.  An axis the mesh does
+    not have counts as one rank."""
     flat = []
     for path, leaf, spec in zip_specs(params, specs):
-        out = leaf
-        for dim, entry in enumerate(spec):
-            if not _names_model(entry):
-                continue
-            n = leaf.shape[dim]
-            if n % world:
-                raise ValueError(f"shard_params: {'.'.join(path)} dim {dim} ({n}) does "
-                                 f"not divide over {world} ranks")
-            out = out.narrow(dim, rank * (n // world), n // world)
-        flat.append(out if out is leaf else out.clone(memory_format=torch.contiguous_format))
+        try:
+            index = block_slices(tuple(leaf.shape), spec, mesh)
+        except ValueError as exc:
+            raise ValueError(f"shard_params: {'.'.join(path)} {exc}") from None
+        whole = all(sl == slice(None) for sl in index)
+        flat.append(leaf if whole else
+                    leaf[index].clone(memory_format=torch.contiguous_format))
     return pytree.unflatten(params, flat)
+
+
+def block_slices(shape, spec, mesh) -> tuple:
+    """The slices of a leaf of ``shape`` that ``shard_params`` keeps on
+    this rank of ``mesh`` (for tensors and for a checkpoint's numpy
+    leaves)."""
+    sizes = mesh.sizes()
+    out = [slice(None)] * len(shape)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry_mesh_axes(mesh, entry)
+        n, k = shape[dim], math.prod(sizes[a] for a in axes)
+        if k == 1:
+            continue
+        if n % k:
+            raise ValueError(f"dim {dim} ({n}) does not divide over {k} ranks")
+        i = mesh.index(axes)
+        out[dim] = slice(i * (n // k), (i + 1) * (n // k))
+    return tuple(out)
+
+
+def gather_params(shards, specs, mesh):
+    """The inverse of ``shard_params``: every leaf whole on every rank,
+    all-gathered over the axes of each sharded dim (a collective every
+    rank of ``mesh``, a ``MeshGroups``, calls in the same order)."""
+    return pytree.unflatten(shards, [gather_leaf(leaf, spec, mesh)
+                                     for _, leaf, spec in zip_specs(shards, specs)])
+
+
+def gather_leaf(leaf, spec, mesh, skip=()):
+    """One leaf of ``gather_params``; dims in ``skip`` stay as they are."""
+    for dim, entry in enumerate(spec):
+        if entry is None or dim in skip:
+            continue
+        axes = entry_mesh_axes(mesh, entry)
+        if mesh.size(axes) > 1:
+            leaf = mesh.group(axes).all_gather(leaf, dim)
+    return leaf
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """The shape of a rank's block of a leaf of ``shape`` under ``spec``."""
+    sizes = _axis_sizes(mesh)
+    out = list(leaf_shape(shape))
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            out[dim] //= math.prod(sizes.get(a, 1) for a in _entry_axes(entry))
+    return tuple(out)
+
+
+def spec_axes(spec) -> set:
+    """Every mesh axis ``spec`` names."""
+    return {a for e in spec or () if e is not None for a in _entry_axes(e)}
+
+
+# the leaves the blocks compute tensor-parallel on, by sub-tree: a block's
+# attention (wq, bq column-parallel by heads, wo row-parallel) and its dense
+# FFN (w_gate, w_up column-parallel by hidden, w_down row-parallel)
+_TP_SUBTREES = {"attn": ("wq", "wo", "bq"), "ffn": ("w_gate", "w_up", "w_down")}
+
+
+def tp_paths(axes_tree, specs) -> frozenset:
+    """The paths of the leaves a mesh step computes tensor-parallel on:
+    the ``TP_VERIFY_SIGS`` leaves of a block's ``attn`` and ``ffn``
+    sub-trees whose spec shards their head or hidden dim over ``"model"``
+    alone and nothing else, where every such leaf of the sub-tree does
+    (the blocks slice and psum a whole sub-tree or none of it).  Every
+    other sharded leaf is gathered at use."""
+    def eligible(axes, spec):
+        core = tuple(a for a in axes if a != "layers")
+        if core not in TP_VERIFY_SIGS:
+            return False
+        named = [(i, e) for i, e in enumerate(spec) if e is not None]
+        return len(named) == 1 and named[0][1] == "model" and \
+            axes[named[0][0]] in ("heads", "mlp")
+
+    by_parent = {}
+    for path, axes, spec in zip_specs(axes_tree, specs):
+        if len(path) >= 2 and path[-2] in _TP_SUBTREES and path[-1] in _TP_SUBTREES[path[-2]]:
+            by_parent.setdefault(path[:-1], []).append((path, eligible(axes, spec)))
+    out = set()
+    for leaves in by_parent.values():
+        if all(ok for _, ok in leaves):
+            out.update(path for path, _ in leaves)
+    return frozenset(out)
 
 
 def measure_collective_seconds(group, payload_bytes, repeats: int = 3,
@@ -328,6 +429,19 @@ def measure_collective_seconds_by_kind(group, payloads_by_kind, repeats: int = 3
             out[kind] = measure_collective_seconds(group, payloads, repeats=repeats,
                                                    kind=kind)
     return out
+
+
+def train_opt_pspecs(param_pspec_tree, param_shapes, mesh) -> dict:
+    """The mesh trainer's AdamW layout: ``opt_state_pspecs(zero1=True)``,
+    except that a leaf whose own spec already shards over ``data`` (an
+    FSDP leaf) keeps that spec, where ``zero1_pspec`` would name ``data``
+    a second time (a layout no mesh can hold).  For ``param_pspecs``,
+    which names no ``data``, the two are the same."""
+    def one(spec, shape):
+        return spec if "data" in spec_axes(spec) else zero1_pspec(spec, shape, mesh)
+
+    mu = _zip_map(one, param_pspec_tree, param_shapes)
+    return {"mu": mu, "nu": mu, "step": P()}
 
 
 def zero1_pspec(spec, shape, mesh) -> PartitionSpec:

@@ -519,7 +519,8 @@ def _measure_train(cell: Cell, dev) -> dict:
 
     cfg, L = cell.cfg, cell.shape.seq_len
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    train_step, init = build(cfg, accum=1, lr=3e-4, total_steps=100_000, device=dev)
+    train_step, init, _ = build(cfg, None, accum=1, lr=3e-4, total_steps=100_000,
+                                device=dev)
     state = list(init())
     tokens, vision = _lm_inputs(cfg, L, dev, gen)
     batch = {"tokens": tokens, "labels": torch.randint(0, cfg.vocab_size, (1, L),

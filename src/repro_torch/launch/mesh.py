@@ -1,13 +1,17 @@
 """Production meshes: the port's copy of the JAX package's
 ``launch/mesh.py``.
 
-A mesh here is a description (shape, axis names, the devices in row-major
-order), not a communicator: process groups over a mesh of cards are
-ROADMAP.md A13 (the serving model group, ``repro_torch.distributed.group``,
-shares one card).  Nothing is touched when
-the module is imported.  One card cannot hold a production mesh, so
-``make_production_mesh`` refuses there; the dry run reads the mesh's shape
-and chip count from ``production_mesh_shape`` without building it.
+A ``Mesh`` here is a description (shape, axis names, the devices in
+row-major order), not a communicator.  A mesh of *ranks* is
+``make_rank_mesh``: the counterpart of ``make_debug_mesh`` for the ranks
+of one spawn (``repro_torch.distributed.group.run_group``), a
+``MeshGroups`` with a process group for every line of its axes, built
+from the JAX trainer's ``--mesh`` (``DATAxMODEL`` or ``PxDxM``).  Its
+ranks share one card or the CPU; NCCL between cards is ROADMAP.md A13.
+Nothing is touched when the module is imported.  One card cannot hold a
+production mesh, so ``make_production_mesh`` refuses there; the dry run
+reads the mesh's shape and chip count from ``production_mesh_shape``
+without building it.
 """
 
 from __future__ import annotations
@@ -64,3 +68,26 @@ def make_debug_mesh(shape=(2, 2), axes=("data", "model"), device=None) -> Mesh:
     if len(devices) < n:
         raise AssertionError((len(devices), n))
     return Mesh(tuple(shape), tuple(axes), tuple(devices[:n]))
+
+
+def parse_mesh(spec: str) -> tuple[tuple, tuple]:
+    """(shape, axis names) of ``--mesh``: ``DxM`` over ("data", "model"),
+    ``PxDxM`` over ("pod", "data", "model"), as the JAX trainer reads it."""
+    try:
+        dims = tuple(int(x) for x in spec.split("x"))
+    except ValueError:
+        dims = ()
+    if len(dims) not in (2, 3) or min(dims) < 1:
+        raise ValueError(f"--mesh {spec!r}: DATAxMODEL or PODxDATAxMODEL, positive sizes")
+    names = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
+    return dims, names
+
+
+def make_rank_mesh(group, spec="1x1"):
+    """This rank's ``MeshGroups`` of ``--mesh`` ``spec`` (or a (shape,
+    names) pair) over ``group``, the spawn's ``ModelGroup`` of prod(shape)
+    ranks: a collective every rank calls with the same mesh."""
+    from repro_torch.distributed.group import mesh_groups
+
+    shape, names = parse_mesh(spec) if isinstance(spec, str) else spec
+    return mesh_groups(group, shape, names)

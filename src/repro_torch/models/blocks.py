@@ -5,13 +5,15 @@
     prefill(params, x, cache, cfg, desc, ctx, window)    -> (x, cache)
     step(params, x1, cache, pos, cfg, desc, window)      -> (x1, cache)
 
-``ctx``: dict(causal, impl, vision, tp_axis, sp_axis, ep_axis).  The three
-axes carry the serving forward's model parallelism into the ``fwd``
+``ctx``: dict(causal, impl, vision, tp_axis, sp_axis, ep_axis,
+batch_axis).  The axes carry model parallelism into the ``fwd``
 functions, each a ``repro_torch.distributed.group`` ``ModelGroup`` or
 absent (the JAX package's mesh axis names): ``tp_axis`` tensor
 parallelism in attention and the dense FFN, ``ep_axis`` expert
 parallelism in the MoE FFN, ``sp_axis`` Ulysses sequence parallelism (x
-is the rank's sequence slice, and the MoE keeps its output local).
+is the rank's sequence slice, and the MoE keeps its output local), and
+``batch_axis`` the mesh trainer's data-parallel ranks (the MoE's aux
+loss is the whole batch's).
 ``window`` is the layer's Python
 int window (0 = full); ``pos`` is a 0-d integer tensor or a Python int.
 ``aux`` is the MoE FFN's ``{"moe_aux_loss": ()}`` where the block has
@@ -55,7 +57,8 @@ def _maybe_ffn(params, x, cfg: ModelConfig, ctx=None):
     if "moe" in params:
         h, aux = moe_apply(params["moe"], rmsnorm_apply(params["ffn_norm"], x), cfg,
                            ep_axis=ctx.get("ep_axis"),
-                           seq_sharded=ctx.get("sp_axis") is not None)
+                           seq_sharded=ctx.get("sp_axis") is not None,
+                           batch_axis=ctx.get("batch_axis"))
         return x + h, aux
     if "ffn" in params:
         x = x + ffn_apply(params["ffn"], rmsnorm_apply(params["ffn_norm"], x),

@@ -93,12 +93,17 @@ def _head(params, x, cfg: ModelConfig):
     return softcap(logits, cfg.final_softcap)
 
 
-def _lm_fwd_aux(params, tokens, cfg: ModelConfig, vision=None, impl: str = "flash"):
+def _lm_fwd_aux(params, tokens, cfg: ModelConfig, vision=None, impl: str = "flash",
+                tp_axis=None, batch_axis=None):
     """(logits, the MoE layers' summed aux loss, float32 0-d): the JAX
-    package's ``lm_fwd``."""
+    package's ``lm_fwd``.  ``tp_axis``: the blocks' tensor parallelism
+    (``models/blocks.py``), where the params hold a rank's head and
+    hidden blocks; ``batch_axis``: the data-parallel ranks whose batch
+    blocks the MoE's aux loss spans."""
     x = _embed(params, tokens, cfg)
     x, aux = decoder_fwd(params["decoder"], x, cfg,
-                         dict(causal=True, vision=vision, impl=impl))
+                         dict(causal=True, vision=vision, impl=impl, tp_axis=tp_axis,
+                              batch_axis=batch_axis))
     return _head(params, rmsnorm_apply(params["final_norm"], x), cfg), aux
 
 
@@ -110,22 +115,30 @@ def lm_fwd(params, tokens, cfg: ModelConfig, vision=None, impl: str = "flash"):
     return _lm_fwd_aux(params, tokens, cfg, vision=vision, impl=impl)[0]
 
 
-def lm_loss(params, batch, cfg: ModelConfig, impl: str = "naive"):
+def lm_loss(params, batch, cfg: ModelConfig, impl: str = "naive", tp_axis=None,
+            batch_axis=None):
     """batch: dict(tokens, labels (B, L) int, mask (B, L) optional, vision
     optional) -> (loss, metrics): the mean next-token negative
     log-likelihood over the masked positions (logits in float32,
     logsumexp minus the label's logit; the denominator at least 1), plus
     ``router_aux_weight`` times the MoE layers' summed load-balancing loss.
     metrics: ``nll`` (the mean alone), ``moe_aux`` (that sum; 0 without
-    MoE) and ``tokens``."""
+    MoE) and ``tokens``.  ``tp_axis``: a model group the attention and
+    FFN blocks run tensor-parallel over; ``batch_axis``: the mesh
+    trainer's data-parallel ranks, each with an equal block of the batch's
+    rows, which the mean and the MoE's aux loss span (the mean of the
+    ranks' losses is then the whole batch's, as are their gradients')."""
     logits, aux = _lm_fwd_aux(params, batch["tokens"], cfg, vision=batch.get("vision"),
-                              impl=impl)
+                              impl=impl, tp_axis=tp_axis, batch_axis=batch_axis)
     logits = logits.float()
     labels = batch["labels"].long()
     nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None])[..., 0]
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
-    denom = torch.clamp(mask.sum(), min=1.0)
+    if batch_axis is None or batch_axis.world == 1:
+        denom = torch.clamp(mask.sum(), min=1.0)
+    else:  # the whole batch's count, a rank's share of it
+        denom = torch.clamp(batch_axis.psum(mask.sum()), min=1.0) / batch_axis.world
     loss = (nll * mask).sum() / denom
     total = loss + cfg.router_aux_weight * aux
     return total, {"nll": loss.detach(), "moe_aux": aux.detach(), "tokens": denom}

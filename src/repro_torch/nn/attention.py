@@ -17,7 +17,11 @@ is grouped-query attention against the cache in plain PyTorch.
 ``repro_torch.distributed.group`` ``ModelGroup`` (the JAX package's mesh
 axis name): ``tp_axis`` (tensor parallelism: this rank's head block of
 ``wq`` / ``bq`` / ``wo``, the repeated K/V sliced to it, the row-parallel
-``wo`` psummed) and ``sp_axis`` (Ulysses sequence parallelism: x is the
+``wo`` psummed; under autograd the Megatron pair of
+``repro_torch.distributed.group`` makes the psum after ``wo`` identity
+backward, and psums the gradients of the input and of the K/V before
+their slice, so the replicated ``wk`` / ``wv`` and the norm before them
+get their whole gradient on every rank) and ``sp_axis`` (Ulysses sequence parallelism: x is the
 rank's sequence slice, and two tiled all-to-alls trade it for a head
 slice around the core, which then sees the whole sequence on H/mp heads).
 """
@@ -29,6 +33,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.group import psum_bwd, psum_fwd
 from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.nn.layers import apply_rope, softcap
 
@@ -54,6 +59,11 @@ def _project_qkv(params, x, cfg: ModelConfig, start=0, repeat_kv: bool = True,
     h, kv = cfg.n_heads, cfg.n_kv_heads
     cdt = x.dtype
     xkv = x if kv_x is None else kv_x
+    # a rank's head block: the replicated input's gradient through it, and
+    # through the K/V slice below, is the rank's part of the whole (f)
+    tp = tp_axis is not None and params["wq"].shape[1] != h
+    if tp:
+        x = psum_bwd(x, tp_axis)
 
     def proj(inp, w, bias):
         B, n_in, d = inp.shape
@@ -69,10 +79,15 @@ def _project_qkv(params, x, cfg: ModelConfig, start=0, repeat_kv: bool = True,
     if rope and cfg.pos_embed == "rope":
         q = apply_rope(q, start + torch.arange(q.shape[1], device=x.device), cfg.rope_theta)
         k = apply_rope(k, start + torch.arange(k.shape[1], device=x.device), cfg.rope_theta)
+    if tp:
+        # every rank keeps another head block of the replicated K/V: their
+        # gradients add up to K's and V's whole gradient (f), so wk, wv and
+        # the input get it on every rank
+        k, v = psum_bwd(k, tp_axis), psum_bwd(v, tp_axis)
     if repeat_kv:
         k, v = _repeat_heads(k, h // kv), _repeat_heads(v, h // kv)
         h_local = q.shape[2]
-        if tp_axis is not None and h_local != h:
+        if tp:
             lo = tp_axis.axis_index() * h_local
             k, v = k[:, :, lo:lo + h_local], v[:, :, lo:lo + h_local]
     return q, k, v
@@ -112,7 +127,7 @@ def _out(params, o, dtype, tp_axis=None, n_heads: int = 0):
     B, L, H, hd = o.shape
     out = o.reshape(B, L, H * hd) @ params["wo"].reshape(H * hd, -1).to(dtype)
     if tp_axis is not None and H != n_heads:
-        out = tp_axis.psum(out)  # row-parallel wo partial sums
+        out = psum_fwd(out, tp_axis)  # row-parallel wo partial sums (g)
     if "gate" in params:
         out = torch.tanh(params["gate"].float()).to(dtype) * out
     return out

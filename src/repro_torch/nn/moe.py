@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.group import pmean_fwd
 
 
 def capacity_of(cfg: ModelConfig, L: int, capacity: int | None = None) -> int:
@@ -120,7 +121,7 @@ def _combine(y, gate_vals, token_idx, keep, top_idx, L: int):
 
 
 def moe_apply(params, x, cfg: ModelConfig, capacity: int | None = None,
-              ep_axis=None, seq_sharded: bool = False):
+              ep_axis=None, seq_sharded: bool = False, batch_axis=None):
     """x: (B, L, d) -> ((B, L, d) in x's dtype, {"moe_aux_loss": ()}).
     ``params``: router (d, E), w_gate and w_up (E, d, ff), w_down (E, ff,
     d); each used in x's dtype.
@@ -130,10 +131,17 @@ def moe_apply(params, x, cfg: ModelConfig, capacity: int | None = None,
     (``w_gate.shape[0] != n_experts``), so replicated params run the
     unsharded code, as in the JAX package.  ``seq_sharded`` marks x as the
     rank's (B, L/mp, d) sequence slice (Ulysses): the dispatch then takes
-    no token slice of its own and the output stays local."""
+    no token slice of its own and the output stays local.
+
+    ``batch_axis`` (a ``ModelGroup``): the data-parallel ranks of a mesh
+    trainer, each holding an equal block of the batch's rows.  The aux
+    loss is then the whole batch's, its routing fractions averaged over
+    the group (``pmean_fwd``), as the JAX package's step under ``jit``
+    computes it; routing and capacity are per row and need nothing."""
     if ep_axis is not None and params["w_gate"].shape[0] != cfg.n_experts:
         return _moe_apply_ep(params, x, cfg, capacity, ep_axis, seq_sharded)
     gate_vals, token_idx, keep, ft, fp, top_idx = _route(params, x, cfg, capacity)
+    ft, fp = pmean_fwd(ft, batch_axis), pmean_fwd(fp, batch_axis)
     y = _expert_ffn(params, _gather(x, token_idx, keep), x.dtype)
     out = _combine(y, gate_vals, token_idx, keep, top_idx, x.shape[1])
     return out, {"moe_aux_loss": _aux_loss(ft, fp, cfg)}

@@ -82,6 +82,7 @@ from repro_torch.core.controller import (BranchController, StaticBranches, Stati
 from repro_torch.core.schedules import Schedule
 from repro_torch.core.sequential import init_y0
 from repro_torch.device import resolve_device
+from repro_torch.distributed.group import MeshGroups
 from repro_torch.distributed.sharding import (measure_collective_seconds_by_kind,
                                               shard_params)
 from repro_torch.programs import SuperstepProgram
@@ -309,7 +310,8 @@ class ShardWorker:
         self._params = None
         if params is not None:
             self._params = (params if model_group is None else shard_params(
-                params, param_specs, model_group.rank, model_group.world))
+                params, param_specs,
+                MeshGroups((model_group.world,), ("model",), model_group.rank)))
             model_fn = model_fn(self._params)
         self._model_fn = model_fn
         if execution not in ("unpacked", "packed"):

@@ -14,6 +14,14 @@ package's ``repro.training.loop``).
 Step ``s`` draws from ``step_generator(seed, s)``, a generator seeded from
 (seed, s) alone, and reads ``batch_fn(s)``, so a resumed run draws what an
 unbroken one draws.
+
+On a mesh of ranks (``layout``, a ``train_step.MeshLayout``; every rank
+runs ``run`` with its own blocks) a checkpoint gathers the params and
+mu / nu whole, rank 0 writes it (in the JAX layout, as a single process
+would) while the other ranks wait at a barrier, and resuming and rolling
+back go through ``checkpoint.restore_sharded``, so a run may resume on
+another mesh than the one that saved.  A SIGTERM on any rank stops every
+rank at the same step.
 """
 
 from __future__ import annotations
@@ -68,23 +76,66 @@ def step_generator(seed: int, step: int, device=None) -> torch.Generator:
     return torch.Generator(device=resolve_device(device)).manual_seed(int(state))
 
 
+class _Checkpoints:
+    """Saves and restores of ``{"params", "opt"}``: in one process, or on
+    a mesh of ranks (``layout``)."""
+
+    def __init__(self, directory, layout=None):
+        self.dir, self.layout = directory, layout
+        self.writer = layout is None or layout.mesh.rank == 0
+        self.world = None if layout is None else layout.mesh.group(layout.mesh.axis_names)
+
+    def restore(self, step, params, opt_state):
+        target = {"params": params, "opt": opt_state}
+        if self.layout is None:
+            tree, manifest = ckpt.restore(self.dir, step, target)
+        else:
+            tree, manifest = ckpt.restore_sharded(self.dir, target, self.layout.specs(),
+                                                  self.layout.mesh, step)
+        return tree["params"], tree["opt"], manifest["step"]
+
+    def save(self, step, params, opt_state, extra, wait=True):
+        """Write the checkpoint of ``step``: on a mesh gathered whole,
+        written by rank 0 at once while the others wait; else on a thread
+        unless ``wait`` (returns the thread or None)."""
+        if self.layout is not None:
+            params, opt_state = self.layout.gather(params, opt_state)
+        tree = {"params": params, "opt": opt_state}
+        thread = None
+        if self.writer:
+            if wait or self.layout is not None:
+                ckpt.save(self.dir, step, tree, extra=extra)
+            else:
+                thread = ckpt.save_async(self.dir, step, tree, extra=extra)
+        if self.world is not None:
+            self.world.barrier()
+        return thread
+
+    def retain(self, keep):
+        if self.writer:
+            ckpt.retain(self.dir, keep)
+
+
 def run(train_step: Callable, params, opt_state, batch_fn: Callable[[int], dict],
         seed: int, loop_cfg: LoopConfig,
-        log_fn: Callable[[int, dict], None] | None = None, device=None):
+        log_fn: Callable[[int, dict], None] | None = None, device=None, layout=None):
     """Train from ``params`` and ``opt_state`` (or from the latest checkpoint
     in ``loop_cfg.ckpt_dir``) up to ``loop_cfg.total_steps``.  ``batch_fn(s)``
     gives step s's batch (numpy arrays or tensors; moved to ``device``,
-    None means "cuda").  Returns (params, opt_state, last step, history of
+    None means "cuda").  ``layout``: this rank's ``MeshLayout`` where
+    ``train_step`` is a mesh step and ``params`` / ``opt_state`` are the
+    rank's blocks.  Returns (params, opt_state, last step, history of
     {"step", "loss", "time"})."""
     dev = resolve_device(device)
     start_step = 0
-    if loop_cfg.ckpt_dir:
+    ckpts = _Checkpoints(loop_cfg.ckpt_dir, layout) if loop_cfg.ckpt_dir else None
+    world = None if layout is None else layout.mesh.group(layout.mesh.axis_names)
+    if world is not None and world.world == 1:
+        world = None
+    if ckpts is not None:
         last = ckpt.latest_step(loop_cfg.ckpt_dir)
         if last is not None:
-            tree, manifest = ckpt.restore(loop_cfg.ckpt_dir, last,
-                                          {"params": params, "opt": opt_state})
-            start_step = manifest["step"]
-            params, opt_state = tree["params"], tree["opt"]
+            params, opt_state, start_step = ckpts.restore(last, params, opt_state)
 
     preempt = Preemption()
     history = []
@@ -103,14 +154,11 @@ def run(train_step: Callable, params, opt_state, batch_fn: Callable[[int], dict]
 
             if not metrics.get("finite", True):
                 bad += 1
-                if bad >= loop_cfg.max_bad_steps and loop_cfg.ckpt_dir:
+                if bad >= loop_cfg.max_bad_steps and ckpts is not None:
                     if pending_save is not None:
                         pending_save.join()
                         pending_save = None
-                    tree, manifest = ckpt.restore(loop_cfg.ckpt_dir, None,
-                                                  {"params": params, "opt": opt_state})
-                    params, opt_state = tree["params"], tree["opt"]
-                    step = manifest["step"]
+                    params, opt_state, step = ckpts.restore(None, params, opt_state)
                     bad = 0
                     continue
             else:
@@ -122,21 +170,23 @@ def run(train_step: Callable, params, opt_state, batch_fn: Callable[[int], dict]
             history.append({"step": step, "loss": float(metrics.get("loss", 0)),
                             "time": dt})
 
-            if loop_cfg.ckpt_dir and step % loop_cfg.ckpt_every == 0:
+            if ckpts is not None and step % loop_cfg.ckpt_every == 0:
                 if pending_save is not None:
                     pending_save.join()
-                pending_save = ckpt.save_async(
-                    loop_cfg.ckpt_dir, step, {"params": params, "opt": opt_state},
-                    extra={"data_step": step})
-                ckpt.retain(loop_cfg.ckpt_dir, loop_cfg.keep)
+                pending_save = ckpts.save(step, params, opt_state, {"data_step": step},
+                                          wait=False)
+                ckpts.retain(loop_cfg.keep)
 
-            if preempt.flag:
+            stop = preempt.flag
+            if world is not None:  # every rank stops at the same step
+                stop = world.psum(torch.tensor([float(stop)]))[0].item() > 0
+            if stop:
                 break
     finally:
         if pending_save is not None:
             pending_save.join()
-        if loop_cfg.ckpt_dir and step > start_step:
-            ckpt.save(loop_cfg.ckpt_dir, step, {"params": params, "opt": opt_state},
-                      extra={"data_step": step, "preempted": preempt.flag})
+        if ckpts is not None and step > start_step:
+            ckpts.save(step, params, opt_state,
+                       {"data_step": step, "preempted": preempt.flag})
         preempt.restore()
     return params, opt_state, step, history

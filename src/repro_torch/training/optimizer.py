@@ -11,6 +11,9 @@ so its temporaries stay small beside the params) and returns them.  The arithmet
 reference's: clipping by the float32 global norm, bias correction, and
 decoupled weight decay on every leaf with ndim >= 2 -- on the stacked
 layer tree that includes the (n, d) norm scales, as in the reference.
+On a mesh (``repro_torch.training.train_step``) ``update`` runs on a
+rank's shards, which keep their leaf's ndim, with the clip's norm of the
+whole gradient from ``mesh_global_norm``.
 """
 
 from __future__ import annotations
@@ -52,6 +55,29 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(n * n for n in sq))
 
 
+def mesh_global_norm(tree, leaf_axes, mesh) -> torch.Tensor:
+    """The global norm of a tree whose leaves are a mesh's blocks of the
+    whole (a ZeRO-1 or FSDP shard of the averaged gradient): each leaf's
+    local sum of squares is psummed over exactly the axes its block is cut
+    on (``leaf_axes``, one tuple a leaf in leaf order; a replicated leaf's
+    is empty and counts once), the leaves with the same axes in one psum,
+    then the leaves are added in leaf order.  Every rank gets the same
+    bits."""
+    flat = pytree.leaves(tree)
+    sq = torch.stack([n * n for n in torch._foreach_norm([x.float() for x in flat])])
+    by_axes = {}
+    for i, axes in enumerate(leaf_axes):
+        by_axes.setdefault(tuple(axes), []).append(i)
+    whole = [None] * len(flat)
+    for axes, idx in by_axes.items():
+        part = sq[idx]
+        if axes:
+            part = mesh.group(axes).psum(part)
+        for j, i in enumerate(idx):
+            whole[i] = part[j]
+    return torch.sqrt(sum(whole))
+
+
 # the float32 bytes of a group of leaves ``update`` takes at once: its
 # temporaries (the clipped gradient, the denominator, the step) hold three
 # groups, not three copies of the params (a leaf larger than this is a group)
@@ -82,9 +108,12 @@ def adamw(schedule: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e
         return {"mu": mu, "nu": nu, "step": step}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, gnorm=None):
+        """``gnorm``: the whole gradient's global norm, where ``grads`` are
+        a mesh rank's shards of it (``mesh_global_norm``); else the norm
+        of ``grads``."""
         step = state["step"] + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if gnorm is None else gnorm
         scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
         t = step.float()
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=t.device) ** t

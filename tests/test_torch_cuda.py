@@ -1687,6 +1687,7 @@ def _tp2_policy_rank(group, seed):
     """One rank of a two-rank model group on the card: the policy smoke
     config's TP2 forward on its share of the weights, and rank 0's
     replicated forward; B2's launches in the sharded call."""
+    from repro_torch.distributed.group import MeshGroups
     from repro_torch.distributed.sharding import mp_param_pspecs, shard_params
     from repro_torch.kernels.flash_attention.ops import flash_f32
     from repro_torch.launch.mesh import Mesh
@@ -1696,7 +1697,7 @@ def _tp2_policy_rank(group, seed):
     dc = paper_diffusion_policy_smoke()
     params = init_denoiser_params(dc, seed, out_scale=1.0, device=group.device)
     specs = mp_param_pspecs(param_axes(dc), param_shapes(dc), Mesh((2,), ("model",), ()))
-    local = shard_params(params, specs, group.rank, group.world)
+    local = shard_params(params, specs, MeshGroups((group.world,), ("model",), group.rank))
     rng = np.random.default_rng(seed)
     t = torch.from_numpy(rng.uniform(1.0, 9.0, 5).astype(np.float32)).to(group.device)
     y = torch.from_numpy(rng.standard_normal((5, dc.seq_len, dc.d_data)).astype(
@@ -1719,3 +1720,67 @@ def test_tp2_forward_on_two_ranks_of_one_card(dev):
     assert torch.equal(r0["out"], r1["out"])
     torch.testing.assert_close(r0["out"], r0["ref"], atol=1e-5, rtol=1e-5)
     assert r0["launches"] == r1["launches"] == paper_diffusion_policy_smoke().backbone.n_layers
+
+
+def _mesh_2x1_rank(group, steps):
+    """One rank of a 2x1 mesh on the card: reduced tinyllama in float32,
+    the CLI's build (data parallelism, ZeRO-1), ``steps`` steps on
+    MarkovLM batches; the losses and rank 0's whole params at the end."""
+    from repro_torch.data.pipeline import MarkovLM
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_rank_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    mesh = make_rank_mesh(group, "2x1")
+    step, init, lay = train.build(cfg, mesh, 1, 3e-3, steps, device=group.device)
+    params, opt = init()
+    data = MarkovLM(vocab=cfg.vocab_size, seq_len=16, batch=8)
+    losses = []
+    for s in range(steps):
+        batch = {k: torch.from_numpy(v).to(group.device) for k, v in data.batch_at(s).items()}
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    mu_bytes = sum(t.numel() * t.element_size() for t in _flat(opt["mu"]).values())
+    whole, _ = lay.gather(params, opt)
+    return dict(losses=losses, params={k: v.cpu() for k, v in _flat(whole).items()},
+                mu_bytes=mu_bytes, device=str(next(iter(_flat(params).values())).device))
+
+
+def _flat(tree, pre=()):
+    out = {}
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out.update(_flat(tree[k], pre + (k,)))
+        else:
+            out["/".join(pre + (k,))] = tree[k]
+    return out
+
+
+def test_mesh_2x1_step_on_two_ranks_of_one_card_follows_1x1(dev):
+    """The trainer's 2x1 mesh on two ranks sharing the card (gloo over
+    pinned host copies) against the 1 x 1 trainer on the card, float32:
+    losses within 1e-5 relative, the params after three steps within
+    AdamW's bound, the same bits on both ranks, AdamW's state halved."""
+    from repro_torch.data.pipeline import MarkovLM
+    from repro_torch.distributed.group import run_group
+    from repro_torch.launch import train
+
+    steps = 3
+    r0, r1 = run_group(_mesh_2x1_rank, 2, "cuda", (steps,))
+    assert r0["device"].startswith("cuda") and r0["losses"] == r1["losses"]
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    step, init, _ = train.build(cfg, None, 1, 3e-3, steps, device=dev)
+    params, opt = init()
+    data = MarkovLM(vocab=cfg.vocab_size, seq_len=16, batch=8)
+    losses = []
+    for s in range(steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(s).items()}
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    np.testing.assert_allclose(r0["losses"], losses, rtol=1e-5, atol=0)
+    whole = sum(t.numel() * 4 for t in _flat(opt["mu"]).values())
+    assert r0["mu_bytes"] < whole
+    for k, v in _flat(params).items():
+        assert torch.equal(r0["params"][k], r1["params"][k]), k
+        torch.testing.assert_close(r0["params"][k], v.cpu(), atol=2 * 3e-3 * steps, rtol=0)

@@ -4,12 +4,15 @@ scan) against autograd through its plain loop and against ``jax.grad`` of
 the JAX package's ``mamba_fwd``, ``lm_init_params`` against the JAX init's
 law, five steps of the train CLI's ``build`` + ``loop.run`` against the
 JAX CLI's ``build`` + ``run`` at a 1 x 1 mesh from the same params (at
-``--accum`` 1 and 2), and the CLI itself (the refusal of a mesh, resume).  The MoE archs' CLI
+``--accum`` 1 and 2), the same on a mesh of ranks (2x1 and 1x2, two gloo
+ranks) against the JAX CLI, and the CLI itself (``--mesh 2x1``, resume).  The MoE archs' CLI
 runs are in tests/test_torch_moe_train.py.
 
 Tolerances: gradients within 1e-4 of each leaf's largest magnitude;
 trajectories of five AdamW steps within 1e-4 in the loss.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +40,9 @@ from repro_torch.nn import ssm as t_ssm
 from repro_torch.training.loop import LoopConfig, run
 from repro_torch.weights import from_jax_lm_params, lm_init_params
 
+from repro_torch.distributed.group import run_group
+
+import torch_mesh_ranks as mesh_ranks
 from tests.test_torch_lm_train import B, _close_grads, _jax_tree, _jnp, _np, _t
 
 
@@ -103,8 +109,11 @@ def test_lm_init_params_has_the_jax_init_law(name):
 # ---------------------------------------------------- train CLI against JAX
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_cli_run(jcfg, accum, lr, steps, batch, seq):
-    """The JAX CLI's build and run at a 1 x 1 mesh, as its main does."""
+    """The JAX CLI's build and run at a 1 x 1 mesh, as its main does (once
+    a module for each set of arguments: the 1 x 1 and the mesh tests share
+    it; nothing mutates the result)."""
     mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
     jitted, init, _ = j_train.build(jcfg, mesh, accum, lr, steps)
     params, opt_state = init()
@@ -132,7 +141,7 @@ def test_five_cli_steps_follow_the_jax_cli(accum):
     tcfg = reduced(get_config("tinyllama-1.1b"))
     steps, batch, seq, lr = 5, 4, 16, 3e-3
     tree, j_losses = _jax_cli_run(jcfg, accum, lr, steps, batch, seq)
-    step, init = t_train.build(tcfg, accum, lr, steps, device="cpu")
+    step, init, _ = t_train.build(tcfg, None, accum, lr, steps, device="cpu")
     _, opt_state = init()
     data = MarkovLM(vocab=tcfg.vocab_size, seq_len=seq, batch=batch)
     _, _, last, hist = run(step, from_jax_lm_params(tree, tcfg, device="cpu"), opt_state,
@@ -142,15 +151,42 @@ def test_five_cli_steps_follow_the_jax_cli(accum):
     assert j_losses[-1] < j_losses[0]
 
 
+@pytest.mark.parametrize("mesh,accum", [("2x1", 1), ("1x2", 2)])
+def test_mesh_steps_follow_the_jax_cli(mesh, accum, tmp_path):
+    """The same five steps on a mesh of ranks (``build`` on each rank of a
+    gloo group: data parallelism with ZeRO-1, or tensor parallelism with
+    the microbatches pre-split), from the JAX ``init()``'s params, against
+    the JAX CLI's losses: a step on a mesh computes the 1 x 1 step's
+    function."""
+    jcfg = j_reduced(j_get_config("tinyllama-1.1b"))
+    steps, batch, seq = 5, 4, 16
+    tree, j_losses = _jax_cli_run(jcfg, accum, mesh_ranks.LR, steps, batch, seq)
+    data = MarkovLM(vocab=jcfg.vocab_size, seq_len=seq, batch=batch)
+    flat = {f"{mesh_ranks.TINY}/{'/'.join(p)}": np.asarray(v) for p, v in pytree.paths(tree)}
+    for s in range(steps):
+        flat.update({f"{mesh_ranks.TINY}/batch{s}/{k}": v for k, v in data.batch_at(s).items()})
+    np.savez(tmp_path / "inputs.npz", **flat)
+    losses = run_group(mesh_ranks.cli_case, 2, "cpu",
+                       (str(tmp_path / "inputs.npz"), mesh_ranks.TINY, mesh, steps, accum))
+    assert losses[0] == losses[1]
+    np.testing.assert_allclose(losses[0], j_losses, atol=1e-4, rtol=0)
+
+
 CLI = ("--device", "cpu", "--batch", "4", "--seq", "16")
 
 
-@pytest.mark.parametrize("argv,match", [(("--mesh", "2x4"), "A13")])
-def test_cli_refuses_what_is_not_ported(argv, match, capsys):
-    with pytest.raises(SystemExit) as exc:
-        t_train.main(list(CLI + argv))
-    assert exc.value.code == 2
-    assert match in capsys.readouterr().err
+def test_cli_trains_on_a_mesh(capfd):
+    """``--mesh 2x1`` starts two ranks; rank 0 prints the JAX CLI's lines,
+    and the losses are the 1 x 1 CLI's."""
+    single = t_train.main(list(CLI + ("--steps", "2")))
+    capfd.readouterr()
+    meshed = t_train.main(list(CLI + ("--steps", "2", "--mesh", "2x1")))
+    lines = capfd.readouterr().out.strip().splitlines()
+    first, last = (meshed["history"][i]["loss"] for i in (0, -1))
+    assert lines == [f"done at step 2: loss {first:.3f} -> {last:.3f}"]
+    assert meshed["last_step"] == 2
+    np.testing.assert_allclose([h["loss"] for h in meshed["history"]],
+                               [h["loss"] for h in single["history"]], rtol=1e-5, atol=0)
 
 
 def test_cli_trains_and_resumes(tmp_path, capsys):

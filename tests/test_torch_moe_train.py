@@ -193,7 +193,7 @@ def test_five_cli_steps_of_the_moe_follow_the_jax_cli():
     jcfg, tcfg = j_reduced(j_get_config(name)), reduced(get_config(name))
     steps, batch, seq, lr = 5, 4, 16, 3e-3
     tree, j_losses = _jax_cli_run(jcfg, 1, lr, steps, batch, seq)
-    step, init = t_train.build(tcfg, 1, lr, steps, device="cpu")
+    step, init, _ = t_train.build(tcfg, None, 1, lr, steps, device="cpu")
     _, opt_state = init()
     data = MarkovLM(vocab=tcfg.vocab_size, seq_len=seq, batch=batch)
     aux = []

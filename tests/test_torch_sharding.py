@@ -29,6 +29,7 @@ from repro.nn import param as j_param
 from repro_torch import pytree
 from repro_torch.configs.registry import get_config, get_denoiser_config
 from repro_torch.distributed import sharding as t_sh
+from repro_torch.distributed.group import MeshGroups
 from repro_torch.models import diffusion as t_diff
 from repro_torch.nn import param as t_param
 from repro_torch.weights import init_denoiser_params, lm_param_shapes, param_shapes
@@ -208,7 +209,8 @@ def test_shard_params_keeps_one_world_th_of_each_sharded_leaf(world, mode):
     params = init_denoiser_params(dc, seed=1, device="cpu")
     specs = t_sh.mp_param_pspecs(t_param.param_axes(dc), param_shapes(dc),
                                  _FakeMesh(world), tensor=mode[0], expert=mode[1])
-    shards = [t_sh.shard_params(params, specs, r, world) for r in range(world)]
+    shards = [t_sh.shard_params(params, specs, MeshGroups((world,), ("model",), r))
+              for r in range(world)]
     n_sharded = 0
     for (path, full), (_, spec) in zip(pytree.paths(params), pytree.paths(specs)):
         locals_ = [t_param_leaf(s, path) for s in shards]
@@ -238,7 +240,7 @@ def test_shard_params_refuses_a_leaf_that_does_not_divide():
     specs = pytree.map(lambda _: t_param.P(), param_shapes(dc))
     specs["in_proj"] = t_param.P("model")  # (d_data 4, d) over 3 ranks
     with pytest.raises(ValueError, match="does not divide over 3 ranks"):
-        t_sh.shard_params(params, specs, 0, 3)
+        t_sh.shard_params(params, specs, MeshGroups((3,), ("model",), 0))
 
 
 @pytest.mark.parametrize("shards,mp,n", [(2, 2, 4), (3, 2, 8), (1, 4, 4), (2, 3, 5)])

@@ -17,6 +17,7 @@ import torch
 from repro_torch import pytree
 from repro_torch.configs.registry import get_denoiser_config
 from repro_torch.core import schedules as t_sch
+from repro_torch.distributed.group import MeshGroups
 from repro_torch.distributed.sharding import mp_param_pspecs, shard_params
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.diffusion import (denoiser_fwd, make_ddpm_model_fn,
@@ -106,7 +107,7 @@ def rank_cases(group, inputs: str) -> dict:
         dc = config(cfg, L)
         params = from_jax_params(params_tree(data, cfg, dc), dc, "cpu")
         local = shard_params(params, layout(dc, group.world, tensor, expert),
-                             group.rank, group.world)
+                             MeshGroups((group.world,), ("model",), group.rank))
         t, y = (torch.from_numpy(data[f"{name}/{k}"]) for k in ("t", "y"))
         mp = axes_of(group, tensor, expert, sp)
         runs = [denoiser_fwd(local, t, y, dc, **mp).numpy() for _ in range(2)]
