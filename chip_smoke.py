@@ -183,7 +183,20 @@ Phases, each printing one JSON line and raising on any failure:
               counters equal, samples within MP_F32_TOL, launches per round
               equal.  The ranks' supersteps are eager (a host-staged
               collective cannot be captured), so the host-sync-as-error
-              checks of the captured phases do not apply.  Then the LM
+              checks of the captured phases do not apply.  Then the serve
+              CLI's mesh over the batch axes (mesh_serve) on the same two
+              ranks, each against its 1 x 1 run in this process: the
+              pixel-dit ``ContinuousASDEngine`` at MP_ENGINE_DEPTH layers
+              with ``state_sharding`` on 2x1 (unpacked, counter noise, 4
+              slots, theta 8, K 64, RPS rounds a superstep, 6 keyed
+              requests, served twice), ``asd_sample_batched`` over 4 of its
+              chains on 2x1 (each rank its block of the chains' keys), and
+              the float32 policy engine of policy_tp2 on 2x1x1: each
+              request's sample equal in bits and its counters equal, half
+              the slot-state bytes a rank, every warm superstep a replayed
+              graph, B1 and B2 as often a round as 1 x 1, finite samples;
+              the warm round ms by rank and at 1 x 1, the boundary gathers'
+              seconds and share, peak memory by rank.  Then the LM
               trainer's meshes (mesh_train) on the same two ranks:
               tinyllama-1.1b at published widths and MESH_TRAIN_DEPTH of
               its 22 layers, batch 8 x 128, 3 steps, on 2x1 (data
@@ -6906,6 +6919,252 @@ def _mp_f32_setup(torch, dev, name):
     return dc, params, ddpm(MP_F32_K), reqs
 
 
+# ------------------------------------------------------------ mesh_serve
+# the serve CLI's --mesh over the batch axes (serving/worker.py
+# state_sharding, core/asd.py asd_sample_batched(keys=)) on the
+# model_parallel phase's two ranks, against the 1 x 1 engine and sampler
+# in this process: run -> mesh.  The pixel-dit runs at MP_ENGINE_DEPTH
+# layers (unpacked, counter noise, RPS rounds a superstep, REQUESTS keyed
+# requests; the fused sampler over CHAINS chains), the pod run is the
+# float32 policy engine of MP_F32_RUNS["policy_tp2"], unpacked
+MESH_SERVE_RUNS = {"continuous": "2x1", "fused": "2x1", "pod": "2x1x1"}
+
+
+def _mesh_serve_pixel(torch, dev):
+    """(dc, model function, schedule, requests) of the pixel-dit runs."""
+    from repro_torch.core.schedules import sl_geometric
+    from repro_torch.models.diffusion import make_sl_model_fn
+    from repro_torch.serving.worker import Request
+    from repro_torch.weights import init_denoiser_params
+
+    dc = _mp_pixel_dc(MP_ENGINE_DEPTH)
+    fn = make_sl_model_fn(init_denoiser_params(dc, SEED, out_scale=OUT_SCALE, device=dev), dc)
+    reqs = [Request(i, key=np.array([0, 5000 + i], np.uint32)) for i in range(REQUESTS)]
+    return dc, fn, sl_geometric(K, 0.05, 50.0), reqs
+
+
+def _mesh_serve_engine(torch, run, dev, layout=None):
+    """(engine, requests) of mesh_serve ``run`` on ``dev``, its slots laid
+    out by ``layout`` (None: the 1 x 1 engine)."""
+    from repro_torch.models.diffusion import make_ddpm_model_fn
+    from repro_torch.serving.engine import ContinuousASDEngine
+
+    if run == "pod":
+        dc, params, sched, reqs = _mp_f32_setup(torch, dev, "policy_tp2")
+        fn, theta, rps = make_ddpm_model_fn(params, dc), MP_F32_THETA, 1
+    else:
+        dc, fn, sched, reqs = _mesh_serve_pixel(torch, dev)
+        theta, rps = THETA, RPS
+    eng = ContinuousASDEngine(fn, sched, (dc.seq_len, dc.d_data), num_slots=SLOTS, theta=theta,
+                              noise_mode="counter", keep_trajectory=False, rounds_per_sync=rps,
+                              device=dev, state_sharding=layout)
+    return eng, reqs
+
+
+def _state_bytes(st):
+    return sum(t.numel() * t.element_size() for f in dataclasses.fields(st)
+               if (t := getattr(st, f.name)) is not None)
+
+
+def _mesh_serve_measure(torch, run, dev, counters, layout=None):
+    """Two serves of ``run``'s requests on its engine (the first captures
+    its programs, the second replays them): per serve the samples, each
+    request's counters, rounds, supersteps, launches, host wall, the
+    boundary gathers' seconds, and the superstep programs' captures and
+    calls; the peak memory (weights included) and the slot-state bytes."""
+    base = _fresh_memory(torch)
+    eng, reqs = _mesh_serve_engine(torch, run, dev, layout)
+    runs = []
+    for _ in range(2):
+        s, progs = eng.stats, eng._superstep_fns
+        before = (s.rounds_total, s.supersteps, s.gather_s, len(s.per_request),
+                  sum(p.captures for p in progs.values()), sum(p.calls for p in progs.values()))
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        samples = eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append(dict(
+            samples=samples, wall_s=wall, launches=_launches(counters),
+            rounds=s.rounds_total - before[0], supersteps=s.supersteps - before[1],
+            gather_s=s.gather_s - before[2],
+            counters={m.rid: (m.rounds, m.head_calls, m.model_evals, m.accepts, m.proposals)
+                      for m in s.per_request[before[3]:]},
+            captures=sum(p.captures for p in progs.values()) - before[4],
+            calls=sum(p.calls for p in progs.values()) - before[5]))
+    return dict(runs=runs, peak_bytes=_memory(torch, base)["peak_bytes"],
+                slot_bytes=_state_bytes(eng._states), eager=eng._eager)
+
+
+def _mesh_serve_fused(torch, dev, counters, layout=None):
+    """The fused sampler over CHAINS pixel-dit chains from zeros, or over
+    ``layout``'s block of them with their rows of ``split(key, CHAINS)``,
+    gathered to rank 0 as the serve CLI gathers them."""
+    from repro_torch.core import prng
+    from repro_torch.core.asd import asd_sample_batched
+
+    base = _fresh_memory(torch)
+    dc, fn, sched, _ = _mesh_serve_pixel(torch, dev)
+    key = prng.PRNGKey(SEED + 600)
+    y0 = torch.zeros(CHAINS, dc.seq_len, dc.d_data, device=dev)
+    kw = dict(key=key)
+    if layout is not None:
+        rows = layout.rows(CHAINS)
+        y0, kw = y0[rows], dict(keys=prng.split(key, CHAINS)[rows])
+    _zero_counters(torch, counters)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        res = asd_sample_batched(fn, sched, y0, THETA, eager_head=True, keep_trajectory=False,
+                                 device=dev, noise_mode="counter", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(counters)
+    fields = [res.sample, res.rounds, res.head_calls]
+    out = dict(block=[f.cpu() for f in fields], wall_s=wall, launches=launches,
+               loop_rounds=res.loop.rounds, capture_ms=res.loop.capture_ms,
+               state_bytes=res.trajectory.numel() * res.trajectory.element_size(),
+               peak_bytes=_memory(torch, base)["peak_bytes"], gather_s=0.0)
+    if layout is not None:
+        t0 = time.perf_counter()
+        every = [layout.group.gather_rows_to_lead(f, [y0.shape[0]] * layout.ranks)
+                 for f in fields]
+        out["gather_s"] = time.perf_counter() - t0
+        out["gathered"] = every if layout.group.rank == 0 else None
+    return out
+
+
+def _mesh_serve_rank(torch, group, counters):
+    """This rank's mesh_serve runs (see MESH_SERVE_RUNS)."""
+    from repro_torch.distributed.sharding import chain_state_shardings
+    from repro_torch.launch.mesh import make_rank_mesh
+
+    t_start = time.perf_counter()
+    layouts = {spec: chain_state_shardings(make_rank_mesh(group, spec))
+               for spec in sorted(set(MESH_SERVE_RUNS.values()))}
+    out = {}
+    for run, spec in MESH_SERVE_RUNS.items():
+        out[run] = (_mesh_serve_fused(torch, group.device, counters, layouts[spec])
+                    if run == "fused" else
+                    _mesh_serve_measure(torch, run, group.device, counters, layouts[spec]))
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def run_mesh_serve_reference(torch, dev, counters):
+    """The 1 x 1 engines (two serves each) and the 1 x 1 sampler of the
+    mesh_serve runs, here."""
+    out = {run: (_mesh_serve_fused(torch, dev, counters) if run == "fused"
+                 else _mesh_serve_measure(torch, run, dev, counters))
+           for run in MESH_SERVE_RUNS}
+    _fresh_memory(torch)
+    return out
+
+
+def _mesh_serve_bits(a, b):
+    return sorted(a) == sorted(b) and all(
+        np.array_equal(a[r].view(np.int32), b[r].view(np.int32)) for r in a)
+
+
+def _tensor_bits(torch, a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def check_mesh_serve(torch, card, ref, ranks, f32_ref):
+    """Every mesh_serve run against its 1 x 1 run: each request's sample
+    bits (on rank 0) and counters (on every rank), half the slot-state
+    bytes a rank, warm supersteps replayed (the engines), B1 and B2
+    launched as often a round as 1 x 1, finite samples; one
+    ``mesh_serve`` line a run.  Returns the launches by run (both ranks)."""
+    by_run = {}
+    for run, spec in MESH_SERVE_RUNS.items():
+        one = ref[run]
+        mine = [r["mesh_serve"][run] for r in ranks]
+        flash = "flash_attention_f32" if run == "pod" else "flash_attention"
+        problems = []
+        if run == "fused":
+            whole = one["block"]
+            got = mine[0]["gathered"]
+            if not all(_tensor_bits(torch, g, w) for g, w in zip(got, whole)):
+                problems.append("the gathered chains differ from the 1 x 1 call")
+            for i, m in enumerate(mine):
+                rows = slice(i * CHAINS // len(mine), (i + 1) * CHAINS // len(mine))
+                if not all(_tensor_bits(torch, b, w[rows]) for b, w in zip(m["block"], whole)):
+                    problems.append(f"rank {i}'s block differs from the 1 x 1 rows")
+                if m["state_bytes"] * len(mine) != one["state_bytes"]:
+                    problems.append(f"rank {i}: chain state {m['state_bytes']} B of "
+                                    f"{one['state_bytes']}")
+            lpr = [{k: m["launches"][k] / m["loop_rounds"] for k in ("grs", flash)}
+                   for m in mine + [one]]
+            finite = bool(torch.isfinite(got[0]).all())
+            warm = [(m["wall_s"] * 1e3 - (m["capture_ms"] or 0.0)) / m["loop_rounds"]
+                    for m in mine + [one]]
+            gather = [m["gather_s"] for m in mine]
+            share = [m["gather_s"] / m["wall_s"] for m in mine]
+            peaks = [m["peak_bytes"] for m in mine + [one]]
+        else:
+            for i, m in enumerate(mine):
+                for j, r in enumerate(m["runs"]):
+                    if r["counters"] != one["runs"][0]["counters"]:
+                        problems.append(f"rank {i} serve {j}: counters differ")
+                    if i == 0 and not _mesh_serve_bits(r["samples"], one["runs"][0]["samples"]):
+                        problems.append(f"serve {j}: rank 0's samples differ from 1 x 1's")
+                if m["slot_bytes"] * len(mine) != one["slot_bytes"]:
+                    problems.append(f"rank {i}: slot state {m['slot_bytes']} B of "
+                                    f"{one['slot_bytes']}")
+                w = m["runs"][1]
+                if m["eager"] or w["captures"] or w["calls"] != w["supersteps"]:
+                    problems.append(f"rank {i}: warm serve not all replays (eager "
+                                    f"{m['eager']}, captures {w['captures']}, calls "
+                                    f"{w['calls']} for {w['supersteps']} supersteps)")
+            if run == "pod":  # the 1 x 1 engine in this process is the phase's reference
+                if not (_mesh_serve_bits(one["runs"][0]["samples"], f32_ref["samples"])
+                        and one["runs"][0]["counters"] == f32_ref["counters"]):
+                    problems.append("the 1 x 1 engine differs from refs['policy_tp2']")
+            lpr = [{k: m["runs"][1]["launches"][k] / m["runs"][1]["rounds"]
+                    for k in ("grs", flash)} for m in mine + [one]]
+            finite = all(bool(np.isfinite(v).all()) for v in mine[0]["runs"][1]["samples"].values())
+            warm = [m["runs"][1]["wall_s"] * 1e3 / m["runs"][1]["rounds"] for m in mine + [one]]
+            gather = [m["runs"][1]["gather_s"] for m in mine]
+            share = [m["runs"][1]["gather_s"] / m["runs"][1]["wall_s"] for m in mine]
+            peaks = [m["peak_bytes"] for m in mine + [one]]
+        if any(p != lpr[-1] for p in lpr) or not all(lpr[-1].values()):
+            problems.append(f"launches a round (ranks, then 1 x 1) {lpr}")
+        if not finite:
+            problems.append("samples not finite")
+        if problems:
+            fail(f"mesh_serve {run} on {spec}: {problems}")
+        emit("mesh_serve", run=run, mesh=spec, card=card,
+             model="paper-diffusion-policy-smoke" if run == "pod" else "paper-pixel-dit",
+             layers=None if run == "pod" else MP_ENGINE_DEPTH,
+             dtype="float32" if run == "pod" else "bf16",
+             slots=None if run == "fused" else SLOTS,
+             chains=CHAINS if run == "fused" else None,
+             requests=None if run == "fused" else len(one["runs"][0]["samples"]),
+             theta=MP_F32_THETA if run == "pod" else THETA,
+             K=MP_F32_K if run == "pod" else K,
+             rounds_per_sync=None if run == "fused" else (1 if run == "pod" else RPS),
+             equal_bits=True, counters_equal=True,
+             state_bytes_by_rank=[m["state_bytes" if run == "fused" else "slot_bytes"]
+                                  for m in mine],
+             state_bytes_1x1=one["state_bytes" if run == "fused" else "slot_bytes"],
+             warm_supersteps_replayed=None if run == "fused" else True,
+             launches_per_round=lpr[-1],
+             warm_round_ms_by_rank=warm[:-1], warm_round_ms_1x1=warm[-1],
+             gather_s_by_rank=gather, gather_share_by_rank=share,
+             peak_bytes_by_rank=peaks[:-1], peak_bytes_1x1=peaks[-1],
+             note=("both ranks share this one card and meet over host-staged gloo (pinned "
+                   "host copies) at each boundary; round ms: host wall of the second serve "
+                   "/ its rounds" if run != "fused" else
+                   "both ranks share this one card; the gathers to rank 0 are host-staged "
+                   "gloo; round ms: host wall net of the loop's capture / the loop's rounds"))
+        launches = ([m["launches"] for m in mine] if run == "fused" else
+                    [r["launches"] for m in mine for r in m["runs"]])
+        by_run[f"mesh_serve_{run}"] = {k: sum(n[k] for n in launches) for k in launches[0]}
+    return by_run
+
+
 def _mp_rank(group, mesh_ref):
     """One rank of the phase: the full-width forwards and engine, the
     float32 engines, then the trainer's meshes against the reference at
@@ -6953,6 +7212,8 @@ def _mp_rank(group, mesh_ref):
                          **_mp_f32_kwargs(name, 2))
         out["f32"][name] = _mp_serve(torch, eng, reqs, counters)
     del eng, f32_params
+    torch.cuda.empty_cache()
+    out["mesh_serve"] = _mesh_serve_rank(torch, group, counters)
     out["mesh_train"] = _mesh_train_rank(torch, group, mesh_ref)
     return out
 
@@ -7008,6 +7269,9 @@ def run_model_parallel(torch, dev):
         refs[name] = _mp_serve(torch, eng, reqs, counters)
         del eng
     _fresh_memory(torch)
+    t0 = time.perf_counter()
+    mesh_serve_ref = run_mesh_serve_reference(torch, dev, counters)
+    mesh_serve_ref_s = time.perf_counter() - t0
     mesh_dir = ROOT / "build" / "chip_smoke_mesh"
     mesh_dir.mkdir(parents=True, exist_ok=True)
     mesh_ref_path = str(mesh_dir / "reference_grads.pt")
@@ -7137,13 +7401,15 @@ def run_model_parallel(torch, dev):
              collective_s=mp[0]["collective_s"], round_ms=mp[0]["wall_s"] * 1e3 / mp[0]["rounds"],
              replicated_round_ms=rep["wall_s"] * 1e3 / rep["rounds"])
         by_run[f"model_parallel_f32_{name}"] = mp[0]["launches"]
+    by_run.update(check_mesh_serve(torch, card, mesh_serve_ref, ranks, refs["policy_tp2"]))
     check_mesh_train(torch, card, mesh_ref, ranks)
     row = flash_shape_row(torch, dev, "model_parallel TP2 / SP2 verification, 8 local heads",
                           (MP_POINTS, 1024, 1024, 16 // MP_WORLD, 64), False)
     row["runs"] = {"model_parallel_tp2_forward": 1.0, "model_parallel_sp2_forward": 1.0,
                    "model_parallel_engine": 0.5}
     emit("model_parallel_done", card=card, group_s=group_s, rank_weights_s=r0["weights_s"],
-         mesh_train_reference_s=mesh_ref_s,
+         mesh_train_reference_s=mesh_ref_s, mesh_serve_reference_s=mesh_serve_ref_s,
+         mesh_serve_rank_s=[r["mesh_serve"]["wall_s"] for r in ranks],
          mesh_train_rank_s=[sum(v["wall_s"] for v in r["mesh_train"].values()) for r in ranks],
          phase_wall_s=time.perf_counter() - t_phase)
     return by_run, [row]

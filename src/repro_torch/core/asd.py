@@ -599,7 +599,8 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
                        xi_buf: Optional[torch.Tensor] = None,
                        device=None, conds: Optional[torch.Tensor] = None,
                        key=None, noise_mode: str = "buffer", num_branches: int = 1,
-                       branch_controller: BranchController = _STATIC_B) -> ASDResult:
+                       branch_controller: BranchController = _STATIC_B,
+                       keys=None) -> ASDResult:
     """ASD on independent chains y0 (B, *event), stepped together.
 
     Each round makes one proposal call over the B chains and one
@@ -607,7 +608,10 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
     slowest chain finishes, and finished chains stay frozen.  ``key`` (2,)
     is split into one key a chain, as the JAX package splits it, and the
     chains draw from those in ``noise_mode`` ("buffer" or "counter").
-    Without a key, ``u_buf`` / ``xi_buf`` inject each chain's noise (see
+    ``keys`` (B, 2), in place of ``key``, gives the chains' keys
+    themselves: a rank that holds chains [b n, (b + 1) n) of a batch passes
+    rows b n ... (b + 1) n - 1 of ``split(key, chains)``, and its chains
+    draw what they draw in the whole batch.  Without a key, ``u_buf`` / ``xi_buf`` inject each chain's noise (see
     ``init_chain_state``), or it is drawn from ``generator`` (buffer mode).
     ``theta >= K`` gives ASD-infinity.
 
@@ -618,7 +622,15 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
     ``key``).  Runs on ``device`` (None means "cuda").
     """
     dev = resolve_device(device)
-    keys = None if key is None else prng.split(prng.as_key(key, dev), y0.shape[0])
+    if keys is not None:
+        if key is not None:
+            raise ValueError("asd_sample_batched: key or keys, not both")
+        keys = prng.as_key(keys, dev)
+        if tuple(keys.shape) != (y0.shape[0], 2):
+            raise ValueError(f"keys {tuple(keys.shape)} for {y0.shape[0]} chains: one "
+                             "(2,) key a chain")
+    elif key is not None:
+        keys = prng.split(prng.as_key(key, dev), y0.shape[0])
     return _sample(model_fn, schedule, y0.to(dev), theta, eager_head, keep_trajectory,
                    controller, generator, u_buf, xi_buf, conds, keys, noise_mode,
                    num_branches, branch_controller)

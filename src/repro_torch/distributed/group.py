@@ -20,6 +20,9 @@ forward uses, in ``jax.lax``'s tiled forms:
   reduce_scatter(x, axis)            block ``rank`` of ``axis`` of psum(x)
                                      (``jax.lax.psum_scatter``, tiled)
   broadcast_floats(values)           rank 0's host numbers on every rank
+  gather_rows_to_lead(x, counts)     every rank's rows on rank 0, in rank
+                                     order, sent point to point by the
+                                     ranks that hold some
 
 ``psum`` is an all-gather followed by a sum in rank order
 (((x0 + x1) + x2) ...), in x's dtype on x's device: every rank ends with
@@ -113,11 +116,14 @@ class ModelGroup:
     rank checks that all ranks run on the same device type, and on the
     card on one card."""
 
-    def __init__(self, rank: int, world: int, device, pg=None):
+    def __init__(self, rank: int, world: int, device, pg=None, ranks=None):
         self.rank = int(rank)
         self.world = int(world)
         self.device = torch.device(device)
         self.pg = pg
+        # the spawn's rank of each rank of this group, in group order (a
+        # point-to-point call names its peer by it)
+        self.ranks = tuple(range(self.world) if ranks is None else ranks)
         self._pinned = self.device.type == "cuda"
         if self.world > 1:
             self._check_placement()
@@ -236,6 +242,28 @@ class ModelGroup:
             with _timed():
                 dist.broadcast(t, src=0, group=self.pg)
         return t.tolist()
+
+    def gather_rows_to_lead(self, x: torch.Tensor, counts) -> torch.Tensor | None:
+        """Rank 0 gets every rank's rows: rank r holds ``counts[r]`` rows
+        in ``x`` (the same trailing shape and dtype on every rank), and
+        rank 0 returns all of them on the host, concatenated in rank order;
+        the other ranks return None.  A rank with rows sends them to rank
+        0 once, point to point; a rank without sends nothing."""
+        if self.world == 1:
+            return x.cpu()
+        with _timed(x):
+            rows = x.detach().to("cpu").contiguous()
+            if self.rank != 0:
+                if counts[self.rank]:
+                    dist.send(rows, dst=self.ranks[0], group=self.pg)
+                return None
+            parts = [rows]
+            for r in range(1, self.world):
+                if counts[r]:
+                    part = torch.empty((counts[r],) + tuple(rows.shape[1:]), dtype=rows.dtype)
+                    dist.recv(part, src=self.ranks[r], group=self.pg)
+                    parts.append(part)
+            return torch.cat(parts)
 
     def barrier(self) -> None:
         if self.world > 1:
@@ -396,7 +424,8 @@ def mesh_groups(world: ModelGroup, shape, axis_names) -> MeshGroups:
                 pg = dist.new_group(ranks=ranks, backend="gloo")
                 if world.rank in ranks:
                     groups[key] = ModelGroup(ranks.index(world.rank), len(ranks),
-                                             world.device, pg)
+                                             world.device, pg,
+                                             [world.ranks[r] for r in ranks])
     mine._groups = groups
     return mine
 

@@ -27,11 +27,15 @@ trainer (``repro_torch.training.train_step``) lays params out by
 axis a spec names (``pod``, ``data``, ``model``, or a tuple of them on one
 dim), ``gather_params`` is its inverse, and ``tp_paths`` says which
 leaves the blocks compute tensor-parallel on.
+The serve CLI's ``--mesh`` lays the continuous engine's slot batch out by
+``chain_state_shardings(mesh)``: a ``ChainStateSharding`` that says which
+contiguous block of the leading slot axis this rank holds, the rows
+``NamedSharding(mesh, batch_pspec(mesh))`` gives its device.
 ``get_shard_map``, ``slots_mesh``, ``serving_mesh``, ``shard_pspecs``,
-``chain_state_shardings``, ``shardings_from_pspecs`` and
-``abstract_params`` are JAX mesh plumbing (``shard_map``, ``NamedSharding``,
-``eval_shape``) with no counterpart: the port's sharded front end stacks
-its shards itself, and a rank holds its own slice.
+``shardings_from_pspecs`` and ``abstract_params`` are JAX mesh plumbing
+(``shard_map``, ``NamedSharding``, ``eval_shape``) with no counterpart:
+the port's sharded front end stacks its shards itself, and a rank holds
+its own slice.
 """
 
 from __future__ import annotations
@@ -119,6 +123,49 @@ def mentions_model(spec) -> bool:
 def batch_pspec(mesh, *trailing) -> PartitionSpec:
     axes = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
     return P(axes, *trailing)
+
+
+class ChainStateSharding:
+    """The slot batch's layout over a mesh of ranks (a ``MeshGroups``), the
+    port's ``NamedSharding(mesh, batch_pspec(mesh))``: the leading slot axis
+    of every ``ASDChainState`` field is cut over the batch axes ("pod",
+    "data") into ``ranks`` contiguous blocks, pod-major, and this rank holds
+    block ``index`` = ``mesh.index(("pod", "data"))``.  ``group`` is the
+    ``ModelGroup`` of the batch axes, whose rank is ``index``.  Every rank
+    keeps the whole weights, so the ``model`` axis must be 1."""
+
+    def __init__(self, mesh):
+        model = mesh.sizes().get("model", 1)
+        if model != 1:
+            raise ValueError(
+                f"a serve mesh's model axis of {model}: the weights' layout over model "
+                "(param_pspecs, tensor-parallel where tp_paths says so) is ROADMAP.md "
+                "A13 item 10; the batch axes alone (Dx1, PxDx1) serve")
+        self.mesh = mesh
+        self.axes = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
+        self.ranks = mesh.size(self.axes)
+        self.index = mesh.index(self.axes)
+        self.group = mesh.group(self.axes)
+        assert self.group.rank == self.index and self.group.world == self.ranks
+
+    def __repr__(self) -> str:
+        return f"ChainStateSharding(axes={self.axes}, ranks={self.ranks}, index={self.index})"
+
+    def rows(self, n: int) -> slice:
+        """This rank's block of a slot axis of ``n`` rows; ``n`` must split
+        evenly, as ``NamedSharding`` requires."""
+        if n % self.ranks:
+            raise ValueError(
+                f"a slot axis of {n} rows does not split over the {self.ranks} ranks of "
+                f"the batch axes {self.axes}: its size must be divisible by {self.ranks}")
+        m = n // self.ranks
+        return slice(self.index * m, (self.index + 1) * m)
+
+
+def chain_state_shardings(mesh) -> ChainStateSharding:
+    """The continuous engine's slot-batch layout over ``mesh`` (a
+    ``MeshGroups`` whose model axis is 1): the worker's ``state_sharding``."""
+    return ChainStateSharding(mesh)
 
 
 def param_pspecs(axes_tree, shapes=None, mesh=None, rules: Mapping | None = None,

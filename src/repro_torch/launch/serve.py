@@ -35,22 +35,36 @@ summary, with the JAX CLI's ``, mp=N (sequence-parallel)
 (expert-parallel)`` clause and its ``collectives:`` line (the calibrated
 lanes: host-staged gloo here), and the other ranks print nothing.
 
+``--mesh`` ``DxM`` or ``PxDxM`` (the JAX CLI's axes, ``launch/mesh.py
+::parse_mesh``) with ``M`` 1 serves data-parallel over the batch axes:
+the CLI starts prod(dims) ranks (``run_group``, gloo, every rank on
+``--device``), each running ``serve_rank`` over ``make_rank_mesh``.  The
+continuous engine shards its slots by ``chain_state_shardings(mesh)``
+(``--slots`` a multiple of pod * data, or derived and rounded up to one,
+with the JAX CLI's message); the fused engine gives each rank its block
+of the ``default_rng(0)`` y0 rows and of ``split(PRNGKey(1), chains)``
+(``--chains`` must split evenly, as ``NamedSharding`` requires) and
+gathers samples and counters to rank 0.  Rank 0 prints the JAX CLI's
+lines; the other ranks print nothing.  Every request gets the 1 x 1
+run's sample bits and counters.
+
 The flags, their names and defaults are the JAX CLI's, with two
-differences: ``--mesh`` takes only ``1x1`` (its default here), and
-``--device`` picks the device (default the card; ``cpu`` runs the kernels'
-plain versions).  The weights are ``denoiser_init_params`` at seed 0, the
-JAX init's law.  ``--num-branches`` B > 1 runs branched speculation in the
+differences: ``--mesh`` defaults to ``1x1`` (the JAX CLI's ``2x4`` would
+put eight ranks on one card), and ``--device`` picks the device (default
+the card; ``cpu`` runs the kernels' plain versions).  The weights are
+``denoiser_init_params`` at seed 0, the JAX init's law.  ``--num-branches`` B > 1 runs branched speculation in the
 continuous engine (B draft branches a chain a round, the longest accepted
 prefix committed; ``--branch-controller`` static or gain), and the summary
 line then gives the mean accepted prefix a round and the wasted share of
 the drafted points; as in the JAX CLI, the fused engine runs one branch.
 What the port has no counterpart for yet is refused with exit status 2 and
-the ROADMAP.md item that brings it, never ignored: a ``--mesh`` other than
-``1x1`` (data parallelism over a mesh: A13), and ``--grs-impl`` /
-``--pack-impl``, since the device picks the plain version (CPU) or the
-CUDA kernel (card).  The MoE
-denoiser ``qwen3-moe-a3b-smoke`` is served with every expert on the
-device.
+the ROADMAP.md item that brings it, never ignored: a mesh's ``model``
+axis above 1 (A13 item 10), packed execution over several batch ranks
+(A13 item 11), a mesh of several ranks with ``--shards``,
+``--model-shards``, ``--seq-shards`` or ``--expert-parallel`` (A13 item
+12), and ``--grs-impl`` / ``--pack-impl``, since the device picks the
+plain version (CPU) or the CUDA kernel (card).  The MoE denoiser
+``qwen3-moe-a3b-smoke`` is served with every expert on the device.
 
 Observability: ``--metrics-port`` serves /metrics, /metrics.json and
 /healthz on 127.0.0.1 and scrapes itself once after the run;
@@ -75,6 +89,7 @@ import contextlib
 import io
 import json
 import logging
+import math
 import os
 import sys
 import time
@@ -92,8 +107,8 @@ from repro_torch.core.controller import (BRANCH_CONTROLLERS, CONTROLLERS,
 from repro_torch.core.schedules import ddpm as ddpm_schedule
 from repro_torch.device import resolve_device
 from repro_torch.distributed.group import run_group
-from repro_torch.distributed.sharding import mp_param_pspecs
-from repro_torch.launch.mesh import Mesh
+from repro_torch.distributed.sharding import chain_state_shardings, mp_param_pspecs
+from repro_torch.launch.mesh import Mesh, make_rank_mesh, parse_mesh
 from repro_torch.models.diffusion import (make_ddpm_model_fn, mp_collective_payloads,
                                           sp_compatible)
 from repro_torch.nn.param import param_axes
@@ -111,10 +126,27 @@ log = logging.getLogger("repro_torch.serving.serve")
 
 def _refusal(args):
     """The message for a flag the port cannot honour yet, or None."""
-    if args.mesh != "1x1":
-        return (f"--mesh {args.mesh}: only 1x1 (shards live on the card, or one a card "
-                "with several; model parallelism is --model-shards / --seq-shards); a "
-                "mesh of more devices is data parallelism, ROADMAP.md A13")
+    try:
+        dims, names = parse_mesh(args.mesh)
+    except ValueError as exc:
+        return str(exc)
+    model = dict(zip(names, dims))["model"]
+    if model > 1:
+        return (f"--mesh {args.mesh}: a model axis of {model} (the weights laid out over "
+                "model by param_pspecs) is ROADMAP.md A13 item 10; the batch axes serve "
+                "(DATAx1, PODxDATAx1), and model parallelism is --model-shards / "
+                "--seq-shards")
+    if math.prod(dims) > 1 and args.engine == "continuous":
+        if args.execution == "packed":
+            return (f"--mesh {args.mesh} with --execution packed: packed rounds over "
+                    "several batch ranks (a global allocation over the gathered demand) "
+                    "are ROADMAP.md A13 item 11")
+        for flag, on in (("--shards", args.shards > 1), ("--model-shards", args.model_shards > 1),
+                         ("--seq-shards", args.seq_shards > 1),
+                         ("--expert-parallel", args.expert_parallel)):
+            if on:
+                return (f"--mesh {args.mesh} with {flag}: a mesh of several ranks beside "
+                        "shards or a model group is ROADMAP.md A13 item 12")
     for flag, value in (("--grs-impl", args.grs_impl), ("--pack-impl", args.pack_impl)):
         if value is not None:
             return (f"{flag} {value}: no counterpart in the port, whose device picks "
@@ -188,28 +220,45 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def run_fused(args) -> dict:
-    dev, dc, model_fn = _build(args)
+def run_fused(args, mesh=None) -> dict | None:
+    """The fused sampler over --chains chains; over ``mesh`` (this rank's
+    ``MeshGroups``) the rank samples its block of the chains and rank 0
+    gathers the rest, prints and returns the numbers (the others None)."""
+    if mesh is None:
+        dev, dc, model_fn = _build(args)
+    else:
+        dev, dc = mesh.device, get_denoiser_config(args.model)
+        model_fn = _model_fn(dc, dev)
     sched = ddpm_schedule(args.K)
     y0 = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (args.chains, dc.seq_len, dc.d_data), np.float32))
+    keys = dict(key=prng.PRNGKey(1))
+    if mesh is not None:
+        layout = chain_state_shardings(mesh)
+        rows = layout.rows(args.chains)
+        y0, keys = y0[rows], dict(keys=prng.split(prng.PRNGKey(1), args.chains)[rows])
     t0 = time.perf_counter()
     with torch.no_grad():
         res = asd_sample_batched(model_fn, sched, y0, args.theta, eager_head=True,
                                  keep_trajectory=False,
                                  controller=make_controller(args.theta_controller),
-                                 device=dev, key=prng.PRNGKey(1), noise_mode="counter")
+                                 device=dev, noise_mode="counter", **keys)
     _sync(dev)
+    fields = (res.sample, res.rounds, res.head_calls, res.accepts, res.proposals)
+    if mesh is not None and layout.ranks > 1:
+        counts = [y0.shape[0]] * layout.ranks
+        fields = [layout.group.gather_rows_to_lead(f, counts) for f in fields]
+        if layout.group.rank != 0:
+            return None
     dt = time.perf_counter() - t0
-    rounds, heads = res.rounds.cpu().numpy(), res.head_calls.cpu().numpy()
+    out, rounds, heads, accepts, proposals = (f.cpu().numpy() for f in fields)
     depth = float(np.mean(rounds + heads))
-    out = res.sample.cpu().numpy()
     finite = bool(np.isfinite(out).all())
     print(f"[fused] sampled {args.chains} chains (K={args.K}) in {dt:.1f}s "
           f"(includes compile); sequential depth {depth:.0f} "
           f"=> {args.K / depth:.1f}x algorithmic speedup")
     print(f"output {tuple(out.shape)}, finite={finite}")
-    accepts, proposals = int(res.accepts.sum()), int(res.proposals.sum())
+    accepts, proposals = int(accepts.sum()), int(proposals.sum())
     return {"chains": args.chains, "wall_time_s": dt, "throughput_rps": args.chains / dt,
             "rounds_total": int(rounds.max()), "mean_parallel_depth": depth,
             "accept_rate": accepts / max(proposals, 1),
@@ -261,19 +310,38 @@ def _profile_supersteps(eng, args, slots, dev, lead: bool = True) -> dict:
             "device_idle_share": idle, "programs_built": built, "trace": path}
 
 
-def run_continuous(args, group=None) -> dict:
+def _slots(args, batch_world: int) -> int:
+    """The JAX CLI's slot rule and message: ``--slots`` a multiple of the
+    mesh's batch ranks, or ~half the requests rounded up to one."""
+    if args.slots:
+        if args.slots % batch_world:
+            raise SystemExit(
+                f"--slots {args.slots} must be a multiple of the mesh batch axes "
+                f"(pod*data = {batch_world}) so the slot batch shards evenly")
+        return args.slots
+    slots = max(args.chains // 2, batch_world)
+    return ((slots + batch_world - 1) // batch_world) * batch_world
+
+
+def run_continuous(args, group=None, mesh=None) -> dict:
     """The continuous engine; with ``group`` (a ``ModelGroup``: this process
-    is one of its ranks) the engine runs model-parallel over it, and only
-    rank 0 serves metrics and writes the trace and the profile."""
-    lead = group is None or group.rank == 0
-    if group is None:
-        dev, dc, model_fn = _build(args)
-        mp_kwargs = {}
-    else:
+    is one of its ranks) the engine runs model-parallel over it, with
+    ``mesh`` (this rank's ``MeshGroups``) its slots shard over the mesh's
+    batch axes; either way only rank 0 serves metrics and writes the trace
+    and the profile."""
+    lead = (group is None or group.rank == 0) and (mesh is None or mesh.rank == 0)
+    if group is not None:
         dev, dc = group.device, get_denoiser_config(args.model)
         model_fn, mp_kwargs = _model_parallel_kwargs(args, dc, dev, group)
+    elif mesh is not None:
+        dev, dc = mesh.device, get_denoiser_config(args.model)
+        model_fn, mp_kwargs = _model_fn(dc, dev), {}
+    else:
+        dev, dc, model_fn = _build(args)
+        mp_kwargs = {}
     sched = ddpm_schedule(args.K)
-    slots = args.slots or max(args.chains // 2, 1)
+    batch_world = 1 if mesh is None else chain_state_shardings(mesh).ranks
+    slots = _slots(args, batch_world)
     if args.shards > 1 and slots % args.shards:
         raise SystemExit(f"--slots {slots} must divide evenly over --shards {args.shards}")
     # with shards the budget is per shard: each shard's round is one
@@ -309,8 +377,10 @@ def run_continuous(args, group=None) -> dict:
             router=make_router(args.router), dispatch=args.dispatch,
             model_fn_for=lambda d: model_fn if d == dev else _model_fn(dc, d), **common)
     else:
-        eng = ContinuousASDEngine(model_fn, sched, (dc.seq_len, dc.d_data), num_slots=slots,
-                                  **common)
+        eng = ContinuousASDEngine(
+            model_fn, sched, (dc.seq_len, dc.d_data), num_slots=slots,
+            state_sharding=chain_state_shardings(mesh) if batch_world > 1 else None,
+            **common)
     server = None
     if args.metrics_port >= 0 and lead:
         registry = instrument_engine(MetricsRegistry(), eng)
@@ -401,7 +471,9 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--model", default="paper-diffusion-policy")
     ap.add_argument("--mesh", default="1x1",
-                    help="device mesh; only 1x1 here (larger meshes: ROADMAP.md A13)")
+                    help="DATAxMODEL or PODxDATAxMODEL ranks, MODEL 1: the slots (or the "
+                         "fused engine's chains) shard over the batch axes (a model axis: "
+                         "ROADMAP.md A13 item 10)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -490,15 +562,29 @@ def _logging(args, quiet: bool = False) -> None:
     logging.getLogger("repro_torch.serving").setLevel(level)
 
 
-def _serve_rank(group, argv) -> dict | None:
-    """One rank of the model group: the continuous engine over ``group``.
-    Rank 0 prints and returns the summary; the others print nothing."""
-    args = parser().parse_args(argv)
+def serve_rank(group, argv) -> dict | None:
+    """One rank of the spawn ``main`` starts (``run_group``): the
+    continuous engine model-parallel over ``group`` where the model flags
+    ask for a model group, else the engine of ``--engine`` over the mesh
+    of ``--mesh`` (``make_rank_mesh``).  Module-level, so a script can run
+    it in a group of its own.  Rank 0 prints and returns the summary; the
+    others print nothing and return None."""
+    args = parser().parse_args(list(argv))
     _logging(args, quiet=group.rank > 0)
+    if model_parallelism(args) > 1:
+        def run():
+            return run_continuous(args, group)
+    else:
+        if group.device.type == "cpu":  # the ranks share the host's cores
+            torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // group.world))
+        mesh = make_rank_mesh(group, args.mesh)
+
+        def run():
+            return (run_fused if args.engine == "fused" else run_continuous)(args, mesh=mesh)
     if group.rank == 0:
-        return run_continuous(args, group)
+        return run()
     with contextlib.redirect_stdout(io.StringIO()):
-        run_continuous(args, group)
+        run()
     return None
 
 
@@ -509,12 +595,21 @@ def main(argv=None) -> dict:
     refused = _refusal(args)
     if refused is not None:
         ap.error(refused)
-    if args.engine == "fused":  # as the JAX CLI, the fused sampler runs unsharded
+    ranks = math.prod(parse_mesh(args.mesh)[0])
+    if args.engine == "fused":  # as the JAX CLI, the fused sampler runs no model group
+        if ranks > 1:
+            if args.chains % ranks:
+                raise ValueError(f"--chains {args.chains} does not split over the {ranks} "
+                                 f"ranks of --mesh {args.mesh}: its size must be divisible "
+                                 f"by {ranks}")
+            return run_group(serve_rank, ranks, args.device, (argv,))[0]
         _logging(args)
         return run_fused(args)
-    world = model_parallelism(args)
+    if ranks > 1:
+        _slots(args, ranks)  # the JAX CLI's message, before any rank starts
+    world = model_parallelism(args) if ranks == 1 else ranks
     if world > 1:
-        return run_group(_serve_rank, world, args.device, (argv,))[0]
+        return run_group(serve_rank, world, args.device, (argv,))[0]
     _logging(args)
     return run_continuous(args)
 

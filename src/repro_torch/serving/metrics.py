@@ -96,6 +96,10 @@ class EngineStats:
     #                (a per-round probe calibrated on the worker's model
     #                group, times the rounds driven): a view INTO the time
     #                the other lanes already count, never added to them
+    #   gather_s     measured seconds inside the boundary's gathers over
+    #                the batch ranks of a ``state_sharding`` (the counters'
+    #                all-gather, the finished samples to rank 0): a view
+    #                into host_sync_s, never added to the lanes
     dispatch_s: float = 0.0
     fused_dispatch_s: float = 0.0
     device_s: float = 0.0
@@ -105,6 +109,7 @@ class EngineStats:
     # calibrated apart (their bytes a rank moves differ)
     collective_psum_s: float = 0.0
     collective_a2a_s: float = 0.0
+    gather_s: float = 0.0
     head_calls_total: int = 0
     model_evals_total: int = 0
     accepts_total: int = 0
@@ -130,7 +135,7 @@ class EngineStats:
     _MERGE_SUM = (
         "requests", "retired", "batches", "rounds_total", "supersteps",
         "dispatch_s", "fused_dispatch_s", "device_s", "host_sync_s",
-        "collective_s", "collective_psum_s", "collective_a2a_s",
+        "collective_s", "collective_psum_s", "collective_a2a_s", "gather_s",
         "head_calls_total", "model_evals_total", "accepts_total", "proposals_total",
         "draft_points_total", "queue_latency_total", "dropped", "slo_tracked",
         "slo_met_count", "queue_depth",
@@ -277,6 +282,7 @@ class EngineStats:
             "collective_s": self.collective_s,
             "collective_psum_s": self.collective_psum_s,
             "collective_a2a_s": self.collective_a2a_s,
+            "gather_s": self.gather_s,
             "dispatch_frac": self.dispatch_s / denom,
             "fused_dispatch_frac": self.fused_dispatch_s / denom,
             "device_frac": self.device_s / denom,
@@ -284,6 +290,7 @@ class EngineStats:
             "collective_frac": self.collective_s / denom,
             "collective_psum_frac": self.collective_psum_s / denom,
             "collective_a2a_frac": self.collective_a2a_s / denom,
+            "gather_frac": self.gather_s / denom,
             # the branch lanes ride along (not time components)
             "branch_accept_depth": self.branch_accept_depth(),
             "wasted_draft_frac": self.wasted_draft_frac(),

@@ -47,8 +47,30 @@ collectives are staged through the host, which no CUDA graph can capture,
 so its programs run eagerly (``SuperstepProgram(eager=True)``).  Rank 0
 alone runs the admission policy, on its own clock and deadlines, and the
 other ranks apply what it placed and dropped, so the ranks stay in
-lockstep.  ``state_sharding`` (data-parallel slots, the serve CLI's
-``--mesh``) is ROADMAP.md A13 and raises.
+lockstep.
+
+Data-parallel slots: where the JAX worker places its slot pytree by
+``state_sharding`` (``chain_state_shardings(mesh)``: the slot axis over the
+mesh's batch axes), the port's takes the ``ChainStateSharding`` of a mesh
+of ranks whose ``model`` axis is 1 (``repro_torch.distributed.sharding``).
+Every rank runs this worker with the whole weights and the same
+``SlotScheduler`` over all ``num_slots`` slots, but its slot tensors,
+sync packet, allocator weights and admission programs hold its own block
+of rows (``slot_rows``); the dummy chains take their rows of
+``split(PRNGKey(seed), num_slots)``, so each block equals the one-rank
+worker's rows.  An unpacked round touches each slot alone, so a superstep
+holds no collective and stays a captured graph.  The ranks meet at the
+boundary only: rank 0 decides admission as under a model group (each rank
+then admits the placed slots of its block), every harvest all-gathers the
+(9, rows) counters in rank order, so every rank's host reads the (9, S)
+packet of the one-rank worker (retirement, demand, EWMAs, auto
+``rounds_per_sync``, health and ``EngineStats`` agree with no other
+traffic), and at a boundary where slots finished their samples go to rank
+0, whose ``drain_results`` holds every request's sample (another rank's
+holds those of its block).  The gathers' seconds are the measured
+``gather_s`` lane of ``EngineStats``.  Packed rounds over several batch
+ranks (ROADMAP.md A13 item 11) and ``state_sharding`` beside a model
+group (item 12) raise.
 
 Every chain draws from its key as the JAX worker's does: a request's own
 ``key``, or else ``fold_in(serve key, rid)`` (the serve key is
@@ -83,7 +105,8 @@ from repro_torch.core.schedules import Schedule
 from repro_torch.core.sequential import init_y0
 from repro_torch.device import resolve_device
 from repro_torch.distributed.group import MeshGroups
-from repro_torch.distributed.sharding import (measure_collective_seconds_by_kind,
+from repro_torch.distributed.sharding import (ChainStateSharding,
+                                              measure_collective_seconds_by_kind,
                                               shard_params)
 from repro_torch.programs import SuperstepProgram
 from repro_torch.serving.metrics import EngineStats, RequestMetrics
@@ -262,7 +285,10 @@ class ShardWorker:
         ``{"psum": [...], "all_to_all": [...]}`` (``mp_collective_payloads``):
         calibrates the collective lanes at init, over ``budget_cap + (1 + B) * slots``
         points a packed round, ``slots * (theta * B + 1)`` an unpacked one.
-      state_sharding: refused (ROADMAP.md A13).
+      state_sharding: a ``chain_state_shardings(mesh)`` layout: this rank
+        holds its block of the slots (see the module docstring); unpacked
+        execution only where the mesh has more than one batch rank, and
+        never with ``model_group``.  ``device`` defaults to the mesh's.
     """
 
     def __init__(self, model_fn: Callable, schedule: Schedule, event_shape: tuple,
@@ -280,8 +306,19 @@ class ShardWorker:
                  params=None, param_specs=None, collective_payloads=None,
                  state_sharding=None):
         if state_sharding is not None:
-            raise ValueError("state_sharding: data-parallel slots over a mesh (the serve "
-                             "CLI's --mesh) are ROADMAP.md A13")
+            if not isinstance(state_sharding, ChainStateSharding):
+                raise ValueError(f"state_sharding {state_sharding!r}: a "
+                                 "chain_state_shardings(mesh) layout over a mesh of ranks")
+            if model_group is not None:
+                raise ValueError("state_sharding with a model_group: data-parallel slots "
+                                 "beside model parallelism are ROADMAP.md A13 item 12")
+            if execution == "packed" and state_sharding.ranks > 1:
+                raise ValueError(
+                    "state_sharding over several batch ranks with execution='packed': "
+                    "packed rounds over batch ranks (a global allocation over the "
+                    "gathered demand) are ROADMAP.md A13 item 11")
+            if device is None:
+                device = state_sharding.mesh.device
         if model_group is not None and (params is None or param_specs is None):
             raise ValueError(
                 "model_group model parallelism needs explicit params AND param_specs "
@@ -290,6 +327,13 @@ class ShardWorker:
         self.device = resolve_device(device if device is not None or model_group is None
                                      else model_group.device)
         self.model_group = model_group
+        # this rank's block of the slot axis, and the group of the batch
+        # ranks that the boundary's gathers run over (None: one rank)
+        self.slot_rows = (slice(0, num_slots) if state_sharding is None
+                          else state_sharding.rows(num_slots))
+        rows = self.slot_rows.stop - self.slot_rows.start
+        self._batch_group = (state_sharding.group if state_sharding is not None
+                             and state_sharding.ranks > 1 else None)
         # a host-staged collective cannot be captured: a group's programs run eagerly
         self._eager = model_group is not None
         self.schedule = schedule.to(self.device)
@@ -390,9 +434,8 @@ class ShardWorker:
                               WaterfillingAllocator(theta_max=self.theta * self.num_branches))
         else:
             self.allocator = allocator
-        self._weights = np.ones((num_slots,), np.float32)
-        self._weights_dev = torch.ones((num_slots,), dtype=torch.float32,
-                                       device=self.device)
+        self._weights = np.ones((rows,), np.float32)
+        self._weights_dev = torch.ones((rows,), dtype=torch.float32, device=self.device)
         self._budget_dev = torch.zeros((), dtype=torch.int64, device=self.device)
         # one program per (R, budget) key; the auto modes draw both
         # coordinates from power-of-two ladders, so this stays O(log * log)
@@ -408,12 +451,12 @@ class ShardWorker:
         K, dev = schedule.K, self.device
         n = K + self.theta + 1
         bufs = {} if noise_mode == "counter" else dict(
-            u_buf=torch.zeros((num_slots, n), device=dev),
-            xi_buf=torch.zeros((num_slots, n) + self.event_shape, device=dev))
+            u_buf=torch.zeros((rows, n), device=dev),
+            xi_buf=torch.zeros((rows, n) + self.event_shape, device=dev))
         states = init_chain_state(
-            self.schedule, torch.zeros((num_slots,) + self.event_shape, device=dev),
+            self.schedule, torch.zeros((rows,) + self.event_shape, device=dev),
             self.theta, keep_trajectory, self.controller,
-            key=prng.split(prng.PRNGKey(seed), num_slots).to(dev),
+            key=prng.split(prng.PRNGKey(seed), num_slots)[self.slot_rows].to(dev),
             noise_mode=noise_mode, num_branches=self.num_branches,
             branch_controller=self.branch_controller, **bufs)
         # a tensor of its own for every field (init_chain_state hands the
@@ -424,16 +467,16 @@ class ShardWorker:
             for f in dataclasses.fields(ASDChainState)
             if getattr(states, f.name) is not None})
         self._states.a.fill_(K)
-        self._conds = (torch.zeros((num_slots, d_cond), device=dev) if d_cond
+        self._conds = (torch.zeros((rows, d_cond), device=dev) if d_cond
                        else None)
         # the sync packet every superstep program leaves behind, and the two
         # buffers it is copied into after each replay (the pipelined serve
         # reads packet s after it dispatches s + 1): the counters to pinned
         # host memory, the samples on the device; all made once, here
         cuda = dev.type == "cuda"
-        self._packet_info = torch.zeros((len(_SYNC_ROWS), num_slots), dtype=torch.int32,
+        self._packet_info = torch.zeros((len(_SYNC_ROWS), rows), dtype=torch.int32,
                                         device=dev)
-        self._packet_samples = torch.zeros((num_slots,) + self.event_shape, device=dev)
+        self._packet_samples = torch.zeros((rows,) + self.event_shape, device=dev)
         self._info_out = [torch.empty(self._packet_info.shape, dtype=torch.int32,
                                       pin_memory=cuda) for _ in range(2)]
         self._samples_out = [torch.empty_like(self._packet_samples) for _ in range(2)]
@@ -676,11 +719,19 @@ class ShardWorker:
                       self.shard_id, cur, self.round_budget, self._demand_ewma)
         return self.round_budget
 
+    def _local_row(self, slot: int) -> Optional[int]:
+        """Slot ``slot``'s row in this rank's tensors, or None outside its
+        block."""
+        lo, hi = self.slot_rows.start, self.slot_rows.stop
+        return slot - lo if lo <= slot < hi else None
+
     def _set_weight(self, slot: int, w: float) -> None:
-        """One-lane update of the allocator weights, on the device too."""
-        if self._weights[slot] != w:
-            self._weights[slot] = w
-            self._weights_dev[slot] = w
+        """One-lane update of the allocator weights, on the device too (a
+        slot of this rank's block)."""
+        row = self._local_row(slot)
+        if row is not None and self._weights[row] != w:
+            self._weights[row] = w
+            self._weights_dev[row] = w
 
     def _observe_round_time(self, dt: float) -> None:
         # cold dispatches (captures) never reach here, see _harvest
@@ -688,9 +739,9 @@ class ShardWorker:
 
     def _collect_admissions(self, now: float):
         """Run the admission policy and its host bookkeeping; returns the
-        placed [(slot, request)].  Under a model group of more than one
-        rank, rank 0 decides (see ``_agree_admissions``)."""
-        group = self.model_group
+        placed [(slot, request)].  Under a model group or over batch ranks,
+        rank 0 decides (see ``_agree_admissions``)."""
+        group = self.model_group if self.model_group is not None else self._batch_group
         if group is None or group.world == 1:
             placed = self.scheduler.admit(now, self.stats.rounds_total,
                                           self._admission_context(now))
@@ -719,7 +770,7 @@ class ShardWorker:
             body = [v for slot, req in placed for v in (slot, req.rid)]
             body += [entry.request.rid for entry in self.scheduler.dropped]
             if any(not isinstance(v, (int, np.integer)) or abs(v) >= 1 << 53 for v in body):
-                raise ValueError("a model group's requests need integer rids below 2**53 "
+                raise ValueError("a group's requests need integer rids below 2**53 "
                                  f"(rank 0 broadcasts its admissions as floats): {body}")
             head = [len(placed), len(self.scheduler.dropped),
                     self.scheduler.deferred - deferred]
@@ -743,15 +794,20 @@ class ShardWorker:
             self._admit(placed)
 
     def _admit(self, placed) -> None:
-        """Write the chains of the placed [(slot, request)] into the slot
-        tensors, by one admission program (``run_admission``)."""
+        """Write the chains of the placed [(slot, request)] of this rank's
+        block into its rows of the slot tensors, by one admission program
+        (``run_admission``)."""
+        placed = [(row, req) for slot, req in placed
+                  if (row := self._local_row(slot)) is not None]
+        if not placed:
+            return
         records = [self._admit_record(req) for _, req in placed]
         width = 1 << (len(placed) - 1).bit_length()
-        run_admission(self._get_admit(width), [slot for slot, _ in placed], records,
+        run_admission(self._get_admit(width), [row for row, _ in placed], records,
                       [req for _, req in placed], self.d_cond)
         with torch.no_grad():
-            for slot, req in placed:
-                inject_noise(self._states, slot, req, self.device)
+            for row, req in placed:
+                inject_noise(self._states, row, req, self.device)
 
     def _dispatch_superstep(self):
         """Admit, launch one superstep, and return its pending harvest."""
@@ -809,6 +865,11 @@ class ShardWorker:
                 tr.add_span("collective", max(t1 - est, t_dispatch), t1, pid=self.shard_id,
                             tid=self.num_slots + 3, tname="collective",
                             args={"estimated": True, "R": R})
+        if self._batch_group is not None:
+            # every rank's (9, rows) counters in rank order: the (9, S) packet
+            t_gather = time.perf_counter()
+            info_host = self._batch_group.all_gather(info_host, axis=1)
+            self.stats.gather_s += time.perf_counter() - t_gather
         info = info_host.numpy()
         row = {name: info[i] for i, name in enumerate(_SYNC_ROWS)}
         a, theta_live = row["a"], row["theta_live"]
@@ -831,11 +892,12 @@ class ShardWorker:
                     if self.scheduler.slot_info(slot).admit_round < snapshot_rounds
                     and a[slot] >= K]
         if finished:
-            samples = samples_dev.cpu().numpy()
+            samples = self._finished_samples(samples_dev, finished)
             for slot in finished:
                 sinfo = self.scheduler.retire(slot)
                 self._set_weight(slot, 1.0)
-                self._results[sinfo.request.rid] = samples[slot].copy()
+                if slot in samples:
+                    self._results[sinfo.request.rid] = samples[slot].copy()
                 if tr is not None:
                     rid = sinfo.request.rid
                     tr.add_span("queued", sinfo.submit_time, sinfo.admit_time,
@@ -876,20 +938,47 @@ class ShardWorker:
             end = done_at if done_at is not None else time.perf_counter()
             self._observe_round_time((end - t_dispatch) / R)
 
+    def _finished_samples(self, samples_dev: torch.Tensor, finished: list) -> dict:
+        """{slot: sample} of the ``finished`` slots: all of them on one rank
+        or on rank 0 of the batch ranks (each rank sends the rows of its
+        block that finished, point to point), this rank's own on the
+        others."""
+        group = self._batch_group
+        if group is None:
+            return dict(enumerate(samples_dev.cpu().numpy()))
+        mine = [s for s in finished if self._local_row(s) is not None]
+        rows = samples_dev[torch.tensor([self._local_row(s) for s in mine], dtype=torch.int64,
+                                        device=samples_dev.device)]
+        per = self.slot_rows.stop - self.slot_rows.start
+        counts = [sum(r * per <= s < (r + 1) * per for s in finished)
+                  for r in range(group.world)]
+        t0 = time.perf_counter()
+        every = group.gather_rows_to_lead(rows, counts)
+        self.stats.gather_s += time.perf_counter() - t0
+        if every is None:
+            return dict(zip(mine, rows.cpu().numpy()))
+        # rank order is slot order: the blocks are contiguous and ascending
+        return dict(zip(sorted(finished), every.numpy()))
+
     def drain_results(self) -> dict:
         out, self._results = self._results, {}
         return out
 
     def chain_state(self, slot: int) -> ASDChainState:
-        """One slot's resumable state: views into the slot tensors."""
+        """One slot's resumable state: views into the slot tensors (a slot
+        of this rank's block)."""
+        row = self._local_row(slot)
+        if row is None:
+            raise ValueError(f"slot {slot} is not in this rank's block {self.slot_rows}")
         return dataclasses.replace(self._states, **{
-            f.name: getattr(self._states, f.name)[slot]
+            f.name: getattr(self._states, f.name)[row]
             for f in dataclasses.fields(ASDChainState)
             if getattr(self._states, f.name) is not None})
 
     def _program_statics(self) -> tuple:
         """What shapes a superstep program besides its key."""
-        return (self.device, self.schedule.K, self.event_shape, self.num_slots, self.theta,
+        return (self.device, self.schedule.K, self.event_shape, self.num_slots,
+                self.slot_rows, self.theta,
                 self.d_cond, self.eager_head, self.noise_mode, self.keep_trajectory,
                 self.controller, self.num_branches, self.branch_controller,
                 self.execution, self.round_impl, self._budget_ladder, self._budget_cap,

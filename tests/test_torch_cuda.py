@@ -1722,6 +1722,56 @@ def test_tp2_forward_on_two_ranks_of_one_card(dev):
     assert r0["launches"] == r1["launches"] == paper_diffusion_policy_smoke().backbone.n_layers
 
 
+def _mesh_serve_policy(dev, layout=None):
+    """The policy smoke engine (float32, unpacked, counter noise) on
+    ``dev``, its slots laid out by ``layout``, served on six keyed
+    requests: the samples, each request's counters, the engine's slot
+    state bytes and whether it ran eagerly."""
+    dc = paper_diffusion_policy_smoke()
+    fn = t_diff.make_ddpm_model_fn(init_denoiser_params(dc, 5, out_scale=1.0, device=dev), dc)
+    eng = ContinuousASDEngine(fn, t_sch.ddpm(16), (dc.seq_len, dc.d_data), num_slots=4,
+                              theta=4, noise_mode="counter", keep_trajectory=False,
+                              rounds_per_sync=2, device=dev, state_sharding=layout)
+    rng = np.random.default_rng(5)
+    out = eng.serve([Request(i, key=np.array([0, 700 + i], np.uint32),
+                             y0=rng.standard_normal((dc.seq_len, dc.d_data)).astype(np.float32))
+                     for i in range(6)])
+    st = eng._states
+    return dict(samples=out, eager=eng._eager,
+                counters={m.rid: (m.rounds, m.head_calls, m.accepts, m.proposals)
+                          for m in eng.stats.per_request},
+                bytes=sum(getattr(st, f).numel() * getattr(st, f).element_size()
+                          for f in ("y", "a", "rounds", "accepts")))
+
+
+def _mesh_serve_rank(group):
+    """One rank of a 2x1 serve mesh on the card."""
+    from repro_torch.distributed.sharding import chain_state_shardings
+    from repro_torch.launch.mesh import make_rank_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return _mesh_serve_policy(group.device,
+                              chain_state_shardings(make_rank_mesh(group, "2x1")))
+
+
+def test_mesh_2x1_serve_on_two_ranks_of_one_card_gives_the_1x1_bits(dev):
+    """The continuous engine's slots over a 2x1 mesh of two ranks sharing
+    the card: rank 0 returns every request's sample in the 1 x 1 engine's
+    bits, both ranks its counters, each holds half the slot state, and
+    the supersteps stay captured graphs."""
+    from repro_torch.distributed.group import run_group
+
+    r0, r1 = run_group(_mesh_serve_rank, 2, "cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = _mesh_serve_policy(dev)
+    assert sorted(r0["samples"]) == sorted(one["samples"]) == list(range(6))
+    for rid, v in one["samples"].items():
+        assert np.array_equal(r0["samples"][rid].view(np.int32), v.view(np.int32)), rid
+    assert r0["counters"] == r1["counters"] == one["counters"]
+    assert r0["bytes"] * 2 == r1["bytes"] * 2 == one["bytes"]
+    assert not r0["eager"] and not r1["eager"]
+
+
 def _mesh_2x1_rank(group, steps):
     """One rank of a 2x1 mesh on the card: reduced tinyllama in float32,
     the CLI's build (data parallelism, ZeRO-1), ``steps`` steps on

@@ -39,6 +39,8 @@ import torch_mp_ranks as ranks
 from repro_torch import pytree
 from repro_torch.core import schedules as t_sch
 from repro_torch.distributed import group as t_group
+from repro_torch.distributed.group import MeshGroups
+from repro_torch.distributed.sharding import chain_state_shardings
 from repro_torch.models.diffusion import make_ddpm_model_fn
 from repro_torch.serving import scheduler as t_sched
 from repro_torch.serving.engine import ContinuousASDEngine
@@ -359,9 +361,15 @@ def test_the_engine_validates_the_group(runs):
     with pytest.raises(ValueError, match="needs explicit params AND param_specs"):
         ShardedASDEngine(model_fn, t_sch.ddpm(ranks.K), (dc.seq_len, dc.d_data),
                          num_slots=4, model_group=_one_rank_group(), params=params, **kw)
-    with pytest.raises(ValueError, match="A13"):
+    with pytest.raises(ValueError, match="chain_state_shardings"):
         ContinuousASDEngine(model_fn, t_sch.ddpm(ranks.K), (dc.seq_len, dc.d_data),
                             num_slots=4, state_sharding="data", **kw)
+    layout = chain_state_shardings(MeshGroups((1, 1), ("data", "model"), 0, "cpu"))
+    with pytest.raises(ValueError, match="A13 item 12"):
+        ContinuousASDEngine(lambda p: model_fn, t_sch.ddpm(ranks.K), (dc.seq_len, dc.d_data),
+                            num_slots=4, model_group=_one_rank_group(), params=params,
+                            param_specs=ranks.layout(dc, 1, True, False),
+                            state_sharding=layout, **kw)
 
 
 def test_ranks_on_distinct_cards_are_refused(monkeypatch):

@@ -166,7 +166,9 @@ def test_merged_stats_equal_jax(wall):
                             for i, (r, h) in enumerate(zip(rids, _HEALTH))], wall_time=wall)
     j = JStats.merged([_shard_stats(JStats, JRM, i, r, **h)
                        for i, (r, h) in enumerate(zip(rids, _HEALTH))], wall_time=wall)
-    shared = {f.name for f in dataclasses.fields(EngineStats)} - {"per_request"}
+    # gather_s: the port's measured lane of the boundary gathers over batch
+    # ranks, which the JAX engine (one program over the mesh) has not
+    shared = {f.name for f in dataclasses.fields(EngineStats)} - {"per_request", "gather_s"}
     assert shared <= {f.name for f in dataclasses.fields(JStats)}
     for name in sorted(shared):
         assert getattr(t, name) == pytest.approx(getattr(j, name)), name
