@@ -7165,6 +7165,386 @@ def check_mesh_serve(torch, card, ref, ranks, f32_ref):
     return by_run
 
 
+# ------------------------------------------------------ mesh_serve (model)
+# the serve mesh's model axis (distributed/sharding.py ServeLayout: the
+# weights by param_pspecs over the mesh's model ranks, the tp_paths leaves'
+# blocks computed tensor-parallel, every other cut leaf gathered at each
+# model call; serving/worker.py slot blocks beside the mesh's model group;
+# core/asd.py asd_sample_batched(eager=True)): run -> mesh.  "model" and
+# "model_fused" are pixel-dit at its published widths and MESH_MODEL_DEPTH
+# layers (every row-parallel product's psum and every gathered leaf
+# crosses the host), unpacked, MESH_MODEL_K steps at θ MESH_MODEL_THETA:
+# the verification call is SLOTS (or CHAINS) x (θ + 1) = 16 points at 8
+# local heads, the shape of the model_parallel B2 row.  "model_policy" and
+# "data_model" are the pod run's float32 policy engine; "data_model" runs
+# on a group of four ranks sharing the card
+MESH_MODEL_RUNS = {"model": "1x2", "model_fused": "1x2", "model_policy": "1x2",
+                   "data_model": "2x2"}
+MESH_MODEL_DEPTH, MESH_MODEL_K, MESH_MODEL_THETA, MESH_MODEL_REQUESTS = 2, 16, 3, 4
+# the model call's relative L2 against the replicated call: MP_BF16_GATE's
+# rule at MESH_MODEL_DEPTH layers
+MESH_MODEL_BF16_GATE = 2 * 2.0 ** -8 * math.sqrt(2 * MESH_MODEL_DEPTH)
+
+
+def _mesh_model_pixel(torch, dev):
+    """(dc, params cast to the compute dtype, schedule, requests) of the
+    pixel-dit model runs (the same weights on every process)."""
+    from repro_torch.core.schedules import sl_geometric
+    from repro_torch.models.diffusion import compute_params
+    from repro_torch.serving.worker import Request
+    from repro_torch.weights import init_denoiser_params
+
+    dc = _mp_pixel_dc(MESH_MODEL_DEPTH)
+    params = compute_params(init_denoiser_params(dc, SEED, out_scale=OUT_SCALE, device=dev), dc)
+    reqs = [Request(i, key=np.array([0, 6000 + i], np.uint32))
+            for i in range(MESH_MODEL_REQUESTS)]
+    return dc, params, sl_geometric(MESH_MODEL_K, 0.05, 50.0), reqs
+
+
+def _serve_layout(dc, mesh):
+    from repro_torch.distributed.sharding import ServeLayout
+    from repro_torch.nn.param import param_axes
+    from repro_torch.weights import param_shapes
+
+    return ServeLayout(param_axes(dc), param_shapes(dc), mesh)
+
+
+def _mesh_model_engine(torch, run, dev, mesh=None):
+    """(engine, requests, layout, whole params, dc, model-function maker) of
+    model run ``run`` on ``dev``: on ``mesh`` its slots by
+    ``chain_state_shardings`` and its weights by a ``ServeLayout`` (the
+    engine keeps its blocks), else the 1 x 1 engine (layout None)."""
+    from repro_torch.distributed.sharding import chain_state_shardings
+    from repro_torch.models.diffusion import make_ddpm_model_fn, make_sl_model_fn
+    from repro_torch.serving.engine import ContinuousASDEngine
+
+    if run == "model":
+        dc, params, sched, reqs = _mesh_model_pixel(torch, dev)
+        make, theta = make_sl_model_fn, MESH_MODEL_THETA
+    else:
+        dc, params, sched, reqs = _mp_f32_setup(torch, dev, "policy_tp2")
+        make, theta = make_ddpm_model_fn, MP_F32_THETA
+    kw = dict(num_slots=SLOTS, theta=theta, noise_mode="counter", keep_trajectory=False,
+              rounds_per_sync=1, device=dev)
+    event = (dc.seq_len, dc.d_data)
+    if mesh is None:
+        return ContinuousASDEngine(make(params, dc), sched, event, **kw), reqs, None, params, \
+            dc, make
+    layout = _serve_layout(dc, mesh)
+    eng = ContinuousASDEngine(
+        lambda p: make(p, dc, tp_axis=layout.tp_axis, at_use=layout.at_use), sched, event,
+        state_sharding=chain_state_shardings(mesh), model_group=layout.model_group,
+        params=params, param_specs=layout.specs, **kw)
+    return eng, reqs, layout, params, dc, make
+
+
+def _mesh_model_points(torch, dc, dev):
+    """The model-call check's points: the verification call's 16, at noise
+    levels over the schedule's range."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 95)
+    n = SLOTS * (MESH_MODEL_THETA + 1)
+    t = torch.exp(torch.linspace(math.log(0.05), math.log(50.0), n)).to(dev)
+    y = torch.randn(n, dc.seq_len, dc.d_data, generator=g, device=dev) * (
+        t * t + t).sqrt()[:, None, None]
+    return t, y
+
+
+def _mesh_model_measure(torch, run, dev, counters, mesh=None):
+    """Run ``run`` on ``dev``, on this rank of ``mesh`` (None: the 1 x 1
+    engine): on a mesh the weights' bytes (the rank's blocks, the layout's
+    count, the whole tree) and, for pixel-dit, the model call on the
+    check's points (and on rank 0 the replicated call); then two serves
+    (each: samples, counters, rounds, launches, host wall, the
+    collectives' wall, the gathers at use, the programs' captures and
+    calls) and the peak memory."""
+    from repro_torch.distributed.group import collective_seconds
+
+    base = _fresh_memory(torch)
+    eng, reqs, layout, params, dc, make = _mesh_model_engine(torch, run, dev, mesh)
+    out = {}
+    if layout is not None:
+        out = dict(coords=dict(mesh.coords), resident_bytes=_tree_bytes(eng._params),
+                   layout_bytes=layout.local_bytes(params), whole_bytes=_tree_bytes(params),
+                   gathered_leaves=len(layout.gathered), tp_leaves=len(layout.tp),
+                   eager=eng._eager)
+        if run == "model":
+            t, y = _mesh_model_points(torch, dc, dev)
+            with torch.no_grad():
+                out["call"] = eng._model_fn(t, y).cpu()
+                if mesh.rank == 0:
+                    out["replicated_call"] = make(params, dc)(t, y).cpu()
+    del params
+
+    def taken():
+        progs = eng._superstep_fns.values()
+        s, lay = eng.stats, layout
+        return dict(rounds=s.rounds_total, supersteps=s.supersteps,
+                    captures=sum(p.captures for p in progs)
+                    + sum(p.captures for p in eng._admit_fns.values()),
+                    calls=sum(p.calls for p in progs), collective_s=collective_seconds(),
+                    gathers=lay.gathers if lay else 0,
+                    gathered_elements=lay.gathered_elements if lay else 0,
+                    gathered_bytes=lay.gathered_bytes if lay else 0)
+
+    runs = []
+    for _ in range(2):
+        before, n_req = taken(), len(eng.stats.per_request)
+        _zero_counters(torch, counters)
+        t0 = time.perf_counter()
+        samples = eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append(dict(
+            {k: v - before[k] for k, v in taken().items()}, samples=samples, wall_s=wall,
+            launches=_launches(counters),
+            counters={m.rid: (m.rounds, m.head_calls, m.model_evals, m.accepts, m.proposals)
+                      for m in eng.stats.per_request[n_req:]}))
+    out.update(runs=runs, peak_bytes=_memory(torch, base)["peak_bytes"])
+    return out
+
+
+def _mesh_model_fused(torch, dev, counters, mesh=None):
+    """The fused sampler over CHAINS pixel-dit chains from zeros, each from
+    its row of ``split(key, CHAINS)``: on this rank of ``mesh`` its block of
+    the chains over its blocks of the weights, every round eager
+    (``eager=True``: the model call's collectives are host-staged); with
+    no mesh all of them over the whole weights, the round captured."""
+    from repro_torch.core import prng
+    from repro_torch.core.asd import asd_sample_batched
+    from repro_torch.distributed.group import collective_seconds
+    from repro_torch.distributed.sharding import chain_state_shardings
+    from repro_torch.models.diffusion import make_sl_model_fn
+
+    base = _fresh_memory(torch)
+    dc, params, sched, _ = _mesh_model_pixel(torch, dev)
+    rows, out, layout = slice(0, CHAINS), {}, None
+    if mesh is None:
+        fn = make_sl_model_fn(params, dc)
+    else:
+        layout = _serve_layout(dc, mesh)
+        blocks = layout.shard(params)
+        out = dict(resident_bytes=_tree_bytes(blocks), layout_bytes=layout.local_bytes(params))
+        fn = make_sl_model_fn(blocks, dc, tp_axis=layout.tp_axis, at_use=layout.at_use)
+        rows = chain_state_shardings(mesh).rows(CHAINS)
+        del blocks
+    del params
+    y0 = torch.zeros(CHAINS, dc.seq_len, dc.d_data, device=dev)[rows]
+    keys = prng.split(prng.PRNGKey(SEED + 650), CHAINS)[rows]
+    _zero_counters(torch, counters)
+    gathers, coll = layout.gathers if layout else 0, collective_seconds()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        res = asd_sample_batched(fn, sched, y0, MESH_MODEL_THETA, eager_head=True,
+                                 keep_trajectory=False, device=dev, noise_mode="counter",
+                                 keys=keys, eager=mesh is not None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out.update(block=[f.cpu() for f in (res.sample, res.rounds, res.head_calls)], wall_s=wall,
+               launches=_launches(counters), loop_rounds=res.loop.rounds,
+               capture_ms=res.loop.capture_ms,
+               gathers=(layout.gathers if layout else 0) - gathers,
+               collective_s=collective_seconds() - coll,
+               peak_bytes=_memory(torch, base)["peak_bytes"])
+    return out
+
+
+def _mesh_model_rank(torch, group, counters):
+    """This rank's 1x2 model runs (MESH_MODEL_RUNS but data_model)."""
+    from repro_torch.launch.mesh import make_rank_mesh
+
+    t_start = time.perf_counter()
+    mesh, dev = make_rank_mesh(group, "1x2"), group.device
+    out = {"model": _mesh_model_measure(torch, "model", dev, counters, mesh),
+           "model_fused": _mesh_model_fused(torch, dev, counters, mesh),
+           "model_policy": _mesh_model_measure(torch, "model_policy", dev, counters, mesh)}
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def _mesh_data_model_rank(group):
+    """One rank of the 2x2 data_model run: a group of four ranks on the
+    card."""
+    import torch
+
+    from repro_torch.launch.mesh import make_rank_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    out = _mesh_model_measure(torch, "data_model", group.device, _counters(),
+                              make_rank_mesh(group, "2x2"))
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def run_mesh_model_reference(torch, dev, counters):
+    """The 1 x 1 pixel-dit engine (two serves) and fused sampler of the
+    model runs, here; the policy runs' 1 x 1 is mesh_serve's pod run."""
+    out = {"model": _mesh_model_measure(torch, "model", dev, counters),
+           "model_fused": _mesh_model_fused(torch, dev, counters)}
+    _fresh_memory(torch)
+    return out
+
+
+def _per_round_launches(m, flash):
+    return {k: m["launches"][k] / m["rounds"] for k in ("grs", flash)}
+
+
+def _mesh_model_per_round(run, flash, rows):
+    """What a round launches on a rank of a model run: B1 once, and B2 once
+    a layer for each block of 16 points of its two model calls (the
+    proposal over the block's ``rows`` chains, the verification over rows
+    x (θ + 1) points), which the mesh's model call runs in
+    (``models/diffusion.py::_mesh_call``)."""
+    pixel = run in ("model", "model_fused")
+    layers = MESH_MODEL_DEPTH if pixel else 2
+    theta = MESH_MODEL_THETA if pixel else MP_F32_THETA
+    blocks = -(-rows // 16) + -(-rows * (theta + 1) // 16)
+    return {"grs": 1.0, flash: float(layers * blocks)}
+
+
+def check_mesh_serve_model(torch, card, ref, pod_ref, ranks, four):
+    """The model runs against their 1 x 1 runs (see MESH_MODEL_RUNS): the
+    model ranks of a block in the same bits, both serves alike; the pixel-dit
+    model call within MESH_MODEL_BF16_GATE of the replicated call; the
+    float32 policy within MP_F32_TOL of 1 x 1 with its counters, and 2x2
+    with 1x2's bits; a rank's weight bytes the layout's; no capture; B1
+    once a round and B2 once a layer a block of 16 points of a call (the
+    1 x 1 eager body's count where a call fits one block: every pixel-dit
+    run); finite samples.  One ``mesh_serve`` line a run.  Returns the
+    launches by run (every rank)."""
+    by_run = {}
+    one_x_two = [r["mesh_serve_model"] for r in ranks]
+    for run, spec in MESH_MODEL_RUNS.items():
+        mine = four if run == "data_model" else [r[run] for r in one_x_two]
+        one = ref.get(run) if run in ("model", "model_fused") else pod_ref
+        flash = "flash_attention" if run in ("model", "model_fused") else "flash_attention_f32"
+        problems, fields = [], {}
+        if run == "model_fused":
+            blocks = [m["block"] for m in mine]
+            if not all(_tensor_bits(torch, a, b) for m in blocks[1:] for a, b in zip(m, blocks[0])):
+                problems.append("the model ranks' chains differ in bits")
+            if any(m["capture_ms"] is not None for m in mine) or one["capture_ms"] is None:
+                problems.append(f"captures: ranks {[m['capture_ms'] for m in mine]}, 1 x 1 "
+                                f"{one['capture_ms']}")
+            for m in mine:
+                if m["resident_bytes"] != m["layout_bytes"]:
+                    problems.append(f"resident {m['resident_bytes']} B, layout "
+                                    f"{m['layout_bytes']}")
+            lpr = [{k: m["launches"][k] / m["loop_rounds"] for k in ("grs", flash)}
+                   for m in mine + [one]]
+            want = _mesh_model_per_round(run, flash, CHAINS)
+            finite = bool(torch.isfinite(blocks[0][0]).all())
+            warm = [m["wall_s"] * 1e3 / m["loop_rounds"] for m in mine] + [
+                (one["wall_s"] * 1e3 - (one["capture_ms"] or 0.0)) / one["loop_rounds"]]
+            sample_rel = _rel_l2(blocks[0][0].float(), one["block"][0].float())
+            fields = dict(
+                chains=CHAINS, rounds_by_rank=[m["loop_rounds"] for m in mine],
+                rounds_1x1=one["loop_rounds"],
+                rounds_equal_1x1=bool(torch.equal(blocks[0][1], one["block"][1])),
+                sample_relative_l2_1x1=sample_rel, captures_by_rank=0,
+                capture_ms_1x1=one["capture_ms"],
+                gathers_by_rank=[m["gathers"] for m in mine],
+                collective_s_by_rank=[m["collective_s"] for m in mine],
+                collective_share_by_rank=[m["collective_s"] / m["wall_s"] for m in mine])
+        else:
+            lead = mine[0]["runs"][0]
+            for i, m in enumerate(mine):
+                if m["resident_bytes"] != m["layout_bytes"] or not m["resident_bytes"] < \
+                        m["whole_bytes"]:
+                    problems.append(f"rank {i}: resident {m['resident_bytes']} B, layout "
+                                    f"{m['layout_bytes']}, whole {m['whole_bytes']}")
+                if not m["eager"]:
+                    problems.append(f"rank {i}: programs not eager")
+                for j, r in enumerate(m["runs"]):
+                    if r["captures"]:
+                        problems.append(f"rank {i} serve {j}: {r['captures']} captures")
+                    if r["counters"] != lead["counters"]:
+                        problems.append(f"rank {i} serve {j}: counters differ from rank 0's")
+                    if sorted(r["samples"]) != list(range(len(lead["counters"]))) and i == 0:
+                        problems.append(f"serve {j}: rank 0 retired {sorted(r['samples'])}")
+                    if not all(np.array_equal(v.view(np.int32), lead["samples"][rid].view(
+                            np.int32)) for rid, v in r["samples"].items()):
+                        problems.append(f"rank {i} serve {j}: samples differ from rank 0's")
+            if run == "model":
+                calls = [m["call"] for m in mine]
+                rels = [_rel_l2(c.float(), mine[0]["replicated_call"].float()) for c in calls]
+                if not all(torch.equal(c, calls[0]) for c in calls[1:]):
+                    problems.append("the model ranks' model calls differ in bits")
+                if not all(e <= MESH_MODEL_BF16_GATE for e in rels):
+                    problems.append(f"model call relative L2 {rels} > {MESH_MODEL_BF16_GATE}")
+                fields = dict(model_call_relative_l2_by_rank=rels,
+                              model_call_gate=MESH_MODEL_BF16_GATE,
+                              counters_equal_1x1=lead["counters"] == one["runs"][0]["counters"],
+                              sample_relative_l2_1x1=max(
+                                  _rel_l2(torch.from_numpy(v), torch.from_numpy(
+                                      one["runs"][0]["samples"][rid])) for rid, v in
+                                  lead["samples"].items()))
+            else:  # float32: the 1 x 1 counters, within tolerance; 2x2 the 1x2 bits
+                want = one["runs"][0]
+                used = max(float((np.abs(v - want["samples"][rid])
+                                  / (MP_F32_TOL + MP_F32_TOL * np.abs(want["samples"][rid]))).max())
+                           for rid, v in lead["samples"].items())
+                if lead["counters"] != want["counters"] or not used <= 1.0:
+                    problems.append(f"against 1 x 1: counters equal "
+                                    f"{lead['counters'] == want['counters']}, {used} of the "
+                                    "tolerance")
+                fields = dict(tolerance=f"{MP_F32_TOL} + {MP_F32_TOL} |1x1|",
+                              tolerance_used=used, counters_equal_1x1=True)
+                if run == "data_model":
+                    base_ = one_x_two[0]["model_policy"]["runs"][0]
+                    if lead["counters"] != base_["counters"] or not _mesh_serve_bits(
+                            lead["samples"], base_["samples"]):
+                        problems.append("2x2 differs from 1x2's bits or counters")
+                    fields["equal_bits_1x2"] = True
+                    fields["coords_by_rank"] = [m["coords"] for m in mine]
+            lpr = [_per_round_launches(m["runs"][1], flash) for m in mine] + [
+                _per_round_launches(one["runs"][1], flash)]
+            want = _mesh_model_per_round(run, flash, SLOTS // (2 if run == "data_model" else 1))
+            finite = all(bool(np.isfinite(v).all()) for v in lead["samples"].values())
+            warm = [m["runs"][1]["wall_s"] * 1e3 / m["runs"][1]["rounds"] for m in mine] + [
+                one["runs"][1]["wall_s"] * 1e3 / one["runs"][1]["rounds"]]
+            w = [m["runs"][1] for m in mine]
+            fields.update(
+                slots=SLOTS, requests=len(lead["samples"]), rounds=w[0]["rounds"],
+                supersteps=w[0]["supersteps"], ranks_equal_bits=True, captures_by_rank=0,
+                resident_weight_bytes_by_rank=[m["resident_bytes"] for m in mine],
+                layout_weight_bytes=mine[0]["layout_bytes"], resident_equals_layout=True,
+                whole_weight_bytes=mine[0]["whole_bytes"],
+                gathered_leaves=mine[0]["gathered_leaves"], tp_leaves=mine[0]["tp_leaves"],
+                gathered_elements_per_round=w[0]["gathered_elements"] / w[0]["rounds"],
+                gathered_bytes_per_round=w[0]["gathered_bytes"] / w[0]["rounds"],
+                gathers_per_round=w[0]["gathers"] / w[0]["rounds"],
+                collective_s_by_rank=[r["collective_s"] for r in w],
+                collective_share_by_rank=[r["collective_s"] / r["wall_s"] for r in w])
+        if any(p != want for p in lpr[:-1]) or lpr[-1]["grs"] != 1.0 or not lpr[-1][flash]:
+            problems.append(f"launches a round (ranks, then 1 x 1) {lpr}, the blocks' {want}")
+        if not finite:
+            problems.append("samples not finite")
+        if problems:
+            fail(f"mesh_serve {run} on {spec}: {problems}")
+        pixel = run in ("model", "model_fused")
+        emit("mesh_serve", run=run, mesh=spec, card=card,
+             model="paper-pixel-dit" if pixel else "paper-diffusion-policy-smoke",
+             layers=MESH_MODEL_DEPTH if pixel else None, dtype="bf16" if pixel else "float32",
+             theta=MESH_MODEL_THETA if pixel else MP_F32_THETA,
+             K=MESH_MODEL_K if pixel else MP_F32_K, rounds_per_sync=1,
+             launches_per_round=want, launches_per_round_1x1=lpr[-1],
+             warm_round_ms_by_rank=warm[:-1],
+             warm_round_ms_1x1=warm[-1],
+             peak_gb_by_rank=[m["peak_bytes"] / 1e9 for m in mine],
+             peak_gb_1x1=one["peak_bytes"] / 1e9, **fields,
+             note=("the ranks share this one card and meet over host-staged gloo (pinned host "
+                   "copies): the model call's psums and gathers at use, the boundary's; every "
+                   "program eager by design; round ms: host wall of the second serve (the "
+                   "fused sampler: its one run) / its rounds; collective s: wall inside the "
+                   "groups' collectives in that serve"))
+        launches = ([m["launches"] for m in mine] if run == "model_fused" else
+                    [r["launches"] for m in mine for r in m["runs"]])
+        by_run[f"mesh_serve_{run}"] = {k: sum(n[k] for n in launches) for k in launches[0]}
+    return by_run
+
+
 def _mp_rank(group, mesh_ref):
     """One rank of the phase: the full-width forwards and engine, the
     float32 engines, then the trainer's meshes against the reference at
@@ -7214,6 +7594,7 @@ def _mp_rank(group, mesh_ref):
     del eng, f32_params
     torch.cuda.empty_cache()
     out["mesh_serve"] = _mesh_serve_rank(torch, group, counters)
+    out["mesh_serve_model"] = _mesh_model_rank(torch, group, counters)
     out["mesh_train"] = _mesh_train_rank(torch, group, mesh_ref)
     return out
 
@@ -7233,6 +7614,30 @@ def _mp_forward_problems(torch, ranks, key, ref):
         problems.append("not finite")
     return problems, rels
 
+
+def mesh_model_f32_row(torch, dev):
+    """B2's float32 kernel at the policy runs' shape on the serve mesh's
+    model axis: a block of 16 points of 8 tokens at 2 of the 4 heads of
+    16, against its plain version, timed as in phase 3 with SDPA in
+    float32; the kernels-line row (every B2 launch of those runs is at
+    this shape)."""
+    from repro_torch.configs.registry import get_denoiser_config
+
+    dc = get_denoiser_config(MP_F32_RUNS["policy_tp2"][0])
+    H, hd = dc.backbone.n_heads // 2, dc.backbone.d_model // dc.backbone.n_heads
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = _flash_inputs(torch, dev, 16, dc.seq_len, dc.seq_len, H, hd, SEED + 36,
+                            torch.float32)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    f32 = _f32_timed(torch, q, k, v, dict(causal=False), lambda: sdpa(qt, kt, vt))
+    if f32["design"] != "packed":
+        fail(f"mesh_serve f32 row: B2 float32 launched {f32['design']}, not packed")
+    return dict(name="flash_attention_f32", route="cuda", source=FLASH_F32_SOURCE,
+                replaces=FLASH_REPLACES,
+                at=f"policy smoke serve mesh, model axis 2: a block of 16 points "
+                   f"{[16, dc.seq_len, H, hd]}", **f32,
+                library="scaled_dot_product_attention (float32)",
+                runs={"mesh_serve_model_policy": 1.0, "mesh_serve_data_model": 1.0})
 
 def run_model_parallel(torch, dev):
     """Serving model parallelism over a model group of two ranks on this one
@@ -7271,6 +7676,7 @@ def run_model_parallel(torch, dev):
     _fresh_memory(torch)
     t0 = time.perf_counter()
     mesh_serve_ref = run_mesh_serve_reference(torch, dev, counters)
+    mesh_model_ref = run_mesh_model_reference(torch, dev, counters)
     mesh_serve_ref_s = time.perf_counter() - t0
     mesh_dir = ROOT / "build" / "chip_smoke_mesh"
     mesh_dir.mkdir(parents=True, exist_ok=True)
@@ -7285,6 +7691,9 @@ def run_model_parallel(torch, dev):
     finally:
         shutil.rmtree(mesh_dir, ignore_errors=True)
     group_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = run_group(_mesh_data_model_rank, 4, dev)
+    four_s = time.perf_counter() - t0
     r0 = ranks[0]
     ref = r0["pixel"]["ref"]
     by_run = {}
@@ -7402,17 +7811,27 @@ def run_model_parallel(torch, dev):
              replicated_round_ms=rep["wall_s"] * 1e3 / rep["rounds"])
         by_run[f"model_parallel_f32_{name}"] = mp[0]["launches"]
     by_run.update(check_mesh_serve(torch, card, mesh_serve_ref, ranks, refs["policy_tp2"]))
+    by_run.update(check_mesh_serve_model(torch, card, mesh_model_ref, mesh_serve_ref["pod"],
+                                         ranks, four))
     check_mesh_train(torch, card, mesh_ref, ranks)
     row = flash_shape_row(torch, dev, "model_parallel TP2 / SP2 verification, 8 local heads",
                           (MP_POINTS, 1024, 1024, 16 // MP_WORLD, 64), False)
+    # the verification call's share of a run's B2 launches (the engine: two
+    # calls a round, 16 points and the proposal's 4; the serve mesh's model
+    # runs pad the proposal to a block of 16 points)
     row["runs"] = {"model_parallel_tp2_forward": 1.0, "model_parallel_sp2_forward": 1.0,
-                   "model_parallel_engine": 0.5}
+                   "model_parallel_engine": 0.5, "mesh_serve_model": 1.0,
+                   "mesh_serve_model_fused": 1.0}
+    rows = [row, mesh_model_f32_row(torch, dev)]
     emit("model_parallel_done", card=card, group_s=group_s, rank_weights_s=r0["weights_s"],
          mesh_train_reference_s=mesh_ref_s, mesh_serve_reference_s=mesh_serve_ref_s,
          mesh_serve_rank_s=[r["mesh_serve"]["wall_s"] for r in ranks],
+         mesh_serve_model_rank_s=[r["mesh_serve_model"]["wall_s"] for r in ranks],
+         mesh_serve_data_model_group_s=four_s,
+         mesh_serve_data_model_rank_s=[r["wall_s"] for r in four],
          mesh_train_rank_s=[sum(v["wall_s"] for v in r["mesh_train"].values()) for r in ranks],
          phase_wall_s=time.perf_counter() - t_phase)
-    return by_run, [row]
+    return by_run, rows
 
 
 class PhaseClock:

@@ -600,7 +600,7 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
                        device=None, conds: Optional[torch.Tensor] = None,
                        key=None, noise_mode: str = "buffer", num_branches: int = 1,
                        branch_controller: BranchController = _STATIC_B,
-                       keys=None) -> ASDResult:
+                       keys=None, eager: bool = False) -> ASDResult:
     """ASD on independent chains y0 (B, *event), stepped together.
 
     Each round makes one proposal call over the B chains and one
@@ -619,7 +619,11 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
     any leading batch size m; with ``conds`` (B, d_cond), one condition row
     a chain, it is called as ``model_fn(t, y, cond_rows)`` with the row of
     every point.  ``num_branches`` > 1 runs branched rounds (it needs
-    ``key``).  Runs on ``device`` (None means "cuda").
+    ``key``).  Runs on ``device`` (None means "cuda").  ``eager``: the
+    rounds run eagerly on the card too, never captured (a model function
+    whose collectives are staged through the host, which no graph can
+    capture: the serve CLI's fused engine over a mesh's model axis); see
+    ``SamplerLoop``.
     """
     dev = resolve_device(device)
     if keys is not None:
@@ -633,7 +637,7 @@ def asd_sample_batched(model_fn: ModelFn, schedule: Schedule, y0: torch.Tensor,
         keys = prng.split(prng.as_key(key, dev), y0.shape[0])
     return _sample(model_fn, schedule, y0.to(dev), theta, eager_head, keep_trajectory,
                    controller, generator, u_buf, xi_buf, conds, keys, noise_mode,
-                   num_branches, branch_controller)
+                   num_branches, branch_controller, eager)
 
 
 def _rounds_bound(a: torch.Tensor, K: int, theta: int) -> int:
@@ -675,13 +679,19 @@ class SamplerLoop:
     every chain is done.  The bound never exceeds the rounds a loop
     checking after every round would still run, and finished chains are
     frozen, so the result is that loop's, bit for bit and counter for
-    counter, with one host read per bound of rounds."""
+    counter, with one host read per bound of rounds.
+
+    ``eager``: every round runs eagerly on the card too, through the same
+    code, and nothing is captured: the caller asks for it where the model
+    function's collectives are staged through the host (a host copy and a
+    gloo call cannot be captured).  Without it the round is captured on
+    the card, and a capture that fails raises."""
 
     def __init__(self, model_fn: ModelFn, schedule: Schedule, st: ASDChainState,
                  theta: int, eager_head: bool = False, keep_trajectory: bool = True,
                  controller: ThetaController = _STATIC, conds=None,
                  noise_mode: str = "buffer", num_branches: int = 1,
-                 branch_controller: BranchController = _STATIC_B):
+                 branch_controller: BranchController = _STATIC_B, eager: bool = False):
         self.K = schedule.K
         self.theta = theta = _clamp_theta(theta, self.K)
         self.keep_trajectory = keep_trajectory
@@ -702,7 +712,7 @@ class SamplerLoop:
                     if src is not dst:
                         dst.copy_(src)
 
-        self.program = SuperstepProgram(body, st.a.device)
+        self.program = SuperstepProgram(body, st.a.device, eager=eager)
 
     def load(self, st: ASDChainState, conds=None) -> None:
         """Copy fresh chains ``st`` (and their condition rows) into the
@@ -745,7 +755,7 @@ class SamplerLoop:
 
 def _sample(model_fn, schedule, y0, theta, eager_head, keep_trajectory, controller,
             generator, u_buf, xi_buf, conds, keys, noise_mode, num_branches=1,
-            branch_controller=_STATIC_B) -> ASDResult:
+            branch_controller=_STATIC_B, eager=False) -> ASDResult:
     """Chains y0 (B, *event) on y0's device, each from its own key of
     ``keys`` (B, 2) or else from the buffers or the generator, run to K by
     a ``SamplerLoop`` of their own (each call captures anew)."""
@@ -758,7 +768,8 @@ def _sample(model_fn, schedule, y0, theta, eager_head, keep_trajectory, controll
         if conds.shape[0] != y0.shape[0]:
             raise ValueError(f"conds: {conds.shape[0]} rows for {y0.shape[0]} chains")
     loop = SamplerLoop(model_fn, schedule, st, theta, eager_head, keep_trajectory,
-                       controller, conds, noise_mode, num_branches, branch_controller)
+                       controller, conds, noise_mode, num_branches, branch_controller,
+                       eager)
     return loop.result(loop.run())
 
 

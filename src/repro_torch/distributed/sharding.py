@@ -30,7 +30,11 @@ leaves the blocks compute tensor-parallel on.
 The serve CLI's ``--mesh`` lays the continuous engine's slot batch out by
 ``chain_state_shardings(mesh)``: a ``ChainStateSharding`` that says which
 contiguous block of the leading slot axis this rank holds, the rows
-``NamedSharding(mesh, batch_pspec(mesh))`` gives its device.
+``NamedSharding(mesh, batch_pspec(mesh))`` gives its device (every model
+rank of a block holds the same rows), and its weights by a ``ServeLayout``
+(``param_pspecs`` over the mesh, the JAX CLI's ``_build``): a rank keeps
+its blocks, and the model function reads ``gather_at_use`` of them, the
+step the mesh trainer takes before its forward too.
 ``get_shard_map``, ``slots_mesh``, ``serving_mesh``, ``shard_pspecs``,
 ``shardings_from_pspecs`` and ``abstract_params`` are JAX mesh plumbing
 (``shard_map``, ``NamedSharding``, ``eval_shape``) with no counterpart:
@@ -130,22 +134,19 @@ class ChainStateSharding:
     port's ``NamedSharding(mesh, batch_pspec(mesh))``: the leading slot axis
     of every ``ASDChainState`` field is cut over the batch axes ("pod",
     "data") into ``ranks`` contiguous blocks, pod-major, and this rank holds
-    block ``index`` = ``mesh.index(("pod", "data"))``.  ``group`` is the
-    ``ModelGroup`` of the batch axes, whose rank is ``index``.  Every rank
-    keeps the whole weights, so the ``model`` axis must be 1."""
+    block ``index`` = ``mesh.index(("pod", "data"))``; the ``model`` axis
+    does not cut it, so every model rank of a block holds the same rows.
+    ``group`` is the ``ModelGroup`` of the batch axes, whose rank is
+    ``index``; ``model_group`` that of the ``model`` axis (of world 1 where
+    the axis is 1), over which a ``ServeLayout`` cuts the weights."""
 
     def __init__(self, mesh):
-        model = mesh.sizes().get("model", 1)
-        if model != 1:
-            raise ValueError(
-                f"a serve mesh's model axis of {model}: the weights' layout over model "
-                "(param_pspecs, tensor-parallel where tp_paths says so) is ROADMAP.md "
-                "A13 item 10; the batch axes alone (Dx1, PxDx1) serve")
         self.mesh = mesh
         self.axes = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
         self.ranks = mesh.size(self.axes)
         self.index = mesh.index(self.axes)
         self.group = mesh.group(self.axes)
+        self.model_group = mesh.group(("model",))
         assert self.group.rank == self.index and self.group.world == self.ranks
 
     def __repr__(self) -> str:
@@ -164,8 +165,56 @@ class ChainStateSharding:
 
 def chain_state_shardings(mesh) -> ChainStateSharding:
     """The continuous engine's slot-batch layout over ``mesh`` (a
-    ``MeshGroups`` whose model axis is 1): the worker's ``state_sharding``."""
+    ``MeshGroups``): the worker's ``state_sharding``."""
     return ChainStateSharding(mesh)
+
+
+class ServeLayout:
+    """The weights' layout on one rank of a serve mesh, the JAX CLI's
+    ``param_pspecs(boxed, mesh)`` (``src/repro/launch/serve.py::_build``):
+    ``specs`` (``param_pspecs`` of the logical axes and shapes over
+    ``mesh``, a ``MeshGroups``; they name ``model`` alone, so every model
+    rank of a batch block holds the same blocks as its peers of the other
+    blocks), ``tp`` (``tp_paths``: the leaves the blocks compute
+    tensor-parallel on, over ``model_group``), ``gathered`` (the paths of
+    every other leaf the layout cuts) and the mesh.  ``shard`` keeps this
+    rank's blocks; ``at_use`` is what the forward reads, each leaf whole
+    (a ``gathered`` leaf all-gathered over the ``model`` group, at every
+    call) or this rank's tensor-parallel block.  ``gathers`` counts the
+    calls of ``at_use``, ``gathered_elements`` and ``gathered_bytes`` what
+    they gathered."""
+
+    def __init__(self, axes_tree, shapes, mesh):
+        self.mesh = mesh
+        self.specs = param_pspecs(axes_tree, shapes, mesh)
+        self.tp = tp_paths(axes_tree, self.specs)
+        self.model_group = mesh.group(("model",))
+        self.gathered = frozenset() if self.model_group.world == 1 else frozenset(
+            path for path, spec in pytree.paths(self.specs)
+            if mentions_model(spec) and path not in self.tp)
+        self.gathers = self.gathered_elements = self.gathered_bytes = 0
+
+    @property
+    def tp_axis(self):
+        """The model group where the blocks compute tensor-parallel, else
+        None."""
+        return self.model_group if self.tp and self.model_group.world > 1 else None
+
+    def shard(self, params):
+        return shard_params(params, self.specs, self.mesh)
+
+    def at_use(self, blocks):
+        out = gather_at_use(blocks, self.specs, self.tp, self.mesh)
+        self.gathers += 1
+        for path, leaf in pytree.paths(out):
+            if path in self.gathered:
+                self.gathered_elements += leaf.numel()
+                self.gathered_bytes += leaf.numel() * leaf.element_size()
+        return out
+
+    def local_bytes(self, params) -> int:
+        """The bytes of this rank's blocks of the whole ``params``."""
+        return local_bytes(params, self.specs, self.mesh)
 
 
 def param_pspecs(axes_tree, shapes=None, mesh=None, rules: Mapping | None = None,
@@ -374,6 +423,27 @@ def gather_leaf(leaf, spec, mesh, skip=()):
     return leaf
 
 
+def tp_dims(specs, tp) -> list:
+    """The dim each leaf of ``specs`` (in leaf order) is cut over
+    ``"model"`` where its path is in ``tp`` (a tensor-parallel leaf), else
+    None."""
+    return [next(i for i, e in enumerate(spec) if e == "model") if path in tp else None
+            for path, spec in pytree.paths(specs)]
+
+
+def gather_at_use(params, specs, tp, mesh):
+    """The leaves a forward reads from a rank's blocks ``params`` under
+    ``specs`` on ``mesh``: every leaf whole (``gather_leaf``), except that
+    a leaf of ``tp`` (``tp_paths``) keeps this rank's block of the dim it
+    is cut on over ``"model"``, where the blocks compute tensor-parallel.
+    A collective every rank of ``mesh`` calls in the same order; the mesh
+    trainer takes it once a step, the server at every model call."""
+    flat = [gather_leaf(leaf, spec, mesh, skip=() if d is None else (d,))
+            for leaf, spec, d in zip(pytree.leaves(params), pytree.leaves(specs),
+                                     tp_dims(specs, tp))]
+    return pytree.unflatten(params, flat)
+
+
 def local_shape(shape, spec, mesh) -> tuple:
     """The shape of a rank's block of a leaf of ``shape`` under ``spec``."""
     sizes = _axis_sizes(mesh)
@@ -382,6 +452,14 @@ def local_shape(shape, spec, mesh) -> tuple:
         if entry is not None:
             out[dim] //= math.prod(sizes.get(a, 1) for a in _entry_axes(entry))
     return tuple(out)
+
+
+def local_bytes(tree, specs, mesh, itemsize: int | None = None) -> int:
+    """The bytes of a rank's blocks of ``tree`` (tensors, or shapes with
+    ``itemsize``) under ``specs`` on ``mesh``."""
+    return sum(math.prod(local_shape(leaf, spec, mesh))
+               * (leaf.element_size() if itemsize is None else itemsize)
+               for _, leaf, spec in zip_specs(tree, specs))
 
 
 def spec_axes(spec) -> set:

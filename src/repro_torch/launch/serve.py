@@ -36,17 +36,26 @@ summary, with the JAX CLI's ``, mp=N (sequence-parallel)
 lanes: host-staged gloo here), and the other ranks print nothing.
 
 ``--mesh`` ``DxM`` or ``PxDxM`` (the JAX CLI's axes, ``launch/mesh.py
-::parse_mesh``) with ``M`` 1 serves data-parallel over the batch axes:
-the CLI starts prod(dims) ranks (``run_group``, gloo, every rank on
-``--device``), each running ``serve_rank`` over ``make_rank_mesh``.  The
-continuous engine shards its slots by ``chain_state_shardings(mesh)``
-(``--slots`` a multiple of pod * data, or derived and rounded up to one,
-with the JAX CLI's message); the fused engine gives each rank its block
-of the ``default_rng(0)`` y0 rows and of ``split(PRNGKey(1), chains)``
-(``--chains`` must split evenly, as ``NamedSharding`` requires) and
-gathers samples and counters to rank 0.  Rank 0 prints the JAX CLI's
-lines; the other ranks print nothing.  Every request gets the 1 x 1
-run's sample bits and counters.
+::parse_mesh``): the CLI starts prod(dims) ranks (``run_group``, gloo,
+every rank on ``--device``), each running ``serve_rank`` over
+``make_rank_mesh``.  The batch axes split the work: the continuous engine
+shards its slots by ``chain_state_shardings(mesh)`` (``--slots`` a
+multiple of pod * data, or derived and rounded up to one, with the JAX
+CLI's message); the fused engine gives each rank its block of the
+``default_rng(0)`` y0 rows and of ``split(PRNGKey(1), chains)``
+(``--chains`` must split over pod * data, as ``NamedSharding`` requires)
+and gathers samples and counters to rank 0.  The ``model`` axis, where
+it is above 1, splits the weights as the JAX CLI's ``_build`` lays them
+out (``ServeLayout``: ``param_pspecs`` over the mesh, cast once to the
+compute dtype): a rank keeps its blocks, the blocks of ``tp_paths`` run
+tensor-parallel over the mesh's model group, and every other cut leaf is
+all-gathered at each model call; every program then runs eagerly (the
+fused sampler's rounds too, ``asd_sample_batched(eager=True)``), since a
+host-staged collective cannot be captured.  Rank 0 prints the JAX CLI's
+lines; the other ranks print nothing.  Over the batch axes alone every
+request gets the 1 x 1 run's sample bits and counters; a model axis
+changes the order of the tensor-parallel sums, so ``DxM`` gives the bits
+of ``1xM``, within float rounding of 1 x 1.
 
 The flags, their names and defaults are the JAX CLI's, with two
 differences: ``--mesh`` defaults to ``1x1`` (the JAX CLI's ``2x4`` would
@@ -58,9 +67,9 @@ prefix committed; ``--branch-controller`` static or gain), and the summary
 line then gives the mean accepted prefix a round and the wasted share of
 the drafted points; as in the JAX CLI, the fused engine runs one branch.
 What the port has no counterpart for yet is refused with exit status 2 and
-the ROADMAP.md item that brings it, never ignored: a mesh's ``model``
-axis above 1 (A13 item 10), packed execution over several batch ranks
-(A13 item 11), a mesh of several ranks with ``--shards``,
+the ROADMAP.md item that brings it, never ignored: packed execution over
+several batch ranks (A13 item 11; ``--mesh 1xM --execution packed``
+serves), a mesh of several ranks with ``--shards``,
 ``--model-shards``, ``--seq-shards`` or ``--expert-parallel`` (A13 item
 12), and ``--grs-impl`` / ``--pack-impl``, since the device picks the
 plain version (CPU) or the CUDA kernel (card).  The MoE denoiser
@@ -107,10 +116,11 @@ from repro_torch.core.controller import (BRANCH_CONTROLLERS, CONTROLLERS,
 from repro_torch.core.schedules import ddpm as ddpm_schedule
 from repro_torch.device import resolve_device
 from repro_torch.distributed.group import run_group
-from repro_torch.distributed.sharding import chain_state_shardings, mp_param_pspecs
+from repro_torch.distributed.sharding import (ServeLayout, chain_state_shardings,
+                                              mp_param_pspecs)
 from repro_torch.launch.mesh import Mesh, make_rank_mesh, parse_mesh
-from repro_torch.models.diffusion import (make_ddpm_model_fn, mp_collective_payloads,
-                                          sp_compatible)
+from repro_torch.models.diffusion import (compute_params, make_ddpm_model_fn,
+                                          mp_collective_payloads, sp_compatible)
 from repro_torch.nn.param import param_axes
 from repro_torch.serving.engine import ContinuousASDEngine, Request
 from repro_torch.serving.obs import (MetricsRegistry, MetricsServer, TraceRecorder,
@@ -130,14 +140,8 @@ def _refusal(args):
         dims, names = parse_mesh(args.mesh)
     except ValueError as exc:
         return str(exc)
-    model = dict(zip(names, dims))["model"]
-    if model > 1:
-        return (f"--mesh {args.mesh}: a model axis of {model} (the weights laid out over "
-                "model by param_pspecs) is ROADMAP.md A13 item 10; the batch axes serve "
-                "(DATAx1, PODxDATAx1), and model parallelism is --model-shards / "
-                "--seq-shards")
     if math.prod(dims) > 1 and args.engine == "continuous":
-        if args.execution == "packed":
+        if args.execution == "packed" and _batch_ranks(args.mesh) > 1:
             return (f"--mesh {args.mesh} with --execution packed: packed rounds over "
                     "several batch ranks (a global allocation over the gathered demand) "
                     "are ROADMAP.md A13 item 11")
@@ -152,6 +156,13 @@ def _refusal(args):
             return (f"{flag} {value}: no counterpart in the port, whose device picks "
                     "the plain version (CPU) or the CUDA kernel (card); see ROADMAP.md A8")
     return None
+
+
+def _batch_ranks(spec: str) -> int:
+    """pod * data of ``--mesh`` ``spec``: the ranks the slots (or chains)
+    split over."""
+    dims, names = parse_mesh(spec)
+    return math.prod(n for a, n in zip(names, dims) if a != "model")
 
 
 def _params(dc, dev):
@@ -209,6 +220,27 @@ def _model_parallel_kwargs(args, dc, dev, group) -> tuple:
                                                    sp_size=sp))
 
 
+def _mesh_model(dc, mesh) -> tuple:
+    """(model function or factory, the worker's kwargs, layout) of a serve
+    mesh (this rank's ``MeshGroups``).  With a model axis of 1: the whole
+    weights' model function, no kwargs, no layout.  Else the
+    ``ServeLayout`` of the mesh, the whole weights cast once to the compute
+    dtype (the worker keeps this rank's blocks of them and drops the rest),
+    and a factory whose model function reads ``layout.at_use`` of the
+    blocks at every call, tensor-parallel over the model group."""
+    dev = mesh.device
+    if mesh.sizes()["model"] == 1:
+        return _model_fn(dc, dev), {}, None
+    layout = ServeLayout(param_axes(dc), param_shapes(dc), mesh)
+
+    def factory(blocks):
+        return make_ddpm_model_fn(blocks, dc, tp_axis=layout.tp_axis, at_use=layout.at_use)
+
+    return factory, dict(model_group=layout.model_group,
+                         params=compute_params(_params(dc, dev), dc),
+                         param_specs=layout.specs), layout
+
+
 def _build(args):
     dev = resolve_device(args.device)
     dc = get_denoiser_config(args.model)
@@ -224,11 +256,16 @@ def run_fused(args, mesh=None) -> dict | None:
     """The fused sampler over --chains chains; over ``mesh`` (this rank's
     ``MeshGroups``) the rank samples its block of the chains and rank 0
     gathers the rest, prints and returns the numbers (the others None)."""
+    eager = False
     if mesh is None:
         dev, dc, model_fn = _build(args)
     else:
         dev, dc = mesh.device, get_denoiser_config(args.model)
-        model_fn = _model_fn(dc, dev)
+        model_fn, kw, weights = _mesh_model(dc, mesh)
+        if weights is not None:  # the rank keeps its blocks only
+            model_fn = model_fn(weights.shard(kw.pop("params")))
+            eager = True
+        del kw
     sched = ddpm_schedule(args.K)
     y0 = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (args.chains, dc.seq_len, dc.d_data), np.float32))
@@ -242,7 +279,7 @@ def run_fused(args, mesh=None) -> dict | None:
         res = asd_sample_batched(model_fn, sched, y0, args.theta, eager_head=True,
                                  keep_trajectory=False,
                                  controller=make_controller(args.theta_controller),
-                                 device=dev, noise_mode="counter", **keys)
+                                 device=dev, noise_mode="counter", eager=eager, **keys)
     _sync(dev)
     fields = (res.sample, res.rounds, res.head_calls, res.accepts, res.proposals)
     if mesh is not None and layout.ranks > 1:
@@ -327,15 +364,16 @@ def run_continuous(args, group=None, mesh=None) -> dict:
     """The continuous engine; with ``group`` (a ``ModelGroup``: this process
     is one of its ranks) the engine runs model-parallel over it, with
     ``mesh`` (this rank's ``MeshGroups``) its slots shard over the mesh's
-    batch axes; either way only rank 0 serves metrics and writes the trace
-    and the profile."""
+    batch axes and its weights over the mesh's model axis
+    (``_mesh_model``); either way only rank 0 serves metrics and writes
+    the trace and the profile."""
     lead = (group is None or group.rank == 0) and (mesh is None or mesh.rank == 0)
     if group is not None:
         dev, dc = group.device, get_denoiser_config(args.model)
         model_fn, mp_kwargs = _model_parallel_kwargs(args, dc, dev, group)
     elif mesh is not None:
         dev, dc = mesh.device, get_denoiser_config(args.model)
-        model_fn, mp_kwargs = _model_fn(dc, dev), {}
+        model_fn, mp_kwargs, _ = _mesh_model(dc, mesh)
     else:
         dev, dc, model_fn = _build(args)
         mp_kwargs = {}
@@ -379,8 +417,9 @@ def run_continuous(args, group=None, mesh=None) -> dict:
     else:
         eng = ContinuousASDEngine(
             model_fn, sched, (dc.seq_len, dc.d_data), num_slots=slots,
-            state_sharding=chain_state_shardings(mesh) if batch_world > 1 else None,
-            **common)
+            state_sharding=(chain_state_shardings(mesh) if mesh is not None
+                            and mesh.world > 1 else None), **mp_kwargs, **common)
+        del mp_kwargs  # the rank keeps its blocks of the weights only
     server = None
     if args.metrics_port >= 0 and lead:
         registry = instrument_engine(MetricsRegistry(), eng)
@@ -471,9 +510,10 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--model", default="paper-diffusion-policy")
     ap.add_argument("--mesh", default="1x1",
-                    help="DATAxMODEL or PODxDATAxMODEL ranks, MODEL 1: the slots (or the "
-                         "fused engine's chains) shard over the batch axes (a model axis: "
-                         "ROADMAP.md A13 item 10)")
+                    help="DATAxMODEL or PODxDATAxMODEL ranks: the slots (or the fused "
+                         "engine's chains) shard over the batch axes, the weights over "
+                         "MODEL (param_pspecs; tensor-parallel where tp_paths says so, "
+                         "the other cut leaves gathered at use)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -595,18 +635,18 @@ def main(argv=None) -> dict:
     refused = _refusal(args)
     if refused is not None:
         ap.error(refused)
-    ranks = math.prod(parse_mesh(args.mesh)[0])
+    ranks, batch = math.prod(parse_mesh(args.mesh)[0]), _batch_ranks(args.mesh)
     if args.engine == "fused":  # as the JAX CLI, the fused sampler runs no model group
         if ranks > 1:
-            if args.chains % ranks:
-                raise ValueError(f"--chains {args.chains} does not split over the {ranks} "
-                                 f"ranks of --mesh {args.mesh}: its size must be divisible "
-                                 f"by {ranks}")
+            if args.chains % batch:
+                raise ValueError(f"--chains {args.chains} does not split over the {batch} "
+                                 f"batch ranks of --mesh {args.mesh}: its size must be "
+                                 f"divisible by {batch}")
             return run_group(serve_rank, ranks, args.device, (argv,))[0]
         _logging(args)
         return run_fused(args)
     if ranks > 1:
-        _slots(args, ranks)  # the JAX CLI's message, before any rank starts
+        _slots(args, batch)  # the JAX CLI's message, before any rank starts
     world = model_parallelism(args) if ranks == 1 else ranks
     if world > 1:
         return run_group(serve_rank, world, args.device, (argv,))[0]

@@ -163,7 +163,8 @@ def _bcast_cond(cond, m):
 
 
 def make_sl_model_fn(params, dc: DenoiserConfig, cond=None, attn_impl=None,
-                     tp_axis=None, sp_axis=None, sp_size: int = 1, ep_axis=None):
+                     tp_axis=None, sp_axis=None, sp_size: int = 1, ep_axis=None,
+                     at_use=None):
     """ASD / sequential-sampler oracle for the SL parametrization: the net
     sees y / sqrt(t^2 + t) and returns E[x0 | y_t].
 
@@ -172,7 +173,8 @@ def make_sl_model_fn(params, dc: DenoiserConfig, cond=None, attn_impl=None,
     rows where given, else on the ``cond`` it was made with: a server builds
     one function and conditions each batched call, one row per point.
     ``tp_axis`` / ``sp_axis`` / ``sp_size`` / ``ep_axis``: model parallelism
-    (see ``denoiser_fwd``)."""
+    (see ``denoiser_fwd``).  ``at_use``: the params are a rank's blocks of
+    a serve mesh's layout (see ``_mesh_call``)."""
     cp = compute_params(params, dc)
     mp = dict(tp_axis=tp_axis, sp_axis=sp_axis, sp_size=sp_size, ep_axis=ep_axis)
 
@@ -180,25 +182,43 @@ def make_sl_model_fn(params, dc: DenoiserConfig, cond=None, attn_impl=None,
         t32 = torch.clamp(t.float(), min=1e-6)
         scale = torch.sqrt(t32**2 + t32)
         y_in = y / scale.reshape(tuple(t.shape) + (1,) * (y.ndim - t.ndim))
-        c = cond if cond_rows is None else cond_rows
-        return denoiser_fwd(cp, t32, y_in, dc, cond=_bcast_cond(c, y.shape[0]),
-                            attn_impl=attn_impl, **mp)
+        c = _bcast_cond(cond if cond_rows is None else cond_rows, y.shape[0])
+        if at_use is not None:
+            return _mesh_call(at_use(cp), t32, y_in, c, dc, attn_impl, mp)
+        return denoiser_fwd(cp, t32, y_in, dc, cond=c, attn_impl=attn_impl, **mp)
 
     return model_fn
 
 
+def _mesh_call(params, t, y, cond, dc, attn_impl, mp):
+    """The model call on a rank of a serve mesh, over ``params`` as the
+    forward reads them (``ServeLayout.at_use`` of the rank's blocks, read
+    once a call): in blocks of ``_POINT_ROWS`` points, the last padded
+    with zero points, so every product and attention call has one shape.
+    A rank holds a block of the slots, and its calls carry fewer points
+    than a rank of a mesh with fewer batch ranks; on the card cuBLAS picks
+    a product's kernel, and with it the order of a sum, by its rows (a
+    tensor-parallel ``wo`` block of 16 rows takes another kernel than one
+    of 32), so without the blocks ``DxM`` would not give ``1xM``'s bits."""
+    return _in_point_blocks(lambda tb, yb, cb: denoiser_fwd(params, tb, yb, dc, cond=cb,
+                                                            attn_impl=attn_impl, **mp),
+                            t, y, cond)
+
+
 def make_ddpm_model_fn(params, dc: DenoiserConfig, cond=None, attn_impl=None,
-                       tp_axis=None, sp_axis=None, sp_size: int = 1, ep_axis=None):
+                       tp_axis=None, sp_axis=None, sp_size: int = 1, ep_axis=None,
+                       at_use=None):
     """x0-predicting oracle in the DDPM parametrization (t = step index);
-    ``model_fn(t, y, cond=None)`` and the model-parallel axes as in
-    ``make_sl_model_fn``."""
+    ``model_fn(t, y, cond=None)``, the model-parallel axes and ``at_use``
+    as in ``make_sl_model_fn``."""
     cp = compute_params(params, dc)
     mp = dict(tp_axis=tp_axis, sp_axis=sp_axis, sp_size=sp_size, ep_axis=ep_axis)
 
     def model_fn(t, y, cond_rows=None):
-        c = cond if cond_rows is None else cond_rows
-        return denoiser_fwd(cp, t.float(), y, dc, cond=_bcast_cond(c, y.shape[0]),
-                            attn_impl=attn_impl, **mp)
+        c = _bcast_cond(cond if cond_rows is None else cond_rows, y.shape[0])
+        if at_use is not None:
+            return _mesh_call(at_use(cp), t.float(), y, c, dc, attn_impl, mp)
+        return denoiser_fwd(cp, t.float(), y, dc, cond=c, attn_impl=attn_impl, **mp)
 
     return model_fn
 

@@ -69,8 +69,22 @@ traffic), and at a boundary where slots finished their samples go to rank
 0, whose ``drain_results`` holds every request's sample (another rank's
 holds those of its block).  The gathers' seconds are the measured
 ``gather_s`` lane of ``EngineStats``.  Packed rounds over several batch
-ranks (ROADMAP.md A13 item 11) and ``state_sharding`` beside a model
-group (item 12) raise.
+ranks (ROADMAP.md A13 item 11) raise.
+
+A serve mesh's ``model`` axis: ``state_sharding`` with the
+``model_group`` of the same mesh (``ChainStateSharding.model_group``) and
+``params`` with ``param_specs`` the mesh's layout (``ServeLayout.specs``):
+the worker keeps ``shard_params`` of them over the mesh, and the model
+function (the factory's, typically reading ``ServeLayout.at_use`` at each
+call) runs over the model group.  Each model rank of a batch block holds
+the same slot rows and steps them the same way; its programs run eagerly,
+rank 0 of the whole mesh decides admission, and each model rank takes its
+own batch gathers (over the batch ranks of its model coordinate).  At
+every boundary, under any model group, the ranks of the group compare
+their (9, S) counters, and a rank whose counters differ in any bit raises:
+the ranks of a block never diverge silently.  A ``model_group`` from
+elsewhere beside ``state_sharding`` (the sharded front end or the model
+flags beside a mesh, ROADMAP.md A13 item 12) raises.
 
 Every chain draws from its key as the JAX worker's does: a request's own
 ``key``, or else ``fold_in(serve key, rid)`` (the serve key is
@@ -287,8 +301,10 @@ class ShardWorker:
         points a packed round, ``slots * (theta * B + 1)`` an unpacked one.
       state_sharding: a ``chain_state_shardings(mesh)`` layout: this rank
         holds its block of the slots (see the module docstring); unpacked
-        execution only where the mesh has more than one batch rank, and
-        never with ``model_group``.  ``device`` defaults to the mesh's.
+        execution only where the mesh has more than one batch rank.  A
+        ``model_group`` beside it must be its ``model_group`` (the mesh's
+        model axis), and the params are then sharded over the mesh.
+        ``device`` defaults to the mesh's.
     """
 
     def __init__(self, model_fn: Callable, schedule: Schedule, event_shape: tuple,
@@ -309,9 +325,10 @@ class ShardWorker:
             if not isinstance(state_sharding, ChainStateSharding):
                 raise ValueError(f"state_sharding {state_sharding!r}: a "
                                  "chain_state_shardings(mesh) layout over a mesh of ranks")
-            if model_group is not None:
-                raise ValueError("state_sharding with a model_group: data-parallel slots "
-                                 "beside model parallelism are ROADMAP.md A13 item 12")
+            if model_group is not None and model_group is not state_sharding.model_group:
+                raise ValueError("state_sharding with a model_group of another mesh: "
+                                 "data-parallel slots beside shards or a model group of "
+                                 "their own are ROADMAP.md A13 item 12")
             if execution == "packed" and state_sharding.ranks > 1:
                 raise ValueError(
                     "state_sharding over several batch ranks with execution='packed': "
@@ -334,6 +351,12 @@ class ShardWorker:
         rows = self.slot_rows.stop - self.slot_rows.start
         self._batch_group = (state_sharding.group if state_sharding is not None
                              and state_sharding.ranks > 1 else None)
+        # the ranks whose rank 0 decides admission: the whole mesh, or the
+        # model group (None: one rank)
+        mesh = None if state_sharding is None else state_sharding.mesh
+        self._lead_group = (mesh.group(mesh.axis_names) if mesh is not None and mesh.world > 1
+                            else model_group if model_group is not None
+                            and model_group.world > 1 else None)
         # a host-staged collective cannot be captured: a group's programs run eagerly
         self._eager = model_group is not None
         self.schedule = schedule.to(self.device)
@@ -354,7 +377,7 @@ class ShardWorker:
         self._params = None
         if params is not None:
             self._params = (params if model_group is None else shard_params(
-                params, param_specs,
+                params, param_specs, mesh if mesh is not None else
                 MeshGroups((model_group.world,), ("model",), model_group.rank)))
             model_fn = model_fn(self._params)
         self._model_fn = model_fn
@@ -397,9 +420,9 @@ class ShardWorker:
         # plan's head call and the eager head lanes a branch
         self._collective_kind_s: dict = {}
         if model_group is not None and collective_payloads:
-            points = (self._budget_cap + (1 + self.num_branches) * num_slots
+            points = (self._budget_cap + (1 + self.num_branches) * rows
                       if execution == "packed"
-                      else num_slots * (self.theta * self.num_branches + 1))
+                      else rows * (self.theta * self.num_branches + 1))
             self._collective_kind_s = measure_collective_seconds_by_kind(
                 model_group, {k: [int(b) * points for b in v]
                               for k, v in collective_payloads.items()})
@@ -739,10 +762,10 @@ class ShardWorker:
 
     def _collect_admissions(self, now: float):
         """Run the admission policy and its host bookkeeping; returns the
-        placed [(slot, request)].  Under a model group or over batch ranks,
-        rank 0 decides (see ``_agree_admissions``)."""
-        group = self.model_group if self.model_group is not None else self._batch_group
-        if group is None or group.world == 1:
+        placed [(slot, request)].  Under a model group or over a mesh of
+        ranks, rank 0 of them all decides (see ``_agree_admissions``)."""
+        group = self._lead_group
+        if group is None:
             placed = self.scheduler.admit(now, self.stats.rounds_total,
                                           self._admission_context(now))
         else:
@@ -870,6 +893,8 @@ class ShardWorker:
             t_gather = time.perf_counter()
             info_host = self._batch_group.all_gather(info_host, axis=1)
             self.stats.gather_s += time.perf_counter() - t_gather
+        if self.model_group is not None and self.model_group.world > 1:
+            self._check_model_ranks_agree(info_host)
         info = info_host.numpy()
         row = {name: info[i] for i, name in enumerate(_SYNC_ROWS)}
         a, theta_live = row["a"], row["theta_live"]
@@ -937,6 +962,19 @@ class ShardWorker:
         if not cold:
             end = done_at if done_at is not None else time.perf_counter()
             self._observe_round_time((end - t_dispatch) / R)
+
+    def _check_model_ranks_agree(self, info_host: torch.Tensor) -> None:
+        """The model group's ranks hold the same slots and step them the
+        same way, so their counters agree in every bit; raise where they
+        do not (a tie is not broken: the ranks' results have diverged)."""
+        t0 = time.perf_counter()
+        every = self.model_group.all_gather(info_host[None], axis=0)
+        self.stats.gather_s += time.perf_counter() - t0
+        bad = [r for r in range(1, every.shape[0]) if not torch.equal(every[0], every[r])]
+        if bad:
+            raise RuntimeError(
+                f"model ranks {bad} of this block hold other counters than model rank 0 "
+                f"at round {self.stats.rounds_total}: the model group's ranks diverged")
 
     def _finished_samples(self, samples_dev: torch.Tensor, finished: list) -> dict:
         """{slot: sample} of the ``finished`` slots: all of them on one rank

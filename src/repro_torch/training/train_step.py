@@ -170,8 +170,7 @@ class MeshLayout:
 
     def resident_bytes(self, shapes, specs, itemsize: int = 4) -> int:
         """What a rank holds of a tree of ``shapes`` under ``specs``."""
-        return sum(math.prod(sharding.local_shape(shape, spec, self.mesh)) * itemsize
-                   for _, shape, spec in sharding.zip_specs(shapes, specs))
+        return sharding.local_bytes(shapes, specs, self.mesh, itemsize)
 
 
 def _extra_dims(param_spec, opt_spec, path) -> list:
@@ -206,8 +205,7 @@ class MeshStep:
         self._pspecs = pytree.leaves(layout.params)
         self._ospecs = pytree.leaves(layout.opt["mu"])
         # the dim of each tensor-parallel leaf its layout cuts over "model"
-        self._tp_dim = [next(i for i, e in enumerate(s) if e == "model") if p in layout.tp
-                        else None for p, s in zip(paths, self._pspecs)]
+        self._tp_dim = sharding.tp_dims(layout.params, layout.tp)
         self._extra = [_extra_dims(ps, os_, p)
                        for p, ps, os_ in zip(paths, self._pspecs, self._ospecs)]
         # the axes each leaf's gradient block is cut on (the clip's psums)
@@ -235,11 +233,9 @@ class MeshStep:
 
     def compute_params(self, params):
         """The leaves the forward reads: gathered whole, or this rank's
-        block where the blocks compute tensor-parallel on it."""
-        flat = [sharding.gather_leaf(leaf, spec, self.mesh,
-                                     skip=() if d is None else (d,))
-                for leaf, spec, d in zip(pytree.leaves(params), self._pspecs, self._tp_dim)]
-        return pytree.unflatten(params, flat)
+        block where the blocks compute tensor-parallel on it
+        (``sharding.gather_at_use``, which the server takes too)."""
+        return sharding.gather_at_use(params, self.layout.params, self.layout.tp, self.mesh)
 
     def _reduce(self, g, i):
         """Leaf i's gradient (whole, or its tensor-parallel block) ->

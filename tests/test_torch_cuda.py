@@ -1834,3 +1834,123 @@ def test_mesh_2x1_step_on_two_ranks_of_one_card_follows_1x1(dev):
     for k, v in _flat(params).items():
         assert torch.equal(r0["params"][k], r1["params"][k]), k
         torch.testing.assert_close(r0["params"][k], v.cpu(), atol=2 * 3e-3 * steps, rtol=0)
+
+
+def _mesh_1x2_pixel_rank(group):
+    """One rank of a 1x2 serve mesh on the card: pixel-dit at its published
+    widths and 2 of its 24 layers, its weights by the mesh's
+    ``ServeLayout`` (cast to bf16 first, as the serve CLI does): the model
+    call on 16 points (and on rank 0 the replicated call), then an engine
+    over the rank's blocks serving four keyed requests."""
+    import dataclasses
+
+    from repro_torch.configs.registry import paper_pixel_dit
+    from repro_torch.distributed.sharding import ServeLayout, chain_state_shardings
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.nn.param import param_axes
+    from repro_torch.weights import param_shapes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = group.device
+    dc = paper_pixel_dit()
+    dc = dataclasses.replace(dc, backbone=dataclasses.replace(dc.backbone, n_layers=2))
+    params = t_diff.compute_params(init_denoiser_params(dc, 0, out_scale=1e-2, device=dev), dc)
+    mesh = make_rank_mesh(group, "1x2")
+    layout = ServeLayout(param_axes(dc), param_shapes(dc), mesh)
+    g = torch.Generator(device=dev).manual_seed(9)
+    t = torch.exp(torch.linspace(np.log(0.05), np.log(50.0), 16)).to(dev)
+    y = torch.randn(16, dc.seq_len, dc.d_data, generator=g, device=dev) * (
+        t * t + t).sqrt()[:, None, None]
+    eng = ContinuousASDEngine(
+        lambda p: make_sl_model_fn(p, dc, tp_axis=layout.tp_axis, at_use=layout.at_use),
+        t_sch.sl_geometric(8, 0.05, 50.0), (dc.seq_len, dc.d_data), num_slots=4, theta=3,
+        noise_mode="counter", keep_trajectory=False, state_sharding=chain_state_shardings(mesh),
+        model_group=layout.model_group, params=params, param_specs=layout.specs)
+    with torch.no_grad():
+        call = eng._model_fn(t, y)
+        ref = make_sl_model_fn(params, dc)(t, y) if group.rank == 0 else None
+    resident = sum(x.numel() * x.element_size() for x in _leaves_of(eng._params))
+    layout_bytes = layout.local_bytes(params)
+    del params
+    out = eng.serve([Request(i, key=np.array([0, 900 + i], np.uint32)) for i in range(4)])
+    return dict(call=call.cpu(), ref=None if ref is None else ref.cpu(), samples=out,
+                counters={m.rid: (m.rounds, m.accepts, m.proposals)
+                          for m in eng.stats.per_request},
+                eager=eng._eager, captures=sum(p.captures for p in eng._superstep_fns.values()),
+                resident=resident, layout_bytes=layout_bytes,
+                gathered=[".".join(p) for p in layout.gathered])
+
+
+def test_mesh_1x2_pixel_dit_serve_on_two_ranks_of_one_card(dev):
+    """The serve mesh's model axis on the card: two ranks share it, the
+    weights laid out by ``param_pspecs`` (the attention and FFN blocks
+    tensor-parallel, wk / wv, in_proj, out_proj and the time MLP gathered
+    at use).  The model call is within the bf16 gate of the replicated
+    call (2 x 2^-8 x sqrt(2 x depth): one more bf16 rounding of each
+    row-parallel product's partial sums) and the ranks' bits agree; the
+    engine's samples and counters agree on both ranks, its programs eager
+    (no capture), each rank holding the layout's bytes of the weights."""
+    from repro_torch.distributed.group import run_group
+
+    r0, r1 = run_group(_mesh_1x2_pixel_rank, 2, "cuda")
+    rel = ((r0["call"].float() - r0["ref"].float()).norm() / r0["ref"].float().norm()).item()
+    assert rel <= 2 * 2.0 ** -8 * np.sqrt(2 * 2), rel
+    assert torch.equal(r0["call"], r1["call"]) and bool(torch.isfinite(r0["call"]).all())
+    assert sorted(r0["samples"]) == sorted(r1["samples"]) == list(range(4))
+    for rid, v in r0["samples"].items():
+        assert np.array_equal(v.view(np.int32), r1["samples"][rid].view(np.int32)), rid
+        assert np.isfinite(v).all()
+    assert r0["counters"] == r1["counters"]
+    for r in (r0, r1):
+        assert r["eager"] and r["captures"] == 0 and r["resident"] == r["layout_bytes"]
+    assert {p.rsplit(".", 1)[-1] for p in r0["gathered"]} == {
+        "wk", "wv", "in_proj", "out_proj", "t_mlp1", "t_mlp2"}
+
+
+def _sampler_loop_eager_rank(group):
+    """The fused sampler over four policy-smoke chains on this rank of a
+    1x2 serve mesh, its rounds eager (``eager=True``)."""
+    from repro_torch.distributed.sharding import ServeLayout
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.nn.param import param_axes
+    from repro_torch.weights import param_shapes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dc = paper_diffusion_policy_smoke()
+    params = init_denoiser_params(dc, 3, out_scale=1.0, device=group.device)
+    layout = ServeLayout(param_axes(dc), param_shapes(dc), make_rank_mesh(group, "1x2"))
+    fn = t_diff.make_ddpm_model_fn(layout.shard(params), dc, tp_axis=layout.tp_axis,
+                                   at_use=layout.at_use)
+    return _policy_sampler(fn, dc, group.device, eager=True)
+
+
+def _policy_sampler(fn, dc, dev, eager=False):
+    y0 = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (4, dc.seq_len, dc.d_data)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        res = t_asd.asd_sample_batched(fn, t_sch.ddpm(12), y0, 4, eager_head=True,
+                                       keep_trajectory=False, device=dev,
+                                       noise_mode="counter", key=t_asd.prng.PRNGKey(2),
+                                       eager=eager)
+    torch.cuda.synchronize()
+    return dict(sample=res.sample.cpu(), rounds=res.rounds.cpu(),
+                capture_ms=res.loop.capture_ms, loop_rounds=res.loop.rounds)
+
+
+def test_sampler_loop_eager_under_a_model_group_and_captured_without(dev):
+    """``asd_sample_batched(eager=True)`` over a 1x2 mesh's model group runs
+    every round eagerly (no capture: its collectives are host-staged), the
+    two ranks in the same bits; without a model group the loop is captured
+    as before; the two within 1e-5 with the same rounds."""
+    from repro_torch.distributed.group import run_group
+
+    r0, r1 = run_group(_sampler_loop_eager_rank, 2, "cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dc = paper_diffusion_policy_smoke()
+    fn = t_diff.make_ddpm_model_fn(init_denoiser_params(dc, 3, out_scale=1.0, device=dev), dc)
+    one = _policy_sampler(fn, dc, dev)
+    assert r0["capture_ms"] is None and r1["capture_ms"] is None
+    assert one["capture_ms"] is not None
+    assert torch.equal(r0["sample"], r1["sample"]) and torch.equal(r0["rounds"], r1["rounds"])
+    torch.testing.assert_close(r0["sample"], one["sample"], atol=1e-5, rtol=1e-5)
+    assert torch.equal(r0["rounds"], one["rounds"]) and r0["loop_rounds"] == one["loop_rounds"]

@@ -23,9 +23,11 @@ the ranks run one torch thread.
     1 x 1 call in bits and is within 1e-5 of JAX's; a rank that draws its
     chains from ``split(key, n_local)`` fails that check;
   * the CLI prints the JAX CLI's lines with 1 x 1's counters, gives the
-    JAX message for ``--slots`` that do not split, and refuses the model
-    axis, packed rounds over batch ranks and a mesh beside the model flags
-    with exit 2, naming their ROADMAP.md items."""
+    JAX message for ``--slots`` that do not split, and refuses packed
+    rounds over batch ranks (beside a model axis too) and a mesh beside
+    the model flags (a ``1xM`` mesh too) with exit 2, naming their
+    ROADMAP.md items; the mesh's model axis itself serves
+    (``tests/test_torch_mesh_serve_model.py``)."""
 
 import contextlib
 import io
@@ -299,8 +301,9 @@ def test_slots_that_do_not_split_give_the_jax_message():
 
 
 MESH_REFUSED = {
-    "model axis": ("A13 item 10", ["--mesh", "2x2"]),
-    "model axis 3d": ("A13 item 10", ["--mesh", "1x1x2"]),
+    "packed over batch ranks beside a model axis": ("A13 item 11",
+                                                    ["--mesh", "2x2", "--execution", "packed"]),
+    "model-shards beside a model axis": ("A13 item 12", ["--mesh", "1x2", "--model-shards", "2"]),
     "packed over batch ranks": ("A13 item 11", ["--mesh", "2x1", "--execution", "packed"]),
     "shards": ("A13 item 12", ["--mesh", "2x1", "--shards", "2"]),
     "model-shards": ("A13 item 12", ["--mesh", "2x1", "--model-shards", "2"]),
@@ -334,8 +337,13 @@ def test_the_worker_refuses_packed_rounds_over_batch_ranks_and_a_model_axis():
         ContinuousASDEngine(fn, t_sch.ddpm(10), (dc.seq_len, dc.d_data), num_slots=4,
                             execution="packed", state_sharding=_layout((2, 1), ("data", "model"),
                                                                        2), **kw)
-    with pytest.raises(ValueError, match="A13 item 10"):
-        chain_state_shardings(MeshGroups((1, 2), ("data", "model"), 0, "cpu"))
+    # a model group of its own beside the mesh's slot blocks (the sharded
+    # front end or the model flags beside a mesh)
+    other = types.SimpleNamespace(rank=0, world=2, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="A13 item 12"):
+        ContinuousASDEngine(fn, t_sch.ddpm(10), (dc.seq_len, dc.d_data), num_slots=4,
+                            state_sharding=_layout((2, 1), ("data", "model"), 2),
+                            model_group=other, **kw)
     with pytest.raises(ValueError, match="divisible by 2"):
         _layout((1, 2, 1), ("pod", "data", "model"), 2).rows(3)
     # one batch rank: packed execution is the one-rank worker's
